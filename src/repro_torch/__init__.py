@@ -1,0 +1,20 @@
+"""repro_torch — the DBCSR reproduction ported to PyTorch and
+hand-written CUDA kernels for Hopper (H100, sm_90a).
+
+It sits beside the JAX package ``repro``, which stays the reference,
+and mirrors its layout:
+
+    repro_torch.core      blocking, stack generation, the fused stack
+                          executor, densification, the Cannon schedule,
+                          distributed_matmul and DBCSRMatrix (dbcsr)
+    repro_torch.kernels   CUDA kernels (smm, tiled_matmul), each with a
+                          plain PyTorch version and a launch counter
+    repro_torch.sparsity  block norms and the filter_eps predicates
+    repro_torch.launch    the process mesh (make_mesh)
+
+It imports torch and numpy, never jax and never ``repro``.  Entry points
+run on the CUDA device unless the caller asks for the CPU
+(``make_mesh(..., device="cpu")``).
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,200 @@
+"""Cannon's algorithm on a square process grid.
+
+DBCSR's data-exchange algorithm for general matrix shapes (paper
+section II).  Device (i, j) starts from the skewed chunks A(i, (i+j)%P)
+and B((i+j)%P, j), multiplies, then shifts A left along its row and B
+up along its column, P times.  The skew and the shifts are permutations
+sent through the mesh (``Mesh.ppermute``); on the 1x1 grid of this
+slice both are the identity.
+
+This module is a pure *schedule builder* plus the driver call:
+``build_cannon_schedule`` emits the step sequence, ``cannon_step_masks``
+and ``cannon_step_norms`` emit the per-step occupancy-mask and
+norm-product slices (host numpy, copied from the JAX package), and
+``schedule.execute_schedule`` runs the loop.
+"""
+from __future__ import annotations
+
+from typing import Callable, List, Optional
+
+import numpy as np
+import torch
+
+from .blocking import GridSpec
+from .schedule import (RolledSpec, Schedule, execute_schedule,
+                       resolve_pipeline_depth)
+
+__all__ = ["cannon_matmul", "build_cannon_schedule", "cannon_step_masks",
+           "cannon_step_norms"]
+
+
+def _skew_perm(pg: int, which: str):
+    """Joint-axis permutation realising the Cannon pre-skew, as
+    (source, destination) pairs over the row-major flattened (row, col)
+    index space: A (i, j) sends to (i, (j - i) % P), B (i, j) to
+    ((i - j) % P, j)."""
+    pairs = []
+    for i in range(pg):
+        for j in range(pg):
+            if which == "a":
+                pairs.append((i * pg + j, i * pg + ((j - i) % pg)))
+            else:
+                pairs.append((i * pg + j, ((i - j) % pg) * pg + j))
+    return pairs
+
+
+def _shift_perm(pg: int):
+    """Single-axis circular shift by one (left/up)."""
+    return [(k, (k - 1) % pg) for k in range(pg)]
+
+
+def build_cannon_schedule(
+    pg: int,
+    *,
+    mesh,
+    row_axis: str,
+    col_axis: str,
+    skew: bool = True,
+    empty_steps: frozenset = frozenset(),
+    local_shape: Optional[tuple] = None,
+    itemsize: int = 4,
+) -> Schedule:
+    """Schedule for Cannon's algorithm on a ``pg`` x ``pg`` grid of
+    ``mesh``.  ``local_shape`` = (ml, kl, nl) of the per-device multiply
+    fills the observability byte counts."""
+    shift_a = _shift_perm(pg)
+    shift_b = _shift_perm(pg)
+
+    def prologue(a_blk, b_blk):
+        if skew:
+            a_blk = mesh.ppermute(a_blk, (row_axis, col_axis),
+                                  _skew_perm(pg, "a"))
+            b_blk = mesh.ppermute(b_blk, (row_axis, col_axis),
+                                  _skew_perm(pg, "b"))
+        return (a_blk, b_blk)
+
+    def shift(carry, t):
+        a_blk, b_blk = carry
+        return (mesh.ppermute(a_blk, col_axis, shift_a),
+                mesh.ppermute(b_blk, row_axis, shift_b))
+
+    def rolled_shift(carry):
+        return shift(carry, 0)
+
+    step_bytes = prologue_bytes = 0
+    if local_shape is not None:
+        ml, kl, nl = local_shape
+        step_bytes = (ml * kl + kl * nl) * itemsize
+        prologue_bytes = step_bytes if skew else 0
+
+    return Schedule(
+        algorithm="cannon",
+        n_steps=pg,
+        prologue=prologue,
+        shift=shift,
+        empty_steps=frozenset(empty_steps),
+        rolled=RolledSpec(shift=rolled_shift),
+        comm_op=f"ppermute(a:{col_axis}, b:{row_axis})",
+        prologue_comm_bytes=prologue_bytes,
+        # the final step receives no shift: n_steps - 1 shifts total
+        step_comm_bytes=tuple(
+            step_bytes if t + 1 < pg else 0 for t in range(pg)),
+    )
+
+
+def cannon_step_masks(am: np.ndarray, bm: np.ndarray,
+                      pg: int) -> List[np.ndarray]:
+    """Per-shift-step local pair-presence tensors for Cannon.
+
+    At step t, device (i, j) holds the A chunk (i, q) and B chunk (q, j)
+    with q = (i + j + t) % pg.  The (nbr_l, nbk_l, nbc_l) tensor for step
+    t is the union over all (i, j) of that rank's chunk-product presence.
+    """
+    nbr, nbk = am.shape
+    nbc = bm.shape[1]
+    if nbr % pg or nbk % pg or nbc % pg:
+        raise ValueError(
+            f"block grid ({nbr},{nbk},{nbc}) not divisible by cannon grid "
+            f"side {pg}")
+    lr, lk, lc = nbr // pg, nbk // pg, nbc // pg
+    out = []
+    for t in range(pg):
+        pair = np.zeros((lr, lk, lc), dtype=bool)
+        for i in range(pg):
+            for j in range(pg):
+                q = (i + j + t) % pg
+                ac = am[i * lr:(i + 1) * lr, q * lk:(q + 1) * lk]
+                if not ac.any():
+                    continue
+                bc = bm[q * lk:(q + 1) * lk, j * lc:(j + 1) * lc]
+                pair |= ac[:, :, None] & bc[None, :, :]
+        out.append(pair)
+    return out
+
+
+def cannon_step_norms(an: np.ndarray, bn: np.ndarray,
+                      pg: int) -> List[np.ndarray]:
+    """Per-shift-step local NORM-PRODUCT tensors for Cannon, the norm
+    twin of ``cannon_step_masks``: the per-rank MAX of
+    ``norm(A_ik) * norm(B_kj)`` (union-of-max), so a triple is dropped
+    only when it falls below eps on every rank."""
+    nbr, nbk = an.shape
+    nbc = bn.shape[1]
+    if nbr % pg or nbk % pg or nbc % pg:
+        raise ValueError(
+            f"block grid ({nbr},{nbk},{nbc}) not divisible by cannon grid "
+            f"side {pg}")
+    an = np.asarray(an, dtype=np.float32)
+    bn = np.asarray(bn, dtype=np.float32)
+    lr, lk, lc = nbr // pg, nbk // pg, nbc // pg
+    out = []
+    for t in range(pg):
+        pair = np.zeros((lr, lk, lc), dtype=np.float32)
+        for i in range(pg):
+            for j in range(pg):
+                q = (i + j + t) % pg
+                ac = an[i * lr:(i + 1) * lr, q * lk:(q + 1) * lk]
+                if not ac.any():
+                    continue
+                bc = bn[q * lk:(q + 1) * lk, j * lc:(j + 1) * lc]
+                np.maximum(pair, ac[:, :, None] * bc[None, :, :], out=pair)
+        out.append(pair)
+    return out
+
+
+def _default_local_matmul(a, b):
+    return torch.matmul(a.to(torch.float32), b.to(torch.float32))
+
+
+def cannon_matmul(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    mesh,
+    grid: GridSpec = GridSpec(),
+    local_matmul: Optional[Callable] = None,
+    out_dtype: Optional[torch.dtype] = None,
+    pipeline_depth: Optional[int] = None,
+    double_buffer: Optional[bool] = None,
+    skew: bool = True,
+) -> torch.Tensor:
+    """C = A @ B with Cannon's algorithm on a square (row, col) grid.
+
+    ``a`` and ``b`` are this rank's chunks on ``mesh.device`` (on the
+    1x1 grid, the whole matrices).  ``pipeline_depth``: 2 = overlap
+    order (default), 1 = serial, 0 = rolled; ``double_buffer`` is the
+    legacy spelling (True -> 2, False -> 0).
+    """
+    pg = grid.validate_square(mesh)
+    for name, x in (("A", a), ("B", b)):
+        if x.device != mesh.device:
+            raise ValueError(f"{name} is on {x.device}, the mesh on {mesh.device}")
+    if out_dtype is None:
+        out_dtype = torch.promote_types(a.dtype, b.dtype)
+    lm = local_matmul or _default_local_matmul
+    depth = resolve_pipeline_depth(pipeline_depth, double_buffer)
+    sched = build_cannon_schedule(
+        pg, mesh=mesh, row_axis=grid.row_axis, col_axis=grid.col_axis,
+        skew=skew, empty_steps=getattr(lm, "empty_steps", frozenset()))
+    return execute_schedule(sched, a, b, local_matmul=lm,
+                            out_dtype=out_dtype, pipeline_depth=depth)

@@ -1,0 +1,266 @@
+"""DBCSRMatrix — the user-facing blocked matrix container.
+
+Mirrors the DBCSR API surface (create / multiply / add / trace /
+transpose) on torch tensors.  The payload of a matrix is one dense 2D
+tensor on the mesh's device; the block structure is metadata
+(BlockLayout) consumed by the local-multiply strategies.
+
+Block-sparse matrices carry a static block mask (numpy bool,
+(nblock_rows, nblock_cols)); absent blocks are stored as zeros in the
+dense payload, and the stack generator skips them, which is where the
+sparse wins come from.
+
+``from_state`` builds the port's matrix from the numpy state of a JAX
+``DBCSRMatrix`` (payload, layout, grid axis names, mask, norms), so a
+matrix can move from the reference to the port.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .blocking import BlockLayout, GridSpec
+
+__all__ = ["DBCSRMatrix", "create", "from_state", "multiply",
+           "multiply_vector", "add", "trace", "transpose"]
+
+
+def _expand_mask(mask: np.ndarray, block_rows: int, block_cols: int,
+                 like: torch.Tensor) -> torch.Tensor:
+    full = np.repeat(np.repeat(mask, block_rows, 0), block_cols, 1)
+    return torch.as_tensor(full, device=like.device).to(like.dtype)
+
+
+@dataclasses.dataclass
+class DBCSRMatrix:
+    """A blocked matrix.
+
+    data       : (rows, cols) tensor on the mesh's device
+    layout     : block structure metadata
+    grid       : mesh-axis names of the process grid
+    block_mask : optional (nbr, nbc) numpy bool — block-sparse occupancy
+    block_norms: optional (nbr, nbc) numpy float32 — per-block Frobenius
+                 norms, lazily computed and cached by ``norms()``
+    """
+
+    data: torch.Tensor
+    layout: BlockLayout
+    grid: GridSpec
+    block_mask: Optional[np.ndarray] = None
+    block_norms: Optional[np.ndarray] = None
+
+    def norms(self, recompute: bool = False) -> np.ndarray:
+        """Per-block Frobenius norms ((nbr, nbc) float32 numpy), cached
+        after the first call.  Mask-absent blocks report 0.  Pass
+        ``recompute=True`` after mutating ``data`` directly."""
+        if self.block_norms is None or recompute:
+            from ..sparsity.norms import block_norms_of
+
+            self.block_norms = block_norms_of(
+                self.data, self.layout.block_rows, self.layout.block_cols,
+                self.block_mask)
+        return self.block_norms
+
+    def filter(self, eps: float) -> "DBCSRMatrix":
+        """Post-multiply filtering: drop every block with ``norm < eps``
+        (blocks exactly at eps survive), zeroing the dropped blocks'
+        payload.  Never resurrects a block the mask declares absent."""
+        norms = self.norms()
+        mask = norms >= float(eps)
+        if self.block_mask is not None:
+            mask &= self.block_mask
+        data = self.data * _expand_mask(mask, self.layout.block_rows,
+                                        self.layout.block_cols, self.data)
+        new_norms = np.where(mask, norms, np.float32(0.0)).astype(np.float32)
+        return DBCSRMatrix(data, self.layout, self.grid, mask, new_norms)
+
+    def transpose(self) -> "DBCSRMatrix":
+        layout = BlockLayout(self.layout.cols, self.layout.rows,
+                             self.layout.block_cols, self.layout.block_rows)
+        mask = None if self.block_mask is None else self.block_mask.T.copy()
+        norms = (None if self.block_norms is None
+                 else self.block_norms.T.copy())
+        return DBCSRMatrix(self.data.T.contiguous(), layout, self.grid,
+                           mask, norms)
+
+    def trace(self) -> torch.Tensor:
+        return torch.trace(self.data)
+
+    def scale(self, alpha) -> "DBCSRMatrix":
+        norms = None
+        if self.block_norms is not None:
+            # |alpha| rescales Frobenius norms exactly
+            norms = (self.block_norms
+                     * np.float32(abs(float(alpha)))).astype(np.float32)
+        return dataclasses.replace(self, data=self.data * alpha,
+                                   block_norms=norms)
+
+
+def create(
+    array,
+    *,
+    mesh,
+    grid: GridSpec = GridSpec(),
+    block_size: int = 64,
+    block_mask: Optional[np.ndarray] = None,
+    compute_norms: bool = False,
+) -> DBCSRMatrix:
+    """Create a DBCSR matrix from a host array or tensor, placed on the
+    mesh's device.  Absent blocks of ``block_mask`` are zeroed.
+    ``compute_norms=True`` fills the norm cache eagerly."""
+    data = torch.as_tensor(array).to(mesh.device)
+    rows, cols = data.shape
+    layout = BlockLayout(rows, cols, block_size, block_size)
+    if block_mask is not None:
+        block_mask = np.asarray(block_mask, dtype=bool)
+        if block_mask.shape != (layout.nblock_rows, layout.nblock_cols):
+            raise ValueError("block_mask shape mismatch")
+        # zero out absent blocks so dense math matches sparse semantics
+        data = data * _expand_mask(block_mask, block_size, block_size, data)
+    out = DBCSRMatrix(data, layout, grid, block_mask)
+    if compute_norms:
+        out.norms()
+    return out
+
+
+def from_state(state: dict, *, mesh) -> DBCSRMatrix:
+    """The port's matrix from a JAX ``DBCSRMatrix``'s numpy state:
+    ``data``; the layout's ``rows``, ``cols``, ``block_rows``,
+    ``block_cols``; the grid's ``row_axis``, ``col_axis`` (and optional
+    ``stack_axis``); ``block_mask`` and ``block_norms`` (each may be
+    None).  The payload goes to the mesh's device as it is: no mask is
+    re-applied, so the two packages hold the same bits."""
+    layout = BlockLayout(int(state["rows"]), int(state["cols"]),
+                         int(state["block_rows"]), int(state["block_cols"]))
+    grid = GridSpec(state["row_axis"], state["col_axis"],
+                    state.get("stack_axis"))
+    data = torch.tensor(np.asarray(state["data"]), device=mesh.device)
+    if tuple(data.shape) != (layout.rows, layout.cols):
+        raise ValueError(f"data shape {tuple(data.shape)} does not match "
+                         f"layout {(layout.rows, layout.cols)}")
+    mask = state.get("block_mask")
+    norms = state.get("block_norms")
+    grid_shape = (layout.nblock_rows, layout.nblock_cols)
+    if mask is not None:
+        mask = np.array(mask, dtype=bool)
+        if mask.shape != grid_shape:
+            raise ValueError(f"block_mask shape {mask.shape} != {grid_shape}")
+    if norms is not None:
+        norms = np.array(norms, dtype=np.float32)
+        if norms.shape != grid_shape:
+            raise ValueError(f"block_norms shape {norms.shape} != {grid_shape}")
+    return DBCSRMatrix(data, layout, grid, mask, norms)
+
+
+def add(a: DBCSRMatrix, b: DBCSRMatrix,
+        recompute_norms: bool = False) -> DBCSRMatrix:
+    """C = A + B.  Result occupancy is the union of the operands'; when
+    only one operand carries a mask the union with the dense one is
+    dense (mask None).  Norms are not propagated (``||A + B||`` per
+    block is only bounded by the operands'); ``recompute_norms=True``
+    computes the sum's true norms eagerly."""
+    mask = None
+    if a.block_mask is not None and b.block_mask is not None:
+        mask = a.block_mask | b.block_mask
+    out = DBCSRMatrix(a.data + b.data, a.layout, a.grid, mask)
+    if recompute_norms:
+        out.norms()
+    return out
+
+
+def trace(a: DBCSRMatrix) -> torch.Tensor:
+    return a.trace()
+
+
+def transpose(a: DBCSRMatrix) -> DBCSRMatrix:
+    return a.transpose()
+
+
+def multiply_vector(a: DBCSRMatrix, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x."""
+    return a.data @ x
+
+
+def _product_mask(a: DBCSRMatrix, b: DBCSRMatrix, an, bn,
+                  filter_eps: Optional[float]):
+    """The result support of C = A @ B: ``(mask, needs_zeroing)`` where
+    ``mask`` is the symbolic product support ``(a_mask @ b_mask) > 0``
+    (None when both operands are dense and no filter applies) or, under
+    ``filter_eps``, the eps-retained support, outside which the payload
+    must be zeroed."""
+    if (a.block_mask is None and b.block_mask is None
+            and filter_eps is None):
+        return None, False
+    from .stacks import normalize_block_masks
+
+    am, bm = normalize_block_masks(
+        a.layout.nblock_rows, a.layout.nblock_cols,
+        b.layout.nblock_cols, a.block_mask, b.block_mask)
+    if filter_eps is not None:
+        from ..sparsity.filter import product_mask
+
+        return product_mask(am, bm, an, bn, filter_eps), True
+    return (am.astype(np.int64) @ bm.astype(np.int64)) > 0, False
+
+
+def _apply_result_mask(c_data: torch.Tensor, mask: Optional[np.ndarray],
+                       needs_zeroing: bool, block_rows: int,
+                       block_cols: int) -> torch.Tensor:
+    """Zero the payload outside the retained support (eps path only)."""
+    if mask is None or not needs_zeroing:
+        return c_data
+    return c_data * _expand_mask(mask, block_rows, block_cols, c_data)
+
+
+def multiply(
+    a: DBCSRMatrix,
+    b: DBCSRMatrix,
+    *,
+    mesh,
+    algorithm: str = "auto",
+    densify: Optional[bool] = None,
+    filter_eps: Optional[float] = None,
+    verify: Optional[str] = None,
+    return_plan: bool = False,
+    **kw,
+) -> DBCSRMatrix:
+    """C = A @ B through ``multiply.distributed_matmul`` (this slice:
+    ``algorithm="cannon"`` on a 1x1 mesh).
+
+    Block occupancy flows end to end: the operands' masks go to the
+    dispatcher (the blocked path plans only present triples), and the
+    result carries the symbolic product mask ``(a_mask @ b_mask) > 0``,
+    a missing operand mask counting as all-present.
+
+    ``filter_eps`` drops product contributions with ``norm(A_ik) *
+    norm(B_kj) < filter_eps`` before they reach a stack (operand norms
+    from ``norms()``); the result's mask is then the retained support
+    and the payload is zeroed outside it (on the densified path too).
+    ``filter_eps=0.0`` gives the unfiltered result, mask and payload.
+
+    ``verify`` and ``return_plan`` are ROADMAP Queue A8 and A5 and
+    raise.
+    """
+    from .multiply import distributed_matmul
+
+    an = bn = None
+    if filter_eps is not None:
+        an, bn = a.norms(), b.norms()
+    c_data = distributed_matmul(
+        a.data, b.data, mesh=mesh, grid=a.grid,
+        algorithm=algorithm, densify=densify,
+        block_m=a.layout.block_rows, block_k=a.layout.block_cols,
+        block_n=b.layout.block_cols,
+        a_mask=a.block_mask, b_mask=b.block_mask,
+        a_norms=an, b_norms=bn, filter_eps=filter_eps,
+        verify=verify, return_plan=return_plan, **kw,
+    )
+    c_layout = BlockLayout(a.layout.rows, b.layout.cols,
+                           a.layout.block_rows, b.layout.block_cols)
+    mask, zero = _product_mask(a, b, an, bn, filter_eps)
+    c_data = _apply_result_mask(c_data, mask, zero, a.layout.block_rows,
+                                b.layout.block_cols)
+    return DBCSRMatrix(c_data, c_layout, a.grid, mask)

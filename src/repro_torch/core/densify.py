@@ -1,0 +1,128 @@
+"""Densification — the paper's core optimization (section III).
+
+DBCSR stores operands as many small blocks.  For *dense* inputs the
+blocks are coalesced ("densified") into one large dense block, so the
+local multiply becomes a single large GEMM, at the cost of the
+densify/undensify copies.  This module provides the layout transforms
+plus the two local-multiply strategies the Cannon schedule calls:
+
+  * ``densified_local_matmul`` — one big GEMM: ``torch.matmul`` (the
+    vendor GEMM, as the JAX package leaves it to XLA's dot) or, with
+    ``kernel="pallas"``, the hand-written tiled_matmul CUDA kernel.
+  * ``blocked_local_matmul``   — keep blocks, run the stack plans
+    through the smm kernel (LIBCUSMM analogue) or its plain version.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+__all__ = [
+    "to_blocks",
+    "from_blocks",
+    "densify",
+    "undensify",
+    "blocked_local_matmul",
+    "densified_local_matmul",
+]
+
+
+def to_blocks(x: torch.Tensor, bm: int, bn: int) -> torch.Tensor:
+    """(R, C) -> contiguous (nbr*nbc, bm, bn) stacked blocks, row-major
+    block order: the 'blocked' storage of a dense matrix."""
+    r, c = x.shape
+    if r % bm or c % bn:
+        raise ValueError(f"shape {tuple(x.shape)} not divisible by block ({bm},{bn})")
+    nbr, nbc = r // bm, c // bn
+    return (x.reshape(nbr, bm, nbc, bn).permute(0, 2, 1, 3)
+            .reshape(nbr * nbc, bm, bn).contiguous())
+
+
+def from_blocks(blocks: torch.Tensor, nbr: int, nbc: int) -> torch.Tensor:
+    """Inverse of to_blocks."""
+    _, bm, bn = blocks.shape
+    return (blocks.reshape(nbr, nbc, bm, bn).permute(0, 2, 1, 3)
+            .reshape(nbr * bm, nbc * bn))
+
+
+def densify(blocks: torch.Tensor, nbr: int, nbc: int) -> torch.Tensor:
+    """Coalesce a blocked payload into one dense block (paper eq. 1/2)."""
+    return from_blocks(blocks, nbr, nbc)
+
+
+def undensify(dense: torch.Tensor, bm: int, bn: int) -> torch.Tensor:
+    """Decompose the densified C back into the original block sizes."""
+    return to_blocks(dense, bm, bn)
+
+
+def densified_local_matmul(kernel: Optional[str] = None):
+    """Local multiply for the densified path: one large GEMM in f32.
+
+    kernel=None     -> torch.matmul (the vendor GEMM).  TF32 is turned
+                       off (``torch.backends.cuda.matmul.allow_tf32 =
+                       False``) for this call only, and the caller's
+                       setting restored after it, so the product is
+                       IEEE f32 like the reference's; TF32 is never a
+                       default.
+    kernel='pallas' -> the tiled_matmul CUDA kernel (the JAX package's
+                       Pallas tiled matmul), f32 out.
+    Any other value takes the default, as the JAX package does.
+    """
+    if kernel == "pallas":
+        from ..kernels.tiled_matmul.ops import tiled_matmul
+
+        def f(a, b):
+            return tiled_matmul(a.contiguous(), b.contiguous())
+
+        return f
+
+    def f(a, b):
+        # cuBLAS reads the flag when the GEMM is launched
+        flags = torch.backends.cuda.matmul
+        caller = flags.allow_tf32
+        flags.allow_tf32 = False
+        try:
+            return torch.matmul(a.to(torch.float32), b.to(torch.float32))
+        finally:
+            flags.allow_tf32 = caller
+
+    return f
+
+
+def blocked_local_matmul(
+    m: int,
+    k: int,
+    n: int,
+    *,
+    block_m: int,
+    block_k: int,
+    block_n: int,
+    stack_size: Optional[int] = None,
+    align: Optional[bool] = None,
+    kernel: str = "smm",
+    a_mask=None,
+    b_mask=None,
+    pair_mask=None,
+    a_norms=None,
+    b_norms=None,
+    pair_norms=None,
+    filter_eps: Optional[float] = None,
+    stack_bins: Optional[int] = None,
+):
+    """Local multiply for the blocked path: the fused stack executor
+    (core/engine.py), one memoized plan per geometry and mask/norm
+    fingerprint, one smm launch per stack-size bin.
+
+    kernel='smm'  -> the CUDA smm kernel (its plain version on the CPU)
+    kernel='ref'  -> the plain PyTorch version on any device
+    """
+    from .engine import stack_executor
+
+    return stack_executor(
+        m, k, n, block_m=block_m, block_k=block_k, block_n=block_n,
+        stack_size=stack_size, align=align, kernel=kernel,
+        a_mask=a_mask, b_mask=b_mask, pair_mask=pair_mask,
+        a_norms=a_norms, b_norms=b_norms, pair_norms=pair_norms,
+        filter_eps=filter_eps, stack_bins=stack_bins,
+    )

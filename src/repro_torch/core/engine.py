@@ -1,0 +1,540 @@
+"""Fused stack executor — dispatch of DBCSR stack plans to the smm kernel.
+
+The paper's Generation/Scheduler phases organise the local block
+multiplications into stacks and batch them onto the accelerator
+(LIBCUSMM processes whole stacks per kernel launch).  This module is
+the single-process half of the JAX package's ``core/engine.py``:
+
+  * all plans are padded into ``(n_stacks, stack_tile, 4)`` masked
+    triple tensors, one per stack-size bin (``stacks.pad_plans`` —
+    padding rows are ``valid=0`` and point at a scratch C block
+    appended past the real blocks),
+  * each bin runs as ONE smm kernel launch over its flattened stacks
+    (the JAX package runs one ``lax.scan`` step per stack).  This is
+    legal because every C block's k-run lies in exactly one stack, so
+    the kernel gives each run to one thread block,
+  * host-side plan construction is memoized on the geometry and on the
+    content fingerprints of masks and norms; the plan also keeps the
+    per-bin run starts the kernel needs and, per device, the uploaded
+    triples and run starts, so a repeated multiply uploads nothing,
+  * when the caller doesn't pin ``stack_size``, it is resolved from the
+    H100 winners table (``kernels.smm.autotune.best_params_for``).
+
+Sparse planning contract: block occupancy masks (``a_mask`` (nbr, nbk),
+``b_mask`` (nbk, nbc) or ``pair_mask`` (nbr, nbk, nbc), host numpy
+bool) and block norms with ``filter_eps`` restrict the plan to the
+retained triples; operands stay dense with absent blocks zeroed.  A plan
+whose product is empty has ``n_stacks == 0`` and ``execute_plan``
+returns C unchanged.  The triples are byte-equal to the JAX package's.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import hashlib
+import os
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .blocking import BlockLayout
+from .densify import from_blocks, to_blocks
+from .stacks import StackPlan, build_stacks, pad_plans, STACK_SIZE
+
+__all__ = [
+    "ExecutorPlan",
+    "build_executor_plan",
+    "execute_plan",
+    "execute_plans_looped",
+    "resolve_stack_bins",
+    "stack_executor",
+]
+
+
+def _resolve_process(kernel: str):
+    """Normalise the two stack processors to one call signature
+    ``process(a, b, c, triples, run_starts)``."""
+    if kernel == "smm":
+        from ..kernels.smm.ops import smm_process_stack
+
+        return smm_process_stack
+    if kernel == "ref":
+        from ..kernels.smm.ref import smm_process_stack_ref
+
+        def process(a, b, c, t, run_starts=None):
+            return smm_process_stack_ref(a, b, c, t)
+
+        return process
+    raise ValueError(f"unknown stack kernel {kernel!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class ExecutorPlan:
+    """Static (host-side) description of one fused stack execution.
+
+    ``bin_triples`` holds one padded ``(n_stacks_b, tile_b, 4)`` int32
+    tensor of ``(a_idx, b_idx, c_idx, valid)`` rows per stack-length
+    bin; dense plans collapse to a single bin.  ``bin_run_starts`` holds,
+    per bin, the first row (in the bin's flattened rows) of every C run
+    that has a valid row: the smm kernel's grid.  ``plans`` keeps the
+    original ragged ``StackPlan``s for statistics and the looped
+    dispatch.
+    """
+
+    bin_triples: Tuple[np.ndarray, ...]
+    bin_run_starts: Tuple[np.ndarray, ...]
+    n_c_blocks: int
+    block_m: int
+    block_k: int
+    block_n: int
+    nbr: int
+    nbk: int
+    nbc: int
+    plans: Tuple[StackPlan, ...]
+    filter_eps: Optional[float] = None
+    n_unfiltered_entries: Optional[int] = None
+    # device copies of (flattened triples, run starts) per bin, made on
+    # first use per device and kept with the memoized plan
+    _uploads: Dict[str, tuple] = dataclasses.field(
+        default_factory=dict, compare=False, repr=False)
+
+    def device_bins(self, device: torch.device) -> tuple:
+        """Per bin, ``(triples (S, 4) int32, run_starts (R,) int32)`` on
+        ``device``, uploaded once per plan and device."""
+        key = str(torch.device(device))
+        cached = self._uploads.get(key)
+        if cached is None:
+            cached = tuple(
+                (torch.tensor(t.reshape(-1, 4), device=device),
+                 torch.tensor(r, device=device))
+                for t, r in zip(self.bin_triples, self.bin_run_starts))
+            self._uploads[key] = cached
+        return cached
+
+    @property
+    def n_bins(self) -> int:
+        return len(self.bin_triples)
+
+    @property
+    def n_launches(self) -> int:
+        """smm kernel launches per execution: one per bin with a run."""
+        return sum(1 for r in self.bin_run_starts if r.size)
+
+    @property
+    def n_stacks(self) -> int:
+        return sum(int(t.shape[0]) for t in self.bin_triples)
+
+    @property
+    def stack_tile(self) -> int:
+        return max(int(t.shape[1]) for t in self.bin_triples)
+
+    @property
+    def n_entries(self) -> int:
+        return sum(p.size for p in self.plans)
+
+    @property
+    def n_padding(self) -> int:
+        """Padding rows in the size-binned layout."""
+        return sum(int(t.shape[0] * t.shape[1])
+                   for t in self.bin_triples) - self.n_entries
+
+    @property
+    def n_padding_unbinned(self) -> int:
+        """Padding rows if every stack were padded to the longest."""
+        return self.n_stacks * self.stack_tile - self.n_entries
+
+    @property
+    def n_dense_triples(self) -> int:
+        return self.nbr * self.nbk * self.nbc
+
+    @property
+    def n_skipped_triples(self) -> int:
+        return self.n_dense_triples - self.n_entries
+
+    @property
+    def occupancy(self) -> float:
+        dense = self.n_dense_triples
+        return self.n_entries / dense if dense else 1.0
+
+    @property
+    def n_norm_filtered_triples(self) -> int:
+        if self.n_unfiltered_entries is None:
+            return 0
+        return self.n_unfiltered_entries - self.n_entries
+
+    def stats(self) -> dict:
+        from .stacks import stack_statistics
+
+        s = stack_statistics(
+            list(self.plans),
+            stack_tile=self.stack_tile if self.plans else None)
+        s["n_entries"] = self.n_entries
+        s["n_dense_triples"] = self.n_dense_triples
+        s["n_skipped_triples"] = self.n_skipped_triples
+        s["occupancy"] = self.occupancy
+        flop_per_entry = 2 * self.block_m * self.block_k * self.block_n
+        s["n_bins"] = self.n_bins
+        s["n_launches"] = self.n_launches
+        s["n_padding"] = self.n_padding
+        s["n_padding_unbinned"] = self.n_padding_unbinned
+        s["padding_triples_saved"] = self.n_padding_unbinned - self.n_padding
+        s["padding_flops_saved"] = s["padding_triples_saved"] * flop_per_entry
+        if self.plans:
+            padded_total = self.n_entries + self.n_padding
+            s["fill"] = self.n_entries / padded_total if padded_total else 1.0
+        s["filter_eps"] = self.filter_eps
+        if self.n_unfiltered_entries is not None:
+            filtered = self.n_norm_filtered_triples
+            s["n_unfiltered_triples"] = self.n_unfiltered_entries
+            s["n_norm_filtered_triples"] = filtered
+            s["norm_filtered_flops"] = filtered * flop_per_entry
+            s["norm_retained_fraction"] = (
+                self.n_entries / self.n_unfiltered_entries
+                if self.n_unfiltered_entries else 1.0)
+        return s
+
+
+# Masks and norms are numpy arrays — unhashable, so the plan memo keys
+# on a content fingerprint (shape, dtype, sha1(bytes)).  The arrays are
+# staged here only for the duration of a build_executor_plan call.
+_STAGED_MASKS: dict = {}
+
+# bound on memoized plans (each may hold device copies of its triples)
+_PLAN_CACHE_SIZE = 1024
+
+
+def _array_fingerprint(arr: Optional[np.ndarray], dtype):
+    """Fingerprint a private copy of a host array, so callers may mutate
+    their masks/norms between multiplies."""
+    if arr is None:
+        return None
+    m = np.array(arr, dtype=dtype, order="C")  # always a fresh copy
+    fp = (m.shape, str(m.dtype), hashlib.sha1(m.tobytes()).hexdigest())
+    _STAGED_MASKS.setdefault(fp, m)
+    return fp
+
+
+def _mask_fingerprint(mask: Optional[np.ndarray]):
+    return _array_fingerprint(mask, bool)
+
+
+def _norm_fingerprint(norms: Optional[np.ndarray]):
+    return _array_fingerprint(norms, np.float32)
+
+
+# One kernel launch runs per stack-length bin; the bin count is capped
+# (``stack_bins=`` / DBCSR_STACK_BINS override the default 4).
+_MAX_SIZE_BINS = 4
+
+
+def resolve_stack_bins(stack_bins: Optional[int] = None) -> int:
+    """The executor's size-bin cap: explicit kwarg > DBCSR_STACK_BINS
+    env > the default (4).  1 disables binning."""
+    if stack_bins is None:
+        stack_bins = int(os.environ.get("DBCSR_STACK_BINS", _MAX_SIZE_BINS))
+    stack_bins = int(stack_bins)
+    if stack_bins < 1:
+        raise ValueError(f"stack_bins must be >= 1, got {stack_bins}")
+    return stack_bins
+
+
+def build_executor_plan(
+    m: int,
+    k: int,
+    n: int,
+    block_m: int,
+    block_k: int,
+    block_n: int,
+    stack_size: int = STACK_SIZE,
+    a_mask: Optional[np.ndarray] = None,
+    b_mask: Optional[np.ndarray] = None,
+    pair_mask: Optional[np.ndarray] = None,
+    a_norms: Optional[np.ndarray] = None,
+    b_norms: Optional[np.ndarray] = None,
+    pair_norms: Optional[np.ndarray] = None,
+    filter_eps: Optional[float] = None,
+    stack_bins: Optional[int] = None,
+) -> ExecutorPlan:
+    """Generation + Scheduler phases for the local (m, k) x (k, n)
+    multiply, memoized on the geometry and the content fingerprints of
+    masks and norms.  ``filter_eps`` drops triples whose norm product is
+    below eps; None disables filtering, 0.0 equals the mask-only plan.
+    """
+    eps = None if filter_eps is None else float(filter_eps)
+    bins_cap = resolve_stack_bins(stack_bins)
+    fps = (_mask_fingerprint(a_mask), _mask_fingerprint(b_mask),
+           _mask_fingerprint(pair_mask), _norm_fingerprint(a_norms),
+           _norm_fingerprint(b_norms), _norm_fingerprint(pair_norms))
+    try:
+        return _build_executor_plan_cached(
+            m, k, n, block_m, block_k, block_n, stack_size, *fps,
+            eps, bins_cap)
+    finally:
+        for fp in fps:
+            if fp is not None:
+                _STAGED_MASKS.pop(fp, None)
+
+
+def _size_binned(plans: List[StackPlan],
+                 max_bins: int = _MAX_SIZE_BINS) -> Tuple[np.ndarray, ...]:
+    """Group stack plans into <= ``max_bins`` power-of-two length bins
+    and pad each bin to its own longest stack.
+
+    Uniform stack sizes (the dense regime) collapse to a single bin.
+    Binning never reorders entries within a stack and never splits
+    k-runs, and each C block lives in exactly one stack, so cross-bin
+    execution order cannot change any result.
+    """
+    sizes = [p.size for p in plans]
+    if len(set(sizes)) <= 1 or max_bins <= 1:
+        return (pad_plans(plans),)
+    # engage binning only when the single-tile layout wastes >= 25% of
+    # its rows on padding
+    total_unbinned = len(plans) * max(sizes)
+    if 4 * (total_unbinned - sum(sizes)) < total_unbinned:
+        return (pad_plans(plans),)
+    keys = [max(s, 1).bit_length() for s in sizes]
+    shift = 0
+    while len(set(k >> shift for k in keys)) > max_bins:
+        # halve the log-resolution until the bin count fits the cap
+        shift += 1
+    keys = [k >> shift for k in keys]
+    out = []
+    for key in sorted(set(keys)):
+        members = [p for p, kk in zip(plans, keys) if kk == key]
+        out.append(pad_plans(members))
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=_PLAN_CACHE_SIZE)
+def _build_executor_plan_cached(
+    m: int,
+    k: int,
+    n: int,
+    block_m: int,
+    block_k: int,
+    block_n: int,
+    stack_size: int,
+    a_fp,
+    b_fp,
+    pair_fp,
+    an_fp,
+    bn_fp,
+    pn_fp,
+    filter_eps: Optional[float],
+    stack_bins: int,
+) -> ExecutorPlan:
+    from ..kernels.smm.ops import stack_run_starts
+
+    a_layout = BlockLayout(m, k, block_m, block_k)
+    b_layout = BlockLayout(k, n, block_k, block_n)
+    staged = lambda fp: None if fp is None else _STAGED_MASKS[fp]
+    a_mask, b_mask, pair_mask = staged(a_fp), staged(b_fp), staged(pair_fp)
+    a_norms, b_norms, pair_norms = staged(an_fp), staged(bn_fp), staged(pn_fp)
+    filtering = filter_eps is not None and (
+        a_norms is not None or b_norms is not None or pair_norms is not None)
+    plans = build_stacks(
+        a_layout, b_layout, stack_size,
+        a_mask=a_mask, b_mask=b_mask, pair_mask=pair_mask,
+        a_norms=a_norms, b_norms=b_norms, pair_norms=pair_norms,
+        filter_eps=filter_eps)
+    if plans:
+        bins = _size_binned(plans, stack_bins)
+    else:
+        # empty mask/filter product: zero stacks, execute_plan is a no-op
+        bins = (np.zeros((0, 1, 4), dtype=np.int32),)
+    run_starts = tuple(stack_run_starts(t.reshape(-1, 4)) for t in bins)
+    for arr in bins + run_starts:
+        arr.setflags(write=False)  # memoized => shared; guard against mutation
+    n_unfiltered = None
+    if filtering:
+        if pair_mask is not None:
+            n_unfiltered = int(np.count_nonzero(pair_mask))
+        else:
+            from .stacks import normalize_block_masks
+
+            am, bm = normalize_block_masks(
+                a_layout.nblock_rows, a_layout.nblock_cols,
+                b_layout.nblock_cols, a_mask, b_mask)
+            n_unfiltered = int(
+                (am.astype(np.int64) @ bm.astype(np.int64)).sum())
+    return ExecutorPlan(
+        bin_triples=bins,
+        bin_run_starts=run_starts,
+        n_c_blocks=a_layout.nblock_rows * b_layout.nblock_cols,
+        block_m=block_m,
+        block_k=block_k,
+        block_n=block_n,
+        nbr=a_layout.nblock_rows,
+        nbk=a_layout.nblock_cols,
+        nbc=b_layout.nblock_cols,
+        plans=tuple(plans),
+        filter_eps=filter_eps if filtering else None,
+        n_unfiltered_entries=n_unfiltered,
+    )
+
+
+def _run_bins(plan: ExecutorPlan, a_blocks: torch.Tensor,
+              b_blocks: torch.Tensor, c: torch.Tensor, kernel: str) -> None:
+    """Push every bin of ``plan`` through ``kernel``, updating ``c`` in
+    place.  ``c`` holds ``n_c_blocks + 1`` blocks: the last is the
+    scratch block the padding rows point at (the plain version adds
+    their zeroed products there; the kernel never visits them)."""
+    process = _resolve_process(kernel)
+    # each C block's k-run lives in exactly one stack, so bin order
+    # cannot change any accumulation order (fused == looped, bitwise)
+    for triples, run_starts in plan.device_bins(c.device):
+        process(a_blocks, b_blocks, c, triples, run_starts)
+
+
+def execute_plan(
+    plan: ExecutorPlan,
+    a_blocks: torch.Tensor,
+    b_blocks: torch.Tensor,
+    c_blocks: torch.Tensor,
+    *,
+    kernel: str = "smm",
+) -> torch.Tensor:
+    """Run every stack of ``plan`` on ``c_blocks`` (``n_c_blocks``
+    blocks): one smm launch per stack-length bin.
+
+    Returns a new tensor: a scratch block is appended for the padding
+    rows and stripped from the result.  ``stack_executor`` allocates C
+    with its scratch block instead and so copies nothing.  An empty
+    plan returns ``c_blocks`` unchanged.
+    """
+    if plan.n_stacks == 0:
+        return c_blocks
+    scratch = torch.zeros((1,) + tuple(c_blocks.shape[1:]),
+                          dtype=c_blocks.dtype, device=c_blocks.device)
+    c = torch.cat([c_blocks, scratch], dim=0)
+    _run_bins(plan, a_blocks, b_blocks, c, kernel)
+    return c[:-1]
+
+
+def execute_plans_looped(
+    plans: List[StackPlan],
+    a_blocks: torch.Tensor,
+    b_blocks: torch.Tensor,
+    c_blocks: torch.Tensor,
+    *,
+    kernel: str = "smm",
+) -> torch.Tensor:
+    """One launch per stack, uploading each stack's triples on every
+    call: the baseline the fused ``execute_plan`` is checked against
+    (bitwise).  Updates ``c_blocks`` in place and returns it."""
+    from ..kernels.smm.ops import stack_run_starts
+
+    process = _resolve_process(kernel)
+    for p in plans:
+        t = torch.tensor(p.triples, device=c_blocks.device)
+        r = torch.tensor(stack_run_starts(p.triples), device=c_blocks.device)
+        process(a_blocks, b_blocks, c_blocks, t, r)
+    return c_blocks
+
+
+def _mask_fill(
+    nbr: int,
+    nbk: int,
+    nbc: int,
+    a_mask: Optional[np.ndarray],
+    b_mask: Optional[np.ndarray],
+    pair_mask: Optional[np.ndarray],
+    a_norms: Optional[np.ndarray] = None,
+    b_norms: Optional[np.ndarray] = None,
+    pair_norms: Optional[np.ndarray] = None,
+    filter_eps: Optional[float] = None,
+) -> float:
+    """Retained-triple fraction of the dense grid (plan-free: it picks
+    the occupancy-binned winners-table entry before the plan exists).
+    With norms and a ``filter_eps`` it is the norm-predicted fraction."""
+    filtering = filter_eps is not None and (
+        a_norms is not None or b_norms is not None or pair_norms is not None)
+    size = nbr * nbk * nbc
+    if pair_norms is not None and filtering:
+        keep = pair_norms.astype(np.float64) >= float(filter_eps)
+        if pair_mask is not None:
+            keep &= pair_mask
+        return float(np.count_nonzero(keep)) / size
+    if pair_mask is not None:
+        return float(np.count_nonzero(pair_mask)) / size
+    if a_mask is None and b_mask is None and not filtering:
+        return 1.0
+    from .stacks import normalize_block_masks
+
+    am, bm = normalize_block_masks(nbr, nbk, nbc, a_mask, b_mask)
+    if filtering:
+        from ..sparsity.filter import count_retained_triples
+
+        return count_retained_triples(am, bm, a_norms, b_norms,
+                                      filter_eps) / size
+    return float((am.astype(np.int64) @ bm.astype(np.int64)).sum()) / size
+
+
+def stack_executor(
+    m: int,
+    k: int,
+    n: int,
+    *,
+    block_m: int,
+    block_k: int,
+    block_n: int,
+    stack_size: Optional[int] = None,
+    align: Optional[bool] = None,
+    kernel: str = "smm",
+    a_mask: Optional[np.ndarray] = None,
+    b_mask: Optional[np.ndarray] = None,
+    pair_mask: Optional[np.ndarray] = None,
+    a_norms: Optional[np.ndarray] = None,
+    b_norms: Optional[np.ndarray] = None,
+    pair_norms: Optional[np.ndarray] = None,
+    filter_eps: Optional[float] = None,
+    stack_bins: Optional[int] = None,
+):
+    """Build the fused blocked local multiply ``(a, b) -> c`` (f32).
+
+    ``stack_size`` defaults to the H100 winners table for this block
+    geometry and occupancy bin (its heuristic when no sweep has been
+    recorded).  ``align`` is kept so the signature matches the JAX
+    package's; it is the TPU's MXU-padding knob and is ignored.
+    """
+    from ..kernels.smm.autotune import best_params_for, has_winners
+
+    fill = 1.0
+    if has_winners(block_m, block_k, block_n):
+        # the occupancy only picks the table's bin, so it is computed
+        # only where the table holds an entry for this block geometry
+        fill = _mask_fill(m // block_m, k // block_k, n // block_n,
+                          a_mask, b_mask, pair_mask,
+                          a_norms, b_norms, pair_norms, filter_eps)
+    tuned_align, tuned_tile = best_params_for(block_m, block_k, block_n,
+                                              fill=fill)
+    if align is None:
+        align = tuned_align
+    if stack_size is None:
+        stack_size = tuned_tile
+    plan = build_executor_plan(m, k, n, block_m, block_k, block_n, stack_size,
+                               a_mask=a_mask, b_mask=b_mask,
+                               pair_mask=pair_mask, a_norms=a_norms,
+                               b_norms=b_norms, pair_norms=pair_norms,
+                               filter_eps=filter_eps, stack_bins=stack_bins)
+
+    def f(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        if tuple(a.shape) != (m, k) or tuple(b.shape) != (k, n):
+            raise ValueError(
+                f"stack executor built for ({m},{k}) x ({k},{n}), "
+                f"got {tuple(a.shape)} x {tuple(b.shape)}")
+        a_blocks = to_blocks(a, block_m, block_k)
+        b_blocks = to_blocks(b, block_k, block_n)
+        # C with the padding rows' scratch block appended, zeroed once
+        c = torch.zeros((plan.n_c_blocks + 1, block_m, block_n),
+                        dtype=torch.float32, device=a.device)
+        if plan.n_stacks:
+            _run_bins(plan, a_blocks, b_blocks, c, kernel)
+        return from_blocks(c[:-1], plan.nbr, plan.nbc)
+
+    f.executor_plan = plan
+    f.align = align
+    f.stack_size = stack_size
+    return f

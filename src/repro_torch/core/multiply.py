@@ -1,0 +1,221 @@
+"""Top-level distributed multiply dispatcher.
+
+``distributed_matmul`` runs C = A @ B through a data-exchange algorithm
+(a schedule, core/schedule.py) whose every step calls a local multiply:
+'densified' (one big GEMM — the paper's section III optimization) or
+'blocked' (stacks of small GEMMs through the smm kernel).
+
+Occupancy threading (blocked path): ``a_mask`` / ``b_mask`` are the
+*global* block-occupancy masks of the operands (host numpy bool).  For
+every Cannon shift the step mask builder slices them down to the block
+ranges each rank holds at that step and unions them over ranks; plans
+are memoized per mask fingerprint (core/engine.py), and a step whose
+mask product is empty skips its local multiply entirely.  Block norms
+with ``filter_eps`` ride the same slicing (union-of-max).  The
+densified path ignores the masks: absent blocks are stored as zeros,
+so one big GEMM is already correct.
+
+This slice ports ``algorithm="cannon"`` on a 1x1 mesh.  What it leaves
+out raises ``NotImplementedError`` naming its ROADMAP queue item: the
+planner (``algorithm="auto"``, ``return_plan``; A5), the other
+algorithms and multi-rank meshes (A3), rank-exact execution and
+rebalancing (A6), ABFT verification (A8).  Telemetry (A9) does not
+exist in the port yet.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .blocking import GridSpec
+from .cannon import cannon_matmul, cannon_step_masks, cannon_step_norms
+from .densify import blocked_local_matmul, densified_local_matmul
+from .stacks import normalize_block_masks
+
+__all__ = ["distributed_matmul"]
+
+_LATER_ALGORITHMS = ("cannon25d", "ts_k", "ts_m", "ts_n", "summa")
+
+
+def _block_masks(
+    m: int, k: int, n: int,
+    block_m: int, block_k: int, block_n: int,
+    a_mask: Optional[np.ndarray], b_mask: Optional[np.ndarray],
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Normalise the *global* occupancy masks; a missing mask means the
+    operand is dense (all blocks present)."""
+    return normalize_block_masks(m // block_m, k // block_k, n // block_n,
+                                 a_mask, b_mask)
+
+
+def _masks_empty(mask_kwargs: dict) -> bool:
+    """Host-static per-step emptiness: no mask-present triple or, under
+    a ``filter_eps`` with norms, no triple whose norm-product bound
+    clears eps."""
+    eps = mask_kwargs.get("filter_eps")
+    if "pair_mask" in mask_kwargs or "pair_norms" in mask_kwargs:
+        pm = mask_kwargs.get("pair_mask")
+        if pm is not None and not pm.any():
+            return True
+        pn = mask_kwargs.get("pair_norms")
+        if eps and pn is not None:
+            kept = pn if pm is None else np.where(pm, pn, 0.0)
+            return not bool((kept.astype(np.float64) >= float(eps)).any())
+        return False
+    ua, ub = mask_kwargs["a_mask"], mask_kwargs["b_mask"]
+    if not bool(np.any(ua.any(axis=0) & ub.any(axis=1))):
+        return True
+    un, vn = mask_kwargs.get("a_norms"), mask_kwargs.get("b_norms")
+    if eps and un is not None and vn is not None:
+        # max retained product per k: (max_i masked a) * (max_j masked b)
+        ka = np.where(ua, un.astype(np.float64), 0.0).max(axis=0)
+        kb = np.where(ub, vn.astype(np.float64), 0.0).max(axis=1)
+        return not bool((ka * kb >= float(eps)).any())
+    return False
+
+
+def _stepwise_blocked_lm(
+    ml: int, kl: int, nl: int, *, mask_steps: List[dict], **blocked_kw,
+):
+    """A stepwise local multiply: one fused stack executor per
+    data-exchange step (plans deduplicated by mask fingerprint through
+    the engine memo).  Steps whose mask product is empty carry no
+    executor; the schedule driver skips them."""
+    fns, empty = [], set()
+    for t, mask_kwargs in enumerate(mask_steps):
+        if _masks_empty(mask_kwargs):
+            fns.append(None)
+            empty.add(t)
+        else:
+            fns.append(blocked_local_matmul(ml, kl, nl, **mask_kwargs,
+                                            **blocked_kw))
+
+    def lm(a_loc: torch.Tensor, b_loc: torch.Tensor, step: int = 0):
+        f = fns[step]
+        return None if f is None else f(a_loc, b_loc)
+
+    lm.stepwise = True
+    lm.empty_steps = frozenset(empty)
+    lm.step_executors = fns
+    return lm
+
+
+def distributed_matmul(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    mesh,
+    grid: GridSpec = GridSpec(),
+    algorithm: str = "auto",
+    densify: Optional[bool] = None,
+    block_m: int = 64,
+    block_k: int = 64,
+    block_n: int = 64,
+    stack_size: Optional[int] = None,
+    align: Optional[bool] = None,
+    local_kernel: Optional[str] = None,
+    a_mask: Optional[np.ndarray] = None,
+    b_mask: Optional[np.ndarray] = None,
+    a_norms: Optional[np.ndarray] = None,
+    b_norms: Optional[np.ndarray] = None,
+    filter_eps: Optional[float] = None,
+    stack_bins: Optional[int] = None,
+    rank_exact: Optional[bool] = None,
+    rebalance: Optional[bool] = None,
+    pipeline_depth: Optional[int] = None,
+    double_buffer: Optional[bool] = None,
+    verify: Optional[str] = None,
+    return_plan: bool = False,
+    **kw,
+) -> torch.Tensor:
+    """C = A @ B on the mesh with ``algorithm="cannon"``.
+
+    ``densify`` picks the local path (True or None: one big GEMM,
+    ``local_kernel="pallas"`` for the tiled_matmul kernel; False:
+    blocked stacks through smm, ``local_kernel="ref"`` for its plain
+    version).  ``a_mask`` / ``b_mask`` are global block occupancy masks
+    ((M/block_m, K/block_k) / (K/block_k, N/block_n) numpy bool); the
+    blocked path plans only present triples.  With ``filter_eps`` not
+    None, contributions whose block-norm bound ``norm(A_ik) *
+    norm(B_kj)`` is below eps are dropped before they reach a stack;
+    ``a_norms`` / ``b_norms`` default to the payloads' block norms.
+    ``filter_eps=0.0`` is bit-identical to the unfiltered path.
+    ``stack_size`` and ``stack_bins`` shape the stack plan (engine.py);
+    ``align`` is accepted and ignored.  ``pipeline_depth``: 2 = overlap
+    order, 1 = serial, 0 = rolled; all three give the same bits.
+    """
+    m, k = a.shape
+    k2, n = b.shape
+    if k != k2:
+        raise ValueError(f"inner dims disagree: {tuple(a.shape)} @ {tuple(b.shape)}")
+    if algorithm == "auto":
+        raise NotImplementedError(
+            "algorithm='auto' needs the planner: ROADMAP Queue A5; "
+            "pass algorithm='cannon'")
+    if algorithm in _LATER_ALGORITHMS:
+        raise NotImplementedError(
+            f"algorithm={algorithm!r} is not ported yet: ROADMAP Queue A3")
+    if algorithm != "cannon":
+        raise ValueError(f"unknown algorithm {algorithm!r}")
+    if return_plan:
+        raise NotImplementedError(
+            "return_plan needs the planner: ROADMAP Queue A5")
+    if verify is not None:
+        raise NotImplementedError(
+            "ABFT verification is not ported yet: ROADMAP Queue A8")
+    if rank_exact or rebalance:
+        raise NotImplementedError(
+            "rank_exact / rebalance are not ported yet: ROADMAP Queue A6")
+
+    filtering = filter_eps is not None
+    if filtering and a_norms is None and b_norms is None:
+        from ..sparsity.norms import block_norms_of
+
+        a_norms = block_norms_of(a, block_m, block_k, a_mask)
+        b_norms = block_norms_of(b, block_k, block_n, b_mask)
+
+    masked = a_mask is not None or b_mask is not None or filtering
+    am = bmk = an_g = bn_g = None
+    if masked:
+        am, bmk = _block_masks(m, k, n, block_m, block_k, block_n,
+                               a_mask, b_mask)
+        if filtering:
+            # mask-absent blocks are forced to norm 0 so one >= eps
+            # comparison folds both criteria per rank
+            from ..sparsity.norms import normalize_block_norms
+
+            an_g, bn_g = normalize_block_norms(
+                am.shape[0], am.shape[1], bmk.shape[1], a_norms, b_norms)
+            an_g = np.where(am, an_g, np.float32(0.0))
+            bn_g = np.where(bmk, bn_g, np.float32(0.0))
+
+    if densify is None:
+        densify = True  # the default for a fixed algorithm
+    pg = grid.validate_square(mesh)
+    if (m % pg or k % pg or n % pg) and not densify:
+        raise ValueError(f"shape ({m},{k},{n}) not divisible by grid side {pg}")
+    ml, kl, nl = m // pg, k // pg, n // pg
+
+    if densify:
+        lm = densified_local_matmul(kernel=local_kernel)
+    else:
+        blocked_kw = dict(
+            block_m=block_m, block_k=block_k, block_n=block_n,
+            stack_size=stack_size, align=align,
+            kernel=local_kernel or "smm", stack_bins=stack_bins)
+        if not masked:
+            lm = blocked_local_matmul(ml, kl, nl, **blocked_kw)
+        else:
+            steps = [{"pair_mask": pm}
+                     for pm in cannon_step_masks(am, bmk, pg)]
+            if filtering:
+                for s, pn in zip(steps, cannon_step_norms(an_g, bn_g, pg)):
+                    s.update(pair_norms=pn, filter_eps=filter_eps)
+            lm = _stepwise_blocked_lm(ml, kl, nl, mask_steps=steps,
+                                      **blocked_kw)
+
+    return cannon_matmul(a, b, mesh=mesh, grid=grid, local_matmul=lm,
+                         pipeline_depth=pipeline_depth,
+                         double_buffer=double_buffer, **kw)

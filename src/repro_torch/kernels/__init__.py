@@ -1,0 +1,12 @@
+"""Hand-written CUDA kernels for the compute hot spots, one package per
+kernel of the JAX package's Pallas set:
+
+    smm/          LIBCUSMM analogue: stack-driven batched small GEMM
+                  (+ autotune.py, the winners-table lookup)
+    tiled_matmul/ the densified path's dense GEMM
+
+Each package: ops.py (the wrapper: checks, launch, launch counter),
+ref.py (the plain PyTorch version the wrapper takes for CPU tensors).
+The CUDA sources live in ``repro_torch/csrc``; ``_build.py`` compiles
+and loads them on first use.
+"""

@@ -1,0 +1,24 @@
+"""Norm-based on-the-fly filtering.
+
+    norms.py   per-block Frobenius norms, reduced on the payload's device
+               and returned as host numpy
+    filter.py  the ``filter_eps`` predicates shared by every layer
+
+The eps contract: a triple (i, k, j) is RETAINED iff it is present
+under the block masks and ``norm(A_ik) * norm(B_kj) >= eps``, so
+``filter_eps=0.0`` retains everything and is bit-identical to the
+mask-only path; ``filter_eps=None`` disables the norm machinery.
+"""
+from .norms import block_norms_of, compute_block_norms, normalize_block_norms
+from .filter import (count_retained_triples, norm_filter_stats,
+                     product_mask, retained_pair_presence)
+
+__all__ = [
+    "block_norms_of",
+    "compute_block_norms",
+    "normalize_block_norms",
+    "count_retained_triples",
+    "norm_filter_stats",
+    "product_mask",
+    "retained_pair_presence",
+]

@@ -15,6 +15,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(REPO, "src")
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips where there is none")
+
+
 @pytest.fixture(scope="session")
 def rng():
     return np.random.RandomState(0)
