@@ -4,11 +4,13 @@
     python3 chip_smoke.py
 
 Phase 0  prints the card (nvidia-smi name and power limit) and builds
-         both CUDA kernels from src/repro_torch/csrc, timing the build.
+         the three CUDA kernels from src/repro_torch/csrc, timing the
+         build.
 Phase 1  holds each kernel against its plain PyTorch version on the card:
          smm at blocks 4, 22 and 64 (f32 and bf16), with a ragged final
          stack, valid == 0 rows and a masked plan of several size bins;
-         tiled_matmul at a shape that is no tile multiple, f32 and bf16.
+         tiled_matmul at a shape that is no tile multiple, f32 and bf16;
+         grouped_gemm at a ragged shape and at E = 1, f32 and bf16.
 Phase 2  runs the main path, dbcsr.create -> dbcsr.multiply with
          algorithm="cannon" on a 1x1 mesh, at the size of one rank of
          the paper's 63,360^2 matrices on a 16x16 grid:
@@ -24,11 +26,33 @@ Phase 2  runs the main path, dbcsr.create -> dbcsr.multiply with
          dense operands (f32, TF32 off); each case's launch counters are
          zeroed just before the multiply and read just after.
 Phase 3  times each kernel at the shapes of (a), (b), (c) (both stack
-         sizes) and (d): median of CUDA-event timings after a warm-up,
-         beside its bound (the larger of flop / f32 non-tensor peak and
-         bytes / HBM rate), the plain version (smm: stack by stack) and
-         torch.matmul of the operands, which computes the same function
-         for every timed plan (absent blocks are stored as zeros).
+         sizes) and (d), the fused smm launch at (f) and grouped_gemm at
+         (h): median of CUDA-event timings after a warm-up, beside its
+         bound (the larger of flop / f32 non-tensor peak and bytes / HBM
+         rate), the plain version (smm: stack by stack) and torch.matmul
+         (torch.bmm for a batch) of the operands, which computes the same
+         function for every timed plan (absent blocks are stored as
+         zeros).
+Phase 4  runs the serving path, MultiplyService(fused=True,
+         algorithm="cannon") -> dbcsr.multiply_batched on a 1x1 mesh, at
+         one rank of the paper's 63,360^2 matrices on a 32x32 grid
+         (1,980^2 = 90^2 blocks of 22), as a k-point-style batch of 16
+         requests:
+           (f) 16 dense requests, blocked: one bucket, ONE smm launch
+           (g) 8 dense + 8 with A at ~20% block fill, blocked: two
+               buckets, two smm launches; with filter_eps None, 0 and
+               in a gap of the norm products
+           (h) 16 dense requests, densified, local_kernel="pallas": ONE
+               grouped_gemm launch, no tiled_matmul
+           (i) 16 dense requests, densified, torch.bmm
+         Each case submits, flushes and collects with the launch counters
+         zeroed just before and read just after; each product is held
+         against torch.matmul (or, under eps > 0, against the
+         per-request multiply and its mask), blocked fused results with
+         eps in {None, 0} against dbcsr.multiply_batched(fused=False)
+         bitwise, and stats() must show every request fused with no
+         retry, degradation or error ticket.  It prints the host time of
+         the first and the repeat flush against the looped dispatch.
 
 Prints a {"kernels": [...]} line, the nvidia-smi line, and as its last
 line {"ok": true, "device": {...}}.  Any failed check raises, so the
@@ -112,14 +136,19 @@ def main() -> int:
 
     from repro_torch.core import dbcsr
     from repro_torch.core.cannon import cannon_step_masks, cannon_step_norms
-    from repro_torch.core.densify import to_blocks
-    from repro_torch.core.engine import build_executor_plan
+    from repro_torch.core.densify import to_blocks, to_blocks_batched
+    from repro_torch.core.engine import (build_batched_executor_plan,
+                                         build_executor_plan)
     from repro_torch.kernels import _build
+    from repro_torch.kernels.grouped_gemm.ops import (grouped_gemm,
+                                                      grouped_process_stack)
+    from repro_torch.kernels.grouped_gemm.ref import grouped_gemm_ref
     from repro_torch.kernels.smm.ops import smm_process_stack, stack_run_starts
     from repro_torch.kernels.smm.ref import smm_process_stack_ref
     from repro_torch.kernels.tiled_matmul.ops import tiled_matmul
     from repro_torch.kernels.tiled_matmul.ref import tiled_matmul_ref
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serve import MultiplyService
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -129,7 +158,7 @@ def main() -> int:
     card = card_line()
     rng = np.random.RandomState(SEED)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    err_abs = {"smm": 0.0, "tiled_matmul": 0.0}
+    err_abs = {"smm": 0.0, "tiled_matmul": 0.0, "grouped_gemm": 0.0}
 
     # ---------------------------------------------------------- phase 0
     print("phase 0: card and build")
@@ -199,23 +228,40 @@ def main() -> int:
             err_abs["tiled_matmul"] = max(err_abs["tiled_matmul"], check_close(
                 f"tiled_matmul {m}x{k}x{n} {str(dtype)[6:]}", out, ref))
 
+    for e, m, k, n in ((3, 200, 333, 130), (1, 1000, 777, 1030)):
+        for dtype in (torch.float32, torch.bfloat16):
+            t = torch.randn((e, m, k), generator=gen, device=dev).to(dtype)
+            w = torch.randn((e, k, n), generator=gen, device=dev).to(dtype)
+            out, ref = grouped_gemm(t, w), grouped_gemm_ref(t, w)
+            torch.cuda.synchronize()
+            err_abs["grouped_gemm"] = max(err_abs["grouped_gemm"], check_close(
+                f"grouped_gemm {e}x{m}x{k}x{n} {str(dtype)[6:]}", out, ref))
+
     # ---------------------------------------------------------- phase 2
     print("phase 2: dbcsr.create -> dbcsr.multiply on a 1x1 mesh")
     mesh = make_mesh((1, 1), ("data", "model"))
-    launches = {"smm": 0, "tiled_matmul": 0}
+    counters = {"smm": smm_process_stack, "tiled_matmul": tiled_matmul,
+                "grouped_gemm": grouped_gemm}
+    launches = {key: 0 for key in counters}
+
+    def zero_counters():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read_counters():
+        got = {key: fn.launches for key, fn in counters.items()}
+        for key in launches:
+            launches[key] += got[key]
+        return got
 
     def run(label, a, b, **kw):
-        smm_process_stack.launches = 0
-        tiled_matmul.launches = 0
+        zero_counters()
         torch.cuda.synchronize()
         t = time.perf_counter()
         c = dbcsr.multiply(a, b, mesh=mesh, algorithm="cannon", **kw)
         torch.cuda.synchronize()
         first = time.perf_counter() - t
-        got = {"smm": smm_process_stack.launches,
-               "tiled_matmul": tiled_matmul.launches}
-        for key in launches:
-            launches[key] += got[key]
+        got = read_counters()
         repeats = []
         for _ in range(3):
             t = time.perf_counter()
@@ -341,6 +387,27 @@ def main() -> int:
     expect_launches(got, "smm", plan_b.n_bins)
     del c
 
+    # the batched path's operands: 16 requests at one rank of 63,360^2 on
+    # a 32x32 grid (1,980^2, 90^2 blocks of 22)
+    G, NB, BS = 16, 1980, 22
+    nbb = NB // BS
+    dense_reqs = [(dbcsr.create(dense(NB), mesh=mesh, block_size=BS),
+                   dbcsr.create(dense(NB), mesh=mesh, block_size=BS))
+                  for _ in range(G)]
+    a_stack = torch.stack([a.data for a, _ in dense_reqs])
+    b_stack = torch.stack([b.data for _, b in dense_reqs])
+    t = time.perf_counter()
+    plan_f = build_batched_executor_plan(NB, NB, NB, BS, BS, BS,
+                                         [{}] * G, stack_size=30000)
+    build_s = time.perf_counter() - t
+    t = time.perf_counter()
+    plan_f.device_triples(dev)
+    torch.cuda.synchronize()
+    print(f"  (f)'s fused plan: host build {build_s:.3f} s, upload "
+          f"{time.perf_counter() - t:.3f} s (memoized: phase 4 reuses both)")
+    if plan_f.n_launches != 1:
+        raise AssertionError(f"(f) plan launches {plan_f.n_launches}")
+
     # ---------------------------------------------------------- phase 3
     print(f"phase 3: times (median of CUDA events; {card})")
 
@@ -415,12 +482,195 @@ def main() -> int:
     tiled_rows = [report("tiled_matmul", "3960^3 f32", ms, plain_ms,
                          library_ms, 2.0 * 3960 ** 3, 4 * 3 * 3960 ** 2, 1)]
 
+    # (f)'s fused launch: all 16 products' stacks in one smm launch
+    a_blocks = to_blocks_batched(a_stack, BS, BS).reshape(-1, BS, BS)
+    b_blocks = to_blocks_batched(b_stack, BS, BS).reshape(-1, BS, BS)
+    c = torch.zeros((G * nbb * nbb + 1, BS, BS), device=dev)
+    t_f, r_f = plan_f.device_triples(dev)
+    ms = time_ms(lambda: grouped_process_stack(a_blocks, b_blocks, c, t_f,
+                                               r_f), 5, setup=c.zero_)
+    out_k = c[:-1].clone()
+    tile = plan_f.stack_tile
+
+    def fused_plain():
+        for s in range(0, t_f.shape[0], tile):
+            smm_process_stack_ref(a_blocks, b_blocks, c, t_f[s:s + tile])
+
+    plain_ms = time_ms(fused_plain, 3, setup=c.zero_)
+    err_abs["smm"] = max(err_abs["smm"], check_close(
+        f"smm fused {G} x {NB}^2 block {BS} kernel vs plain", out_k, c[:-1]))
+    del out_k, c
+    library_ms = time_ms(lambda: torch.bmm(a_stack, b_stack), 10)
+    nbytes = (2 * G * nbb * nbb * BS * BS * 4            # A and B blocks
+              + 2 * G * nbb * nbb * BS * BS * 4          # C read and written
+              + int(t_f.shape[0]) * 16 + int(r_f.shape[0]) * 4)
+    smm_rows.append(report(
+        "smm", f"fused batch {G} x {NB}^2 block {BS} dense (one launch)", ms,
+        plain_ms, library_ms, 2.0 * plan_f.n_entries * BS ** 3, nbytes, 1))
+    print(f"  fused triples: {plan_f.n_stacks} x {plan_f.stack_tile} rows "
+          f"({plan_f.n_stacks * plan_f.stack_tile * 16 / 1e6:.0f} MB), "
+          f"padding {100 * plan_f.padding_frac:.1f} %, "
+          f"{int(r_f.shape[0])} runs")
+
+    ms = time_ms(lambda: grouped_gemm(a_stack, b_stack), 10)
+    plain_ms = time_ms(lambda: grouped_gemm_ref(a_stack, b_stack), 10)
+    err_abs["grouped_gemm"] = max(err_abs["grouped_gemm"], check_close(
+        f"grouped_gemm {G} x {NB}^3 kernel vs plain",
+        grouped_gemm(a_stack, b_stack),
+        grouped_gemm_ref(a_stack, b_stack)))
+    grouped_rows = [report("grouped_gemm", f"{G} x {NB}^3 f32", ms, plain_ms,
+                           library_ms, 2.0 * G * NB ** 3,
+                           4 * 3 * G * NB ** 2, 1)]
+
+    # ---------------------------------------------------------- phase 4
+    print("phase 4: MultiplyService -> dbcsr.multiply_batched, "
+          f"{G} requests of {NB}^2, block {BS}, 1x1 mesh")
+    exec_kw = dict(algorithm="cannon", pipeline_depth=1)
+
+    def serve(label, reqs, want, n_buckets, filter_eps=None, **kw):
+        """Submit, flush and collect ``reqs`` through a fused service;
+        returns (first results, looped results)."""
+        svc = MultiplyService(mesh, fused=True, max_batch=G, slo_s=60.0,
+                              filter_eps=filter_eps, **exec_kw, **kw)
+
+        def flush_all():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            tickets = [svc.submit(a, b) for a, b in reqs]
+            svc.flush()
+            out = [svc.result(tk) for tk in tickets]
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t
+
+        zero_counters()
+        out, first = flush_all()
+        got = read_counters()
+        if got != want:
+            raise AssertionError(f"{label}: launches {got}, expected {want}")
+        if svc.stats()["n_dispatches"] != n_buckets:
+            raise AssertionError(f"{label}: {svc.stats()['n_dispatches']} "
+                                 f"dispatches, expected {n_buckets}")
+        again, repeat = flush_all()
+        for x, y in zip(out, again):
+            if not torch.equal(x.data, y.data):
+                raise AssertionError(f"{label}: a repeated flush differs")
+        st = svc.stats()
+        if (st["n_fused_requests"] != st["n_requests"]
+                or st["n_retries"] or st["n_degradations"]
+                or st["n_error_tickets"]):
+            raise AssertionError(f"{label}: service stats {st}")
+        looped_s = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            looped = dbcsr.multiply_batched(
+                reqs, mesh=mesh, fused=False, filter_eps=filter_eps,
+                **exec_kw, **kw)
+            torch.cuda.synchronize()
+            looped_s.append(time.perf_counter() - t)
+        print(f"  {label}: fused flush first {first:.3f} s (plans built), "
+              f"repeat {1e3 * repeat:.2f} ms; looped first "
+              f"{looped_s[0]:.3f} s, repeat {1e3 * looped_s[1]:.2f} ms; "
+              f"launches {got}")
+        return out, looped
+
+    def against_matmul(label, out, reqs):
+        for i, (c, (a, b)) in enumerate(zip(out, reqs)):
+            rel = rel_err(c.data, torch.matmul(a.data, b.data))
+            if not rel <= REL_TOL:
+                raise AssertionError(f"{label} request {i}: error {rel:.3e}")
+        print(f"  {label}: {len(out)} products within {REL_TOL:g} of "
+              "max|C| of torch.matmul")
+
+    def bitwise(label, out, looped):
+        for i, (x, y) in enumerate(zip(out, looped)):
+            if not torch.equal(x.data, y.data):
+                raise AssertionError(f"{label} request {i}: fused != looped")
+            if (x.block_mask is None) != (y.block_mask is None) or (
+                    x.block_mask is not None
+                    and not np.array_equal(x.block_mask, y.block_mask)):
+                raise AssertionError(f"{label} request {i}: masks differ")
+        print(f"  {label}: fused == looped bitwise, masks equal")
+
+    none = {"smm": 0, "tiled_matmul": 0, "grouped_gemm": 0}
+    out, looped = serve("(f) 16 dense, blocked", dense_reqs,
+                        dict(none, smm=1), 1, densify=False)
+    against_matmul("(f)", out, dense_reqs)
+    bitwise("(f)", out, looped)
+    del out, looped
+
+    # (g): 8 dense and 8 with A at ~20 % block fill, block scales over two
+    # decades so the norm filter has work to do
+    sparse_reqs = []
+    for _ in range(G // 2):
+        am = rng.rand(nbb, nbb) < 0.2
+        scale = np.repeat(np.repeat(10.0 ** (-2 * rng.rand(nbb, nbb)), BS, 0),
+                          BS, 1)
+        a = dense(NB) * torch.tensor(scale, dtype=torch.float32, device=dev)
+        sparse_reqs.append((dbcsr.create(a, mesh=mesh, block_size=BS,
+                                         block_mask=am),
+                            dbcsr.create(dense(NB), mesh=mesh, block_size=BS)))
+    mixed = dense_reqs[:G // 2] + sparse_reqs
+    for eps in (None, 0.0):
+        out, looped = serve(f"(g) 8 dense + 8 at 20 % fill, eps {eps}", mixed,
+                            dict(none, smm=2), 2, filter_eps=eps,
+                            densify=False)
+        against_matmul(f"(g) eps {eps}", out, mixed)
+        bitwise(f"(g) eps {eps}", out, looped)
+        del out, looped
+    # eps in a wide gap between two norm products near the median of the
+    # sparse requests' present triples (as phase 2 places it)
+    prods = []
+    for a, b in sparse_reqs:
+        p = (a.norms()[:, :, None] * b.norms()[None]).astype(np.float64)
+        prods.append(p[np.broadcast_to(a.block_mask[:, :, None], p.shape)])
+    srt = np.sort(np.concatenate(prods))
+    mid = srt.size // 2
+    gaps = srt[mid - 1000:mid + 1000] / srt[mid - 1001:mid + 999]
+    i = mid - 1001 + int(np.argmax(gaps))
+    eps = float(np.sqrt(srt[i] * srt[i + 1]))
+    out, looped = serve(f"(g) eps {eps:.4g}", mixed, dict(none, smm=2), 2,
+                        filter_eps=eps, densify=False)
+    for j, (x, y) in enumerate(zip(out, looped)):
+        if not np.array_equal(x.block_mask, y.block_mask):
+            raise AssertionError(f"(g) eps request {j}: mask != per-request")
+        rel = rel_err(x.data, y.data)
+        if not rel <= REL_TOL:
+            raise AssertionError(f"(g) eps request {j}: error {rel:.3e}")
+    # the filter must have dropped products: the sparse requests then
+    # differ from the unfiltered product by far more than rounding
+    moved = min(rel_err(x.data, torch.matmul(a.data, b.data))
+                for x, (a, b) in zip(out[G // 2:], sparse_reqs))
+    if not moved > 100 * REL_TOL:
+        raise AssertionError(f"(g) eps dropped nothing (error {moved:.3e})")
+    print(f"  (g) eps: masks equal the per-request multiply's, data within "
+          f"{REL_TOL:g} of it (bitwise: "
+          f"{all(torch.equal(x.data, y.data) for x, y in zip(out, looped))}); "
+          f"{int((srt < eps).sum())} of {srt.size} sparse triples below eps, "
+          f"sparse products moved by >= {moved:.3e} of max|C|")
+    del out, looped
+
+    out, _ = serve("(h) 16 dense, densified, grouped_gemm", dense_reqs,
+                   dict(none, grouped_gemm=1), 1, densify=True,
+                   local_kernel="pallas")
+    against_matmul("(h)", out, dense_reqs)
+    out, _ = serve("(i) 16 dense, densified, torch.bmm", dense_reqs, none, 1,
+                   densify=True)
+    against_matmul("(i)", out, dense_reqs)
+    del out
+
+    for key, n in launches.items():
+        if n < 1:
+            raise AssertionError(f"the main path never launched {key}")
     kernels = []
     for kname, src, replaces, rows in (
             ("smm", "src/repro_torch/csrc/smm.cu",
              "src/repro/kernels/smm/smm.py:42", smm_rows),
             ("tiled_matmul", "src/repro_torch/csrc/tiled_matmul.cu",
-             "src/repro/kernels/tiled_matmul/tiled_matmul.py:26", tiled_rows)):
+             "src/repro/kernels/tiled_matmul/tiled_matmul.py:26", tiled_rows),
+            ("grouped_gemm", "src/repro_torch/csrc/grouped_gemm.cu",
+             "src/repro/kernels/grouped_gemm/grouped_gemm.py:27",
+             grouped_rows)):
         main = rows[0]
         kernels.append({
             "name": kname, "route": "cuda", "source": src,

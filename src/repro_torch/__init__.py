@@ -4,13 +4,21 @@ hand-written CUDA kernels for Hopper (H100, sm_90a).
 It sits beside the JAX package ``repro``, which stays the reference,
 and mirrors its layout:
 
-    repro_torch.core      blocking, stack generation, the fused stack
-                          executor, densification, the Cannon schedule,
-                          distributed_matmul and DBCSRMatrix (dbcsr)
-    repro_torch.kernels   CUDA kernels (smm, tiled_matmul), each with a
-                          plain PyTorch version and a launch counter
-    repro_torch.sparsity  block norms and the filter_eps predicates
-    repro_torch.launch    the process mesh (make_mesh)
+    repro_torch.core        blocking, stack generation, the fused stack
+                            executor (single and batched), densification,
+                            the Cannon schedule, distributed_matmul,
+                            distributed_matmul_batched and DBCSRMatrix
+                            (dbcsr, with multiply_batched)
+    repro_torch.kernels     CUDA kernels (smm, tiled_matmul, grouped_gemm),
+                            each with a plain PyTorch version and a launch
+                            counter
+    repro_torch.sparsity    block norms and the filter_eps predicates
+    repro_torch.serve       MultiplyService, continuous batching of
+                            multiply requests
+    repro_torch.robustness  error taxonomy, NaN/Inf tripwires, request
+                            validation
+    repro_torch.obs         the metrics registry
+    repro_torch.launch      the process mesh (make_mesh)
 
 It imports torch and numpy, never jax and never ``repro``.  Entry points
 run on the CUDA device unless the caller asks for the CPU

@@ -2,6 +2,7 @@
 
     from repro_torch.core import dbcsr
     from repro_torch.core.multiply import distributed_matmul
+    from repro_torch.core.multiply_batched import distributed_matmul_batched
 """
 from .blocking import BlockLayout, GridSpec
 from .multiply import distributed_matmul

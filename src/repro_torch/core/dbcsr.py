@@ -13,6 +13,10 @@ sparse wins come from.
 ``from_state`` builds the port's matrix from the numpy state of a JAX
 ``DBCSRMatrix`` (payload, layout, grid axis names, mask, norms), so a
 matrix can move from the reference to the port.
+
+``multiply_batched`` runs many independent products, bucketed by
+``_bucket_key`` (geometry, occupancy bin, eps), one fused dispatch per
+bucket (core/multiply_batched.py).
 """
 from __future__ import annotations
 
@@ -25,7 +29,8 @@ import torch
 from .blocking import BlockLayout, GridSpec
 
 __all__ = ["DBCSRMatrix", "create", "from_state", "multiply",
-           "multiply_vector", "add", "trace", "transpose"]
+           "multiply_batched", "multiply_vector", "add", "trace",
+           "transpose"]
 
 
 def _expand_mask(mask: np.ndarray, block_rows: int, block_cols: int,
@@ -51,6 +56,16 @@ class DBCSRMatrix:
     grid: GridSpec
     block_mask: Optional[np.ndarray] = None
     block_norms: Optional[np.ndarray] = None
+
+    @property
+    def shape(self):
+        return self.data.shape
+
+    @property
+    def occupancy(self) -> float:
+        if self.block_mask is None:
+            return 1.0
+        return float(self.block_mask.mean())
 
     def norms(self, recompute: bool = False) -> np.ndarray:
         """Per-block Frobenius norms ((nbr, nbc) float32 numpy), cached
@@ -264,3 +279,170 @@ def multiply(
     c_data = _apply_result_mask(c_data, mask, zero, a.layout.block_rows,
                                 b.layout.block_cols)
     return DBCSRMatrix(c_data, c_layout, a.grid, mask)
+
+
+def _bucket_key(a: DBCSRMatrix, b: DBCSRMatrix,
+                filter_eps: Optional[float]) -> tuple:
+    """The batching bucket contract: requests fuse only when they agree
+    on (geometry, occupancy-bin, eps).
+
+      geometry       operand shapes + block sizes + grid axis names:
+                     everything the fused dispatch's shape depends on
+      occupancy-bin  ``fill_bin`` of each operand's block-mask fill (the
+                     winners table's log-spaced bins): requests in one
+                     bin share stack parameters and pad little against
+                     each other; finer distinctions stay per request
+                     through the content-fingerprinted plan memo
+      eps            the norm-filter threshold: it shapes the per-group
+                     plans, so it must be bucket-uniform
+
+    The serving layer (repro_torch.serve.multiply_service) buckets queued
+    requests by this same function.  The tuple equals the JAX package's.
+    """
+    from ..kernels.smm.autotune import fill_bin
+
+    return (
+        tuple(a.shape), tuple(b.shape),
+        a.layout.block_rows, a.layout.block_cols, b.layout.block_cols,
+        a.grid.row_axis, a.grid.col_axis,
+        fill_bin(a.occupancy), fill_bin(b.occupancy),
+        None if filter_eps is None else float(filter_eps),
+    )
+
+
+def _execute_bucket(group, *, mesh, algorithm, densify, filter_eps, fused,
+                    **kw):
+    """Run one bucket of same-key requests: fused (one batched dispatch)
+    or looped (per-request ``multiply``).  ``fused=None`` leaves the
+    choice to the planner, which is not ported (ROADMAP Queue A5): a
+    bucket of one request goes looped, as the JAX package's does, and a
+    larger bucket raises."""
+    from .multiply_batched import BATCHED_ALGORITHMS
+
+    a0, b0 = group[0]
+    g = len(group)
+    batchable = (algorithm in ("auto",) + BATCHED_ALGORITHMS
+                 and kw.get("bcast") != "gather")
+    if fused and not batchable:
+        raise ValueError(
+            f"fused=True requires a batch-capable algorithm "
+            f"{BATCHED_ALGORITHMS}, got {algorithm!r}"
+            + (" with bcast='gather'" if kw.get("bcast") == "gather"
+               else ""))
+    fuse = fused
+    if fuse is None:
+        if batchable and g > 1:
+            raise NotImplementedError(
+                "fused=None asks the planner to choose fused or looped "
+                f"for a bucket of {g} requests: ROADMAP Queue A5; pass "
+                "fused=True or fused=False")
+        fuse = False
+
+    if not fuse:
+        out = [multiply(a, b, mesh=mesh, algorithm=algorithm,
+                        densify=densify, filter_eps=filter_eps, **kw)
+               for a, b in group]
+        return out, {"fused": False, "plan": None}
+
+    from .multiply_batched import _distributed_matmul_batched
+
+    an = bn = None
+    if filter_eps is not None:
+        an = [a.norms() for a, _ in group]
+        bn = [b.norms() for _, b in group]
+    a_masks = [a.block_mask for a, _ in group]
+    b_masks = [b.block_mask for _, b in group]
+    if all(x is None for x in a_masks):
+        a_masks = None
+    if all(x is None for x in b_masks):
+        b_masks = None
+    c_data, stats = _distributed_matmul_batched(
+        torch.stack([a.data for a, _ in group]),
+        torch.stack([b.data for _, b in group]),
+        mesh=mesh, grid=a0.grid, algorithm=algorithm, densify=densify,
+        block_m=a0.layout.block_rows, block_k=a0.layout.block_cols,
+        block_n=b0.layout.block_cols,
+        a_masks=a_masks, b_masks=b_masks, a_norms=an, b_norms=bn,
+        filter_eps=filter_eps, **kw)
+    c_layout = BlockLayout(a0.layout.rows, b0.layout.cols,
+                           a0.layout.block_rows, b0.layout.block_cols)
+    out = []
+    for gi, (a, b) in enumerate(group):
+        mask, zero = _product_mask(
+            a, b, an[gi] if an else None, bn[gi] if bn else None,
+            filter_eps)
+        cd = _apply_result_mask(c_data[gi], mask, zero,
+                                a.layout.block_rows, b.layout.block_cols)
+        c = DBCSRMatrix(cd, c_layout, a.grid, mask)
+        c.last_plan = None  # the planner's BatchedMultiplyPlan: Queue A5
+        out.append(c)
+    return out, {"fused": True, "plan": None, "executor_stats": stats}
+
+
+def multiply_batched(
+    requests,
+    *,
+    mesh,
+    algorithm: str = "auto",
+    densify: Optional[bool] = None,
+    filter_eps: Optional[float] = None,
+    fused: Optional[bool] = None,
+    verify: Optional[str] = None,
+    return_plan: bool = False,
+    **kw,
+):
+    """Many products, one dispatch: ``requests`` is a sequence of
+    ``(A, B)`` DBCSRMatrix pairs; returns their products in input order.
+
+    Requests are bucketed by the ``(geometry, occupancy-bin, eps)`` key
+    (see ``_bucket_key``) and each bucket runs either FUSED (operands
+    stacked ``(G, m, k)``, ONE schedule and ONE fused dispatch for the
+    whole bucket, core/multiply_batched.py) or LOOPED (per-request
+    ``multiply``), as ``fused=True`` / ``False`` pins it.  ``fused=None``
+    asks the planner, which is ROADMAP Queue A5: it raises for any bucket
+    of more than one request.
+
+    Semantics match per-request ``multiply`` exactly: per-request product
+    masks, eps-retained support and payload zeroing.  At
+    ``pipeline_depth=1`` with ``filter_eps`` in {None, 0.0} the fused
+    blocked path is bit-identical to the looped one.  Each fused result's
+    ``last_plan`` is None until the planner lands.
+
+    ``verify`` (ABFT) is ROADMAP Queue A8 and raises.
+
+    ``return_plan=True`` returns ``(results, report)``: per bucket the
+    key, request count and indices, the fuse-or-loop decision, ``"plan":
+    None`` and, for a fused bucket, the fused dispatch's
+    ``executor_stats`` (padding, plan sharing; None when densified).
+    """
+    if verify is not None:
+        raise NotImplementedError(
+            "ABFT verification is not ported yet: ROADMAP Queue A8")
+    requests = list(requests)
+    if not requests:
+        return ([], {"n_requests": 0, "n_buckets": 0, "buckets": []}) \
+            if return_plan else []
+    buckets: dict = {}
+    for i, (a, b) in enumerate(requests):
+        buckets.setdefault(_bucket_key(a, b, filter_eps), []).append(i)
+    results: list = [None] * len(requests)
+    bucket_reports = []
+    for key, idxs in buckets.items():
+        out, rep = _execute_bucket(
+            [requests[i] for i in idxs], mesh=mesh, algorithm=algorithm,
+            densify=densify, filter_eps=filter_eps, fused=fused, **kw)
+        for i, c in zip(idxs, out):
+            results[i] = c
+        bucket_reports.append({
+            "key": key, "n_requests": len(idxs), "request_indices": idxs,
+            **rep})
+    if not return_plan:
+        return results
+    report = {
+        "n_requests": len(requests),
+        "n_buckets": len(buckets),
+        "n_fused_requests": sum(r["n_requests"] for r in bucket_reports
+                                if r["fused"]),
+        "buckets": bucket_reports,
+    }
+    return results, report

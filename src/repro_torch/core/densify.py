@@ -9,6 +9,9 @@ plus the two local-multiply strategies the Cannon schedule calls:
   * ``densified_local_matmul`` — one big GEMM: ``torch.matmul`` (the
     vendor GEMM, as the JAX package leaves it to XLA's dot) or, with
     ``kernel="pallas"``, the hand-written tiled_matmul CUDA kernel.
+  * ``grouped_densified_local_matmul`` — its twin for a fused product
+    batch ``(G, m, k) @ (G, k, n)``: ``torch.bmm`` or, with
+    ``kernel="pallas"``, the hand-written grouped_gemm CUDA kernel.
   * ``blocked_local_matmul``   — keep blocks, run the stack plans
     through the smm kernel (LIBCUSMM analogue) or its plain version.
 """
@@ -21,10 +24,13 @@ import torch
 __all__ = [
     "to_blocks",
     "from_blocks",
+    "to_blocks_batched",
+    "from_blocks_batched",
     "densify",
     "undensify",
     "blocked_local_matmul",
     "densified_local_matmul",
+    "grouped_densified_local_matmul",
 ]
 
 
@@ -44,6 +50,25 @@ def from_blocks(blocks: torch.Tensor, nbr: int, nbc: int) -> torch.Tensor:
     _, bm, bn = blocks.shape
     return (blocks.reshape(nbr, nbc, bm, bn).permute(0, 2, 1, 3)
             .reshape(nbr * bm, nbc * bn))
+
+
+def to_blocks_batched(x: torch.Tensor, bm: int, bn: int) -> torch.Tensor:
+    """(G, R, C) -> contiguous (G, nbr*nbc, bm, bn): ``to_blocks`` over a
+    leading product/group dimension (the fused batched multiply's
+    payload)."""
+    g, r, c = x.shape
+    if r % bm or c % bn:
+        raise ValueError(f"shape {tuple(x.shape)} not divisible by block ({bm},{bn})")
+    nbr, nbc = r // bm, c // bn
+    return (x.reshape(g, nbr, bm, nbc, bn).permute(0, 1, 3, 2, 4)
+            .reshape(g, nbr * nbc, bm, bn).contiguous())
+
+
+def from_blocks_batched(blocks: torch.Tensor, nbr: int, nbc: int) -> torch.Tensor:
+    """Inverse of to_blocks_batched."""
+    g, _, bm, bn = blocks.shape
+    return (blocks.reshape(g, nbr, nbc, bm, bn).permute(0, 1, 3, 2, 4)
+            .reshape(g, nbr * bm, nbc * bn))
 
 
 def densify(blocks: torch.Tensor, nbr: int, nbc: int) -> torch.Tensor:
@@ -88,6 +113,31 @@ def densified_local_matmul(kernel: Optional[str] = None):
             flags.allow_tf32 = caller
 
     return f
+
+
+def grouped_densified_local_matmul(kernel: Optional[str] = None):
+    """Local multiply for the densified path of a fused product batch:
+    one grouped GEMM over ``(G, ml, kl) @ (G, kl, nl)``, f32 out.
+
+    kernel=None     -> torch.bmm in f32 (the vendor GEMM, as the JAX
+                       package leaves it to XLA's dot_general), with TF32
+                       turned off for this call only: the grouped_gemm
+                       kernel's plain version, ``grouped_gemm_ref``.
+    kernel='pallas' -> the grouped_gemm CUDA kernel (the JAX package's
+                       Pallas grouped GEMM): one launch for all G
+                       products.
+    Any other value takes the default, as the JAX package does.
+    """
+    if kernel == "pallas":
+        from ..kernels.grouped_gemm.ops import grouped_gemm
+
+        def f(a, b):
+            return grouped_gemm(a.contiguous(), b.contiguous())
+
+        return f
+    from ..kernels.grouped_gemm.ref import grouped_gemm_ref
+
+    return grouped_gemm_ref
 
 
 def blocked_local_matmul(

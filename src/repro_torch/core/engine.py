@@ -18,7 +18,10 @@ the single-process half of the JAX package's ``core/engine.py``:
     per-bin run starts the kernel needs and, per device, the uploaded
     triples and run starts, so a repeated multiply uploads nothing,
   * when the caller doesn't pin ``stack_size``, it is resolved from the
-    H100 winners table (``kernels.smm.autotune.best_params_for``).
+    H100 winners table (``kernels.smm.autotune.best_params_for``),
+  * a batch of same-geometry products fuses its per-group plans into one
+    group-offset triple tensor (``BatchedExecutorPlan``) that runs as ONE
+    smm launch (``batched_stack_executor``).
 
 Sparse planning contract: block occupancy masks (``a_mask`` (nbr, nbk),
 ``b_mask`` (nbk, nbc) or ``pair_mask`` (nbr, nbk, nbc), host numpy
@@ -29,6 +32,7 @@ returns C unchanged.  The triples are byte-equal to the JAX package's.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import hashlib
@@ -43,8 +47,12 @@ from .densify import from_blocks, to_blocks
 from .stacks import StackPlan, build_stacks, pad_plans, STACK_SIZE
 
 __all__ = [
+    "BatchedExecutorPlan",
     "ExecutorPlan",
+    "batched_stack_executor",
+    "build_batched_executor_plan",
     "build_executor_plan",
+    "execute_batched_plan",
     "execute_plan",
     "execute_plans_looped",
     "resolve_stack_bins",
@@ -537,4 +545,346 @@ def stack_executor(
     f.executor_plan = plan
     f.align = align
     f.stack_size = stack_size
+    return f
+
+
+# ---------------------------------------------------------------------------
+# Product-batched execution: N same-geometry products, one launch
+# ---------------------------------------------------------------------------
+
+
+def _next_pow2(x: int) -> int:
+    return 1 if x <= 1 else 1 << (x - 1).bit_length()
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchedExecutorPlan:
+    """``ExecutorPlan``'s batched variant: one fused stack tensor for a
+    *group* of N same-block-geometry products.
+
+    Per-group plans are built through the ordinary memoized
+    ``build_executor_plan`` with ``stack_bins=1`` (two requests with
+    identical mask/norm content share ONE cached plan: that is the
+    cross-request plan sharing ``n_shared_plans`` counts), then padded to
+    a shared ``(n_groups, stack_pad, tile_pad)`` shape and fused by
+    folding the group index into the block indices: group ``g``'s rows
+    are offset by ``(g*n_a_blocks, g*n_b_blocks, g*n_c_blocks)`` and
+    EVERY padding row, a group's own stack padding and the cross-group
+    shape padding alike, points at the single global scratch block
+    ``n_groups * n_c_blocks`` with ``valid=0``.  ``stack_pad`` and
+    ``tile_pad`` are rounded up to powers of two.  The triples are
+    byte-equal to the JAX package's.
+
+    ``run_starts`` holds the first row (of the flattened triples) of
+    every C run that has a valid row: the smm kernel's grid.  Runs made
+    only of padding are never launched, so the ~30 % of padding rows a
+    dense bucket carries cost upload bytes, not kernel time.
+    """
+
+    triples: np.ndarray            # (n_groups*stack_pad, tile_pad, 4) fused
+    run_starts: np.ndarray         # (n_runs,) int32
+    n_groups: int
+    n_a_blocks: int                # per-group block counts
+    n_b_blocks: int
+    n_c_blocks: int
+    block_m: int
+    block_k: int
+    block_n: int
+    group_plans: Tuple[ExecutorPlan, ...]
+    n_shared_plans: int            # groups that hit another group's memo entry
+    filter_eps: Optional[float] = None
+    # device copies of (flattened triples, run starts), made on first use
+    # per device and kept with the memoized plan
+    _uploads: Dict[str, tuple] = dataclasses.field(
+        default_factory=dict, compare=False, repr=False)
+
+    def device_triples(self, device: torch.device) -> tuple:
+        """``(triples (S*T, 4) int32, run_starts (R,) int32)`` on
+        ``device``, uploaded once per plan and device."""
+        key = str(torch.device(device))
+        cached = self._uploads.get(key)
+        if cached is None:
+            cached = (torch.tensor(self.triples.reshape(-1, 4), device=device),
+                      torch.tensor(self.run_starts, device=device))
+            self._uploads[key] = cached
+        return cached
+
+    @property
+    def scratch_index(self) -> int:
+        return self.n_groups * self.n_c_blocks
+
+    @property
+    def n_stacks(self) -> int:
+        return int(self.triples.shape[0])
+
+    @property
+    def stack_tile(self) -> int:
+        return int(self.triples.shape[1])
+
+    @property
+    def n_launches(self) -> int:
+        """smm kernel launches per execution: one, unless no run is valid."""
+        return 1 if self.run_starts.size else 0
+
+    @property
+    def n_entries(self) -> int:
+        return sum(p.n_entries for p in self.group_plans)
+
+    @property
+    def n_padding(self) -> int:
+        """Padding rows of the fused dispatch: per-group stack padding
+        PLUS the cross-group power-of-two shape padding."""
+        return self.n_stacks * self.stack_tile - self.n_entries
+
+    @property
+    def padding_frac(self) -> float:
+        total = self.n_stacks * self.stack_tile
+        return self.n_padding / total if total else 0.0
+
+    def stats(self) -> dict:
+        """Per-group padding and cross-request fusion accounting."""
+        flop_per_entry = 2 * self.block_m * self.block_k * self.block_n
+        return {
+            "n_groups": self.n_groups,
+            "n_shared_plans": self.n_shared_plans,
+            "n_entries": self.n_entries,
+            "n_stacks": self.n_stacks,
+            "stack_tile": self.stack_tile,
+            "n_padding": self.n_padding,
+            "padding_frac": self.padding_frac,
+            "padding_flops": self.n_padding * flop_per_entry,
+            "n_launches": self.n_launches,
+            "filter_eps": self.filter_eps,
+            "per_group": [{"n_entries": p.n_entries, "n_stacks": p.n_stacks,
+                           "occupancy": p.occupancy}
+                          for p in self.group_plans],
+        }
+
+
+# Fused plans memoized on the identities of their per-group plans (the
+# entry holds those plans, so their ids cannot be reused while it lives);
+# a repeated bucket then reuses the fused triples and their device upload.
+# Small bound: a dense bucket at 1,980^2 / block 22 holds 268 MB of triples.
+_BATCHED_PLAN_CACHE_SIZE = 8
+_BATCHED_PLANS: "collections.OrderedDict[tuple, BatchedExecutorPlan]" = \
+    collections.OrderedDict()
+
+
+def build_batched_executor_plan(
+    m: int,
+    k: int,
+    n: int,
+    block_m: int,
+    block_k: int,
+    block_n: int,
+    group_masks,
+    stack_size: int = STACK_SIZE,
+    filter_eps: Optional[float] = None,
+) -> BatchedExecutorPlan:
+    """Fuse one ``ExecutorPlan`` per group into a single group-offset
+    stack tensor (see ``BatchedExecutorPlan``).
+
+    ``group_masks`` is a sequence of per-group mask/norm kwargs dicts
+    (``a_mask`` / ``b_mask`` / ``pair_mask`` / ``a_norms`` / ``b_norms``
+    / ``pair_norms``; an empty dict means a dense group).  Per-group
+    plans are built with ``stack_bins=1``: within a batch the shape
+    binning happens ACROSS groups (the power-of-two padded fused shape),
+    not within one group's stack list.
+    """
+    group_masks = list(group_masks)
+    if not group_masks:
+        raise ValueError("batched plan needs at least one group")
+    plans = tuple(
+        build_executor_plan(m, k, n, block_m, block_k, block_n, stack_size,
+                            filter_eps=filter_eps, stack_bins=1, **gm)
+        for gm in group_masks)
+    key = (tuple(id(p) for p in plans),
+           None if filter_eps is None else float(filter_eps))
+    hit = _BATCHED_PLANS.get(key)
+    if hit is not None:
+        _BATCHED_PLANS.move_to_end(key)
+        return hit
+    plan = _fuse_group_plans(plans, filter_eps)
+    _BATCHED_PLANS[key] = plan
+    if len(_BATCHED_PLANS) > _BATCHED_PLAN_CACHE_SIZE:
+        _BATCHED_PLANS.popitem(last=False)
+    return plan
+
+
+def _fuse_group_plans(plans: Tuple[ExecutorPlan, ...],
+                      filter_eps: Optional[float]) -> BatchedExecutorPlan:
+    from ..kernels.smm.ops import stack_run_starts
+
+    g_total = len(plans)
+    base = plans[0]
+    n_a = base.nbr * base.nbk
+    n_b = base.nbk * base.nbc
+    n_c = base.n_c_blocks
+    n_shared = g_total - len({id(p) for p in plans})
+    views = [p.bin_triples[0] for p in plans]  # stack_bins=1: one bin
+    s_max = max(v.shape[0] for v in views)
+    t_max = max(v.shape[1] for v in views)
+    if s_max == 0:
+        fused = np.zeros((0, 1, 4), dtype=np.int32)
+    else:
+        s_pad, t_pad = _next_pow2(s_max), _next_pow2(t_max)
+        scratch = g_total * n_c
+        fused = np.zeros((g_total, s_pad, t_pad, 4), dtype=np.int32)
+        fused[..., 2] = scratch
+        for g, v in enumerate(views):
+            s, t = int(v.shape[0]), int(v.shape[1])
+            if not s:
+                continue
+            valid = v[:, :, 3] != 0
+            sub = fused[g, :s, :t]
+            sub[:, :, 0] = np.where(valid, v[:, :, 0] + g * n_a, 0)
+            sub[:, :, 1] = np.where(valid, v[:, :, 1] + g * n_b, 0)
+            sub[:, :, 2] = np.where(valid, v[:, :, 2] + g * n_c, scratch)
+            sub[:, :, 3] = v[:, :, 3]
+        fused = fused.reshape(g_total * s_pad, t_pad, 4)
+    run_starts = stack_run_starts(fused.reshape(-1, 4))
+    fused.setflags(write=False)
+    run_starts.setflags(write=False)
+    return BatchedExecutorPlan(
+        triples=fused,
+        run_starts=run_starts,
+        n_groups=g_total,
+        n_a_blocks=n_a,
+        n_b_blocks=n_b,
+        n_c_blocks=n_c,
+        block_m=base.block_m,
+        block_k=base.block_k,
+        block_n=base.block_n,
+        group_plans=plans,
+        n_shared_plans=n_shared,
+        filter_eps=filter_eps,
+    )
+
+
+def _run_fused(plan: BatchedExecutorPlan, a: torch.Tensor, b: torch.Tensor,
+               c: torch.Tensor, kernel: str) -> None:
+    """One launch of the fused triples on the flattened block arrays;
+    ``c`` holds ``n_groups * n_c_blocks + 1`` blocks, the last the
+    scratch block, and is updated in place."""
+    from ..kernels.grouped_gemm.ops import grouped_process_stack
+
+    triples, run_starts = plan.device_triples(c.device)
+    grouped_process_stack(a, b, c, triples, run_starts, kernel=kernel)
+
+
+def execute_batched_plan(
+    plan: BatchedExecutorPlan,
+    a_blocks: torch.Tensor,   # (n_groups, n_a_blocks, bm, bk)
+    b_blocks: torch.Tensor,   # (n_groups, n_b_blocks, bk, bn)
+    c_blocks: torch.Tensor,   # (n_groups, n_c_blocks, bm, bn)
+    *,
+    kernel: str = "smm",
+    align: bool = False,
+) -> torch.Tensor:
+    """Run every group's stacks in ONE smm launch and return the
+    accumulated ``(n_groups, n_c_blocks, bm, bn)`` C blocks (a new
+    tensor: the scratch block is appended and stripped;
+    ``batched_stack_executor`` allocates C with it instead).  ``align``
+    is the TPU's MXU-padding knob and is ignored.
+
+    Bit-identity with the per-group ``execute_plan`` loop: each C
+    block's k-run lives in exactly one stack of exactly one group, group
+    offsetting never reorders entries within a stack, and padding rows
+    only touch the global scratch block, so the per-block accumulation
+    order is identical to the looped dispatch.
+    """
+    if plan.n_stacks == 0:
+        return c_blocks
+    g = plan.n_groups
+    bm, bn = int(c_blocks.shape[-2]), int(c_blocks.shape[-1])
+    a = a_blocks.reshape((g * plan.n_a_blocks,) + tuple(a_blocks.shape[-2:]))
+    b = b_blocks.reshape((g * plan.n_b_blocks,) + tuple(b_blocks.shape[-2:]))
+    c = c_blocks.reshape((g * plan.n_c_blocks, bm, bn))
+    scratch = torch.zeros((1, bm, bn), dtype=c.dtype, device=c.device)
+    c = torch.cat([c, scratch], dim=0)
+    _run_fused(plan, a.contiguous(), b.contiguous(), c, kernel)
+    return c[:-1].reshape((g, plan.n_c_blocks, bm, bn))
+
+
+def batched_stack_executor(
+    n_groups: int,
+    m: int,
+    k: int,
+    n: int,
+    *,
+    block_m: int,
+    block_k: int,
+    block_n: int,
+    stack_size: Optional[int] = None,
+    align: Optional[bool] = None,
+    kernel: str = "smm",
+    group_masks=None,
+    filter_eps: Optional[float] = None,
+):
+    """Build the fused batched blocked local multiply
+    ``((G, m, k), (G, k, n)) -> (G, m, n)`` (f32).
+
+    The batched twin of ``stack_executor``: stack parameters are resolved
+    ONCE per batch from the mean group fill (requests in one bucket share
+    them by contract), the per-group plans go through the shared engine
+    memo, and the whole batch runs as one smm launch.  Stack splitting
+    never changes a block's accumulation order (runs are never split),
+    so differing stack parameters between this and a looped oracle
+    cannot break bit-identity.
+    """
+    from ..kernels.smm.autotune import best_params_for, has_winners
+
+    from .densify import from_blocks_batched, to_blocks_batched
+
+    if group_masks is None:
+        group_masks = [{}] * n_groups
+    group_masks = list(group_masks)
+    if len(group_masks) != n_groups:
+        raise ValueError(
+            f"{len(group_masks)} mask groups for {n_groups} groups")
+    nbr, nbk, nbc = m // block_m, k // block_k, n // block_n
+    fill = 1.0
+    if has_winners(block_m, block_k, block_n):
+        # the occupancy only picks the table's bin (see stack_executor)
+        fills = [
+            _mask_fill(nbr, nbk, nbc,
+                       gm.get("a_mask"), gm.get("b_mask"), gm.get("pair_mask"),
+                       gm.get("a_norms"), gm.get("b_norms"),
+                       gm.get("pair_norms"), filter_eps)
+            for gm in group_masks
+        ]
+        fill = sum(fills) / len(fills)
+    tuned_align, tuned_tile = best_params_for(block_m, block_k, block_n,
+                                              fill=fill)
+    if align is None:
+        align = tuned_align
+    if stack_size is None:
+        stack_size = tuned_tile
+    plan = build_batched_executor_plan(
+        m, k, n, block_m, block_k, block_n, group_masks,
+        stack_size=stack_size, filter_eps=filter_eps)
+
+    def f(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        if (tuple(a.shape) != (n_groups, m, k)
+                or tuple(b.shape) != (n_groups, k, n)):
+            raise ValueError(
+                f"batched executor built for ({n_groups},{m},{k}) x "
+                f"({n_groups},{k},{n}), got {tuple(a.shape)} x "
+                f"{tuple(b.shape)}")
+        a_blocks = to_blocks_batched(a, block_m, block_k).reshape(
+            n_groups * nbr * nbk, block_m, block_k)
+        b_blocks = to_blocks_batched(b, block_k, block_n).reshape(
+            n_groups * nbk * nbc, block_k, block_n)
+        # every group's C with the padding rows' scratch block appended
+        c = torch.zeros((n_groups * nbr * nbc + 1, block_m, block_n),
+                        dtype=torch.float32, device=a.device)
+        if plan.n_stacks:
+            _run_fused(plan, a_blocks, b_blocks, c, kernel)
+        return from_blocks_batched(
+            c[:-1].reshape(n_groups, nbr * nbc, block_m, block_n), nbr, nbc)
+
+    f.batched_plan = plan
+    f.align = align
+    f.stack_size = stack_size
+    f.n_groups = n_groups
     return f

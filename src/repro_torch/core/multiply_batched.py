@@ -1,0 +1,301 @@
+"""Product-batched distributed multiply: N block-sparse products, ONE
+fused dispatch.
+
+Many workloads (density-matrix purification over k-point batches,
+ensemble propagation, batched NEGF) issue many independent block-sparse
+products of the same block geometry.  Dispatching them one by one pays
+the per-product price N times: plan lookups, uploads and at least one
+kernel launch each, and on small products the host side dominates.
+
+``distributed_matmul_batched`` stacks the G operand pairs as
+``(G, m, k) @ (G, k, n)`` and runs ONE schedule over them:
+
+  * the data-exchange schedule (Cannon's shifts) is shape-agnostic over
+    a leading batch dimension, so the G products ride one permutation
+    sequence;
+  * the blocked local path fuses the per-group stack plans into one
+    group-offset triple tensor (core/engine.py ``BatchedExecutorPlan``)
+    run as ONE smm launch;
+  * the densified local path becomes one grouped GEMM
+    ``(G, ml, kl) @ (G, kl, nl)``: ``torch.bmm``, or the grouped_gemm
+    CUDA kernel with ``local_kernel="pallas"``.
+
+This slice ports ``algorithm="cannon"`` on a 1x1 mesh.  ``"summa"``, the
+other batch-capable algorithm, raises ``NotImplementedError`` naming
+ROADMAP Queue A3, and the planner (``algorithm="auto"``,
+``return_plan``) raises naming A5.
+
+Per-product occupancy masks and norms are accepted as sequences
+(``a_masks[g]`` etc.); the fused plan covers every group's present
+triples, and a data-exchange step is skipped only when it is empty for
+EVERY group.
+
+Bit-identity contract: at ``pipeline_depth=1`` (serial) with
+``filter_eps`` in {None, 0.0}, the blocked path of the fused batch is
+bit-identical to G sequential ``distributed_matmul`` calls: stack fusion
+never reorders any C block's k-run and padding rows only touch the
+global scratch block.  The densified path agrees to f32 rounding.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .blocking import GridSpec
+from .cannon import cannon_matmul, cannon_step_masks, cannon_step_norms
+from .densify import grouped_densified_local_matmul
+from .engine import batched_stack_executor
+from .multiply import _block_masks, _masks_empty
+
+__all__ = ["distributed_matmul_batched", "BATCHED_ALGORITHMS"]
+
+# the algorithms whose schedules are batch-shape-agnostic (the JAX
+# package keeps this tuple with its planner's cost model)
+BATCHED_ALGORITHMS = ("cannon", "summa")
+
+
+def _per_group(seq: Optional[Sequence], g: int, n_groups: int, name: str):
+    """Normalise an optional per-group sequence argument."""
+    if seq is None:
+        return None
+    if len(seq) != n_groups:
+        raise ValueError(f"{name} has {len(seq)} entries for {n_groups} "
+                         f"products")
+    return seq[g]
+
+
+def _stepwise_batched_lm(
+    n_groups: int, ml: int, kl: int, nl: int, *,
+    group_mask_steps: List[List[dict]],
+    filter_eps: Optional[float] = None,
+    **batched_kw,
+):
+    """A stepwise *batched* local multiply: one fused batched executor
+    per data-exchange step (``group_mask_steps[t][g]`` is group ``g``'s
+    mask/norm kwargs at step ``t``).  A step is empty, and skipped by the
+    schedule driver, only when every group's mask/norm product is empty
+    at that step; a group that alone is empty at a non-empty step
+    contributes zero stacks to the fused tensor."""
+    fns, empty = [], set()
+    for t, gms in enumerate(group_mask_steps):
+        if all(_masks_empty(dict(gm, filter_eps=filter_eps)) for gm in gms):
+            fns.append(None)
+            empty.add(t)
+        else:
+            fns.append(batched_stack_executor(
+                n_groups, ml, kl, nl, group_masks=gms,
+                filter_eps=filter_eps, **batched_kw))
+
+    def lm(a_loc: torch.Tensor, b_loc: torch.Tensor, step: int = 0):
+        f = fns[step]
+        return None if f is None else f(a_loc, b_loc)
+
+    lm.stepwise = True
+    lm.empty_steps = frozenset(empty)
+    lm.step_executors = fns
+    return lm
+
+
+def _collect_batched_executor_stats(lm, densify: bool) -> Optional[dict]:
+    """Aggregate the executed fused dispatch's padding and cross-request
+    fusion statistics (``None`` on the densified path)."""
+    if densify:
+        return None
+    if getattr(lm, "stepwise", False):
+        plans = [f.batched_plan for f in lm.step_executors if f is not None]
+        n_steps = len(lm.step_executors)
+    else:
+        plan = getattr(lm, "batched_plan", None)
+        plans = [] if plan is None else [plan]
+        n_steps = 1
+    if not plans:
+        return None
+    n_entries = sum(p.n_entries for p in plans)
+    n_padding = sum(p.n_padding for p in plans)
+    total = sum(p.n_stacks * p.stack_tile for p in plans)
+    return {
+        "n_groups": plans[0].n_groups,
+        "n_steps": n_steps,
+        "n_empty_steps": len(getattr(lm, "empty_steps", frozenset())),
+        "n_fused_dispatches": len(plans),
+        # groups whose per-step plan hit another group's memo entry: the
+        # cross-request plan-sharing win of bucketing by content
+        "n_shared_plans": sum(p.n_shared_plans for p in plans),
+        "n_entries": n_entries,
+        "n_padding": n_padding,
+        "padding_frac": n_padding / total if total else 0.0,
+        "per_step": [p.stats() for p in plans],
+    }
+
+
+def distributed_matmul_batched(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    mesh,
+    grid: GridSpec = GridSpec(),
+    algorithm: str = "auto",
+    densify: Optional[bool] = None,
+    block_m: int = 64,
+    block_k: int = 64,
+    block_n: int = 64,
+    stack_size: Optional[int] = None,
+    align: Optional[bool] = None,
+    local_kernel: Optional[str] = None,
+    a_masks: Optional[Sequence[Optional[np.ndarray]]] = None,
+    b_masks: Optional[Sequence[Optional[np.ndarray]]] = None,
+    a_norms: Optional[Sequence[Optional[np.ndarray]]] = None,
+    b_norms: Optional[Sequence[Optional[np.ndarray]]] = None,
+    filter_eps: Optional[float] = None,
+    pipeline_depth: Optional[int] = None,
+    double_buffer: Optional[bool] = None,
+    return_plan: bool = False,
+    **kw,
+) -> torch.Tensor:
+    """C[g] = A[g] @ B[g] for every product ``g`` of a fused batch.
+
+    ``a``: (G, M, K) and ``b``: (G, K, N) on the mesh's device.
+    ``algorithm="cannon"``; ``densify`` picks the local path as in
+    ``distributed_matmul`` (True or None: one grouped GEMM,
+    ``local_kernel="pallas"`` for the grouped_gemm kernel; False: one
+    fused smm launch, ``local_kernel="ref"`` for its plain version).
+
+    Per-product sparsity: ``a_masks`` / ``b_masks`` / ``a_norms`` /
+    ``b_norms`` are length-G sequences (entries may be None = dense);
+    ``filter_eps`` is shared by the whole batch (the batching service
+    buckets requests by eps).  When filtering without explicit norms they
+    are derived per product from the payloads.
+
+    ``return_plan`` needs the planner (ROADMAP Queue A5) and raises.
+    """
+    c, _ = _distributed_matmul_batched(
+        a, b, mesh=mesh, grid=grid, algorithm=algorithm, densify=densify,
+        block_m=block_m, block_k=block_k, block_n=block_n,
+        stack_size=stack_size, align=align, local_kernel=local_kernel,
+        a_masks=a_masks, b_masks=b_masks, a_norms=a_norms, b_norms=b_norms,
+        filter_eps=filter_eps, pipeline_depth=pipeline_depth,
+        double_buffer=double_buffer, return_plan=return_plan, **kw)
+    return c
+
+
+def _distributed_matmul_batched(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    mesh,
+    grid: GridSpec = GridSpec(),
+    algorithm: str = "auto",
+    densify: Optional[bool] = None,
+    block_m: int = 64,
+    block_k: int = 64,
+    block_n: int = 64,
+    stack_size: Optional[int] = None,
+    align: Optional[bool] = None,
+    local_kernel: Optional[str] = None,
+    a_masks: Optional[Sequence[Optional[np.ndarray]]] = None,
+    b_masks: Optional[Sequence[Optional[np.ndarray]]] = None,
+    a_norms: Optional[Sequence[Optional[np.ndarray]]] = None,
+    b_norms: Optional[Sequence[Optional[np.ndarray]]] = None,
+    filter_eps: Optional[float] = None,
+    pipeline_depth: Optional[int] = None,
+    double_buffer: Optional[bool] = None,
+    return_plan: bool = False,
+    **kw,
+) -> Tuple[torch.Tensor, Optional[dict]]:
+    """``distributed_matmul_batched`` returning ``(C, executor_stats)``:
+    the executed fused dispatch's padding and plan-sharing statistics
+    (None on the densified path), which ``dbcsr.multiply_batched``
+    reports per bucket."""
+    if a.ndim != 3 or b.ndim != 3:
+        raise ValueError(f"batched operands must be (G, M, K) x (G, K, N), "
+                         f"got {tuple(a.shape)} x {tuple(b.shape)}")
+    g_count, m, k = a.shape
+    gb, k2, n = b.shape
+    if gb != g_count or k != k2:
+        raise ValueError(f"batched operands disagree: {tuple(a.shape)} @ "
+                         f"{tuple(b.shape)}")
+    if g_count < 1:
+        raise ValueError("batched multiply needs at least one product")
+    if kw.get("bcast") == "gather":
+        raise ValueError("bcast='gather' is not supported for batched "
+                         "dispatch (the all-gathered full-K row would be "
+                         "replicated per product)")
+    if algorithm == "auto":
+        raise NotImplementedError(
+            "algorithm='auto' needs the planner: ROADMAP Queue A5; "
+            "pass algorithm='cannon'")
+    if return_plan:
+        raise NotImplementedError(
+            "return_plan needs the planner: ROADMAP Queue A5")
+    if algorithm not in BATCHED_ALGORITHMS:
+        raise ValueError(
+            f"batched dispatch supports {BATCHED_ALGORITHMS}, got "
+            f"{algorithm!r} (the tall-skinny / 2.5D schedules are not "
+            f"batch-shape-agnostic)")
+    if algorithm == "summa":
+        raise NotImplementedError(
+            "algorithm='summa' is not ported yet: ROADMAP Queue A3")
+
+    filtering = filter_eps is not None
+    if filtering and a_norms is None and b_norms is None:
+        from ..sparsity.norms import block_norms_of
+
+        a_norms = [block_norms_of(a[gi], block_m, block_k,
+                                  _per_group(a_masks, gi, g_count, "a_masks"))
+                   for gi in range(g_count)]
+        b_norms = [block_norms_of(b[gi], block_k, block_n,
+                                  _per_group(b_masks, gi, g_count, "b_masks"))
+                   for gi in range(g_count)]
+
+    if densify is None:
+        densify = True  # mirror distributed_matmul's fixed-algorithm default
+    pg = grid.validate_square(mesh)
+    if (m % pg or k % pg or n % pg) and not densify:
+        raise ValueError(f"shape ({m},{k},{n}) not divisible by grid side {pg}")
+    ml, kl, nl = m // pg, k // pg, n // pg
+
+    if densify:
+        lm = grouped_densified_local_matmul(kernel=local_kernel)
+    else:
+        batched_kw = dict(
+            block_m=block_m, block_k=block_k, block_n=block_n,
+            stack_size=stack_size, align=align,
+            kernel=local_kernel or "smm")
+        if a_masks is None and b_masks is None and not filtering:
+            lm = batched_stack_executor(g_count, ml, kl, nl, **batched_kw)
+        else:
+            per_group, per_group_n = [], []
+            for gi in range(g_count):
+                am, bmk = _block_masks(
+                    m, k, n, block_m, block_k, block_n,
+                    _per_group(a_masks, gi, g_count, "a_masks"),
+                    _per_group(b_masks, gi, g_count, "b_masks"))
+                per_group.append(cannon_step_masks(am, bmk, pg))
+                if filtering:
+                    from ..sparsity.norms import normalize_block_norms
+
+                    an_g, bn_g = normalize_block_norms(
+                        am.shape[0], am.shape[1], bmk.shape[1],
+                        _per_group(a_norms, gi, g_count, "a_norms"),
+                        _per_group(b_norms, gi, g_count, "b_norms"))
+                    # mask-absent blocks are forced to norm 0 so one
+                    # >= eps comparison folds both criteria
+                    an_g = np.where(am, an_g, np.float32(0.0))
+                    bn_g = np.where(bmk, bn_g, np.float32(0.0))
+                    per_group_n.append(cannon_step_norms(an_g, bn_g, pg))
+            steps = [[{"pair_mask": per_group[gi][t]}
+                      for gi in range(g_count)] for t in range(pg)]
+            if filtering:
+                for t in range(pg):
+                    for gi in range(g_count):
+                        steps[t][gi]["pair_norms"] = per_group_n[gi][t]
+            lm = _stepwise_batched_lm(
+                g_count, ml, kl, nl, group_mask_steps=steps,
+                filter_eps=filter_eps, **batched_kw)
+
+    c = cannon_matmul(a, b, mesh=mesh, grid=grid, local_matmul=lm,
+                      pipeline_depth=pipeline_depth,
+                      double_buffer=double_buffer, **kw)
+    return c, _collect_batched_executor_stats(lm, densify)

@@ -1,0 +1,42 @@
+// grouped_gemm: the batched densified path's grouped GEMM for Hopper
+// (sm_90a).
+//
+// Replaces: src/repro/kernels/grouped_gemm/grouped_gemm.py:_gg_kernel /
+// grouped_gemm_pallas.
+//
+// What it computes.  out (E, C, f) f32 = tokens (E, C, d) @ weights (E, d, f)
+// for every group e, all row-major and contiguous, tokens and weights both
+// f32 or both bf16 (converted to f32 on load), accumulated in IEEE f32 with
+// FMA: no TF32.  In the batched multiply, group e is product e of a fused
+// bucket: (G, ml, kl) @ (G, kl, nl).
+//
+// Design.  The Pallas kernel walks the grid (E, C/bc, f/bf, d/bk) with E
+// outermost and d innermost, all in order on one core, and carries a VMEM
+// f32 accumulator across the d steps; its wrapper pads C, d and f to tile
+// multiples.  Here every (group, C tile, f tile) is one thread block, with
+// blockIdx.z the group, and a K loop inside the block replaces the d axis:
+// the body is the port's shared register-tiled GEMM (gemm_tile.cuh, also
+// tiled_matmul.cu's), 128 x 128 C tiles of 8 x 8 register micro-tiles.
+// Ragged C, d and f edges are masked in the kernel, so the wrapper pads
+// nothing.
+//
+// What bounds it on the H100.  At the batched path's 16 x 1,980^3 the batch
+// is 2.48e11 flop on 753 MB: flop-bound, 3.71 ms at the 67 TFLOP/s f32
+// (non-tensor) peak of the SXM part against 0.22 ms of bytes at 3.35 TB/s.
+// Double-buffered loads and opt-in TF32/bf16 wgmma are later work.
+
+#include "gemm_tile.cuh"
+
+extern "C" {
+
+// dtype: 0 = float32, 1 = bfloat16 (tokens and weights); out is float32.
+int grouped_gemm_launch(const void* tokens, const void* weights, void* out,
+                        int E, int C, int F, int D, int dtype, void* stream) {
+  return gemm_tile::launch(tokens, weights, out, E, C, F, D, dtype, stream);
+}
+
+const char* grouped_gemm_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -10,11 +10,16 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import dbcsr
 from repro_torch.core.engine import build_executor_plan
+from repro_torch.kernels.grouped_gemm.ops import grouped_gemm
+from repro_torch.kernels.grouped_gemm.ref import grouped_gemm_ref
 from repro_torch.kernels.smm.ops import smm_process_stack
 from repro_torch.kernels.smm.ref import smm_process_stack_ref
 from repro_torch.kernels.tiled_matmul.ops import tiled_matmul
 from repro_torch.kernels.tiled_matmul.ref import tiled_matmul_ref
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.serve import MultiplyService
 
 pytestmark = pytest.mark.cuda
 
@@ -70,3 +75,45 @@ def test_tiled_matmul_kernel_matches_plain(cuda, shape, dtype):
     torch.cuda.synchronize()
     assert tiled_matmul.launches == before + 1
     assert _rel(out, tiled_matmul_ref(a, b)) <= 1e-5
+
+
+@pytest.mark.parametrize("shape", [(3, 200, 333, 130), (1, 1, 1, 1),
+                                   (2, 256, 512, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_gemm_kernel_matches_plain(cuda, shape, dtype):
+    e, c, d, f = shape
+    t = torch.randn(e, c, d, device=cuda).to(dtype)
+    w = torch.randn(e, d, f, device=cuda).to(dtype)
+    before = grouped_gemm.launches
+    out = grouped_gemm(t, w)
+    torch.cuda.synchronize()
+    assert grouped_gemm.launches == before + 1
+    assert _rel(out, grouped_gemm_ref(t, w)) <= 1e-5
+
+
+@pytest.mark.parametrize("densify,kernel,counter", [
+    (False, None, smm_process_stack), (True, "pallas", grouped_gemm)])
+def test_fused_service_bucket_launches_once(cuda, densify, kernel, counter):
+    mesh = make_mesh((1, 1), ("data", "model"))
+    reqs = [(dbcsr.create(torch.randn(88, 66), mesh=mesh, block_size=22),
+             dbcsr.create(torch.randn(66, 44), mesh=mesh, block_size=22))
+            for _ in range(4)]
+    svc = MultiplyService(mesh, fused=True, max_batch=4, algorithm="cannon",
+                          densify=densify, local_kernel=kernel,
+                          pipeline_depth=1)
+    smm0, gg0, tm0 = (smm_process_stack.launches, grouped_gemm.launches,
+                      tiled_matmul.launches)
+    tickets = [svc.submit(a, b) for a, b in reqs]
+    svc.flush()
+    out = [svc.result(t) for t in tickets]
+    torch.cuda.synchronize()
+    launched = {smm_process_stack: smm_process_stack.launches - smm0,
+                grouped_gemm: grouped_gemm.launches - gg0,
+                tiled_matmul: tiled_matmul.launches - tm0}
+    assert launched.pop(counter) == 1
+    assert set(launched.values()) == {0}
+    st = svc.stats()
+    assert st["n_fused_requests"] == 4
+    assert st["n_retries"] == st["n_degradations"] == st["n_error_tickets"] == 0
+    for c, (a, b) in zip(out, reqs):
+        assert _rel(c.data, torch.matmul(a.data, b.data)) <= 1e-5

@@ -34,7 +34,7 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 15
+    assert n_modules >= 34
 
 
 def test_mesh_defaults_to_cuda_and_never_falls_back():
