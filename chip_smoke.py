@@ -4,13 +4,18 @@
     python3 chip_smoke.py
 
 Phase 0  prints the card (nvidia-smi name and power limit) and builds
-         the three CUDA kernels from src/repro_torch/csrc, timing the
+         the four CUDA kernels from src/repro_torch/csrc, timing the
          build.
 Phase 1  holds each kernel against its plain PyTorch version on the card:
          smm at blocks 4, 22 and 64 (f32 and bf16), with a ragged final
          stack, valid == 0 rows and a masked plan of several size bins;
          tiled_matmul at a shape that is no tile multiple, f32 and bf16;
-         grouped_gemm at a ragged shape and at E = 1, f32 and bf16.
+         grouped_gemm at a ragged shape and at E = 1, f32 and bf16;
+         decode_attention at the four cases of the JAX package's kernel
+         test, a bf16 cache, and cur_len 0, 1 and S at the serve heads
+         with an S that is no multiple of the kernel's 64-row chunk, and
+         at head sizes 33 and 65 (the kernel's scalar body, taken where
+         Dh % 4 != 0), f32 and bf16.
 Phase 2  runs the main path, dbcsr.create -> dbcsr.multiply with
          algorithm="cannon" on a 1x1 mesh, at the size of one rank of
          the paper's 63,360^2 matrices on a 16x16 grid:
@@ -32,7 +37,13 @@ Phase 3  times each kernel at the shapes of (a), (b), (c) (both stack
          rate), the plain version (smm: stack by stack) and torch.matmul
          (torch.bmm for a batch) of the operands, which computes the same
          function for every timed plan (absent blocks are stored as
-         zeros).
+         zeros).  decode_attention at two shapes, bf16 caches, cur_len =
+         S, 8 KV heads of 6 query heads each, Dh 128:
+           (l) B=8, S=4,096: the serve case's cache when full
+           (m) B=16, S=32,768: decode_32k's context
+         beside its bound (K and V read once), its plain version and
+         torch's scaled_dot_product_attention (enable_gqa, a cur_len mask),
+         a yardstick that the port never calls.
 Phase 4  runs the serving path, MultiplyService(fused=True,
          algorithm="cannon") -> dbcsr.multiply_batched on a 1x1 mesh, at
          one rank of the paper's 63,360^2 matrices on a 32x32 grid
@@ -53,6 +64,33 @@ Phase 4  runs the serving path, MultiplyService(fused=True,
          bitwise, and stats() must show every request fused with no
          retry, degradation or error ticket.  It prints the host time of
          the first and the repeat flush against the looped dispatch.
+Phase 5  serves Qwen2-1.5B at full width (28 layers, d_model 1,536, 48
+         query and 8 KV heads after the config's head_pad_factor 4,
+         vocabulary 151,936) from seeded random weights through
+         prefill_step and decode_step:
+           (j) f32 (8.0 GB of weights), B=2: forward over 256 tokens
+               against prefill_step over 255 plus one decode step (last
+               position's logits), then 8 greedy decode steps with the
+               kernel against the same 8 with decode_attention's plain
+               version swapped in on the card: argmax and tokens equal,
+               logits within J_TOL of max|logits|.
+           (k) bf16, the config's dtype (4.0 GB of weights): 8 requests
+               of 2,048-token prompts (the blockwise prefill path), the
+               prefill caches padded into a max_len 4,096 cache, 32
+               greedy decode steps with the launch counters zeroed just
+               before and read just after (decode_attention exactly 28 per
+               step, nothing else); prefill ms, decode ms/token (median
+               of steps 2-32), tokens/s beside the per-step bounds of the
+               weight and KV bytes; finite logits, and the first step's
+               logits within K_TOL of the plain-version path, argmax
+               equal.  In that first step every layer's kernel output is
+               also held against the plain version on the same inputs.
+               Two controls bracket K_TOL: the plain path with layer 0's
+               attention output moved one bf16 step (the noise of a right
+               kernel) and with the cache's first 64-row chunk skipped in
+               every layer (a planted fault), which must exceed K_TOL.  A
+               profiler window of 4 more steps counts the kernels a step
+               launches and the device's busy share.
 
 Prints a {"kernels": [...]} line, the nvidia-smi line, and as its last
 line {"ok": true, "device": {...}}.  Any failed check raises, so the
@@ -61,6 +99,11 @@ script exits nonzero before that line.  Without CUDA it exits 1 at once.
 Tolerances.  Kernel vs plain and port vs torch.matmul are both f32 sums
 of the same products in different orders; errors are held to 1e-5 of
 max|C| (bf16 inputs are exact in f32, so the same bound holds).
+decode_attention: 2e-4 (rtol and atol, the JAX package's kernel test) in
+f32; with bf16 q and caches its bf16 output may lie one bf16 step from
+the plain version's f32 output rounded to bf16, which ``bf16_worst``
+allows and no more.  Phase 5: J_TOL and K_TOL below, each stated beside the value
+observed.
 """
 from __future__ import annotations
 
@@ -74,6 +117,22 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 REL_TOL = 1e-5
 SEED = 0
+DA_TOL = 2e-4        # decode_attention vs plain, f32 (rtol and atol)
+# phase 5: max |logits - reference| / max |reference|.  f32 (j): the same
+# model computed along two paths (full causal attention vs the cache and
+# the decode kernel; kernel vs plain decode), observed 4.0e-5 and 6.9e-5
+# on an H100: f32 rounding, amplified by the JAX package's init rule
+# (std 1/sqrt(layers) on every stacked weight), which gives attention
+# scores of size ~50.  bf16 (k): both paths keep the softmax weights in
+# f32 and differ only in summation order, but an output that rounds to
+# the neighbouring bf16 value in one layer moves the next layers' scores,
+# and 28 layers carry it to the logits: observed 5.0e-2 (argmax equal).
+# Its controls on an H100: the plain path with layer 0's output one bf16
+# step up, 7.9e-2 (one argmax moved); with the first 64-row chunk skipped
+# in every layer, 1.05.  K_TOL lies between them; the tight check of the
+# kernel on (k)'s inputs is the per-layer one (one bf16 step).
+J_TOL = 3e-4
+K_TOL = 1e-1
 
 
 def card_line() -> str:
@@ -94,6 +153,8 @@ def peaks(name: str):
 
 
 def rel_err(x, ref) -> float:
+    """max |x - ref| / max |ref|, in float32."""
+    x, ref = x.float(), ref.float()
     scale = float(ref.abs().max())
     return float((x - ref).abs().max()) / (scale if scale else 1.0)
 
@@ -106,7 +167,28 @@ def check_close(what: str, x, ref, tol: float = REL_TOL) -> float:
     return float((x - ref).abs().max())
 
 
-def time_ms(fn, reps: int, setup=None) -> float:
+def bf16_worst(out, ref) -> float:
+    """How far a bf16 output lies from the plain version's f32 one, rounded
+    to bf16, in units of the slack a right kernel needs: one bf16 step at
+    the element (f32 values that differ only by summation order round to
+    the same or to neighbouring bf16 values) plus 2**-16 max|ref| for that
+    f32 difference itself, which matters only where an output cancels to
+    near zero.  A right kernel stays at or below 1."""
+    import torch
+
+    out, ref = out.float(), ref.float()
+    rounded = ref.to(torch.bfloat16).float()
+    big = torch.maximum(out.abs(), rounded.abs())
+    # bf16 values in [2**(e-1), 2**e) are 2**(e-8) apart
+    step = torch.ldexp(torch.ones_like(big), torch.frexp(big).exponent - 8)
+    tol = step + 2.0 ** -16 * float(ref.abs().max())
+    return float(((out - rounded).abs() / tol).max())
+
+
+def time_ms(fn, reps: int, setup=None, inner: int = 1) -> float:
+    """Median over ``reps`` CUDA-event windows of ``inner`` back-to-back
+    calls, per call.  With inner > 1 the host's work for one call overlaps
+    the card's work for the one before."""
     import torch
 
     fn()  # warm-up
@@ -118,11 +200,265 @@ def time_ms(fn, reps: int, setup=None) -> float:
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         stop.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(stop))
+        times.append(start.elapsed_time(stop) / inner)
     return statistics.median(times)
+
+
+def serve_lm(dev, zero_counters, read_counters, decode_attention,
+             decode_attention_ref, hbm_rate) -> dict:
+    """Phase 5: serve Qwen2-1.5B at full width; returns the decode
+    kernel's main-path numbers for the kernels line."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import attention as attention_mod
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.serve import engine
+    from repro_torch.serve.prefill import prefill_step
+
+    model_decode = attention_mod.decode_attention   # the kernel's caller
+
+    def plain_f32(q, k_cache, v_cache, cur_len, scale):
+        b, _, h, dh = q.shape
+        qg = q.reshape(b, k_cache.shape[2], -1, dh)
+        out = decode_attention_ref(qg, k_cache, v_cache, cur_len, scale)
+        return out.reshape(b, 1, h, dh)
+
+    def plain_decode(q, k_cache, v_cache, cur_len, *, scale):
+        return plain_f32(q, k_cache, v_cache, cur_len, scale).to(q.dtype)
+
+    def swapped(fn, *args, attn=plain_decode, launches=0):
+        """fn(*args) with the model's decode attention replaced by
+        ``attn`` (default: the plain version), which must launch the
+        kernel ``launches`` times."""
+        before = decode_attention.launches
+        attention_mod.decode_attention = attn
+        try:
+            return fn(*args)
+        finally:
+            attention_mod.decode_attention = model_decode
+            if decode_attention.launches - before != launches:
+                raise AssertionError(
+                    f"{attn.__name__} launched the kernel "
+                    f"{decode_attention.launches - before} times")
+
+    def step_logits(params, cfg, tok, cache, cur):
+        """decode_step's forward: (B, V) logits of one step; the cache is
+        written in place."""
+        return T.forward(params, tok, cfg, cache=cache, cur_len=cur)[0][:, -1]
+
+    def clone(tree):
+        return tree_map(lambda t: t.clone(), tree)
+
+    def sync_time(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    base = get_config("qwen2_1_5b")
+    gen = torch.Generator(device=dev)
+
+    # ------------------------------------------------------------ (j)
+    cfg = dataclasses.replace(base, dtype="float32")
+    print(f"phase 5 (j): {cfg.name} full width in f32, B=2")
+    params = T.model_init(cfg, gen.manual_seed(SEED), device=dev)
+    n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    print(f"  weights {n_bytes / 1e9:.2f} GB, {cfg.num_layers} layers")
+    seq = torch.randint(0, cfg.vocab_size, (2, 256), generator=gen,
+                        dtype=torch.int32, device=dev)
+    full = T.forward(params, seq, cfg)[0]
+    want_next, want_last = full[:, 254].argmax(-1), full[:, -1].clone()
+    del full
+    tok, pcache, cur = prefill_step(params, seq[:, :255], cfg)
+    if not torch.equal(tok[:, 0], want_next.int()):
+        raise AssertionError("(j) prefill's next token != forward's argmax")
+    cache = engine.pad_cache(pcache, cfg, 2, 272)
+    del pcache
+    last = step_logits(params, cfg, seq[:, 255:], cache, cur)
+    err = rel_err(last, want_last)
+    same = torch.equal(last.argmax(-1), want_last.argmax(-1))
+    print(f"  forward(256) vs prefill(255) + decode: max err / max|logits| "
+          f"{err:.3e} (tolerance {J_TOL:g}), argmax equal {same}")
+    if not (err <= J_TOL and same):
+        raise AssertionError("(j) prefill + decode != forward")
+    tok0, cur = last.argmax(-1, keepdim=True).int(), cur + 1
+
+    def greedy(cache, steps=8):
+        tok, c, toks, logits = tok0, cur, [], []
+        for _ in range(steps):
+            lg = step_logits(params, cfg, tok, cache, c)
+            tok, c = lg.argmax(-1, keepdim=True).int(), c + 1
+            toks.append(tok)
+            logits.append(lg)
+        return torch.cat(toks, 1), logits
+
+    cache_plain = clone(cache)
+    toks_k, logits_k = greedy(cache)
+    toks_p, logits_p = swapped(greedy, cache_plain)
+    errs = [rel_err(a, b) for a, b in zip(logits_k, logits_p)]
+    print(f"  8 decode steps, kernel vs plain decode_attention: tokens equal "
+          f"{torch.equal(toks_k, toks_p)}, max err / max|logits| "
+          f"{max(errs):.3e} (tolerance {J_TOL:g})")
+    if not (torch.equal(toks_k, toks_p) and max(errs) <= J_TOL):
+        raise AssertionError("(j) kernel decode != plain decode")
+    del params, cache, cache_plain, logits_k, logits_p
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------ (k)
+    cfg = base
+    B, S, MAX_LEN, STEPS = 8, 2048, 4096, 32
+    print(f"phase 5 (k): {cfg.name} full width in {cfg.dtype}, {B} requests "
+          f"of {S} tokens, max_len {MAX_LEN}, {STEPS} greedy tokens")
+    params = T.model_init(cfg, gen.manual_seed(SEED), device=dev)
+    w_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                            dtype=torch.int32, device=dev)
+    prefill_step(params, prompts[:1, :64], cfg)          # warm-up
+    (tok, pcache, cur), prefill_s = sync_time(
+        lambda: prefill_step(params, prompts, cfg))
+    cache = engine.pad_cache(pcache, cfg, B, MAX_LEN)
+    del pcache
+    kv_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(cache))
+    print(f"  weights {w_bytes / 1e9:.2f} GB, KV cache {kv_bytes / 1e9:.2f} GB; "
+          f"prefill {1e3 * prefill_s:.1f} ms "
+          f"({B * S / prefill_s:.0f} prompt tokens/s)")
+
+    # first step along several paths; each writes its own K and V at
+    # cur_len before reading the cache, so every path is self-consistent
+    def faulty(q, k_cache, v_cache, cur_len, *, scale):
+        """the plain version, blind to the cache's first 64-row chunk"""
+        return plain_decode(q, k_cache[:, 64:], v_cache[:, 64:],
+                            cur_len - 64, scale=scale)
+
+    layer_worst, layer_fault = [], []
+
+    def checked(q, k_cache, v_cache, cur_len, *, scale):
+        """the kernel, held against the plain version on the same inputs,
+        beside the planted fault on them"""
+        out = model_decode(q, k_cache, v_cache, cur_len, scale=scale)
+        ref = plain_f32(q, k_cache, v_cache, cur_len, scale)
+        layer_worst.append(bf16_worst(out, ref))
+        layer_fault.append(bf16_worst(
+            faulty(q, k_cache, v_cache, cur_len, scale=scale), ref))
+        return out
+
+    calls = [0]
+
+    def nudged(q, k_cache, v_cache, cur_len, *, scale):
+        """the plain version, layer 0's output one bf16 step up"""
+        out = plain_decode(q, k_cache, v_cache, cur_len, scale=scale)
+        calls[0] += 1
+        if calls[0] == 1 and out.dtype == torch.bfloat16:
+            out = (out.view(torch.int16) + 1).view(torch.bfloat16)
+        return out
+
+    first_p = swapped(step_logits, params, cfg, tok, cache, cur)
+    first_k = swapped(step_logits, params, cfg, tok, cache, cur, attn=checked,
+                      launches=cfg.num_layers)
+    first_n = swapped(step_logits, params, cfg, tok, cache, cur, attn=nudged)
+    first_f = swapped(step_logits, params, cfg, tok, cache, cur, attn=faulty)
+    err_k, err_n, err_f = (rel_err(x, first_p)
+                           for x in (first_k, first_n, first_f))
+    same = torch.equal(first_k.argmax(-1), first_p.argmax(-1))
+    print(f"  first decode step, each layer's kernel output vs plain on the "
+          f"same inputs: worst / one bf16 step {max(layer_worst):.3f} "
+          f"over {len(layer_worst)} layers; first chunk skipped "
+          f"{min(layer_fault):.3g} to {max(layer_fault):.3g}")
+    print(f"  first decode step vs the plain path, max err / max|logits|: "
+          f"kernel {err_k:.3e} (tolerance {K_TOL:g}), argmax equal {same}; "
+          f"controls: layer 0 one bf16 step up {err_n:.3e} (argmax equal "
+          f"{torch.equal(first_n.argmax(-1), first_p.argmax(-1))}), first "
+          f"chunk skipped {err_f:.3e}")
+    if not (len(layer_worst) == cfg.num_layers and max(layer_worst) <= 1.0):
+        raise AssertionError("(k) a layer's kernel output is off its plain "
+                             "version")
+    if not max(layer_fault) > 1.0:
+        raise AssertionError("(k) the per-layer check cannot see a skipped "
+                             "chunk")
+    if not (bool(torch.isfinite(first_k).all()) and err_k <= K_TOL and same):
+        raise AssertionError("(k) first-step logits off the plain path")
+    if not err_f > K_TOL:
+        raise AssertionError("(k) K_TOL cannot tell a skipped chunk from "
+                             "the plain path")
+    del first_p, first_k, first_n, first_f
+
+    state = {"cache": cache, "cur_len": cur}
+    zero_counters()
+    step_s, toks = [], [tok]
+    for _ in range(STEPS):
+        (tok, state), dt = sync_time(
+            lambda: engine.decode_step(params, state, tok, cfg))
+        step_s.append(dt)
+        toks.append(tok)
+    got = read_counters()
+    want = {key: 0 for key in got}
+    want["decode_attention"] = cfg.num_layers * STEPS
+    print(f"  launches over {STEPS} decode steps: {got}")
+    if got != want:
+        raise AssertionError(f"(k) launches {got}, expected {want}")
+    toks = torch.cat(toks, 1)
+    if toks.shape != (B, STEPS + 1) or int(state["cur_len"][0]) != S + STEPS:
+        raise AssertionError("(k) wrong token or cache length")
+    final = step_logits(params, cfg, tok, state["cache"], state["cur_len"])
+    if not bool(torch.isfinite(final).all()):
+        raise AssertionError("(k) non-finite logits")
+    step = statistics.median(step_s[1:])
+    cur_mid = S + STEPS // 2
+    kv_valid = kv_bytes * cur_mid / MAX_LEN
+    print(f"  decode: {1e3 * step:.3f} ms/token (median of steps 2-{STEPS}; "
+          f"first {1e3 * step_s[0]:.3f} ms), {B / step:.1f} tokens/s; "
+          f"bounds per step: weights {1e3 * w_bytes / hbm_rate:.3f} ms, KV "
+          f"rows < cur_len {1e3 * kv_valid / hbm_rate:.3f} ms (the kernel "
+          f"reads all {MAX_LEN}: {1e3 * kv_bytes / hbm_rate:.3f} ms)")
+
+    busy = profile_steps(params, cfg, engine, state, tok)
+    return {"serve": {
+        "prefill_ms": 1e3 * prefill_s, "decode_ms_per_token": 1e3 * step,
+        "tokens_per_s": B / step, "weight_bound_ms": 1e3 * w_bytes / hbm_rate,
+        "kv_bound_ms": 1e3 * kv_valid / hbm_rate, "profile": busy}}
+
+
+def profile_steps(params, cfg, engine, state, tok, steps=4) -> dict:
+    """Kernels per decode step and the device's busy share over a window
+    of ``steps`` steps, from torch.profiler; {} if the profiler records
+    no device activity here."""
+    import torch
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(steps):
+            tok, state = engine.decode_step(params, state, tok, cfg)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t)
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        print("  profiler: no device activity recorded (busy share not "
+              "measured)")
+        return {}
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:          # union of the kernels' intervals
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    out = {"kernels_per_step": len(spans) / steps,
+           "busy_share": busy / wall_us, "wall_ms_per_step": wall_us / steps / 1e3}
+    print(f"  profiler, {steps} steps: {out['kernels_per_step']:.0f} kernels "
+          f"per step, device busy {100 * out['busy_share']:.1f} % of "
+          f"{out['wall_ms_per_step']:.3f} ms per step")
+    return out
 
 
 def main() -> int:
@@ -140,6 +476,8 @@ def main() -> int:
     from repro_torch.core.engine import (build_batched_executor_plan,
                                          build_executor_plan)
     from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     from repro_torch.kernels.grouped_gemm.ops import (grouped_gemm,
                                                       grouped_process_stack)
     from repro_torch.kernels.grouped_gemm.ref import grouped_gemm_ref
@@ -158,7 +496,9 @@ def main() -> int:
     card = card_line()
     rng = np.random.RandomState(SEED)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    err_abs = {"smm": 0.0, "tiled_matmul": 0.0, "grouped_gemm": 0.0}
+    err_abs = {"smm": 0.0, "tiled_matmul": 0.0, "grouped_gemm": 0.0,
+               "decode_attention": 0.0}
+    err_bf16_out = 0.0   # decode_attention's bf16 outputs (rounded)
 
     # ---------------------------------------------------------- phase 0
     print("phase 0: card and build")
@@ -237,11 +577,56 @@ def main() -> int:
             err_abs["grouped_gemm"] = max(err_abs["grouped_gemm"], check_close(
                 f"grouped_gemm {e}x{m}x{k}x{n} {str(dtype)[6:]}", out, ref))
 
+    def decode_inputs(b, hkv, r, dh, s, dtype):
+        q = torch.randn((b, 1, hkv * r, dh), generator=gen, device=dev)
+        k = torch.randn((b, s, hkv, dh), generator=gen, device=dev)
+        v = torch.randn((b, s, hkv, dh), generator=gen, device=dev)
+        return q.to(dtype), k.to(dtype), v.to(dtype)
+
+    def decode_case(b, hkv, r, dh, s, cur, dtype):
+        nonlocal err_bf16_out
+        q, k, v = decode_inputs(b, hkv, r, dh, s, dtype)
+        cur_len = torch.tensor([cur], dtype=torch.int32, device=dev)
+        out = decode_attention(q, k, v, cur_len).float().reshape(b, hkv, r, dh)
+        ref = decode_attention_ref(q.reshape(b, hkv, r, dh), k, v, cur_len)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        if dtype == torch.float32:
+            worst = float(((out - ref).abs() / (DA_TOL + DA_TOL * ref.abs()))
+                          .max())
+        else:
+            worst = bf16_worst(out, ref)
+        print(f"  decode_attention B={b} Hkv={hkv} R={r} Dh={dh} S={s} "
+              f"cur_len={cur} {str(dtype)[6:]}: max abs err {err:.3e} "
+              f"(worst / tolerance {worst:.3f})")
+        if not worst <= 1.0:
+            raise AssertionError("decode_attention disagrees with its plain "
+                                 "version")
+        if dtype == torch.float32:
+            err_abs["decode_attention"] = max(err_abs["decode_attention"], err)
+        else:
+            err_bf16_out = max(err_bf16_out, err)
+
+    # the JAX package's kernel test cases (B, Hkv, R, Dh, S, cur_len)
+    for case in ((2, 2, 4, 64, 256, 200), (1, 1, 8, 128, 512, 512),
+                 (2, 4, 1, 64, 128, 7), (1, 2, 6, 32, 384, 100)):
+        decode_case(*case, torch.float32)
+    decode_case(1, 2, 4, 64, 256, 250, torch.bfloat16)
+    for cur in (0, 1, 1000):   # the serve heads, S = 1,000 = 15 chunks + 40
+        for dtype in (torch.float32, torch.bfloat16):
+            decode_case(2, 8, 6, 128, 1000, cur, dtype)
+    # Dh % 4 != 0: the kernel's scalar body, ragged S
+    for case in ((1, 2, 3, 33, 130, 70), (2, 2, 6, 65, 200, 200),
+                 (1, 1, 4, 33, 70, 0)):
+        for dtype in (torch.float32, torch.bfloat16):
+            decode_case(*case, dtype)
+
     # ---------------------------------------------------------- phase 2
     print("phase 2: dbcsr.create -> dbcsr.multiply on a 1x1 mesh")
     mesh = make_mesh((1, 1), ("data", "model"))
     counters = {"smm": smm_process_stack, "tiled_matmul": tiled_matmul,
-                "grouped_gemm": grouped_gemm}
+                "grouped_gemm": grouped_gemm,
+                "decode_attention": decode_attention}
     launches = {key: 0 for key in counters}
 
     def zero_counters():
@@ -521,6 +906,44 @@ def main() -> int:
     grouped_rows = [report("grouped_gemm", f"{G} x {NB}^3 f32", ms, plain_ms,
                            library_ms, 2.0 * G * NB ** 3,
                            4 * 3 * G * NB ** 2, 1)]
+    del a_stack, b_stack
+
+    def decode_times(label, b, s, hkv=8, r=6, dh=128):
+        nonlocal err_bf16_out
+        q, k, v = decode_inputs(b, hkv, r, dh, s, torch.bfloat16)
+        cur_len = torch.tensor([s], dtype=torch.int32, device=dev)
+        qg = q.reshape(b, hkv, r, dh)
+        ms = time_ms(lambda: decode_attention(q, k, v, cur_len), 20, inner=10)
+        plain_ms = time_ms(lambda: decode_attention_ref(qg, k, v, cur_len), 5)
+        out = decode_attention(q, k, v, cur_len).float().reshape(qg.shape)
+        ref = decode_attention_ref(qg, k, v, cur_len)
+        err = float((out - ref).abs().max())
+        worst = bf16_worst(out, ref)
+        if not worst <= 1.0:
+            raise AssertionError(f"decode_attention {label} disagrees with "
+                                 f"its plain version ({err:.3e}, worst / one "
+                                 f"bf16 step {worst:.3f})")
+        err_bf16_out = max(err_bf16_out, err)
+        del out, ref
+        # the yardstick: one PyTorch call of the same function
+        mask = (torch.arange(s, device=dev) < cur_len).reshape(1, 1, 1, s)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        library_ms = time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True), 5, inner=10)
+        h = hkv * r
+        # each input read once (q, K, V, cur_len), the bf16 output written
+        # once; QK^T and PV: 2 flop per multiply-add
+        nbytes = 2 * (b * h * dh + 2 * b * s * hkv * dh + b * h * dh) + 4
+        flops = 4.0 * b * h * s * dh
+        print(f"  decode_attention {label}: B={b}, S={s}, Hkv={hkv}, R={r}, "
+              f"Dh={dh}, bf16, cur_len=S; max abs err vs plain {err:.3e} "
+              f"(worst / one bf16 step {worst:.3f})")
+        return report("decode_attention", label, ms, plain_ms, library_ms,
+                      flops, nbytes, 1)
+
+    decode_rows = [decode_times("(l) B=8 S=4096", 8, 4096),
+                   decode_times("(m) B=16 S=32768", 16, 32768)]
 
     # ---------------------------------------------------------- phase 4
     print("phase 4: MultiplyService -> dbcsr.multiply_batched, "
@@ -592,7 +1015,8 @@ def main() -> int:
                 raise AssertionError(f"{label} request {i}: masks differ")
         print(f"  {label}: fused == looped bitwise, masks equal")
 
-    none = {"smm": 0, "tiled_matmul": 0, "grouped_gemm": 0}
+    none = {"smm": 0, "tiled_matmul": 0, "grouped_gemm": 0,
+            "decode_attention": 0}
     out, looped = serve("(f) 16 dense, blocked", dense_reqs,
                         dict(none, smm=1), 1, densify=False)
     against_matmul("(f)", out, dense_reqs)
@@ -659,6 +1083,12 @@ def main() -> int:
     against_matmul("(i)", out, dense_reqs)
     del out
 
+    del dense_reqs, sparse_reqs, mixed, A, B, Am, A64, B64, exact
+    torch.cuda.empty_cache()
+    decode_rows[0].update(serve_lm(dev, zero_counters, read_counters,
+                                   decode_attention, decode_attention_ref,
+                                   hbm_rate))
+
     for key, n in launches.items():
         if n < 1:
             raise AssertionError(f"the main path never launched {key}")
@@ -670,7 +1100,10 @@ def main() -> int:
              "src/repro/kernels/tiled_matmul/tiled_matmul.py:26", tiled_rows),
             ("grouped_gemm", "src/repro_torch/csrc/grouped_gemm.cu",
              "src/repro/kernels/grouped_gemm/grouped_gemm.py:27",
-             grouped_rows)):
+             grouped_rows),
+            ("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
+             "src/repro/kernels/decode_attention/decode_attention.py:30",
+             decode_rows)):
         main = rows[0]
         kernels.append({
             "name": kname, "route": "cuda", "source": src,
@@ -679,6 +1112,7 @@ def main() -> int:
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
             "shape": main["shape"], "by_shape": rows})
+    kernels[-1]["max_abs_err_bf16_out"] = err_bf16_out
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -9,12 +9,18 @@ and mirrors its layout:
                             the Cannon schedule, distributed_matmul,
                             distributed_matmul_batched and DBCSRMatrix
                             (dbcsr, with multiply_batched)
-    repro_torch.kernels     CUDA kernels (smm, tiled_matmul, grouped_gemm),
-                            each with a plain PyTorch version and a launch
-                            counter
+    repro_torch.kernels     CUDA kernels (smm, tiled_matmul, grouped_gemm,
+                            decode_attention), each with a plain PyTorch
+                            version and a launch counter
     repro_torch.sparsity    block norms and the filter_eps predicates
+    repro_torch.configs     the LM zoo's model configurations (copied)
+    repro_torch.models      dense-attention LMs: params, norms, RoPE,
+                            attention, FFN, segments, caches, forward,
+                            carry-over of the JAX package's weights
     repro_torch.serve       MultiplyService, continuous batching of
-                            multiply requests
+                            multiply requests; LM prefill_step and
+                            decode_step
+    repro_torch.examples    runnable examples (serve_decode)
     repro_torch.robustness  error taxonomy, NaN/Inf tripwires, request
                             validation
     repro_torch.obs         the metrics registry
@@ -22,7 +28,7 @@ and mirrors its layout:
 
 It imports torch and numpy, never jax and never ``repro``.  Entry points
 run on the CUDA device unless the caller asks for the CPU
-(``make_mesh(..., device="cpu")``).
+(``make_mesh(..., device="cpu")``, ``model_init(..., device="cpu")``).
 """
 
 __version__ = "0.1.0"

@@ -7,6 +7,8 @@ kernel of the JAX package's Pallas set:
     grouped_gemm/ the batched densified path's grouped GEMM, plus the
                   one-launch fused stack processor of the batched
                   blocked path
+    decode_attention/ single-token GQA attention over the KV cache, the
+                  LM decode step's attention
 
 Each package: ops.py (the wrapper: checks, launch, launch counter),
 ref.py (the plain PyTorch version the wrapper takes for CPU tensors).

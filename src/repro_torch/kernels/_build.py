@@ -29,7 +29,7 @@ __all__ = ["SOURCES", "build", "check", "error_string", "library_path",
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("smm", "tiled_matmul", "grouped_gemm")
+SOURCES = ("smm", "tiled_matmul", "grouped_gemm", "decode_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

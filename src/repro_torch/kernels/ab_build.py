@@ -2,16 +2,21 @@
 card: the A/B check for a change to a kernel's source.
 
     python -m repro_torch.kernels.ab_build --base DIR [--change DIR2]
+        [--kernel tiled_matmul|decode_attention]
 
 ``DIR`` is another checkout of the repository (for example the parent
 commit, unpacked with ``git archive``), ``DIR2`` the tree under test
-(default: this checkout).  Both trees' ``tiled_matmul.cu`` are
-compiled with the build's flags, both libraries are loaded with
-``ctypes``, and the same f32 operands of the densified path's 3,960^3 are
-multiplied by each in the order base, change, change, base (median of
-20 CUDA-event timings after a warm-up, per turn).  It prints one JSON line with the
-card, each turn's time and whether the two results are bitwise equal,
-and exits nonzero without CUDA.
+(default: this checkout).  Both trees' ``csrc/<kernel>.cu`` are compiled
+with the build's flags, both libraries are loaded with ``ctypes``, and
+the same operands go through each in the order base, change, change,
+base (median of 20 CUDA-event timings after a warm-up, per turn):
+
+  tiled_matmul      the densified path's f32 3,960^3
+  decode_attention  the serve case's full cache, bf16: B=8, S=4,096,
+                    8 KV heads of 6 query heads, Dh=128, cur_len=S
+
+It prints one JSON line with the card, each turn's time and whether the
+two results are bitwise equal, and exits nonzero without CUDA.
 """
 from __future__ import annotations
 
@@ -25,17 +30,50 @@ from pathlib import Path
 
 from . import _build
 
-SIZE = 3960  # the densified path's local GEMM (PERF.md case (d))
 REPS = 20
 
 
-def _load(src: Path, out: Path):
+def _load(src: Path, out: Path, kernel: str, argtypes):
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
                     str(src)], check=True)
-    fn = ctypes.CDLL(str(out)).tiled_matmul_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn = getattr(ctypes.CDLL(str(out)), f"{kernel}_launch")
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
+
+
+# Each entry makes the operands of one kernel and returns (argtypes, the
+# launch arguments before the output pointer, the output, the arguments
+# after it, a label of the shape, the operand tensors to keep alive).
+
+
+def _tiled_matmul(dev, gen):
+    import torch
+
+    n = 3960
+    a = torch.randn((n, n), generator=gen, device=dev)
+    b = torch.randn((n, n), generator=gen, device=dev)
+    argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    return (argtypes, (a.data_ptr(), b.data_ptr()), torch.empty((n, n), device=dev),
+            (n, n, n, 0), f"{n}^3 f32", (a, b))
+
+
+def _decode_attention(dev, gen):
+    import torch
+
+    b, s, hkv, r, dh = 8, 4096, 8, 6, 128
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+               for shape in ((b, hkv, r, dh), (b, s, hkv, dh), (b, s, hkv, dh)))
+    cur = torch.tensor([s], dtype=torch.int32, device=dev)
+    argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 \
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    return (argtypes, (q.data_ptr(), k.data_ptr(), v.data_ptr(), cur.data_ptr()),
+            torch.empty((b, hkv, r, dh), device=dev),
+            (b, s, hkv, r, dh, dh ** -0.5, 1, 1),
+            f"B={b} S={s} Hkv={hkv} R={r} Dh={dh} bf16", (q, k, v, cur))
+
+
+KERNELS = {"tiled_matmul": _tiled_matmul, "decode_attention": _decode_attention}
 
 
 def main(argv=None) -> int:
@@ -45,25 +83,24 @@ def main(argv=None) -> int:
     p.add_argument("--base", required=True, type=Path)
     p.add_argument("--change", type=Path,
                    default=Path(__file__).resolve().parents[3])
+    p.add_argument("--kernel", choices=sorted(KERNELS), default="tiled_matmul")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("ab_build: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    rel = Path("src/repro_torch/csrc/tiled_matmul.cu")
-    fns = {tag: _load(root / rel, _build.BUILD_DIR / f"ab_{tag}.so")
-           for tag, root in (("base", args.base), ("change", args.change))}
-    n = SIZE
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
-    a = torch.randn((n, n), generator=gen, device=dev)
-    b = torch.randn((n, n), generator=gen, device=dev)
-    outs = {tag: torch.empty((n, n), device=dev) for tag in fns}
+    argtypes, before, out, after, shape, _keep = KERNELS[args.kernel](dev, gen)
+    rel = Path(f"src/repro_torch/csrc/{args.kernel}.cu")
+    fns = {tag: _load(root / rel, _build.BUILD_DIR / f"ab_{args.kernel}_{tag}.so",
+                      args.kernel, argtypes)
+           for tag, root in (("base", args.base), ("change", args.change))}
+    outs = {tag: torch.empty_like(out) for tag in fns}
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def launch(tag):
-        code = fns[tag](a.data_ptr(), b.data_ptr(), outs[tag].data_ptr(),
-                        n, n, n, 0, stream)
+        code = fns[tag](*before, outs[tag].data_ptr(), *after, stream)
         if code:
             raise RuntimeError(f"{tag}: CUDA error {code}")
 
@@ -85,9 +122,11 @@ def main(argv=None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
-    print(json.dumps({"kernel": "tiled_matmul", "size": n, "card": card,
+    print(json.dumps({"kernel": args.kernel, "shape": shape, "card": card,
                       "base": str(args.base), "change": str(args.change),
                       "turns_ms": turns,
+                      "max_abs_diff": float((outs["base"] - outs["change"])
+                                            .abs().max()),
                       "bitwise_equal": bool(torch.equal(outs["base"],
                                                         outs["change"]))}))
     return 0

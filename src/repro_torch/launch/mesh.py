@@ -17,7 +17,21 @@ from typing import Sequence, Tuple, Union
 
 import torch
 
-__all__ = ["Mesh", "make_mesh"]
+__all__ = ["Mesh", "make_mesh", "resolve_device"]
+
+
+def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
+    """The port's device policy: ``None`` means CUDA, and asking for CUDA
+    where there is none raises instead of running on the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "asked for a CUDA device but torch.cuda.is_available() is "
+                "False; pass device='cpu' to run on the CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,9 +80,6 @@ class Mesh:
 def make_mesh(shape: Sequence[int], axes: Sequence[str],
               device: Union[str, torch.device, None] = None) -> Mesh:
     """The counterpart of ``repro.launch.mesh.make_mesh``: a mesh of
-    ``shape`` over ``axes``.  ``device=None`` means ``"cuda"``; asking
-    for CUDA where there is none raises instead of running on the CPU."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and dev.index is None and torch.cuda.is_available():
-        dev = torch.device("cuda", torch.cuda.current_device())
-    return Mesh(tuple(int(s) for s in shape), tuple(axes), dev)
+    ``shape`` over ``axes`` on ``resolve_device(device)``."""
+    return Mesh(tuple(int(s) for s in shape), tuple(axes),
+                resolve_device(device))

@@ -1,0 +1,195 @@
+"""Shared model substrate: declarative params, norms, RoPE, activations.
+
+The counterpart of ``repro.models.common``.  Params are declared once
+(shape + init + scale) through ``ParamDef``; the initializer and the
+shape tree derive from the same declaration.  The JAX package's
+PartitionSpecs are dropped: one card needs no sharding (ROADMAP A12
+brings them back with multi-card meshes).
+
+Parameter trees are nested dicts, lists and tuples, as in the JAX
+package, so a tree carried over from it (``convert.py``) has the same
+structure leaf for leaf.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..launch.mesh import resolve_device
+
+__all__ = ["ParamDef", "tree_map", "tree_leaves", "resolve_device",
+           "init_params", "param_shapes", "stack_defs", "rms_norm",
+           "layer_norm", "apply_norm", "norm_defs", "act_fn",
+           "rope_frequencies", "apply_rope", "sinusoidal_positions"]
+
+
+# ---------------------------------------------------------------------------
+# trees
+# ---------------------------------------------------------------------------
+
+
+def tree_map(fn: Callable, tree, *rest, is_leaf: Optional[Callable] = None):
+    """Apply ``fn`` to the leaves of ``tree`` (and the matching leaves of
+    ``rest``), keeping its nested dict / list / tuple structure.  Dicts
+    are walked in sorted key order, as ``jax.tree_util`` walks them."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(tree, *rest)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest), is_leaf=is_leaf)
+                for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        for r in rest:
+            if not isinstance(r, (list, tuple)) or len(r) != len(tree):
+                raise ValueError(f"tree structures differ: {len(tree)} "
+                                 f"children against {r!r:.80}")
+        out = [tree_map(fn, t, *(r[i] for r in rest), is_leaf=is_leaf)
+               for i, t in enumerate(tree)]
+        return type(tree)(out)
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree, is_leaf: Optional[Callable] = None) -> list:
+    """The leaves of ``tree`` in ``tree_map``'s order."""
+    out: list = []
+    tree_map(out.append, tree, is_leaf=is_leaf)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# declarative parameters
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    shape: Tuple[int, ...]
+    init: str = "normal"      # normal | zeros | ones | scaled
+    scale: float = 1.0
+    dtype: Any = torch.float32
+
+
+def _is_def(x) -> bool:
+    return isinstance(x, ParamDef)
+
+
+def init_params(defs, generator: torch.Generator, dtype_override=None,
+                device=None):
+    """Materialise a tree of ParamDef into tensors on ``device`` (default
+    CUDA), drawing from ``generator``, which must live on that device.
+
+    The init rule is the JAX package's: std = scale / sqrt(shape[0]) for
+    every tensor of two or more dims.  For a layer stack (``stack_defs``)
+    ``shape[0]`` is the layer count, not the fan-in; it is copied as it
+    is, so activations have the JAX package's scale."""
+    dev = resolve_device(device)
+
+    def one(d: ParamDef):
+        dt = dtype_override or d.dtype
+        if d.init == "zeros":
+            return torch.zeros(d.shape, dtype=dt, device=dev)
+        if d.init == "ones":
+            return torch.ones(d.shape, dtype=dt, device=dev)
+        fan_in = d.shape[0] if len(d.shape) > 1 else max(d.shape[-1], 1)
+        std = d.scale / math.sqrt(fan_in)
+        x = torch.randn(d.shape, generator=generator, dtype=torch.float32,
+                        device=dev)
+        return x.mul_(std).to(dt)
+
+    return tree_map(one, defs, is_leaf=_is_def)
+
+
+def param_shapes(defs, dtype_override=None):
+    """Tree of meta tensors (shape and dtype, no storage)."""
+    return tree_map(
+        lambda d: torch.empty(d.shape, dtype=dtype_override or d.dtype,
+                              device="meta"),
+        defs, is_leaf=_is_def)
+
+
+def stack_defs(defs, n: int):
+    """Prepend a layer dimension of size n to every ParamDef."""
+    return tree_map(lambda d: dataclasses.replace(d, shape=(n,) + tuple(d.shape)),
+                    defs, is_leaf=_is_def)
+
+
+# ---------------------------------------------------------------------------
+# norms / activations
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x, weight, eps: float = 1e-6):
+    dtype = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps) * weight.float()).to(dtype)
+
+
+def layer_norm(x, weight, bias, eps: float = 1e-5):
+    dtype = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * weight.float() + bias.float()).to(dtype)
+
+
+def apply_norm(x, params, kind: str):
+    if kind == "rmsnorm":
+        return rms_norm(x, params["scale"])
+    return layer_norm(x, params["scale"], params["bias"])
+
+
+def norm_defs(d: int, kind: str) -> Dict[str, ParamDef]:
+    if kind == "rmsnorm":
+        return {"scale": ParamDef((d,), "ones")}
+    return {"scale": ParamDef((d,), "ones"),
+            "bias": ParamDef((d,), "zeros")}
+
+
+def act_fn(name: str):
+    return {
+        "gelu": lambda x: F.gelu(x, approximate="tanh"),
+        "silu": F.silu,
+        "relu": F.relu,
+        "relu2": lambda x: F.relu(x).square(),
+    }[name]
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_frequencies(head_dim: int, theta: float = 10000.0,
+                     device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x, positions, theta: float = 10000.0):
+    """x: (..., S, H, Dh) ; positions: (..., S) int32."""
+    dh = x.shape[-1]
+    freqs = rope_frequencies(dh, theta, device=x.device)       # (Dh/2,)
+    angles = positions[..., None].float() * freqs               # (..., S, Dh/2)
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def sinusoidal_positions(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """MusicGen-style sinusoidal position embeddings, computed pointwise
+    from position ids (prefill ranges and decode steps alike).
+
+    positions (..., S) int32 -> (..., S, d) float32.
+    """
+    pos = positions.float()[..., None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=positions.device)
+    angle = pos / torch.pow(10000.0, dim / d)          # (..., S, d/2)
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)

@@ -1,0 +1,276 @@
+"""Model assembly: embeddings, layer-pattern segments (stacked), LM head,
+KV caches — the counterpart of ``repro.models.transformer`` for dense
+attention models.
+
+Layer patterns are normalised into *segments*: (n_repeats, [period of
+layer kinds]), as in the JAX package.  The parameters of each period
+position are stacked over n_repeats, and so are the serve caches, so a
+tree carries over from the JAX package leaf for leaf.  Where the JAX
+package runs a segment under ``jax.lax.scan``, ``forward`` loops over
+the stack in Python, taking each layer's parameters and cache as views
+of the stacks (no copies).
+
+Ported layer kind: ``("attention", "dense")``.  The ``mla``, ``moe``,
+``mamba`` and ``rwkv6`` kinds, the losses and rematerialisation raise
+``NotImplementedError`` (ROADMAP A11); the sharding helpers
+(``dp_axes``, ``cache_specs``, ``model_param_specs``) wait for A12.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from .attention import attention_apply, attention_defs, effective_heads
+from .common import (ParamDef, apply_norm, init_params, norm_defs,
+                     param_shapes, resolve_device, sinusoidal_positions,
+                     stack_defs, tree_map)
+from .ffn import ffn_apply, ffn_defs
+
+__all__ = ["segment_plan", "model_defs", "model_param_shapes", "model_init",
+           "cache_shapes", "cache_init", "forward", "lm_head", "lm_loss"]
+
+_NOT_PORTED = "is not ported yet (ROADMAP A11)"
+
+
+def _dtype(cfg) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+# ---------------------------------------------------------------------------
+# segment planning
+# ---------------------------------------------------------------------------
+
+
+def segment_plan(cfg) -> List[Tuple[int, List[Tuple[str, str]]]]:
+    kinds = [cfg.layer_kind(l) for l in range(cfg.num_layers)]
+    segments = []
+    start = 0
+    if cfg.first_dense_layers:
+        n = cfg.first_dense_layers
+        if not all(k == kinds[0] for k in kinds[:n]):
+            raise ValueError(f"the first {n} layers differ in kind")
+        segments.append((n, [kinds[0]]))
+        start = n
+    rest = kinds[start:]
+    if rest:
+        period = len(rest)
+        for p in range(1, len(rest) + 1):
+            if len(rest) % p == 0 and rest == rest[:p] * (len(rest) // p):
+                period = p
+                break
+        segments.append((len(rest) // period, rest[:period]))
+    return segments
+
+
+# ---------------------------------------------------------------------------
+# parameter declaration
+# ---------------------------------------------------------------------------
+
+
+def _mixer_defs(kind: str, cfg):
+    if kind == "attention":
+        return attention_defs(cfg)
+    raise NotImplementedError(f"mixer {kind!r} {_NOT_PORTED}")
+
+
+def _ffn_defs(kind: str, cfg):
+    if kind == "dense":
+        return ffn_defs(cfg)
+    raise NotImplementedError(f"ffn {kind!r} {_NOT_PORTED}")
+
+
+def _layer_defs(kind: Tuple[str, str], cfg) -> Dict[str, Any]:
+    mix, ff = kind
+    return {
+        "norm1": norm_defs(cfg.d_model, cfg.norm),
+        "norm2": norm_defs(cfg.d_model, cfg.norm),
+        "mixer": _mixer_defs(mix, cfg),
+        "ffn": _ffn_defs(ff, cfg),
+    }
+
+
+def model_defs(cfg) -> Dict[str, Any]:
+    if cfg.mtp:
+        raise NotImplementedError(f"multi-token prediction {_NOT_PORTED}")
+    d, v = cfg.d_model, cfg.vocab_size
+    defs: Dict[str, Any] = {
+        "embed": ParamDef((v, d), "normal"),
+        "final_norm": norm_defs(d, cfg.norm),
+    }
+    if not cfg.tie_embeddings:
+        defs["head"] = ParamDef((d, v))
+    defs["segments"] = [
+        [stack_defs(_layer_defs(kind, cfg), n_rep) for kind in period]
+        for n_rep, period in segment_plan(cfg)]
+    return defs
+
+
+def model_param_shapes(cfg, dtype=None):
+    """Tree of meta tensors: every parameter's shape and dtype."""
+    return param_shapes(model_defs(cfg), dtype_override=dtype or _dtype(cfg))
+
+
+def model_init(cfg, generator: torch.Generator, dtype=None, *, device=None):
+    """Random parameters drawn from ``generator`` (which lives on
+    ``device``; default CUDA) by the JAX package's init rule."""
+    return init_params(model_defs(cfg), generator,
+                       dtype_override=dtype or _dtype(cfg), device=device)
+
+
+# ---------------------------------------------------------------------------
+# caches
+# ---------------------------------------------------------------------------
+
+
+def _layer_cache_shape(kind: Tuple[str, str], cfg, batch: int, max_len: int):
+    """Meta tensors of one layer's serve cache."""
+    mix, _ = kind
+    if mix == "attention":
+        _, hkv_eff = effective_heads(cfg)
+        kv = (batch, max_len, hkv_eff, cfg.resolved_head_dim)
+        return tuple(torch.empty(kv, dtype=_dtype(cfg), device="meta")
+                     for _ in range(2))
+    raise NotImplementedError(f"the {mix!r} cache {_NOT_PORTED}")
+
+
+def cache_shapes(cfg, batch: int, max_len: int):
+    out = []
+    for n_rep, period in segment_plan(cfg):
+        seg = []
+        for kind in period:
+            shapes = _layer_cache_shape(kind, cfg, batch, max_len)
+            seg.append(tuple(
+                torch.empty((n_rep,) + tuple(s.shape), dtype=s.dtype,
+                            device="meta") for s in shapes))
+        out.append(seg)
+    return out
+
+
+def cache_init(cfg, batch: int, max_len: int, *, device=None):
+    """Zero caches on ``device`` (default CUDA)."""
+    dev = resolve_device(device)
+    return tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype, device=dev),
+                    cache_shapes(cfg, batch, max_len))
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+
+def _apply_layer(kind, lp, x, positions, cfg, cache, cur_len, collect=False):
+    """One layer.  cache is None (prefill) or this layer's cache slice
+    (decode), which is updated in place.  With collect=True (prefill) the
+    cache the layer *would have written* is returned even when none was
+    passed in.  Returns (x, new_cache); the JAX package's third output,
+    the MoE router loss, comes with the moe kind."""
+    mix, ff = kind
+    h = apply_norm(x, lp["norm1"], cfg.norm)
+    if mix != "attention":
+        raise NotImplementedError(f"mixer {mix!r} {_NOT_PORTED}")
+    c = None if cache is None else (cache[0], cache[1], cur_len)
+    out, new_c = attention_apply(
+        lp["mixer"], h, positions, cfg, cache=c,
+        block_q=cfg.attn_block_q, block_kv=cfg.attn_block_kv,
+        long_seq_threshold=cfg.long_seq_threshold)
+    x = x + out
+    h = apply_norm(x, lp["norm2"], cfg.norm)
+    if ff != "dense":
+        raise NotImplementedError(f"ffn {ff!r} {_NOT_PORTED}")
+    x = x + ffn_apply(lp["ffn"], h, cfg)
+    if cache is None and not collect:
+        new_c = None
+    return x, new_c
+
+
+def _remat_wrap(fn, cfg):
+    raise NotImplementedError(f"rematerialisation (training) {_NOT_PORTED}")
+
+
+def backbone(params: Dict, inputs: torch.Tensor, cfg, *,
+             positions: Optional[torch.Tensor] = None, cache=None,
+             cur_len: Optional[torch.Tensor] = None,
+             collect_cache: bool = False):
+    """Embeddings, every layer and the final norm.  Returns (hidden,
+    new_cache); see ``forward``."""
+    dt = _dtype(cfg)
+    if cfg.input_mode == "embeddings" or inputs.ndim == 3:
+        x = inputs.to(dt)
+    else:
+        b, s = inputs.shape
+        x = params["embed"].index_select(0, inputs.reshape(-1)).reshape(
+            b, s, -1).to(dt)
+    b, s = x.shape[:2]
+    if positions is None:
+        if cur_len is not None:
+            positions = cur_len.reshape(1, 1).to(torch.int32).expand(b, s)
+        else:
+            positions = torch.arange(s, dtype=torch.int32,
+                                     device=x.device).expand(b, s)
+    if cfg.pos_emb == "sinusoidal":
+        x = x + sinusoidal_positions(positions, cfg.d_model).to(dt)
+
+    new_cache = [] if (cache is not None or collect_cache) else None
+    for si, (n_rep, period) in enumerate(segment_plan(cfg)):
+        seg_params = params["segments"][si]
+        seg_cache = cache[si] if cache is not None else None
+        collected = [[] for _ in period]
+        for i in range(n_rep):
+            for pi, kind in enumerate(period):
+                lp = tree_map(lambda t: t[i], seg_params[pi])
+                cslice = (None if seg_cache is None
+                          else tuple(c[i] for c in seg_cache[pi]))
+                x, nc = _apply_layer(kind, lp, x, positions, cfg, cslice,
+                                     cur_len, collect=collect_cache)
+                if nc is not None and seg_cache is None:
+                    collected[pi].append(nc)
+        if new_cache is not None:
+            if seg_cache is not None:   # written in place, layer by layer
+                new_cache.append([tuple(c) for c in seg_cache])
+            else:
+                new_cache.append([tuple(torch.stack(parts) for parts in
+                                        zip(*layers)) for layers in collected])
+    return apply_norm(x, params["final_norm"], cfg.norm), new_cache
+
+
+def lm_head(params: Dict, hidden: torch.Tensor, cfg) -> torch.Tensor:
+    """(B, S, d) -> (B, S, V) logits in the hidden dtype."""
+    if cfg.tie_embeddings:
+        return hidden @ params["embed"].to(hidden.dtype).T
+    return hidden @ params["head"].to(hidden.dtype)
+
+
+def forward(
+    params: Dict,
+    inputs: torch.Tensor,           # (B, S) int32 or (B, S, d) embeddings
+    cfg,
+    *,
+    positions: Optional[torch.Tensor] = None,
+    cache=None,                     # segment-structured cache or None
+    cur_len: Optional[torch.Tensor] = None,  # one-element int32 (decode)
+    collect_cache: bool = False,    # prefill: return would-be caches
+):
+    """Returns (logits, hidden, aux_loss, new_cache).
+
+    With ``cache`` (decode), every layer writes its new K and V into the
+    cache in place and ``new_cache`` holds the same tensors.  aux_loss is
+    0: only the moe layer kind (not ported) adds to it."""
+    hidden, new_cache = backbone(params, inputs, cfg, positions=positions,
+                                 cache=cache, cur_len=cur_len,
+                                 collect_cache=collect_cache)
+    aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    return lm_head(params, hidden, cfg), hidden, aux, new_cache
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+
+def lm_loss(params, batch, cfg):
+    raise NotImplementedError(f"the LM loss (training) {_NOT_PORTED}")
+
+
+def _mtp_loss(params, hidden, batch, cfg):
+    raise NotImplementedError(f"the multi-token prediction loss {_NOT_PORTED}")

@@ -4,7 +4,11 @@ on the card run them with
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
-Tolerance: 1e-5 of max|C|, f32 sums of the same products in two orders.
+Tolerance: 1e-5 of max|C|, f32 sums of the same products in two orders;
+decode_attention 2e-4 (rtol and atol, its JAX test's tolerance) in f32;
+its bf16 output one bf16 step from the plain version's f32 output rounded
+to bf16, plus 2**-16 of max|ref| for the f32 summation order (the rule of
+chip_smoke.py's ``bf16_worst``).
 """
 import numpy as np
 import pytest
@@ -12,6 +16,8 @@ import torch
 
 from repro_torch.core import dbcsr
 from repro_torch.core.engine import build_executor_plan
+from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.grouped_gemm.ops import grouped_gemm
 from repro_torch.kernels.grouped_gemm.ref import grouped_gemm_ref
 from repro_torch.kernels.smm.ops import smm_process_stack
@@ -34,6 +40,16 @@ def cuda():
 
 def _rel(x, ref):
     return float((x - ref).abs().max() / ref.abs().max())
+
+
+def _bf16_steps(out, ref):
+    """max |out - bf16(ref)| in units of one bf16 step at the element plus
+    2**-16 max|ref|; at most 1 for a right kernel."""
+    rounded = ref.to(torch.bfloat16).float()
+    big = torch.maximum(out.float().abs(), rounded.abs())
+    step = torch.ldexp(torch.ones_like(big), torch.frexp(big).exponent - 8)
+    tol = step + 2.0 ** -16 * float(ref.abs().max())
+    return float(((out.float() - rounded).abs() / tol).max())
 
 
 @pytest.mark.parametrize("bs", [4, 22, 64, 100])
@@ -117,3 +133,43 @@ def test_fused_service_bucket_launches_once(cuda, densify, kernel, counter):
     assert st["n_retries"] == st["n_degradations"] == st["n_error_tickets"] == 0
     for c, (a, b) in zip(out, reqs):
         assert _rel(c.data, torch.matmul(a.data, b.data)) <= 1e-5
+
+
+@pytest.mark.parametrize("b,hkv,r,dh,s,cur", [
+    (2, 2, 4, 64, 256, 200), (1, 1, 8, 128, 512, 512), (2, 4, 1, 64, 128, 7),
+    (1, 2, 6, 32, 384, 100), (1, 2, 3, 32, 100, 0), (2, 8, 6, 128, 4100, 1),
+    (1, 1, 2, 256, 70, 33), (1, 2, 3, 36, 90, 50),
+    # Dh % 4 != 0: the kernel's scalar body, ragged S
+    (1, 2, 3, 33, 130, 70), (2, 2, 6, 65, 200, 200), (1, 1, 4, 33, 70, 0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_matches_plain(cuda, b, hkv, r, dh, s, cur,
+                                               dtype):
+    g = torch.Generator(device=cuda).manual_seed(s + cur)
+    q = torch.randn((b, 1, hkv * r, dh), generator=g, device=cuda).to(dtype)
+    k = torch.randn((b, s, hkv, dh), generator=g, device=cuda).to(dtype)
+    v = torch.randn((b, s, hkv, dh), generator=g, device=cuda).to(dtype)
+    cur_len = torch.tensor([cur], dtype=torch.int32, device=cuda)
+    before = decode_attention.launches
+    out = decode_attention(q, k, v, cur_len)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    assert out.dtype == dtype
+    ref = decode_attention_ref(q.reshape(b, hkv, r, dh), k, v, cur_len)
+    got = out.float().reshape(b, hkv, r, dh)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref, rtol=2e-4, atol=2e-4)
+    else:
+        assert _bf16_steps(got, ref) <= 1.0
+
+
+def test_decode_attention_counts_only_kernel_launches(cuda):
+    q = torch.randn(1, 1, 4, 64)
+    k = torch.randn(1, 32, 2, 64)
+    cur = torch.tensor([5], dtype=torch.int32)
+    before = decode_attention.launches
+    decode_attention(q, k, k, cur)                       # the plain version
+    assert decode_attention.launches == before
+    decode_attention(q.to(cuda), k.to(cuda), k.to(cuda), cur.to(cuda))
+    assert decode_attention.launches == before + 1
+    with pytest.raises(ValueError, match="devices"):
+        decode_attention(q.to(cuda), k.to(cuda), k.to(cuda), cur)
