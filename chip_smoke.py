@@ -9,6 +9,11 @@ Phase 0  prints the card (nvidia-smi name and power limit) and builds
 Phase 1  holds each kernel against its plain PyTorch version on the card:
          smm at blocks 4, 22 and 64 (f32 and bf16), with a ragged final
          stack, valid == 0 rows and a masked plan of several size bins;
+         then at the kernel's edges: blocks 4, 22, 23, 32, 33 (its two
+         regimes meet at 32), 64, 100 and 22x64x16, f32 and bf16, over
+         runs of 1 to 70 rows with valid == 0 rows at a run's start, end
+         and over a whole 32-row triple window, and a padding run, with
+         4 and with 3 triple columns (``edge_stack``);
          tiled_matmul at a shape that is no tile multiple, f32 and bf16;
          grouped_gemm at a ragged shape and at E = 1, f32 and bf16;
          decode_attention at the four cases of the JAX package's kernel
@@ -133,6 +138,35 @@ DA_TOL = 2e-4        # decode_attention vs plain, f32 (rtol and atol)
 # kernel on (k)'s inputs is the per-layer one (one bf16 step).
 J_TOL = 3e-4
 K_TOL = 1e-1
+
+
+def edge_stack(rng, na, nb, nc):
+    """(S, 4) int32 triples whose runs cover the smm kernel's edges: runs
+    of 1 to 70 rows (longer than its 3-stage ring and its 32-row triple
+    window), valid == 0 rows at a run's start, at its end, every third
+    row and over a whole window, and a padding run on the scratch block
+    ``nc``, which ``stack_run_starts`` leaves out.  A and B indices are
+    random, so odd (for bf16: not 16-byte aligned) blocks occur."""
+    import numpy as np
+
+    lens = [1, 2, 3, 4, 5, 33, 70, 32, 31]
+    cs = rng.permutation(nc)[:len(lens)]
+    rows = []
+    for r, (n, c) in enumerate(zip(lens, cs)):
+        valid = np.ones(n, dtype=int)
+        if r == 2:
+            valid[0] = 0
+        if r == 3:
+            valid[-1] = 0
+        if r == 5:
+            valid[1::3] = 0
+        if r == 6:
+            valid[:36] = valid[-1] = 0
+        rows.append(np.stack([rng.randint(0, na, n), rng.randint(0, nb, n),
+                              np.full(n, c), valid], axis=1))
+        if r == 4:
+            rows.append(np.tile([0, 0, nc, 0], (3, 1)))
+    return np.concatenate(rows).astype(np.int32)
 
 
 def card_line() -> str:
@@ -558,6 +592,30 @@ def main() -> int:
         raise AssertionError(f"masked plan has {plan.n_bins} bin(s)")
     for dtype in (torch.float32, torch.bfloat16):
         smm_case("block 22, 20% A mask", plan, dtype)
+
+    def smm_edges(bm, bk, bn, dtype, three_cols):
+        n = 25
+        t = edge_stack(rng, n, n, n)
+        if three_cols:
+            t = np.ascontiguousarray(t[t[:, 3] != 0, :3])
+        a = torch.randn((n, bm, bk), generator=gen, device=dev).to(dtype)
+        b = torch.randn((n, bk, bn), generator=gen, device=dev).to(dtype)
+        ck = torch.randn((n + 1, bm, bn), generator=gen, device=dev)
+        cp = ck.clone()
+        r = torch.tensor(stack_run_starts(t), device=dev)
+        t = torch.tensor(t, device=dev)
+        smm_process_stack(a, b, ck, t, r)
+        smm_process_stack_ref(a, b, cp, t)
+        torch.cuda.synchronize()
+        err_abs["smm"] = max(err_abs["smm"], check_close(
+            f"smm edges {bm}x{bk}x{bn} {str(dtype)[6:]}, {t.shape[1]} "
+            f"columns, {int(r.shape[0])} runs", ck[:-1], cp[:-1]))
+
+    for shape in ((4, 4, 4), (22, 22, 22), (23, 23, 23), (32, 32, 32),
+                  (33, 33, 33), (64, 64, 64), (100, 100, 100), (22, 64, 16)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for three_cols in (False, True):
+                smm_edges(*shape, dtype, three_cols)
 
     for m, k, n in ((1000, 777, 1030), (129, 3960, 257)):
         for dtype in (torch.float32, torch.bfloat16):

@@ -2,8 +2,9 @@
 
 ``smm_process_stack`` takes a stack (or a size bin's flattened stacks)
 of ``(a_idx, b_idx, c_idx[, valid])`` rows and does
-``C[c] += valid * (A[a] @ B[b])`` in place.  The kernel runs one thread
-block per contiguous C run, so it also needs the run starts:
+``C[c] += valid * (A[a] @ B[b])`` in place.  The kernel gives every
+contiguous C run one owner (a warp for blocks up to 32, a thread block
+above), so it also needs the run starts:
 ``stack_run_starts`` computes them on the host from the triples, and the
 executor plan (core/engine.py) keeps them beside its triples so a
 repeated multiply uploads nothing.
@@ -32,7 +33,7 @@ def stack_run_starts(triples: np.ndarray) -> np.ndarray:
     of every maximal run of equal ``c_idx`` that holds at least one
     valid row (runs made only of ``valid == 0`` padding are dropped: the
     kernel must never visit them).  Raises if one C block owns two runs,
-    which would make two thread blocks race on it."""
+    which would make two owners race on it."""
     t = np.asarray(triples)
     if t.ndim != 2 or t.shape[1] not in (3, 4):
         raise ValueError(f"triples must be (S, 3|4), got {t.shape}")

@@ -20,7 +20,7 @@ from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.grouped_gemm.ops import grouped_gemm
 from repro_torch.kernels.grouped_gemm.ref import grouped_gemm_ref
-from repro_torch.kernels.smm.ops import smm_process_stack
+from repro_torch.kernels.smm.ops import smm_process_stack, stack_run_starts
 from repro_torch.kernels.smm.ref import smm_process_stack_ref
 from repro_torch.kernels.tiled_matmul.ops import tiled_matmul
 from repro_torch.kernels.tiled_matmul.ref import tiled_matmul_ref
@@ -52,24 +52,68 @@ def _bf16_steps(out, ref):
     return float(((out.float() - rounded).abs() / tol).max())
 
 
-@pytest.mark.parametrize("bs", [4, 22, 64, 100])
+def edge_stack(rng, na, nb, nc):
+    """(S, 4) int32 triples whose runs cover the smm kernel's edges: runs
+    of 1 to 70 rows (longer than its 3-stage ring and its 32-row triple
+    window), valid == 0 rows at a run's start, at its end, every third
+    row and over a whole window, and a padding run on the scratch block
+    ``nc``, which ``stack_run_starts`` leaves out.  A and B indices are
+    random, so odd (for bf16: not 16-byte aligned) blocks occur."""
+    lens = [1, 2, 3, 4, 5, 33, 70, 32, 31]
+    cs = rng.permutation(nc)[:len(lens)]
+    rows = []
+    for r, (n, c) in enumerate(zip(lens, cs)):
+        valid = np.ones(n, dtype=int)
+        if r == 2:
+            valid[0] = 0
+        if r == 3:
+            valid[-1] = 0
+        if r == 5:
+            valid[1::3] = 0
+        if r == 6:
+            valid[:36] = valid[-1] = 0
+        rows.append(np.stack([rng.randint(0, na, n), rng.randint(0, nb, n),
+                              np.full(n, c), valid], axis=1))
+        if r == 4:
+            rows.append(np.tile([0, 0, nc, 0], (3, 1)))
+    return np.concatenate(rows).astype(np.int32)
+
+
+# blocks on both sides of the kernel's regimes (a warp per run up to 32,
+# a thread block per run above), its compile-time sizes (22, 64) and a
+# rectangular block; stacks from an executor plan with a 50 % A mask, and
+# edge_stack's runs with 4 and with 3 columns
+@pytest.mark.parametrize("shape", [(4, 4, 4), (22, 22, 22), (23, 23, 23),
+                                   (32, 32, 32), (33, 33, 33), (64, 64, 64),
+                                   (100, 100, 100), (22, 64, 16)])
+@pytest.mark.parametrize("stack", ["plan", "edges", "edges, 3 columns"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_smm_kernel_matches_plain(cuda, bs, dtype):
-    rng = np.random.RandomState(bs)
+def test_smm_kernel_matches_plain(cuda, shape, stack, dtype):
+    bm, bk, bn = shape
+    rng = np.random.RandomState(bm + bk + bn)
     nb = 5
-    mask = rng.rand(nb, nb) < 0.5
-    plan = build_executor_plan(bs * nb, bs * nb, bs * nb, bs, bs, bs, 7,
-                               a_mask=mask)
-    a = torch.randn(nb * nb, bs, bs, device=cuda).to(dtype)
-    b = torch.randn(nb * nb, bs, bs, device=cuda).to(dtype)
-    c0 = torch.randn(nb * nb + 1, bs, bs, device=cuda)
+    a = torch.randn(nb * nb, bm, bk, device=cuda).to(dtype)
+    b = torch.randn(nb * nb, bk, bn, device=cuda).to(dtype)
+    c0 = torch.randn(nb * nb + 1, bm, bn, device=cuda)
     ck, cp = c0.clone(), c0.clone()
+    if stack == "plan":
+        mask = rng.rand(nb, nb) < 0.5
+        plan = build_executor_plan(bm * nb, bk * nb, bn * nb, bm, bk, bn, 7,
+                                   a_mask=mask)
+        bins, launches = plan.device_bins(cuda), plan.n_launches
+    else:
+        t = edge_stack(rng, nb * nb, nb * nb, nb * nb)
+        if stack == "edges, 3 columns":
+            t = np.ascontiguousarray(t[t[:, 3] != 0, :3])
+        bins = [(torch.tensor(t, device=cuda),
+                 torch.tensor(stack_run_starts(t), device=cuda))]
+        launches = 1
     before = smm_process_stack.launches
-    for t, r in plan.device_bins(cuda):
+    for t, r in bins:
         smm_process_stack(a, b, ck, t, r)
         smm_process_stack_ref(a, b, cp, t)
     torch.cuda.synchronize()
-    assert smm_process_stack.launches - before == plan.n_launches
+    assert smm_process_stack.launches - before == launches
     assert _rel(ck[:-1], cp[:-1]) <= 1e-5
 
 

@@ -16,6 +16,7 @@ from repro.kernels.smm.ref import smm_process_stack_ref as jax_smm_ref
 from repro_torch.kernels import _build
 from repro_torch.kernels.smm.ops import smm_process_stack, stack_run_starts
 from repro_torch.kernels.smm.ref import smm_process_stack_ref
+from test_torch_cuda import edge_stack
 
 RTOL = ATOL = 1e-5
 
@@ -48,6 +49,28 @@ def test_plain_smm_matches_jax_kernel_and_oracle(bm, bk, bn):
                             torch.tensor(c), torch.tensor(t))
     np.testing.assert_allclose(got.numpy(), want_kernel, rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(got.numpy(), want_ref, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("bm,bk,bn", [(4, 4, 4), (23, 23, 23), (33, 33, 33),
+                                      (22, 64, 16)])
+def test_plain_smm_edge_runs_match_jax_kernel(bm, bk, bn):
+    """The card tests' edge stack (runs of 1-70 rows, valid == 0 rows at a
+    run's start, end and over a whole 32-row window, a padding run) on
+    the CPU: the port's wrapper against the JAX package's kernel, to 1e-5
+    of max|C| (runs of up to 70 products of depth 64 sum to |C| ~ 60, where
+    an elementwise 1e-5 is below the two summation orders' rounding)."""
+    rng = np.random.RandomState(bm * bn)
+    n = 9
+    a = rng.randn(n, bm, bk).astype(np.float32)
+    b = rng.randn(n, bk, bn).astype(np.float32)
+    c = rng.randn(n + 1, bm, bn).astype(np.float32)
+    t = edge_stack(rng, n, n, n)
+    assert stack_run_starts(t).size == 9   # the padding run is left out
+    want = np.asarray(jax_smm(jnp.asarray(a), jnp.asarray(b),
+                              jnp.asarray(c), jnp.asarray(t)))
+    got = smm_process_stack(torch.tensor(a), torch.tensor(b),
+                            torch.tensor(c), torch.tensor(t))
+    assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
 
 
 def test_plain_smm_three_columns_and_bf16():
