@@ -17,10 +17,11 @@ Phase 1  holds each kernel against its plain PyTorch version on the card:
          tiled_matmul at a shape that is no tile multiple, f32 and bf16;
          grouped_gemm at a ragged shape and at E = 1, f32 and bf16;
          decode_attention at the four cases of the JAX package's kernel
-         test, a bf16 cache, and cur_len 0, 1 and S at the serve heads
-         with an S that is no multiple of the kernel's 64-row chunk, and
-         at head sizes 33 and 65 (the kernel's scalar body, taken where
-         Dh % 4 != 0), f32 and bf16.
+         test, a bf16 cache, and cur_len 0, 1, 513 and S at the serve
+         heads with an S that is no multiple of the kernel's 16-row tile
+         (513: beside a boundary of the CTAs' row ranges), and at head
+         sizes 33 and 65 (rows copied 4 bytes at a time, or by plain
+         loads in bf16), f32 and bf16.
 Phase 2  runs the main path, dbcsr.create -> dbcsr.multiply with
          algorithm="cannon" on a 1x1 mesh, at the size of one rank of
          the paper's 63,360^2 matrices on a 16x16 grid:
@@ -42,13 +43,15 @@ Phase 3  times each kernel at the shapes of (a), (b), (c) (both stack
          rate), the plain version (smm: stack by stack) and torch.matmul
          (torch.bmm for a batch) of the operands, which computes the same
          function for every timed plan (absent blocks are stored as
-         zeros).  decode_attention at two shapes, bf16 caches, cur_len =
-         S, 8 KV heads of 6 query heads each, Dh 128:
-           (l) B=8, S=4,096: the serve case's cache when full
-           (m) B=16, S=32,768: decode_32k's context
-         beside its bound (K and V read once), its plain version and
-         torch's scaled_dot_product_attention (enable_gqa, a cur_len mask),
-         a yardstick that the port never calls.
+         zeros).  decode_attention at three shapes, bf16 caches, 8 KV
+         heads of 6 query heads each, Dh 128:
+           (l) B=8, S=4,096, cur_len = S: the serve case's cache when full
+           (m) B=16, S=32,768, cur_len = S: decode_32k's context
+           (n) B=8, S=4,096, cur_len = 2,064: (k)'s cache half way
+         beside its bound (q, the output and the K and V rows below
+         cur_len read once), its plain version and torch's
+         scaled_dot_product_attention (enable_gqa, a cur_len mask; it
+         reads all S rows), a yardstick that the port never calls.
 Phase 4  runs the serving path, MultiplyService(fused=True,
          algorithm="cannon") -> dbcsr.multiply_batched on a 1x1 mesh, at
          one rank of the paper's 63,360^2 matrices on a 32x32 grid
@@ -95,7 +98,8 @@ Phase 5  serves Qwen2-1.5B at full width (28 layers, d_model 1,536, 48
                kernel) and with the cache's first 64-row chunk skipped in
                every layer (a planted fault), which must exceed K_TOL.  A
                profiler window of 4 more steps counts the kernels a step
-               launches and the device's busy share.
+               launches, the device's busy share, its time a step and
+               decode_attention's share of that time.
 
 Prints a {"kernels": [...]} line, the nvidia-smi line, and as its last
 line {"ok": true, "device": {...}}.  Any failed check raises, so the
@@ -452,7 +456,8 @@ def serve_lm(dev, zero_counters, read_counters, decode_attention,
           f"first {1e3 * step_s[0]:.3f} ms), {B / step:.1f} tokens/s; "
           f"bounds per step: weights {1e3 * w_bytes / hbm_rate:.3f} ms, KV "
           f"rows < cur_len {1e3 * kv_valid / hbm_rate:.3f} ms (the kernel "
-          f"reads all {MAX_LEN}: {1e3 * kv_bytes / hbm_rate:.3f} ms)")
+          f"reads only those; all {MAX_LEN} rows: "
+          f"{1e3 * kv_bytes / hbm_rate:.3f} ms)")
 
     busy = profile_steps(params, cfg, engine, state, tok)
     return {"serve": {
@@ -462,9 +467,10 @@ def serve_lm(dev, zero_counters, read_counters, decode_attention,
 
 
 def profile_steps(params, cfg, engine, state, tok, steps=4) -> dict:
-    """Kernels per decode step and the device's busy share over a window
-    of ``steps`` steps, from torch.profiler; {} if the profiler records
-    no device activity here."""
+    """Kernels per decode step, the device's busy share and busy time a
+    step, and decode_attention's kernel time a step and share of the busy
+    time, over a window of ``steps`` steps, from torch.profiler; {} if the
+    profiler records no device activity here."""
     import torch
     from torch.profiler import DeviceType, ProfilerActivity, profile
 
@@ -476,8 +482,10 @@ def profile_steps(params, cfg, engine, state, tok, steps=4) -> dict:
             tok, state = engine.decode_step(params, state, tok, cfg)
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t)
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    attn_us = sum(e.time_range.end - e.time_range.start for e in kernels
+                  if "decode_attention" in e.name)
     if not spans:
         print("  profiler: no device activity recorded (busy share not "
               "measured)")
@@ -488,10 +496,17 @@ def profile_steps(params, cfg, engine, state, tok, steps=4) -> dict:
             busy += b - max(a, end)
             end = b
     out = {"kernels_per_step": len(spans) / steps,
-           "busy_share": busy / wall_us, "wall_ms_per_step": wall_us / steps / 1e3}
+           "busy_share": busy / wall_us,
+           "wall_ms_per_step": wall_us / steps / 1e3,
+           "device_ms_per_step": busy / steps / 1e3,
+           "decode_attention_ms_per_step": attn_us / steps / 1e3,
+           "decode_attention_share": attn_us / busy}
     print(f"  profiler, {steps} steps: {out['kernels_per_step']:.0f} kernels "
           f"per step, device busy {100 * out['busy_share']:.1f} % of "
-          f"{out['wall_ms_per_step']:.3f} ms per step")
+          f"{out['wall_ms_per_step']:.3f} ms per step: "
+          f"{out['device_ms_per_step']:.3f} ms of device time a step, of "
+          f"which decode_attention {out['decode_attention_ms_per_step']:.3f} "
+          f"ms ({100 * out['decode_attention_share']:.1f} %)")
     return out
 
 
@@ -670,10 +685,10 @@ def main() -> int:
                  (2, 4, 1, 64, 128, 7), (1, 2, 6, 32, 384, 100)):
         decode_case(*case, torch.float32)
     decode_case(1, 2, 4, 64, 256, 250, torch.bfloat16)
-    for cur in (0, 1, 1000):   # the serve heads, S = 1,000 = 15 chunks + 40
+    for cur in (0, 1, 513, 1000):   # the serve heads, S = 1,000 = 62 tiles + 8
         for dtype in (torch.float32, torch.bfloat16):
             decode_case(2, 8, 6, 128, 1000, cur, dtype)
-    # Dh % 4 != 0: the kernel's scalar body, ragged S
+    # Dh % 4 != 0: 4-byte copies in f32, plain loads in bf16; ragged S
     for case in ((1, 2, 3, 33, 130, 70), (2, 2, 6, 65, 200, 200),
                  (1, 1, 4, 33, 70, 0)):
         for dtype in (torch.float32, torch.bfloat16):
@@ -966,10 +981,10 @@ def main() -> int:
                            4 * 3 * G * NB ** 2, 1)]
     del a_stack, b_stack
 
-    def decode_times(label, b, s, hkv=8, r=6, dh=128):
+    def decode_times(label, b, s, cur, hkv=8, r=6, dh=128):
         nonlocal err_bf16_out
         q, k, v = decode_inputs(b, hkv, r, dh, s, torch.bfloat16)
-        cur_len = torch.tensor([s], dtype=torch.int32, device=dev)
+        cur_len = torch.tensor([cur], dtype=torch.int32, device=dev)
         qg = q.reshape(b, hkv, r, dh)
         ms = time_ms(lambda: decode_attention(q, k, v, cur_len), 20, inner=10)
         plain_ms = time_ms(lambda: decode_attention_ref(qg, k, v, cur_len), 5)
@@ -990,18 +1005,22 @@ def main() -> int:
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask, enable_gqa=True), 5, inner=10)
         h = hkv * r
-        # each input read once (q, K, V, cur_len), the bf16 output written
+        # each input read once (q, cur_len, the K and V rows below
+        # cur_len: the rest weigh exactly 0), the bf16 output written
         # once; QK^T and PV: 2 flop per multiply-add
-        nbytes = 2 * (b * h * dh + 2 * b * s * hkv * dh + b * h * dh) + 4
-        flops = 4.0 * b * h * s * dh
+        n = min(cur, s) if cur >= 1 else s
+        nbytes = 2 * (b * h * dh + 2 * b * n * hkv * dh + b * h * dh) + 4
+        flops = 4.0 * b * h * n * dh
         print(f"  decode_attention {label}: B={b}, S={s}, Hkv={hkv}, R={r}, "
-              f"Dh={dh}, bf16, cur_len=S; max abs err vs plain {err:.3e} "
-              f"(worst / one bf16 step {worst:.3f})")
+              f"Dh={dh}, bf16, cur_len={cur}; max abs err vs plain "
+              f"{err:.3e} (worst / one bf16 step {worst:.3f}); SDPA reads "
+              f"all {s} rows")
         return report("decode_attention", label, ms, plain_ms, library_ms,
                       flops, nbytes, 1)
 
-    decode_rows = [decode_times("(l) B=8 S=4096", 8, 4096),
-                   decode_times("(m) B=16 S=32768", 16, 32768)]
+    decode_rows = [decode_times("(l) B=8 S=4096", 8, 4096, 4096),
+                   decode_times("(m) B=16 S=32768", 16, 32768, 32768),
+                   decode_times("(n) B=8 S=4096 cur_len=2064", 8, 4096, 2064)]
 
     # ---------------------------------------------------------- phase 4
     print("phase 4: MultiplyService -> dbcsr.multiply_batched, "

@@ -114,6 +114,12 @@ class DBCSRMatrix:
                                    block_norms=norms)
 
 
+def _x32(data: torch.Tensor) -> torch.Tensor:
+    """The reference's dtype rule for host arrays (JAX without x64):
+    float64 becomes float32."""
+    return data.to(torch.float32) if data.dtype == torch.float64 else data
+
+
 def create(
     array,
     *,
@@ -125,8 +131,10 @@ def create(
 ) -> DBCSRMatrix:
     """Create a DBCSR matrix from a host array or tensor, placed on the
     mesh's device.  Absent blocks of ``block_mask`` are zeroed.
-    ``compute_norms=True`` fills the norm cache eagerly."""
-    data = torch.as_tensor(array).to(mesh.device)
+    ``compute_norms=True`` fills the norm cache eagerly.  float64 is
+    stored as float32, as the reference stores it with JAX's 64-bit
+    types off."""
+    data = _x32(torch.as_tensor(array)).to(mesh.device)
     rows, cols = data.shape
     layout = BlockLayout(rows, cols, block_size, block_size)
     if block_mask is not None:
@@ -152,7 +160,7 @@ def from_state(state: dict, *, mesh) -> DBCSRMatrix:
                          int(state["block_rows"]), int(state["block_cols"]))
     grid = GridSpec(state["row_axis"], state["col_axis"],
                     state.get("stack_axis"))
-    data = torch.tensor(np.asarray(state["data"]), device=mesh.device)
+    data = _x32(torch.tensor(np.asarray(state["data"]))).to(mesh.device)
     if tuple(data.shape) != (layout.rows, layout.cols):
         raise ValueError(f"data shape {tuple(data.shape)} does not match "
                          f"layout {(layout.rows, layout.cols)}")

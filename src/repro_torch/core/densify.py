@@ -31,7 +31,16 @@ __all__ = [
     "blocked_local_matmul",
     "densified_local_matmul",
     "grouped_densified_local_matmul",
+    "kernel_operand",
 ]
+
+
+def kernel_operand(x: torch.Tensor) -> torch.Tensor:
+    """An operand as the hand-written kernels take it: float32 and
+    bfloat16 as they are, float16 widened to float32 (exactly).  The
+    reference's kernels take float16 and accumulate in f32; the result
+    is cast back to the operands' type after the local multiply."""
+    return x.to(torch.float32) if x.dtype == torch.float16 else x
 
 
 def to_blocks(x: torch.Tensor, bm: int, bn: int) -> torch.Tensor:
@@ -98,7 +107,8 @@ def densified_local_matmul(kernel: Optional[str] = None):
         from ..kernels.tiled_matmul.ops import tiled_matmul
 
         def f(a, b):
-            return tiled_matmul(a.contiguous(), b.contiguous())
+            return tiled_matmul(kernel_operand(a).contiguous(),
+                                kernel_operand(b).contiguous())
 
         return f
 
@@ -132,7 +142,8 @@ def grouped_densified_local_matmul(kernel: Optional[str] = None):
         from ..kernels.grouped_gemm.ops import grouped_gemm
 
         def f(a, b):
-            return grouped_gemm(a.contiguous(), b.contiguous())
+            return grouped_gemm(kernel_operand(a).contiguous(),
+                                kernel_operand(b).contiguous())
 
         return f
     from ..kernels.grouped_gemm.ref import grouped_gemm_ref

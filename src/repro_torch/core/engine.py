@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from .blocking import BlockLayout
-from .densify import from_blocks, to_blocks
+from .densify import from_blocks, kernel_operand, to_blocks
 from .stacks import StackPlan, build_stacks, pad_plans, STACK_SIZE
 
 __all__ = [
@@ -533,8 +533,8 @@ def stack_executor(
             raise ValueError(
                 f"stack executor built for ({m},{k}) x ({k},{n}), "
                 f"got {tuple(a.shape)} x {tuple(b.shape)}")
-        a_blocks = to_blocks(a, block_m, block_k)
-        b_blocks = to_blocks(b, block_k, block_n)
+        a_blocks = to_blocks(kernel_operand(a), block_m, block_k)
+        b_blocks = to_blocks(kernel_operand(b), block_k, block_n)
         # C with the padding rows' scratch block appended, zeroed once
         c = torch.zeros((plan.n_c_blocks + 1, block_m, block_n),
                         dtype=torch.float32, device=a.device)
@@ -871,6 +871,7 @@ def batched_stack_executor(
                 f"batched executor built for ({n_groups},{m},{k}) x "
                 f"({n_groups},{k},{n}), got {tuple(a.shape)} x "
                 f"{tuple(b.shape)}")
+        a, b = kernel_operand(a), kernel_operand(b)
         a_blocks = to_blocks_batched(a, block_m, block_k).reshape(
             n_groups * nbr * nbk, block_m, block_k)
         b_blocks = to_blocks_batched(b, block_k, block_n).reshape(

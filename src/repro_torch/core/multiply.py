@@ -19,11 +19,13 @@ This slice ports ``algorithm="cannon"`` on a 1x1 mesh.  What it leaves
 out raises ``NotImplementedError`` naming its ROADMAP queue item: the
 planner (``algorithm="auto"``, ``return_plan``; A5), the other
 algorithms and multi-rank meshes (A3), rank-exact execution and
-rebalancing (A6), ABFT verification (A8).  Telemetry (A9) does not
+rebalancing on more than one rank (A6; on one rank both are no-ops, as
+in the reference), ABFT verification (A8).  Telemetry (A9) does not
 exist in the port yet.
 """
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -165,9 +167,12 @@ def distributed_matmul(
     if verify is not None:
         raise NotImplementedError(
             "ABFT verification is not ported yet: ROADMAP Queue A8")
-    if rank_exact or rebalance:
+    if (rank_exact or rebalance) and math.prod(mesh.axis_sizes) > 1:
+        # one rank: the reference runs the ordinary multiply (rank-exact
+        # execution and its rebalance need more than one rank)
         raise NotImplementedError(
-            "rank_exact / rebalance are not ported yet: ROADMAP Queue A6")
+            "rank_exact / rebalance on a multi-rank mesh are not ported "
+            "yet: ROADMAP Queue A6")
 
     filtering = filter_eps is not None
     if filtering and a_norms is None and b_norms is None:

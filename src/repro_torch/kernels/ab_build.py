@@ -12,8 +12,10 @@ the same operands go through each in the order base, change, change,
 base (median of 20 CUDA-event timings after a warm-up, per turn):
 
   tiled_matmul      the densified path's f32 3,960^3
-  decode_attention  the serve case's full cache, bf16: B=8, S=4,096,
-                    8 KV heads of 6 query heads, Dh=128, cur_len=S
+  decode_attention  the serve case's cache, bf16: B=8, S=4,096, 8 KV
+                    heads of 6 query heads, Dh=128, at cur_len=S and at
+                    cur_len=2,064 (each tree called with the argument list
+                    its library takes: ``decode_attention_abi``)
   smm               the blocked path's one size bin, f32, dense, with
                     its run starts: 3,960^2 at block 22, then 4,096^2 at
                     block 64 (smm updates C in place: each turn keeps
@@ -21,7 +23,8 @@ base (median of 20 CUDA-event timings after a warm-up, per turn):
 
 For every shape it prints one JSON line with the card, each turn's time
 and whether the two results, each from one launch on the same inputs,
-are bitwise equal.  It exits nonzero without CUDA.
+are bitwise equal (compared as f32 where the two trees write different
+types).  It exits nonzero without CUDA.
 """
 from __future__ import annotations
 
@@ -38,16 +41,26 @@ from . import _build
 REPS = 20
 
 
-def _load(src: Path, out: Path, entry: str):
+def _load(src: Path, out: Path) -> ctypes.CDLL:
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
                     str(src)], check=True)
-    return getattr(ctypes.CDLL(str(out)), entry)
+    return ctypes.CDLL(str(out))
 
 
-# Each entry makes the operands of one kernel and returns, per shape,
-# (argtypes, the launch arguments before the output pointer, the output,
-# the arguments after it, a label of the shape, the operand tensors to
-# keep alive).
+def _abi(lib: ctypes.CDLL, kernel: str) -> int:
+    """The version of a library's argument list (1 where it has none)."""
+    try:
+        fn = getattr(lib, f"{kernel}_abi")
+    except AttributeError:
+        return 1
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    return fn()
+
+
+# Each entry makes the operands of one kernel and returns, per shape, a
+# function of the library's argument-list version giving (argtypes, the
+# launch arguments before the output pointer, the output, the arguments
+# after it, a label of the shape, the operand tensors to keep alive).
 
 
 def _tiled_matmul(dev, gen):
@@ -57,25 +70,46 @@ def _tiled_matmul(dev, gen):
     a = torch.randn((n, n), generator=gen, device=dev)
     b = torch.randn((n, n), generator=gen, device=dev)
     argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    return [(argtypes, (a.data_ptr(), b.data_ptr()),
-             torch.empty((n, n), device=dev), (n, n, n, 0), f"{n}^3 f32",
-             (a, b))]
+    case = (argtypes, (a.data_ptr(), b.data_ptr()),
+            torch.empty((n, n), device=dev), (n, n, n, 0), f"{n}^3 f32",
+            (a, b))
+    return [lambda abi: case]
 
 
 def _decode_attention(dev, gen):
     import torch
 
+    from .decode_attention.ops import device_plan
+
     b, s, hkv, r, dh = 8, 4096, 8, 6, 128
     q, k, v = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
                for shape in ((b, hkv, r, dh), (b, s, hkv, dh), (b, s, hkv, dh)))
-    cur = torch.tensor([s], dtype=torch.int32, device=dev)
-    argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 \
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    return [(argtypes,
-             (q.data_ptr(), k.data_ptr(), v.data_ptr(), cur.data_ptr()),
-             torch.empty((b, hkv, r, dh), device=dev),
-             (b, s, hkv, r, dh, dh ** -0.5, 1, 1),
-             f"B={b} S={s} Hkv={hkv} R={r} Dh={dh} bf16", (q, k, v, cur))]
+    pl = device_plan(dev.index or 0, b, hkv, r, dh, s, torch.bfloat16)
+    cases = []
+    for cur_len in (s, 2064):
+        cur = torch.tensor([cur_len], dtype=torch.int32, device=dev)
+        label = f"B={b} S={s} Hkv={hkv} R={r} Dh={dh} bf16 cur_len={cur_len}"
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), cur.data_ptr())
+
+        def case(abi, cur=cur, label=label, ptrs=ptrs):
+            if abi == 1:   # f32 out, a vec flag
+                argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 \
+                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p]
+                return (argtypes, ptrs,
+                        torch.empty((b, hkv, r, dh), device=dev),
+                        (b, s, hkv, r, dh, dh ** -0.5, 1, 1), label,
+                        (q, k, v, cur))
+            argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 \
+                + [ctypes.c_float] + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+            return (argtypes, ptrs,
+                    torch.empty((b, hkv, r, dh), dtype=torch.bfloat16,
+                                device=dev),
+                    (b, s, hkv, r, dh, dh ** -0.5, 1, pl.rpg, pl.nrg, pl.kr,
+                     pl.dpl, pl.warps, pl.nsplit, 16), label, (q, k, v, cur))
+
+        cases.append(case)
+    return cases
 
 
 def _smm(dev, gen):
@@ -91,12 +125,13 @@ def _smm(dev, gen):
         nblk = (n // bs) ** 2
         a = torch.randn((nblk, bs, bs), generator=gen, device=dev)
         b = torch.randn((nblk, bs, bs), generator=gen, device=dev)
-        cases.append((argtypes, (a.data_ptr(), b.data_ptr()),
-                      torch.zeros((plan.n_c_blocks + 1, bs, bs), device=dev),
-                      (t.data_ptr(), r.data_ptr(), int(r.shape[0]),
-                       int(t.shape[0]), int(t.shape[1]), bs, bs, bs, 0),
-                      f"{n}^2 block {bs} f32, {int(t.shape[0])} rows",
-                      (a, b, t, r)))
+        case = (argtypes, (a.data_ptr(), b.data_ptr()),
+                torch.zeros((plan.n_c_blocks + 1, bs, bs), device=dev),
+                (t.data_ptr(), r.data_ptr(), int(r.shape[0]),
+                 int(t.shape[0]), int(t.shape[1]), bs, bs, bs, 0),
+                f"{n}^2 block {bs} f32, {int(t.shape[0])} rows",
+                (a, b, t, r))
+        cases.append(lambda abi, case=case: case)
     return cases
 
 
@@ -123,27 +158,31 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     make, entry = KERNELS[args.kernel]
     rel = Path(f"src/repro_torch/csrc/{args.kernel}.cu")
-    fns = {tag: _load(root / rel, _build.BUILD_DIR / f"ab_{args.kernel}_{tag}.so",
-                      entry)
-           for tag, root in (("base", args.base), ("change", args.change))}
+    libs = {tag: _load(root / rel,
+                       _build.BUILD_DIR / f"ab_{args.kernel}_{tag}.so")
+            for tag, root in (("base", args.base), ("change", args.change))}
+    fns = {tag: getattr(lib, entry) for tag, lib in libs.items()}
+    abis = {tag: _abi(lib, args.kernel) for tag, lib in libs.items()}
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     for case in make(dev, gen):
-        print(json.dumps(_ab(fns, case, card, args, dev)), flush=True)
+        print(json.dumps(_ab(fns, {tag: case(abi) for tag, abi in abis.items()},
+                             card, args, dev)), flush=True)
     return 0
 
 
-def _ab(fns, case, card, args, dev) -> dict:
+def _ab(fns, cases, card, args, dev) -> dict:
     import torch
 
-    argtypes, before, out, after, shape, _keep = case
-    for fn in fns.values():
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    outs = {tag: out.clone() for tag in fns}
+    for tag, fn in fns.items():
+        fn.argtypes, fn.restype = cases[tag][0], ctypes.c_int
+    outs = {tag: case[2].clone() for tag, case in cases.items()}
+    shape = cases["change"][4]
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def launch(tag):
+        _, before, _, after, _, _ = cases[tag]
         code = fns[tag](*before, outs[tag].data_ptr(), *after, stream)
         if code:
             raise RuntimeError(f"{tag}: CUDA error {code}")
@@ -164,14 +203,17 @@ def _ab(fns, case, card, args, dev) -> dict:
 
     turns = [(tag, turn(tag)) for tag in ("base", "change", "change", "base")]
     for tag in fns:   # one launch each from the same output tensor
-        outs[tag].copy_(out)
+        outs[tag].copy_(cases[tag][2])
         launch(tag)
     torch.cuda.synchronize()
+    base, change = outs["base"], outs["change"]
+    if base.dtype != change.dtype:
+        base, change = base.float(), change.float()
     return {"kernel": args.kernel, "shape": shape, "card": card,
             "base": str(args.base), "change": str(args.change),
             "turns_ms": turns,
-            "max_abs_diff": float((outs["base"] - outs["change"]).abs().max()),
-            "bitwise_equal": bool(torch.equal(outs["base"], outs["change"]))}
+            "max_abs_diff": float((base - change).abs().max()),
+            "bitwise_equal": bool(torch.equal(base, change))}
 
 
 if __name__ == "__main__":

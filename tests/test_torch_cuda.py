@@ -10,12 +10,15 @@ its bf16 output one bf16 step from the plain version's f32 output rounded
 to bf16, plus 2**-16 of max|ref| for the f32 summation order (the rule of
 chip_smoke.py's ``bf16_worst``).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import dbcsr
 from repro_torch.core.engine import build_executor_plan
+from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.grouped_gemm.ops import grouped_gemm
@@ -204,6 +207,95 @@ def test_decode_attention_kernel_matches_plain(cuda, b, hkv, r, dh, s, cur,
         torch.testing.assert_close(got, ref, rtol=2e-4, atol=2e-4)
     else:
         assert _bf16_steps(got, ref) <= 1.0
+
+
+def _decode_inputs(cuda, b, hkv, r, dh, s, dtype, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g, device=cuda).to(dtype)
+                 for shape in ((b, 1, hkv * r, dh), (b, s, hkv, dh),
+                               (b, s, hkv, dh)))
+
+
+def _pin_splits(monkeypatch, n):
+    """Launch with n CTAs a cluster in place of the planner's count."""
+    if n is None:
+        return
+    planned = decode_ops.device_plan
+    monkeypatch.setattr(decode_ops, "device_plan", lambda *args: (
+        dataclasses.replace(planned(*args), nsplit=n)))
+
+
+def _check_decode(out, q, k, v, cur_len):
+    b, _, h, dh = q.shape
+    hkv = k.shape[2]
+    ref = decode_attention_ref(q.reshape(b, hkv, h // hkv, dh), k, v, cur_len)
+    got = out.float().reshape(ref.shape)
+    if out.dtype == torch.float32:
+        torch.testing.assert_close(got, ref, rtol=2e-4, atol=2e-4)
+    else:
+        assert _bf16_steps(got, ref) <= 1.0
+
+
+# S = 1,024 over 8 CTAs of 4 warps: 127/128/129 and 512/513 sit at and
+# beside the boundaries of the CTAs' tile ranges; 0, 1 and S; S = 1 and
+# S = 3 leave most CTAs and warps without a row
+@pytest.mark.parametrize("s,cur,splits", [
+    (1024, 127, 8), (1024, 128, 8), (1024, 129, 8), (1024, 512, 8),
+    (1024, 513, 8), (1024, 0, 8), (1024, 1, 8), (1024, 1024, 8),
+    (1024, 1030, None), (1, 1, None), (1, 0, None), (3, 3, 8), (3, 2, 5)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_split_edges(cuda, monkeypatch, s, cur, splits,
+                                     dtype):
+    q, k, v = _decode_inputs(cuda, 2, 2, 6, 128, s, dtype, seed=s + cur)
+    cur_len = torch.tensor([cur], dtype=torch.int32, device=cuda)
+    _pin_splits(monkeypatch, splits)
+    out = decode_attention(q, k, v, cur_len)
+    torch.cuda.synchronize()
+    _check_decode(out, q, k, v, cur_len)
+
+
+# the (R, Dh) pairs of the configs after head_pad_factor
+@pytest.mark.parametrize("r", [1, 4, 6, 8, 12, 48])
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_config_heads(cuda, r, dh, dtype):
+    q, k, v = _decode_inputs(cuda, 2, 2, r, dh, 300, dtype, seed=r * dh)
+    cur_len = torch.tensor([250], dtype=torch.int32, device=cuda)
+    out = decode_attention(q, k, v, cur_len)
+    torch.cuda.synchronize()
+    _check_decode(out, q, k, v, cur_len)
+
+
+def test_decode_attention_bf16_output_is_rounded_f32(cuda, monkeypatch):
+    """With the same plan the f32 kernel on the bf16 values upcast sums in
+    the same order, so the bf16 output is its result rounded to nearest
+    even, bit for bit."""
+    q, k, v = _decode_inputs(cuda, 2, 8, 6, 128, 1000, torch.bfloat16, seed=3)
+    cur_len = torch.tensor([777], dtype=torch.int32, device=cuda)
+    _pin_splits(monkeypatch, 8)
+    out = decode_attention(q, k, v, cur_len)
+    out32 = decode_attention(q.float(), k.float(), v.float(), cur_len)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out32.dtype == torch.float32
+    assert torch.equal(out.view(torch.int16),
+                       out32.to(torch.bfloat16).view(torch.int16))
+
+
+def test_decode_attention_cuda_graph_replay(cuda):
+    """One captured call, replayed after writing new lengths into the
+    same device tensor: the kernel reads cur_len on the device."""
+    q, k, v = _decode_inputs(cuda, 2, 8, 6, 128, 300, torch.bfloat16, seed=4)
+    cur_len = torch.tensor([100], dtype=torch.int32, device=cuda)
+    decode_attention(q, k, v, cur_len)           # build and set up first
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = decode_attention(q, k, v, cur_len)
+    for cur in (1, 0, 57, 300, 299, 100):
+        cur_len.fill_(cur)
+        graph.replay()
+        torch.cuda.synchronize()
+        _check_decode(out, q, k, v, cur_len)
 
 
 def test_decode_attention_counts_only_kernel_launches(cuda):

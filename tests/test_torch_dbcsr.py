@@ -180,10 +180,27 @@ def test_create_matches_jax(meshes):
     (dict(algorithm="summa"), "A3"),
     (dict(algorithm="cannon", return_plan=True), "A5"),
     (dict(algorithm="cannon", verify="checksum"), "A8"),
-    (dict(algorithm="cannon", rank_exact=True), "A6"),
-    (dict(algorithm="cannon", rebalance=True), "A6"),
 ])
 def test_later_slices_raise(meshes, kw, queue):
     _, _, ta, tb = _operands(meshes, 1.0)
     with pytest.raises(NotImplementedError, match=queue):
         dbcsr.multiply(ta, tb, mesh=meshes[1], **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(rank_exact=True),
+                                dict(rebalance=True)])
+def test_rank_exact_and_rebalance_on_one_rank_match_jax(meshes, kw):
+    """On a one-rank mesh the reference runs the ordinary multiply (its
+    rank-exact path needs more than one rank); so does the port."""
+    jmesh, mesh = meshes
+    ja, jb, ta, tb = _operands(meshes, 0.5, seed=9)
+    jc = jdbcsr.multiply(ja, jb, mesh=jmesh, algorithm="cannon",
+                         densify=False, **kw)
+    tc = dbcsr.multiply(ta, tb, mesh=mesh, algorithm="cannon", densify=False,
+                        **kw)
+    np.testing.assert_array_equal(tc.block_mask, jc.block_mask)
+    np.testing.assert_allclose(tc.data.numpy(), np.asarray(jc.data),
+                               rtol=RTOL, atol=ATOL)
+    plain = dbcsr.multiply(ta, tb, mesh=mesh, algorithm="cannon",
+                           densify=False)
+    assert torch.equal(tc.data, plain.data)
