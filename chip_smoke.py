@@ -14,8 +14,11 @@ Phase 1  holds each kernel against its plain PyTorch version on the card:
          runs of 1 to 70 rows with valid == 0 rows at a run's start, end
          and over a whole 32-row triple window, and a padding run, with
          4 and with 3 triple columns (``edge_stack``);
-         tiled_matmul at a shape that is no tile multiple, f32 and bf16;
-         grouped_gemm at a ragged shape and at E = 1, f32 and bf16;
+         tiled_matmul and grouped_gemm, f32 and bf16, at ragged shapes
+         and E = 1, and at the GEMM body's edges: K below one 32-deep
+         slice and no multiple of it, K or N % 4 != 0, M or N of 1,
+         operands at storage offset 1 (not 16-byte aligned: one-element
+         copies); grouped_gemm(t, w)[e] bitwise tiled_matmul(t[e], w[e]);
          decode_attention at the four cases of the JAX package's kernel
          test, a bf16 cache, and cur_len 0, 1, 513 and S at the serve
          heads with an S that is no multiple of the kernel's 16-row tile
@@ -37,7 +40,8 @@ Phase 2  runs the main path, dbcsr.create -> dbcsr.multiply with
          dense operands (f32, TF32 off); each case's launch counters are
          zeroed just before the multiply and read just after.
 Phase 3  times each kernel at the shapes of (a), (b), (c) (both stack
-         sizes) and (d), the fused smm launch at (f) and grouped_gemm at
+         sizes) and (d) (and tiled_matmul at phase 1's ragged 1,000 x 777
+         x 1,030), the fused smm launch at (f) and grouped_gemm at
          (h): median of CUDA-event timings after a warm-up, beside its
          bound (the larger of flop / f32 non-tensor peak and bytes / HBM
          rate), the plain version (smm: stack by stack) and torch.matmul
@@ -68,10 +72,12 @@ Phase 4  runs the serving path, MultiplyService(fused=True,
          zeroed just before and read just after; each product is held
          against torch.matmul (or, under eps > 0, against the
          per-request multiply and its mask), blocked fused results with
-         eps in {None, 0} against dbcsr.multiply_batched(fused=False)
-         bitwise, and stats() must show every request fused with no
-         retry, degradation or error ticket.  It prints the host time of
-         the first and the repeat flush against the looped dispatch.
+         eps in {None, 0} and (h)'s densified ones (one grouped_gemm
+         launch against one tiled_matmul launch a request) against
+         dbcsr.multiply_batched(fused=False) bitwise, and stats() must
+         show every request fused with no retry, degradation or error
+         ticket.  It prints the host time of the first and the repeat
+         flush against the looped dispatch.
 Phase 5  serves Qwen2-1.5B at full width (28 layers, d_model 1,536, 48
          query and 8 KV heads after the config's head_pad_factor 4,
          vocabulary 151,936) from seeded random weights through
@@ -632,23 +638,51 @@ def main() -> int:
             for three_cols in (False, True):
                 smm_edges(*shape, dtype, three_cols)
 
-    for m, k, n in ((1000, 777, 1030), (129, 3960, 257)):
+    def operand(shape, dtype, offset=0):
+        """Random and contiguous; at ``offset`` > 0 a view that starts that
+        many elements into its storage (data_ptr() not 16-byte aligned)."""
+        n = int(np.prod(shape))
+        flat = torch.randn(n + offset, generator=gen, device=dev).to(dtype)
+        return flat[offset:].view(shape)
+
+    # the GEMM body's edges (32-deep K slices; B by 16-byte copies where N
+    # and the pointers allow, else one element a copy): K no multiple of
+    # 32 and below one slice, K or N % 4 != 0, M or N of 1, and operands
+    # at storage offset 1 (last field)
+    for m, k, n, off in ((1000, 777, 1030, 0), (129, 3960, 257, 0),
+                         (70, 7, 90, 0), (130, 12, 136, 0), (129, 40, 260, 0),
+                         (64, 64, 130, 0), (1, 300, 256, 0), (257, 48, 1, 0),
+                         (300, 200, 256, 1)):
         for dtype in (torch.float32, torch.bfloat16):
-            a = torch.randn((m, k), generator=gen, device=dev).to(dtype)
-            b = torch.randn((k, n), generator=gen, device=dev).to(dtype)
+            a, b = operand((m, k), dtype, off), operand((k, n), dtype, off)
             out, ref = tiled_matmul(a, b), tiled_matmul_ref(a, b)
             torch.cuda.synchronize()
             err_abs["tiled_matmul"] = max(err_abs["tiled_matmul"], check_close(
-                f"tiled_matmul {m}x{k}x{n} {str(dtype)[6:]}", out, ref))
+                f"tiled_matmul {m}x{k}x{n} {str(dtype)[6:]}"
+                + (f" at offset {off}" if off else ""), out, ref))
 
-    for e, m, k, n in ((3, 200, 333, 130), (1, 1000, 777, 1030)):
+    for e, m, k, n, off in ((3, 200, 333, 130, 0), (1, 1000, 777, 1030, 0),
+                            (3, 70, 7, 90, 0), (2, 130, 40, 136, 0),
+                            (2, 64, 64, 130, 0), (2, 1, 300, 256, 0),
+                            (2, 200, 256, 128, 1)):
         for dtype in (torch.float32, torch.bfloat16):
-            t = torch.randn((e, m, k), generator=gen, device=dev).to(dtype)
-            w = torch.randn((e, k, n), generator=gen, device=dev).to(dtype)
+            t, w = operand((e, m, k), dtype, off), operand((e, k, n), dtype, off)
             out, ref = grouped_gemm(t, w), grouped_gemm_ref(t, w)
             torch.cuda.synchronize()
             err_abs["grouped_gemm"] = max(err_abs["grouped_gemm"], check_close(
-                f"grouped_gemm {e}x{m}x{k}x{n} {str(dtype)[6:]}", out, ref))
+                f"grouped_gemm {e}x{m}x{k}x{n} {str(dtype)[6:]}"
+                + (f" at offset {off}" if off else ""), out, ref))
+
+    # one summation order: product e of a batch is bitwise the product alone
+    for dtype in (torch.float32, torch.bfloat16):
+        t, w = operand((3, 200, 333), dtype), operand((3, 333, 130), dtype)
+        out = grouped_gemm(t, w)
+        if not all(torch.equal(out[i], tiled_matmul(t[i], w[i]))
+                   for i in range(3)):
+            raise AssertionError(f"grouped_gemm(t, w)[e] != tiled_matmul(t[e], "
+                                 f"w[e]) ({str(dtype)[6:]})")
+        print(f"  grouped_gemm(t, w)[e] == tiled_matmul(t[e], w[e]) bitwise, "
+              f"E=3, 200x333x130 {str(dtype)[6:]}")
 
     def decode_inputs(b, hkv, r, dh, s, dtype):
         q = torch.randn((b, 1, hkv * r, dh), generator=gen, device=dev)
@@ -934,11 +968,26 @@ def main() -> int:
     ms = time_ms(lambda: tiled_matmul(a, b), 10)
     plain_ms = time_ms(lambda: tiled_matmul_ref(a, b), 10)
     library_ms = time_ms(lambda: torch.matmul(a, b), 10)
+    out = tiled_matmul(a, b)
     err_abs["tiled_matmul"] = max(err_abs["tiled_matmul"], check_close(
-        "tiled_matmul 3960^3 kernel vs plain", tiled_matmul(a, b),
-        tiled_matmul_ref(a, b)))
+        "tiled_matmul 3960^3 kernel vs plain", out, tiled_matmul_ref(a, b)))
+    print(f"  tiled_matmul 3960^3 bitwise torch.matmul (an observation of "
+          f"cuBLAS, not a check): {torch.equal(out, torch.matmul(a, b))}")
+    del out
     tiled_rows = [report("tiled_matmul", "3960^3 f32", ms, plain_ms,
                          library_ms, 2.0 * 3960 ** 3, 4 * 3 * 3960 ** 2, 1)]
+    # the ragged shape of phase 1: N % 4 != 0, one element a copy
+    m, k, n = 1000, 777, 1030
+    a, b = operand((m, k), torch.float32), operand((k, n), torch.float32)
+    ms = time_ms(lambda: tiled_matmul(a, b), 10)
+    plain_ms = time_ms(lambda: tiled_matmul_ref(a, b), 10)
+    library_ms = time_ms(lambda: torch.matmul(a, b), 10)
+    err_abs["tiled_matmul"] = max(err_abs["tiled_matmul"], check_close(
+        f"tiled_matmul {m}x{k}x{n} kernel vs plain", tiled_matmul(a, b),
+        tiled_matmul_ref(a, b)))
+    tiled_rows.append(report("tiled_matmul", f"{m}x{k}x{n} f32", ms, plain_ms,
+                             library_ms, 2.0 * m * k * n,
+                             4 * (m * k + k * n + m * n), 1))
 
     # (f)'s fused launch: all 16 products' stacks in one smm launch
     a_blocks = to_blocks_batched(a_stack, BS, BS).reshape(-1, BS, BS)
@@ -1151,10 +1200,12 @@ def main() -> int:
           f"sparse products moved by >= {moved:.3e} of max|C|")
     del out, looped
 
-    out, _ = serve("(h) 16 dense, densified, grouped_gemm", dense_reqs,
-                   dict(none, grouped_gemm=1), 1, densify=True,
-                   local_kernel="pallas")
+    out, looped = serve("(h) 16 dense, densified, grouped_gemm", dense_reqs,
+                        dict(none, grouped_gemm=1), 1, densify=True,
+                        local_kernel="pallas")
     against_matmul("(h)", out, dense_reqs)
+    bitwise("(h) grouped_gemm vs looped tiled_matmul", out, looped)
+    del looped
     out, _ = serve("(i) 16 dense, densified, torch.bmm", dense_reqs, none, 1,
                    densify=True)
     against_matmul("(i)", out, dense_reqs)

@@ -9,15 +9,28 @@
 //
 // Design.  The TPU kernel walks a (M/bm, N/bn, K/bk) grid with k innermost
 // and carries an f32 VMEM accumulator from one k step to the next.  Here it
-// is the one-product launch of the port's shared register-tiled GEMM body
-// (gemm_tile.cuh, also grouped_gemm.cu's): every 128 x 128 C tile is one
-// thread block, all blocks run in parallel, a loop over K inside the block
-// replaces the sequential k axis, and ragged edges are masked in the kernel,
-// so the wrapper pads nothing.
+// is the one-product launch of the port's shared GEMM body (gemm_tile.cuh,
+// also grouped_gemm.cu's): every 128 x 128 C tile is one thread block, all
+// blocks run in parallel, a loop over K inside the block replaces the
+// sequential k axis, and operands stream through a cp.async ring of 32-deep
+// K slices in shared memory (A transposed by 4-byte copies, B by 16-byte
+// copies where aligned).  Ragged edges are zero-filled by the copies, so
+// the wrapper pads nothing.  Summation order: each C element is one fmaf
+// chain over k = 0..K-1 from 0, so the result is bitwise grouped_gemm's
+// for the same product and bitwise the earlier kernel's.  The one-product
+// launch is its own instantiation, which does not read blockIdx.z: 5 %
+// faster at 3,960^3 than the batched one (ab_build's A/B turns).
 //
 // What bounds it on the H100.  At the densified path's 3,960^3 the product
 // is 1.24e11 flop on 188 MB, flop-bound: 1.85 ms at the 67 TFLOP/s f32
-// (non-tensor) peak of the SXM part.
+// (non-tensor) peak of the SXM part.  On an NVIDIA H100 80GB HBM3 at
+// 700.00 W it runs within 5 % of torch.matmul (chip_smoke.py phase 3;
+// each run's times are in PERF.md section 6, row 2), about 1.6 times
+// faster than the earlier body (ab_build's A/B turns).  Copy-only and
+// arithmetic-only builds (PERF.md, PR 17) show the FMA loop alone taking
+// about nine tenths of the time: FMA issue bounds it (4 16-byte shared
+// reads per 64 FMAs), on top of 961 tiles in 3.64 waves of 264 blocks (2
+// an SM), the last wave 64 % full.
 
 #include "gemm_tile.cuh"
 

@@ -6,7 +6,8 @@ own shared library with a plain C interface, then loaded with
 Libraries land in ``build/kernels/`` at the repository root, named by a
 hash of their source and flags, so an edited source is rebuilt and an
 unchanged one is reused.  ``build()`` starts one ``nvcc`` per source,
-all at once, and waits for them together.
+all at once, and waits for them together (``compile_all``, which
+``ab_build`` also uses for sources of other trees).
 
 Every C entry point takes its pointers and the CUDA stream as
 ``void*`` and returns ``cudaGetLastError()``; ``check()`` turns a
@@ -24,8 +25,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable
 
-__all__ = ["SOURCES", "build", "check", "error_string", "library_path",
-           "load", "stream_ptr"]
+__all__ = ["SOURCES", "build", "check", "compile_all", "error_string",
+           "library_path", "load", "stream_ptr"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -57,39 +58,51 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names: Iterable[str] = SOURCES, *,
-          ptxas_verbose: bool = False) -> Dict[str, dict]:
-    """Compile every source in ``names`` that has no current library,
-    one ``nvcc`` process each, all started together.  Returns
-    ``{name: {"seconds", "cached", "log"}}``; raises with the compiler's
-    output if any build fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+def compile_all(jobs: Dict[str, tuple], *,
+                ptxas_verbose: bool = False) -> Dict[str, dict]:
+    """Compile ``{key: (source, library)}``, one ``nvcc`` process each,
+    all started together, each library written whole or not at all.
+    Returns ``{key: {"seconds", "cached", "log"}}``; raises with the
+    compiler's output if any build fails."""
     procs = {}
-    out: Dict[str, dict] = {}
-    for name in names:
-        lib = library_path(name)
-        if lib.exists():
-            out[name] = {"seconds": 0.0, "cached": True, "log": ""}
-            continue
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    for key, (src, lib) in jobs.items():
+        Path(lib).parent.mkdir(parents=True, exist_ok=True)
+        tmp = Path(lib).with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
         if ptxas_verbose:
             cmd[1:1] = ["-Xptxas", "-v"]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, lib, time.perf_counter())
+        procs[key] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True),
+                      tmp, lib, time.perf_counter())
+    out: Dict[str, dict] = {}
     failed = []
-    for name, (proc, tmp, lib, t0) in procs.items():
+    for key, (proc, tmp, lib, t0) in procs.items():
         log, _ = proc.communicate()
-        out[name] = {"seconds": time.perf_counter() - t0, "cached": False,
-                     "log": log}
+        out[key] = {"seconds": time.perf_counter() - t0, "cached": False,
+                    "log": log}
         if proc.returncode != 0:
-            failed.append(f"--- {name} (nvcc exit {proc.returncode})\n{log}")
+            failed.append(f"--- {key} (nvcc exit {proc.returncode})\n{log}")
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, lib)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return out
+
+
+def build(names: Iterable[str] = SOURCES, *,
+          ptxas_verbose: bool = False) -> Dict[str, dict]:
+    """Compile every source in ``names`` that has no current library
+    (``compile_all``).  Returns ``{name: {"seconds", "cached", "log"}}``."""
+    out: Dict[str, dict] = {}
+    jobs = {}
+    for name in names:
+        lib = library_path(name)
+        if lib.exists():
+            out[name] = {"seconds": 0.0, "cached": True, "log": ""}
+        else:
+            jobs[name] = (CSRC / f"{name}.cu", lib)
+    out.update(compile_all(jobs, ptxas_verbose=ptxas_verbose))
     return out
 
 

@@ -1,17 +1,22 @@
 """Time one CUDA kernel as built from two source trees, in turns, on one
 card: the A/B check for a change to a kernel's source.
 
-    python -m repro_torch.kernels.ab_build --base DIR [--change DIR2]
-        [--kernel tiled_matmul|decode_attention|smm]
+    python -m repro_torch.kernels.ab_build --base DIR [--change DIR2 ...]
+        [--kernel tiled_matmul|grouped_gemm|decode_attention|smm]
 
 ``DIR`` is another checkout of the repository (for example the parent
-commit, unpacked with ``git archive``), ``DIR2`` the tree under test
-(default: this checkout).  Both trees' ``csrc/<kernel>.cu`` are compiled
-with the build's flags, both libraries are loaded with ``ctypes``, and
-the same operands go through each in the order base, change, change,
+commit, unpacked with ``git archive``), each ``DIR2`` a tree under test
+(default: this checkout).  Every tree's ``csrc/<kernel>.cu`` is compiled
+with the build's flags, one ``nvcc`` each, all at once; the libraries
+are loaded with ``ctypes``, and for each tree under test the same
+operands go through the base and it in the order base, change, change,
 base (median of 20 CUDA-event timings after a warm-up, per turn):
 
-  tiled_matmul      the densified path's f32 3,960^3
+  tiled_matmul      the densified path's f32 3,960^3, then a ragged
+                    1,000 x 777 x 1,030 (N no multiple of 4: the
+                    one-element copies)
+  grouped_gemm      the batched densified path's f32 16 x 1,980^3, then
+                    a ragged 3 x 200 x 333 x 130
   decode_attention  the serve case's cache, bf16: B=8, S=4,096, 8 KV
                     heads of 6 query heads, Dh=128, at cur_len=S and at
                     cur_len=2,064 (each tree called with the argument list
@@ -41,10 +46,13 @@ from . import _build
 REPS = 20
 
 
-def _load(src: Path, out: Path) -> ctypes.CDLL:
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
-                    str(src)], check=True)
-    return ctypes.CDLL(str(out))
+def _load_all(srcs, kernel: str):
+    """Compile every source at once; their libraries, in order."""
+    jobs = {f"tree {i}, {src}":
+            (src, _build.BUILD_DIR / f"ab_{kernel}_{i}.so")
+            for i, src in enumerate(srcs)}
+    _build.compile_all(jobs)
+    return [ctypes.CDLL(str(lib)) for _, lib in jobs.values()]
 
 
 def _abi(lib: ctypes.CDLL, kernel: str) -> int:
@@ -63,17 +71,34 @@ def _abi(lib: ctypes.CDLL, kernel: str) -> int:
 # after it, a label of the shape, the operand tensors to keep alive).
 
 
-def _tiled_matmul(dev, gen):
+def _gemm(dev, gen, shapes, batched):
+    """f32 ``(E, M, K) @ (E, K, N)`` cases; the batched entry point takes
+    E before (M, N, K), tiled_matmul's has no E."""
     import torch
 
-    n = 3960
-    a = torch.randn((n, n), generator=gen, device=dev)
-    b = torch.randn((n, n), generator=gen, device=dev)
-    argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    case = (argtypes, (a.data_ptr(), b.data_ptr()),
-            torch.empty((n, n), device=dev), (n, n, n, 0), f"{n}^3 f32",
-            (a, b))
-    return [lambda abi: case]
+    argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * (5 if batched else 4) \
+        + [ctypes.c_void_p]
+    cases = []
+    for e, m, k, n in shapes:
+        a = torch.randn((e, m, k), generator=gen, device=dev)
+        b = torch.randn((e, k, n), generator=gen, device=dev)
+        dims = ((e,) if batched else ()) + (m, n, k, 0)
+        label = (f"{e} x " if batched else "") + (
+            f"{m}^3 f32" if m == k == n else f"{m} x {k} x {n} f32")
+        case = (argtypes, (a.data_ptr(), b.data_ptr()),
+                torch.empty((e, m, n), device=dev), dims, label, (a, b))
+        cases.append(lambda abi, case=case: case)
+    return cases
+
+
+def _tiled_matmul(dev, gen):
+    return _gemm(dev, gen, ((1, 3960, 3960, 3960), (1, 1000, 777, 1030)),
+                 batched=False)
+
+
+def _grouped_gemm(dev, gen):
+    return _gemm(dev, gen, ((16, 1980, 1980, 1980), (3, 200, 333, 130)),
+                 batched=True)
 
 
 def _decode_attention(dev, gen):
@@ -137,6 +162,7 @@ def _smm(dev, gen):
 
 # kernel -> (operands, C entry point)
 KERNELS = {"tiled_matmul": (_tiled_matmul, "tiled_matmul_launch"),
+           "grouped_gemm": (_grouped_gemm, "grouped_gemm_launch"),
            "decode_attention": (_decode_attention, "decode_attention_launch"),
            "smm": (_smm, "smm_process_runs")}
 
@@ -146,33 +172,35 @@ def main(argv=None) -> int:
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--base", required=True, type=Path)
-    p.add_argument("--change", type=Path,
-                   default=Path(__file__).resolve().parents[3])
+    p.add_argument("--change", type=Path, nargs="+",
+                   default=[Path(__file__).resolve().parents[3]])
     p.add_argument("--kernel", choices=sorted(KERNELS), default="tiled_matmul")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("ab_build: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     make, entry = KERNELS[args.kernel]
     rel = Path(f"src/repro_torch/csrc/{args.kernel}.cu")
-    libs = {tag: _load(root / rel,
-                       _build.BUILD_DIR / f"ab_{args.kernel}_{tag}.so")
-            for tag, root in (("base", args.base), ("change", args.change))}
-    fns = {tag: getattr(lib, entry) for tag, lib in libs.items()}
-    abis = {tag: _abi(lib, args.kernel) for tag, lib in libs.items()}
+    trees = [args.base, *args.change]
+    libs = _load_all([root / rel for root in trees], args.kernel)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
-    for case in make(dev, gen):
-        print(json.dumps(_ab(fns, {tag: case(abi) for tag, abi in abis.items()},
-                             card, args, dev)), flush=True)
+    cases = make(dev, gen)
+    for change, lib in zip(args.change, libs[1:]):
+        pair = {"base": libs[0], "change": lib}
+        fns = {tag: getattr(lib, entry) for tag, lib in pair.items()}
+        abis = {tag: _abi(lib, args.kernel) for tag, lib in pair.items()}
+        for case in cases:
+            print(json.dumps(_ab(fns, {tag: case(abi)
+                                       for tag, abi in abis.items()},
+                                 card, args, change, dev)), flush=True)
     return 0
 
 
-def _ab(fns, cases, card, args, dev) -> dict:
+def _ab(fns, cases, card, args, tree, dev) -> dict:
     import torch
 
     for tag, fn in fns.items():
@@ -210,7 +238,7 @@ def _ab(fns, cases, card, args, dev) -> dict:
     if base.dtype != change.dtype:
         base, change = base.float(), change.float()
     return {"kernel": args.kernel, "shape": shape, "card": card,
-            "base": str(args.base), "change": str(args.change),
+            "base": str(args.base), "change": str(tree),
             "turns_ms": turns,
             "max_abs_diff": float((base - change).abs().max()),
             "bitwise_equal": bool(torch.equal(base, change))}

@@ -6,10 +6,14 @@ Two entry points serve the batched multiply (core/engine.py
   * ``grouped_gemm``          -- the batched dense GEMM
     ``(E, C, d) @ (E, d, f)`` through the CUDA kernel
     ``csrc/grouped_gemm.cu``: the *densified* local path of a fused
-    product batch, one launch for all E products.  The kernel masks
+    product batch, one launch for all E products, product e bitwise
+    ``tiled_matmul(tokens[e], weights[e])`` (one GEMM body,
+    ``csrc/gemm_tile.cuh``, one summation order).  The kernel zero-fills
     ragged edges itself, so the wrapper pads nothing (the JAX wrapper
-    pads C, d and f to tile multiples); the JAX wrapper's ``bc``/``bf``/
-    ``bk`` tile arguments have no counterpart.
+    pads C, d and f to tile multiples); its tiles are fixed in the
+    kernel (128 x 128 on one linear grid axis, the groups on grid z,
+    at most 65,535), so the JAX wrapper's ``bc``/``bf``/``bk`` tile
+    arguments have no counterpart.
   * ``grouped_process_stack`` -- the *blocked* local path: ONE smm launch
     over a group-offset stack-triple tensor that covers every product of
     the batch (the JAX package runs one ``lax.scan`` step per stack).
@@ -30,8 +34,7 @@ from .ref import grouped_gemm_ref
 __all__ = ["grouped_gemm", "grouped_process_stack"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_TILE = 128
-_MAX_GRID_YZ = 65535
+_MAX_GROUPS = 65535   # grid z
 
 
 def _lib():
@@ -65,9 +68,9 @@ def grouped_gemm(tokens: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"grouped_gemm runs on cpu or cuda, not {tokens.device}")
     e, c, d = tokens.shape
     f = weights.shape[2]
-    if e > _MAX_GRID_YZ or -(-c // _TILE) > _MAX_GRID_YZ:
-        raise ValueError(f"(E={e}, C={c}) exceeds the kernel's grid "
-                         f"({_MAX_GRID_YZ} groups, {_MAX_GRID_YZ} row tiles)")
+    if e > _MAX_GROUPS:
+        raise ValueError(f"E={e} exceeds the kernel's grid ({_MAX_GROUPS} "
+                         f"groups)")
     out = torch.empty((e, c, f), dtype=torch.float32, device=tokens.device)
     if out.numel() == 0:
         return out

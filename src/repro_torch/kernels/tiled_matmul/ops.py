@@ -1,9 +1,11 @@
 """Wrapper for the CUDA tiled dense matmul (``csrc/tiled_matmul.cu``).
 
-The kernel masks ragged edges itself, so the wrapper pads nothing (the
-JAX wrapper pads to tile multiples).  Its tiles are fixed in the kernel
-(128 x 128 C tiles, K slices of 8); the JAX wrapper's ``bm``/``bn``/
-``bk`` tile arguments have no counterpart.
+The kernel zero-fills ragged edges itself, so the wrapper pads nothing
+(the JAX wrapper pads to tile multiples).  Its tiles are fixed in the
+kernel (``csrc/gemm_tile.cuh``: 128 x 128 C tiles on one linear grid
+axis, so no real shape meets a grid limit), and the kernel picks its
+copy width from the shapes and pointers it is given; the JAX wrapper's
+``bm``/``bn``/``bk`` tile arguments have no counterpart.
 
 For CPU tensors the wrapper runs the plain version (ref.py).  For CUDA
 tensors it launches the kernel or raises; it never falls back.
@@ -20,8 +22,6 @@ from .ref import tiled_matmul_ref
 __all__ = ["tiled_matmul"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_TILE_M = 128
-_MAX_GRID_Y = 65535
 
 
 def _lib():
@@ -51,8 +51,6 @@ def tiled_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"tiled_matmul runs on cpu or cuda, not {a.device}")
     m, k = a.shape
     n = b.shape[1]
-    if -(-m // _TILE_M) > _MAX_GRID_Y:
-        raise ValueError(f"M={m} exceeds the kernel's grid ({_MAX_GRID_Y} row tiles)")
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
     if m == 0 or n == 0:
         return out

@@ -127,12 +127,30 @@ def test_smm_requires_run_starts_on_cuda(cuda):
         smm_process_stack(a, a, a.clone(), t)
 
 
-@pytest.mark.parametrize("shape", [(300, 200, 259), (1, 1, 1), (129, 3960, 257)])
+def _operand(shape, dtype, device, offset=0):
+    """A contiguous random tensor; at ``offset`` > 0 a view that starts
+    ``offset`` elements into its storage (data_ptr() not 16-byte
+    aligned: the kernel's one-element copies)."""
+    n = int(np.prod(shape))
+    flat = torch.randn(n + offset, device=device).to(dtype)
+    return flat[offset:].view(shape)
+
+
+# the GEMM body's edges: K below one 32-deep slice, K no multiple of it
+# (a partial last slice), N % 4 != 0 (one-element copies of B), M = 1 and
+# N = 1, tile multiples, and a misaligned storage offset
+GEMM_EDGES = [((300, 200, 259), 0), ((1, 1, 1), 0), ((129, 3960, 257), 0),
+              ((70, 7, 90), 0), ((130, 12, 136), 0), ((129, 40, 260), 0),
+              ((64, 64, 130), 0), ((1, 300, 256), 0), ((257, 48, 1), 0),
+              ((256, 64, 128), 0), ((300, 200, 256), 1)]
+
+
+@pytest.mark.parametrize("shape,offset", GEMM_EDGES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_tiled_matmul_kernel_matches_plain(cuda, shape, dtype):
+def test_tiled_matmul_kernel_matches_plain(cuda, shape, offset, dtype):
     m, k, n = shape
-    a = torch.randn(m, k, device=cuda).to(dtype)
-    b = torch.randn(k, n, device=cuda).to(dtype)
+    a = _operand((m, k), dtype, cuda, offset)
+    b = _operand((k, n), dtype, cuda, offset)
     before = tiled_matmul.launches
     out = tiled_matmul(a, b)
     torch.cuda.synchronize()
@@ -140,18 +158,40 @@ def test_tiled_matmul_kernel_matches_plain(cuda, shape, dtype):
     assert _rel(out, tiled_matmul_ref(a, b)) <= 1e-5
 
 
-@pytest.mark.parametrize("shape", [(3, 200, 333, 130), (1, 1, 1, 1),
-                                   (2, 256, 512, 128)])
+@pytest.mark.parametrize("shape,offset", [
+    ((3, 200, 333, 130), 0), ((1, 1, 1, 1), 0), ((2, 256, 512, 128), 0),
+    ((3, 70, 7, 90), 0), ((2, 130, 40, 136), 0), ((2, 64, 64, 130), 0),
+    ((2, 1, 300, 256), 0), ((2, 200, 256, 128), 1)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_grouped_gemm_kernel_matches_plain(cuda, shape, dtype):
+def test_grouped_gemm_kernel_matches_plain(cuda, shape, offset, dtype):
     e, c, d, f = shape
-    t = torch.randn(e, c, d, device=cuda).to(dtype)
-    w = torch.randn(e, d, f, device=cuda).to(dtype)
+    t = _operand((e, c, d), dtype, cuda, offset)
+    w = _operand((e, d, f), dtype, cuda, offset)
     before = grouped_gemm.launches
     out = grouped_gemm(t, w)
     torch.cuda.synchronize()
     assert grouped_gemm.launches == before + 1
     assert _rel(out, grouped_gemm_ref(t, w)) <= 1e-5
+
+
+@pytest.mark.parametrize("shape", [(3, 200, 333, 130), (3, 256, 64, 128),
+                                   (3, 130, 40, 136)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_grouped_gemm_is_bitwise_tiled_matmul(cuda, shape, dtype, offset):
+    """One summation order: product e of a batch is bitwise the single
+    product, whichever copy path each launch takes (``offset`` 1 gives
+    tiled_matmul misaligned copies of the operands)."""
+    e, c, d, f = shape
+    t = _operand((e, c, d), dtype, cuda)
+    w = _operand((e, d, f), dtype, cuda)
+    out = grouped_gemm(t, w)
+    for i in range(e):
+        a = _operand((c, d), dtype, cuda, offset)
+        b = _operand((d, f), dtype, cuda, offset)
+        a.copy_(t[i])
+        b.copy_(w[i])
+        assert torch.equal(out[i], tiled_matmul(a, b))
 
 
 @pytest.mark.parametrize("densify,kernel,counter", [
@@ -180,6 +220,34 @@ def test_fused_service_bucket_launches_once(cuda, densify, kernel, counter):
     assert st["n_retries"] == st["n_degradations"] == st["n_error_tickets"] == 0
     for c, (a, b) in zip(out, reqs):
         assert _rel(c.data, torch.matmul(a.data, b.data)) <= 1e-5
+
+
+def test_fused_densified_service_is_bitwise_looped(cuda):
+    """(h) at a small size: the fused densified bucket (one grouped_gemm
+    launch) equals the looped per-request multiplies (one tiled_matmul
+    launch each) bit for bit."""
+    mesh = make_mesh((1, 1), ("data", "model"))
+    gen = torch.Generator().manual_seed(0)
+    reqs = [(dbcsr.create(torch.randn(198, 132, generator=gen), mesh=mesh,
+                          block_size=22),
+             dbcsr.create(torch.randn(132, 110, generator=gen), mesh=mesh,
+                          block_size=22)) for _ in range(5)]
+    svc = MultiplyService(mesh, fused=True, max_batch=5, algorithm="cannon",
+                          densify=True, local_kernel="pallas",
+                          pipeline_depth=1)
+    gg0, tm0 = grouped_gemm.launches, tiled_matmul.launches
+    tickets = [svc.submit(a, b) for a, b in reqs]
+    svc.flush()
+    fused = [svc.result(t) for t in tickets]
+    assert (grouped_gemm.launches - gg0, tiled_matmul.launches - tm0) == (1, 0)
+    looped = dbcsr.multiply_batched(reqs, mesh=mesh, fused=False,
+                                    algorithm="cannon", densify=True,
+                                    local_kernel="pallas", pipeline_depth=1)
+    assert tiled_matmul.launches - tm0 == len(reqs)
+    torch.cuda.synchronize()
+    for x, y, (a, b) in zip(fused, looped, reqs):
+        assert torch.equal(x.data, y.data)
+        assert _rel(x.data, torch.matmul(a.data, b.data)) <= 1e-5
 
 
 @pytest.mark.parametrize("b,hkv,r,dh,s,cur", [
