@@ -106,6 +106,33 @@ Phase 5  serves Qwen2-1.5B at full width (28 layers, d_model 1,536, 48
                profiler window of 4 more steps counts the kernels a step
                launches, the device's busy share, its time a step and
                decode_attention's share of that time.
+Phase 6  runs the distributed schedules through dbcsr.multiply on meshes
+         whose ranks are simulated on the card (launch/mesh.py), at the
+         paper's per-rank size (3,960^2: one rank of 63,360^2 on 16x16):
+           (o) Cannon 4x4 (16 ranks), 15,840^2 f32, densified, with
+               torch.matmul and with local_kernel="pallas" (one
+               grouped_gemm launch a step over the 16 ranks)
+           (p) Cannon 4x4, blocked, block 22: dense, and A at ~20 %
+               block fill with filter_eps None and 0 (the union plan;
+               bitwise equal)
+           (q) SUMMA 4x4 at (o)'s size, bcast "psum" and "gather",
+               densified pallas
+           (r) 2.5D Cannon on 2x4x4 (stack 2, 32 ranks) at (o)'s size,
+               reduce "all_reduce" and "reduce_scatter", densified pallas
+           (s) ts_k over 16 ranks at the paper's tall-skinny shape, 1,408
+               x 1,982,464 x 1,408 f32 (benchmarks/bench_vs_pgemm.py:60),
+               both reduces, densified pallas; held against torch.matmul
+               and an f64 product within TS_TOL
+         Each case: the error against torch.matmul of the global product,
+         the launch counters zeroed just before its first multiply and
+         read just after, the repeat multiply's time (host clock,
+         synchronized; bitwise the first), one local kernel launch's time
+         (CUDA events) times its launches, torch.matmul of the global
+         product (the one-card yardstick), and the bytes the schedule
+         moves between ranks (Mesh.traffic); one {"phase6": [...]} line.
+         Then 4 requests of 880^2 on 2x2 through multiply_batched and
+         MultiplyService with algorithm="summa", blocked and densified
+         pallas: fused == looped == served, bit for bit.
 
 Prints a {"kernels": [...]} line, the nvidia-smi line, and as its last
 line {"ok": true, "device": {...}}.  Any failed check raises, so the
@@ -148,6 +175,15 @@ DA_TOL = 2e-4        # decode_attention vs plain, f32 (rtol and atol)
 # kernel on (k)'s inputs is the per-layer one (one bf16 step).
 J_TOL = 3e-4
 K_TOL = 1e-1
+# phase 6 (s): each rank sums 123,904 products in f32 in one sequence (the
+# GEMM body's K loop), then the 16 partials are added.  Such a sum's
+# rounding error has a standard deviation of about u*K_r/sqrt(6)*sqrt(16)
+# = 0.012 (u = 2**-24), against max|C| = 5.1*sqrt(K) = 7,200: 1.7e-6 of
+# max|C| typically and ~9e-6 at the worst of 2 M outputs, while
+# torch.matmul has its own error of the same kind.  1e-5 (REL_TOL, set for
+# k ~ 4,000) does not hold at K = 1,982,464; TS_TOL is 4x the estimate, and
+# the script also prints both sides against an f64 product.
+TS_TOL = 4e-5
 
 
 def edge_stack(rng, na, nb, nc):
@@ -514,6 +550,298 @@ def profile_steps(params, cfg, engine, state, tok, steps=4) -> dict:
           f"which decode_attention {out['decode_attention_ms_per_step']:.3f} "
           f"ms ({100 * out['decode_attention_share']:.1f} %)")
     return out
+
+
+def distributed(dev, counters, zero_counters, read_counters, report) -> dict:
+    """Phase 6: the distributed schedules on meshes whose ranks are
+    simulated on the card, at the paper's per-rank size; returns rows for
+    the kernels line (grouped_gemm and smm at the new call sites)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import dbcsr
+    from repro_torch.core.blocking import GridSpec
+    from repro_torch.core.cannon import cannon_step_masks
+    from repro_torch.core.densify import to_blocks_batched
+    from repro_torch.core.engine import build_executor_plan
+    from repro_torch.kernels.grouped_gemm.ops import grouped_gemm
+    from repro_torch.kernels.grouped_gemm.ref import grouped_gemm_ref
+    from repro_torch.kernels.smm.ops import smm_process_stack
+    from repro_torch.kernels.smm.ref import smm_process_stack_ref
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serve import MultiplyService
+
+    P, NL, BS = 4, 3960, 22           # a 4x4 grid of the paper's rank
+    N = P * NL                        # 15,840
+    reps = 2
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    grid2 = GridSpec("data", "model")
+    grid3 = GridSpec("data", "model", "pod")
+    mesh44 = make_mesh((P, P), ("data", "model"))
+    mesh244 = make_mesh((2, P, P), ("pod", "data", "model"))
+    rows = {"grouped_gemm": [], "smm": []}
+    summary = []
+
+    def sync_ms(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t)
+
+    def run(label, mesh, a, b, exact, want, local_ms, yard_ms,
+            tol=REL_TOL, calls=None, **kw):
+        """One case through dbcsr.multiply: counters and traffic from the
+        first call, the time of the repeat calls (bitwise the first).
+        ``local_ms`` is one local multiply's time, ``calls`` the local
+        multiplies a multiply makes (default: the counted launches)."""
+        zero_counters()
+        mesh.reset_traffic()
+        c, first = sync_ms(lambda: dbcsr.multiply(a, b, mesh=mesh, **kw))
+        got = read_counters()
+        moved = sum(mesh.traffic.values())
+        for key in counters:
+            if got[key] != want.get(key, 0):
+                raise AssertionError(f"{label}: launches {got}, expected "
+                                     f"{want}")
+        err = rel_err(c.data, exact)
+        if not err <= tol:
+            raise AssertionError(f"{label}: relative error {err:.3e} > "
+                                 f"{tol:g}")
+        times = []
+        for _ in range(reps):
+            again, ms = sync_ms(lambda: dbcsr.multiply(a, b, mesh=mesh, **kw))
+            times.append(ms)
+            if not torch.equal(again.data, c.data):
+                raise AssertionError(f"{label}: a repeated multiply differs")
+            del again
+        n_launch = sum(got.values()) if calls is None else calls
+        line = {"case": label, "rel_err": err, "tol": tol,
+                "first_ms": first, "repeat_ms": statistics.median(times),
+                "launches": {k: v for k, v in got.items() if v},
+                "local_ms_per_launch": local_ms,
+                "local_ms": local_ms * n_launch,
+                "matmul_ms": yard_ms, "moved_bytes": moved}
+        summary.append(line)
+        print(f"  {label}: err/max|C| {err:.3e} (tol {tol:g}); first "
+              f"{first:.1f} ms, repeat {line['repeat_ms']:.1f} ms; launches "
+              f"{line['launches']}; local kernel "
+              + f"{local_ms:.3f} ms x {n_launch} = {line['local_ms']:.1f} ms"
+              + f"; torch.matmul {yard_ms:.1f} ms; moved between ranks "
+              f"{moved / 1e9:.3f} GB")
+        return c
+
+    def gg_row(label, a, b, launches, tol=REL_TOL):
+        """grouped_gemm on the stacked per-rank operands a step gives it:
+        kernel, plain and library (both torch.bmm) times."""
+        e, m, k = a.shape
+        n = b.shape[2]
+        ms = time_ms(lambda: grouped_gemm(a, b), 3)
+        plain_ms = time_ms(lambda: grouped_gemm_ref(a, b), 3)
+        out = grouped_gemm(a, b)
+        err = check_close(f"grouped_gemm {label} kernel vs plain", out,
+                          grouped_gemm_ref(a, b), tol)
+        del out
+        row = report("grouped_gemm", label, ms, plain_ms, plain_ms,
+                     2.0 * e * m * k * n, 4 * e * (m * k + k * n + m * n),
+                     launches)
+        row["max_abs_err"] = err
+        rows["grouped_gemm"].append(row)
+        return ms
+
+    # ---------------------------------------------------------- (o)-(r)
+    A = torch.randn(N, N, generator=gen, device=dev)
+    B = torch.randn(N, N, generator=gen, device=dev)
+    yard = time_ms(lambda: torch.matmul(A, B), 3)
+    exact = torch.matmul(A, B)
+    print(f"  operands {N}^2 f32; torch.matmul of the global product "
+          f"{yard:.1f} ms (one card's yardstick)")
+    dA = dbcsr.create(A, mesh=mesh44, grid=grid2, block_size=BS)
+    dB = dbcsr.create(B, mesh=mesh44, grid=grid2, block_size=BS)
+    spec = ("data", "model")
+    a16, b16 = mesh44.shard(A, spec), mesh44.shard(B, spec)
+    t_bmm = time_ms(lambda: torch.matmul(a16, b16), 3)
+    t_gg = gg_row(f"16 x {NL}^3 (6 (o)/(q): a 4x4 step)", a16, b16, P)
+    run("(o) cannon 4x4 densified torch.matmul", mesh44, dA, dB, exact, {},
+        t_bmm, yard, calls=P, algorithm="cannon", densify=True)
+    run("(o) cannon 4x4 densified pallas", mesh44, dA, dB, exact,
+        {"grouped_gemm": P}, t_gg, yard, algorithm="cannon", densify=True,
+        local_kernel="pallas")
+    run("(q) summa 4x4 psum densified pallas", mesh44, dA, dB, exact,
+        {"grouped_gemm": P}, t_gg, yard, algorithm="summa", bcast="psum",
+        densify=True, local_kernel="pallas")
+    # PUMMA: one step on the gathered full-K row of A and column of B
+    a_row = mesh44.all_gather(a16, "model", axis=1)
+    b_col = mesh44.all_gather(b16, "data", axis=0)
+    t_ggw = gg_row(f"16 x {NL}x{N}x{NL} (6 (q) gather)", a_row, b_col, 1)
+    del a_row, b_col
+    run("(q) summa 4x4 gather densified pallas", mesh44, dA, dB, exact,
+        {"grouped_gemm": 1}, t_ggw, yard, algorithm="summa", bcast="gather",
+        densify=True, local_kernel="pallas")
+
+    # (p) blocked, block 22: the per-rank plan is phase 2's (a)
+    plan = build_executor_plan(NL, NL, NL, BS, BS, BS, 30000)
+    a_blk = to_blocks_batched(a16[:1], BS, BS)[0]
+    b_blk = to_blocks_batched(b16[:1], BS, BS)[0]
+    cbuf = torch.zeros((plan.n_c_blocks + 1, BS, BS), device=dev)
+
+    def smm_one_rank(p):
+        def go():
+            for t, r in p.device_bins(dev):
+                smm_process_stack(a_blk, b_blk, cbuf, t, r)
+        return time_ms(go, 3, setup=cbuf.zero_)
+
+    t_smm = smm_one_rank(plan)
+    del a16, b16
+    run("(p) cannon 4x4 blocked dense", mesh44, dA, dB, exact,
+        {"smm": P * P * P * plan.n_launches}, t_smm, yard,
+        algorithm="cannon", densify=False)
+    nb = N // BS
+    rng = np.random.RandomState(SEED + 6)
+    am = rng.rand(nb, nb) < 0.2
+    dAm = dbcsr.create(A, mesh=mesh44, grid=grid2, block_size=BS,
+                       block_mask=am)
+    exact_m = torch.matmul(dAm.data, B)
+    steps = cannon_step_masks(am, np.ones((nb, nb), bool), P)
+    plans = [build_executor_plan(NL, NL, NL, BS, BS, BS, 30000, pair_mask=pm)
+             for pm in steps]
+    fill = [p.n_entries / p.n_dense_triples for p in plans]
+    print(f"  (p) A at 20 % block fill: union plans over 16 ranks hold "
+          f"{', '.join(f'{100 * f:.1f}' for f in fill)} % of the dense "
+          f"triples a step")
+    t_masked = sum(smm_one_rank(p) for p in plans) / len(plans)
+    n_masked = P * P * sum(p.n_launches for p in plans)
+    # step 0's plan on rank 0's blocks: kernel against its plain version
+    # (stack by stack) and one torch.matmul of the rank's operands
+    p0 = plans[0]
+    cbuf.zero_()
+    for t, r in p0.device_bins(dev):
+        smm_process_stack(a_blk, b_blk, cbuf, t, r)
+    out_k = cbuf[:-1].clone()
+
+    def plain():
+        for (t, _), tri in zip(p0.device_bins(dev), p0.bin_triples):
+            for s0 in range(0, t.shape[0], tri.shape[1]):
+                smm_process_stack_ref(a_blk, b_blk, cbuf, t[s0:s0 + tri.shape[1]])
+
+    plain_ms = time_ms(plain, 1, setup=cbuf.zero_)
+    err = check_close("smm (p) union plan kernel vs plain", out_k, cbuf[:-1])
+    a0, b0 = dA.data[:NL, :NL], dB.data[:NL, :NL]
+    lib_ms = time_ms(lambda: torch.matmul(a0, b0), 3)
+    rows_used = sum(int(t.shape[0]) for t, _ in p0.device_bins(dev))
+    runs = sum(int(r.shape[0]) for _, r in p0.device_bins(dev))
+    row = report(
+        "smm", f"one rank's step 0, {NL}^2 block {BS}, A 20 % fill over 16 "
+        "ranks (6 (p), union plan)", smm_one_rank(p0), plain_ms, lib_ms,
+        2.0 * p0.n_entries * BS ** 3,
+        4 * BS * BS * (2 * nb // P * nb // P + 2 * p0.n_c_blocks)
+        + 16 * rows_used + 4 * runs, n_masked)
+    row["max_abs_err"] = err
+    rows["smm"].append(row)
+    del out_k
+    c_none = run("(p) cannon 4x4 blocked, A 20 % fill, eps None", mesh44,
+                 dAm, dB, exact_m, {"smm": n_masked}, t_masked, yard,
+                 algorithm="cannon", densify=False)
+    c_zero = run("(p) cannon 4x4 blocked, A 20 % fill, eps 0", mesh44, dAm,
+                 dB, exact_m, {"smm": n_masked}, t_masked, yard,
+                 algorithm="cannon", densify=False, filter_eps=0.0)
+    if not torch.equal(c_none.data, c_zero.data):
+        raise AssertionError("(p) eps 0 is not bitwise equal to eps None")
+    del c_none, c_zero, dAm, exact_m, cbuf, a_blk, b_blk
+
+    # (r) 2.5D on 2x4x4: stack 2, R = 32, each replica half the shifts
+    dA3 = dbcsr.create(A, mesh=mesh244, grid=grid3, block_size=BS)
+    dB3 = dbcsr.create(B, mesh=mesh244, grid=grid3, block_size=BS)
+    a32, b32 = mesh244.shard(A, spec), mesh244.shard(B, spec)
+    t_gg32 = gg_row(f"32 x {NL}^3 (6 (r): a 2x4x4 step)", a32, b32, 2)
+    del a32, b32
+    for red in ("all_reduce", "reduce_scatter"):
+        run(f"(r) cannon25d 2x4x4 {red} densified pallas", mesh244, dA3,
+            dB3, exact, {"grouped_gemm": P // 2}, t_gg32, yard,
+            algorithm="cannon25d", reduce=red, densify=True,
+            local_kernel="pallas")
+    del dA, dB, dA3, dB3, A, B, exact
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------- (s)
+    M, K = 1408, 1982464              # benchmarks/bench_vs_pgemm.py:60
+    torch.cuda.reset_peak_memory_stats(dev)
+    As = torch.randn(M, K, generator=gen, device=dev)
+    Bs = torch.randn(K, M, generator=gen, device=dev)
+    yard_s = time_ms(lambda: torch.matmul(As, Bs), 3)
+    exact_s = torch.matmul(As, Bs)
+    # the f64 product, in K chunks, to see both f32 sums' errors
+    exact64 = torch.zeros((M, M), dtype=torch.float64, device=dev)
+    for k0 in range(0, K, K // 16):
+        exact64 += As[:, k0:k0 + K // 16].double() @ Bs[k0:k0 + K // 16].double()
+    scale = float(exact64.abs().max())
+    err_lib = float((exact_s.double() - exact64).abs().max()) / scale
+    print(f"  (s) {M} x {K:,} x {M} f32 ({2 * M * K * 4 / 1e9:.1f} GB of "
+          f"operands); torch.matmul {yard_s:.1f} ms, its error against the "
+          f"f64 product {err_lib:.3e} of max|C|")
+    a_s = mesh44.shard(As, (None, spec))
+    b_s = mesh44.shard(Bs, (spec, None))
+    t_ggs = gg_row(f"16 x {M}x{K // 16}x{M} (6 (s): ts_k)", a_s, b_s, 1,
+                   tol=TS_TOL)
+    del a_s, b_s
+    torch.cuda.empty_cache()
+    dAs = dbcsr.create(As, mesh=mesh44, grid=grid2, block_size=BS)
+    dBs = dbcsr.create(Bs, mesh=mesh44, grid=grid2, block_size=BS)
+    for red in ("all_reduce", "reduce_scatter"):
+        c = run(f"(s) ts_k 16 ranks {red} densified pallas", mesh44, dAs,
+                dBs, exact_s, {"grouped_gemm": 1}, t_ggs, yard_s, tol=TS_TOL,
+                algorithm="ts_k", reduce=red, densify=True,
+                local_kernel="pallas")
+        err64 = float((c.data.double() - exact64).abs().max()) / scale
+        summary[-1]["rel_err_f64"] = err64
+        print(f"    against the f64 product: {err64:.3e} of max|C|")
+        if not err64 <= TS_TOL:
+            raise AssertionError(f"(s) {red}: error {err64:.3e} against f64")
+        del c
+    print(f"  (s) peak device memory {torch.cuda.max_memory_allocated(dev) / 1e9:.1f}"
+          " GB (operands, their rank-stacked copies, C)")
+    del As, Bs, dAs, dBs, exact_s, exact64
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------- batched SUMMA on 2x2
+    mesh22 = make_mesh((2, 2), ("data", "model"))
+    G, NS = 4, 880
+    reqs = [(dbcsr.create(torch.randn(NS, NS, generator=gen, device=dev),
+                          mesh=mesh22, block_size=BS),
+             dbcsr.create(torch.randn(NS, NS, generator=gen, device=dev),
+                          mesh=mesh22, block_size=BS)) for _ in range(G)]
+    for densify, key, per_panel in ((False, "smm", 4), (True, "grouped_gemm",
+                                                        1)):
+        kw = dict(algorithm="summa", densify=densify, pipeline_depth=1,
+                  local_kernel="pallas" if densify else None)
+        zero_counters()
+        fused = dbcsr.multiply_batched(reqs, mesh=mesh22, fused=True, **kw)
+        got = read_counters()
+        if got[key] != 2 * per_panel or sum(got.values()) != got[key]:
+            raise AssertionError(f"batched summa: launches {got}")
+        looped = dbcsr.multiply_batched(reqs, mesh=mesh22, fused=False, **kw)
+        svc = MultiplyService(mesh22, fused=True, max_batch=G, slo_s=60.0,
+                              **kw)
+        tickets = [svc.submit(a, b) for a, b in reqs]
+        svc.flush()
+        served = [svc.result(t) for t in tickets]
+        st = svc.stats()
+        if st["n_fused_requests"] != G or st["n_error_tickets"]:
+            raise AssertionError(f"summa service stats {st}")
+        for i, (x, y, z, (a, b)) in enumerate(zip(fused, looped, served,
+                                                  reqs)):
+            if not (torch.equal(x.data, y.data)
+                    and torch.equal(x.data, z.data)):
+                raise AssertionError(f"batched summa request {i}: fused "
+                                     "!= looped")
+            check_close(f"batched summa {'densified' if densify else 'blocked'}"
+                        f" request {i}", x.data, torch.matmul(a.data, b.data))
+        print(f"  batched summa 2x2, {G} x {NS}^2, "
+              f"{'densified pallas' if densify else 'blocked'}: launches "
+              f"{ {k: v for k, v in got.items() if v} }, fused == looped == "
+              "MultiplyService bitwise")
+    print(json.dumps({"phase6": summary}))
+    return rows
 
 
 def main() -> int:
@@ -1216,6 +1544,17 @@ def main() -> int:
     decode_rows[0].update(serve_lm(dev, zero_counters, read_counters,
                                    decode_attention, decode_attention_ref,
                                    hbm_rate))
+
+    # ---------------------------------------------------------- phase 6
+    print("phase 6: the distributed schedules on simulated ranks "
+          f"(dbcsr.multiply; {card})")
+    torch.cuda.empty_cache()
+    rows6 = distributed(dev, counters, zero_counters, read_counters, report)
+    smm_rows += rows6["smm"]
+    grouped_rows += rows6["grouped_gemm"]
+    for key in ("smm", "grouped_gemm"):
+        for row in rows6[key]:
+            err_abs[key] = max(err_abs[key], row.pop("max_abs_err"))
 
     for key, n in launches.items():
         if n < 1:

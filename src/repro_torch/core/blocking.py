@@ -56,8 +56,9 @@ class BlockLayout:
 class GridSpec:
     """Names the mesh axes used as the DBCSR 2D process grid.
 
-    ``stack_axis`` (optional) names the 2.5D replication axis of a JAX
-    matrix's grid; no ported algorithm uses it yet.
+    ``stack_axis`` (optional) is the 2.5D replication axis used by
+    cannon25d (and folded into the tall-skinny variants' flattened
+    axes).
     """
 
     row_axis: str = "data"
@@ -66,6 +67,11 @@ class GridSpec:
 
     def grid_shape(self, mesh) -> Tuple[int, int]:
         return mesh.shape[self.row_axis], mesh.shape[self.col_axis]
+
+    def stack_size(self, mesh) -> int:
+        if self.stack_axis is None:
+            return 1
+        return mesh.shape[self.stack_axis]
 
     def validate_square(self, mesh) -> int:
         pr, pc = self.grid_shape(mesh)

@@ -1,17 +1,20 @@
 """Cannon's algorithm on a square process grid.
 
 DBCSR's data-exchange algorithm for general matrix shapes (paper
-section II).  Device (i, j) starts from the skewed chunks A(i, (i+j)%P)
-and B((i+j)%P, j), multiplies, then shifts A left along its row and B
-up along its column, P times.  The skew and the shifts are permutations
-sent through the mesh (``Mesh.ppermute``); on the 1x1 grid of this
-slice both are the identity.
+section II): per-rank communicated data scales O(1/sqrt(P)).  Rank
+(i, j) starts from the skewed chunks A(i, (i+j)%P) and B((i+j)%P, j),
+multiplies, then shifts A left along its row and B up along its column,
+P times.  The skew is one joint-axis ``Mesh.ppermute`` over the
+flattened (row, col) axes, the shifts single-axis ones; on the one card
+each is a device copy between the ranks of the rank axis
+(launch/mesh.py), and on a 1x1 grid the identity.
 
 This module is a pure *schedule builder* plus the driver call:
 ``build_cannon_schedule`` emits the step sequence, ``cannon_step_masks``
 and ``cannon_step_norms`` emit the per-step occupancy-mask and
-norm-product slices (host numpy, copied from the JAX package), and
-``schedule.execute_schedule`` runs the loop.
+norm-product slices (host numpy, copied from the JAX package, with the
+2.5D replication ``c_repl``), and ``schedule.execute_schedule`` runs the
+loop.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import numpy as np
 import torch
 
 from .blocking import GridSpec
+from .densify import densified_local_matmul
 from .schedule import (RolledSpec, Schedule, execute_schedule,
                        resolve_pipeline_depth)
 
@@ -55,13 +59,17 @@ def build_cannon_schedule(
     row_axis: str,
     col_axis: str,
     skew: bool = True,
+    steps: Optional[int] = None,
     empty_steps: frozenset = frozenset(),
     local_shape: Optional[tuple] = None,
     itemsize: int = 4,
 ) -> Schedule:
     """Schedule for Cannon's algorithm on a ``pg`` x ``pg`` grid of
-    ``mesh``.  ``local_shape`` = (ml, kl, nl) of the per-device multiply
-    fills the observability byte counts."""
+    ``mesh``.  ``steps`` serves the 2.5D variant (cannon25d.py), where
+    each replica runs a subset of the shifts.
+    ``local_shape`` = (ml, kl, nl) of the per-rank multiply fills the
+    observability byte counts."""
+    n_steps = pg if steps is None else steps
     shift_a = _shift_perm(pg)
     shift_b = _shift_perm(pg)
 
@@ -89,7 +97,7 @@ def build_cannon_schedule(
 
     return Schedule(
         algorithm="cannon",
-        n_steps=pg,
+        n_steps=n_steps,
         prologue=prologue,
         shift=shift,
         empty_steps=frozenset(empty_steps),
@@ -98,17 +106,20 @@ def build_cannon_schedule(
         prologue_comm_bytes=prologue_bytes,
         # the final step receives no shift: n_steps - 1 shifts total
         step_comm_bytes=tuple(
-            step_bytes if t + 1 < pg else 0 for t in range(pg)),
+            step_bytes if t + 1 < n_steps else 0 for t in range(n_steps)),
     )
 
 
-def cannon_step_masks(am: np.ndarray, bm: np.ndarray,
-                      pg: int) -> List[np.ndarray]:
-    """Per-shift-step local pair-presence tensors for Cannon.
+def cannon_step_masks(
+    am: np.ndarray, bm: np.ndarray, pg: int, c_repl: int = 1,
+) -> List[np.ndarray]:
+    """Per-shift-step local pair-presence tensors for (2.5D) Cannon.
 
-    At step t, device (i, j) holds the A chunk (i, q) and B chunk (q, j)
-    with q = (i + j + t) % pg.  The (nbr_l, nbk_l, nbc_l) tensor for step
-    t is the union over all (i, j) of that rank's chunk-product presence.
+    At inner step t, rank (i, j) of replica p holds the A chunk (i, q)
+    and B chunk (q, j) with q = (i + j + p*spr + t) % pg.  The
+    (nbr_l, nbk_l, nbc_l) tensor for step t is the union over all
+    (p, i, j) of that rank's chunk-product presence: the tightest plan
+    every rank can share.
     """
     nbr, nbk = am.shape
     nbc = bm.shape[1]
@@ -116,26 +127,32 @@ def cannon_step_masks(am: np.ndarray, bm: np.ndarray,
         raise ValueError(
             f"block grid ({nbr},{nbk},{nbc}) not divisible by cannon grid "
             f"side {pg}")
+    if c_repl < 1 or pg % c_repl:
+        raise ValueError(f"grid side {pg} not divisible by replication {c_repl}")
     lr, lk, lc = nbr // pg, nbk // pg, nbc // pg
+    spr = pg // c_repl  # shift steps each replica executes
     out = []
-    for t in range(pg):
+    for t in range(spr):
         pair = np.zeros((lr, lk, lc), dtype=bool)
-        for i in range(pg):
-            for j in range(pg):
-                q = (i + j + t) % pg
-                ac = am[i * lr:(i + 1) * lr, q * lk:(q + 1) * lk]
-                if not ac.any():
-                    continue
-                bc = bm[q * lk:(q + 1) * lk, j * lc:(j + 1) * lc]
-                pair |= ac[:, :, None] & bc[None, :, :]
+        for p in range(c_repl):
+            off = t + p * spr
+            for i in range(pg):
+                for j in range(pg):
+                    q = (i + j + off) % pg
+                    ac = am[i * lr:(i + 1) * lr, q * lk:(q + 1) * lk]
+                    if not ac.any():
+                        continue
+                    bc = bm[q * lk:(q + 1) * lk, j * lc:(j + 1) * lc]
+                    pair |= ac[:, :, None] & bc[None, :, :]
         out.append(pair)
     return out
 
 
-def cannon_step_norms(an: np.ndarray, bn: np.ndarray,
-                      pg: int) -> List[np.ndarray]:
-    """Per-shift-step local NORM-PRODUCT tensors for Cannon, the norm
-    twin of ``cannon_step_masks``: the per-rank MAX of
+def cannon_step_norms(
+    an: np.ndarray, bn: np.ndarray, pg: int, c_repl: int = 1,
+) -> List[np.ndarray]:
+    """Per-shift-step local NORM-PRODUCT tensors for (2.5D) Cannon, the
+    norm twin of ``cannon_step_masks``: the per-rank MAX of
     ``norm(A_ik) * norm(B_kj)`` (union-of-max), so a triple is dropped
     only when it falls below eps on every rank."""
     nbr, nbk = an.shape
@@ -144,26 +161,32 @@ def cannon_step_norms(an: np.ndarray, bn: np.ndarray,
         raise ValueError(
             f"block grid ({nbr},{nbk},{nbc}) not divisible by cannon grid "
             f"side {pg}")
+    if c_repl < 1 or pg % c_repl:
+        raise ValueError(f"grid side {pg} not divisible by replication {c_repl}")
     an = np.asarray(an, dtype=np.float32)
     bn = np.asarray(bn, dtype=np.float32)
     lr, lk, lc = nbr // pg, nbk // pg, nbc // pg
+    spr = pg // c_repl
     out = []
-    for t in range(pg):
+    for t in range(spr):
         pair = np.zeros((lr, lk, lc), dtype=np.float32)
-        for i in range(pg):
-            for j in range(pg):
-                q = (i + j + t) % pg
-                ac = an[i * lr:(i + 1) * lr, q * lk:(q + 1) * lk]
-                if not ac.any():
-                    continue
-                bc = bn[q * lk:(q + 1) * lk, j * lc:(j + 1) * lc]
-                np.maximum(pair, ac[:, :, None] * bc[None, :, :], out=pair)
+        for p in range(c_repl):
+            off = t + p * spr
+            for i in range(pg):
+                for j in range(pg):
+                    q = (i + j + off) % pg
+                    ac = an[i * lr:(i + 1) * lr, q * lk:(q + 1) * lk]
+                    if not ac.any():
+                        continue
+                    bc = bn[q * lk:(q + 1) * lk, j * lc:(j + 1) * lc]
+                    np.maximum(pair, ac[:, :, None] * bc[None, :, :],
+                               out=pair)
         out.append(pair)
     return out
 
 
 def _default_local_matmul(a, b):
-    return torch.matmul(a.to(torch.float32), b.to(torch.float32))
+    return densified_local_matmul()(a, b)
 
 
 def cannon_matmul(
@@ -180,10 +203,14 @@ def cannon_matmul(
 ) -> torch.Tensor:
     """C = A @ B with Cannon's algorithm on a square (row, col) grid.
 
-    ``a`` and ``b`` are this rank's chunks on ``mesh.device`` (on the
-    1x1 grid, the whole matrices).  ``pipeline_depth``: 2 = overlap
-    order (default), 1 = serial, 0 = rolled; ``double_buffer`` is the
-    legacy spelling (True -> 2, False -> 0).
+    ``a`` (M, K) and ``b`` (K, N) are the global matrices on
+    ``mesh.device`` (leading batch dims, a fused product batch, are
+    replicated); they are cut into the rank-stacked spec (row, col) as
+    ``shard_map`` cuts the JAX package's operands, and C comes back in
+    the same layout.  ``local_matmul`` takes and returns rank-stacked
+    blocks.  ``pipeline_depth``: 2 = overlap order (default), 1 =
+    serial, 0 = rolled; ``double_buffer`` is the legacy spelling (True
+    -> 2, False -> 0).
     """
     pg = grid.validate_square(mesh)
     for name, x in (("A", a), ("B", b)):
@@ -196,5 +223,8 @@ def cannon_matmul(
     sched = build_cannon_schedule(
         pg, mesh=mesh, row_axis=grid.row_axis, col_axis=grid.col_axis,
         skew=skew, empty_steps=getattr(lm, "empty_steps", frozenset()))
-    return execute_schedule(sched, a, b, local_matmul=lm,
-                            out_dtype=out_dtype, pipeline_depth=depth)
+    spec = (None,) * (a.ndim - 2) + (grid.row_axis, grid.col_axis)
+    c = execute_schedule(sched, mesh.shard(a, spec), mesh.shard(b, spec),
+                         local_matmul=lm, out_dtype=out_dtype,
+                         pipeline_depth=depth)
+    return mesh.unshard(c, spec)

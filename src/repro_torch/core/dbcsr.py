@@ -250,8 +250,10 @@ def multiply(
     return_plan: bool = False,
     **kw,
 ) -> DBCSRMatrix:
-    """C = A @ B through ``multiply.distributed_matmul`` (this slice:
-    ``algorithm="cannon"`` on a 1x1 mesh).
+    """C = A @ B through ``multiply.distributed_matmul``: a fixed
+    ``algorithm`` (cannon, cannon25d, summa, ts_k / ts_m / ts_n) on any
+    mesh whose ranks the port simulates on its device (launch/mesh.py);
+    the matrices stay global on the mesh's device.
 
     Block occupancy flows end to end: the operands' masks go to the
     dispatcher (the blocked path plans only present triples), and the

@@ -14,6 +14,16 @@ plus the two local-multiply strategies the Cannon schedule calls:
     ``kernel="pallas"``, the hand-written grouped_gemm CUDA kernel.
   * ``blocked_local_matmul``   — keep blocks, run the stack plans
     through the smm kernel (LIBCUSMM analogue) or its plain version.
+
+Every local multiply takes the schedule's rank-stacked operands (the
+mesh's leading rank axis, launch/mesh.py) and returns the rank-stacked
+product.  On a 1x1 mesh (R = 1) it makes the call it makes for one
+product, so the bits are those of a multiply without a rank axis.  On R
+> 1 ranks the densified path is one batched call over the ranks: one
+``torch.matmul`` (batched cuBLAS) or, with ``kernel="pallas"``, ONE
+grouped_gemm launch a step (product r bitwise ``tiled_matmul`` of rank
+r's operands: one GEMM body, one summation order).  The blocked path
+launches the step's one plan once per rank (core/engine.py).
 """
 from __future__ import annotations
 
@@ -90,6 +100,30 @@ def undensify(dense: torch.Tensor, bm: int, bn: int) -> torch.Tensor:
     return to_blocks(dense, bm, bn)
 
 
+def _over_ranks(single, stacked):
+    """A local multiply over the rank axis: ``single`` on the one rank
+    of a 1x1 mesh, ``stacked`` on all R ranks at once."""
+
+    def f(a, b):
+        if a.shape[0] == 1:
+            return single(a[0], b[0]).unsqueeze(0)
+        return stacked(a, b)
+
+    return f
+
+
+def _grouped_gemm_over(a, b):
+    """grouped_gemm over every leading dimension of ``a`` and ``b``
+    (ranks, then products): ONE launch."""
+    from ..kernels.grouped_gemm.ops import grouped_gemm
+
+    lead = tuple(a.shape[:-2])
+    a3 = kernel_operand(a).reshape((-1,) + tuple(a.shape[-2:])).contiguous()
+    b3 = kernel_operand(b).reshape((-1,) + tuple(b.shape[-2:])).contiguous()
+    out = grouped_gemm(a3, b3)
+    return out.reshape(lead + tuple(out.shape[-2:]))
+
+
 def densified_local_matmul(kernel: Optional[str] = None):
     """Local multiply for the densified path: one large GEMM in f32.
 
@@ -100,17 +134,18 @@ def densified_local_matmul(kernel: Optional[str] = None):
                        IEEE f32 like the reference's; TF32 is never a
                        default.
     kernel='pallas' -> the tiled_matmul CUDA kernel (the JAX package's
-                       Pallas tiled matmul), f32 out.
+                       Pallas tiled matmul), f32 out; on R > 1 ranks one
+                       grouped_gemm launch over the ranks.
     Any other value takes the default, as the JAX package does.
     """
     if kernel == "pallas":
         from ..kernels.tiled_matmul.ops import tiled_matmul
 
-        def f(a, b):
+        def single(a, b):
             return tiled_matmul(kernel_operand(a).contiguous(),
                                 kernel_operand(b).contiguous())
 
-        return f
+        return _over_ranks(single, _grouped_gemm_over)
 
     def f(a, b):
         # cuBLAS reads the flag when the GEMM is launched
@@ -122,7 +157,7 @@ def densified_local_matmul(kernel: Optional[str] = None):
         finally:
             flags.allow_tf32 = caller
 
-    return f
+    return _over_ranks(f, f)
 
 
 def grouped_densified_local_matmul(kernel: Optional[str] = None):
@@ -135,20 +170,26 @@ def grouped_densified_local_matmul(kernel: Optional[str] = None):
                        kernel's plain version, ``grouped_gemm_ref``.
     kernel='pallas' -> the grouped_gemm CUDA kernel (the JAX package's
                        Pallas grouped GEMM): one launch for all G
-                       products.
+                       products (of all R ranks).
     Any other value takes the default, as the JAX package does.
     """
     if kernel == "pallas":
         from ..kernels.grouped_gemm.ops import grouped_gemm
 
-        def f(a, b):
+        def single(a, b):
             return grouped_gemm(kernel_operand(a).contiguous(),
                                 kernel_operand(b).contiguous())
 
-        return f
+        return _over_ranks(single, _grouped_gemm_over)
     from ..kernels.grouped_gemm.ref import grouped_gemm_ref
 
-    return grouped_gemm_ref
+    def stacked(a, b):
+        lead = tuple(a.shape[:-2])
+        out = grouped_gemm_ref(a.reshape((-1,) + tuple(a.shape[-2:])),
+                               b.reshape((-1,) + tuple(b.shape[-2:])))
+        return out.reshape(lead + tuple(out.shape[-2:]))
+
+    return _over_ranks(grouped_gemm_ref, stacked)
 
 
 def blocked_local_matmul(
@@ -173,7 +214,7 @@ def blocked_local_matmul(
 ):
     """Local multiply for the blocked path: the fused stack executor
     (core/engine.py), one memoized plan per geometry and mask/norm
-    fingerprint, one smm launch per stack-size bin.
+    fingerprint, one smm launch per stack-size bin and rank.
 
     kernel='smm'  -> the CUDA smm kernel (its plain version on the CPU)
     kernel='ref'  -> the plain PyTorch version on any device

@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from .blocking import BlockLayout
-from .densify import from_blocks, kernel_operand, to_blocks
+from .densify import from_blocks_batched, kernel_operand, to_blocks_batched
 from .stacks import StackPlan, build_stacks, pad_plans, STACK_SIZE
 
 __all__ = [
@@ -502,6 +502,13 @@ def stack_executor(
 ):
     """Build the fused blocked local multiply ``(a, b) -> c`` (f32).
 
+    ``a`` is ``(m, k)`` or rank-stacked ``(R, m, k)`` (the schedules'
+    operands, launch/mesh.py), ``b`` likewise.  Every rank runs the same
+    plan: the plan's triples are uploaded once per device, and its bins
+    are launched once per rank on that rank's block arrays (views of one
+    ``(R, ...)`` tensor), so a step costs ``R * plan.n_launches`` smm
+    launches and no copy of the triples.
+
     ``stack_size`` defaults to the H100 winners table for this block
     geometry and occupancy bin (its heuristic when no sweep has been
     recorded).  ``align`` is kept so the signature matches the JAX
@@ -529,18 +536,27 @@ def stack_executor(
                                filter_eps=filter_eps, stack_bins=stack_bins)
 
     def f(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        if tuple(a.shape) != (m, k) or tuple(b.shape) != (k, n):
+        if (tuple(a.shape[-2:]) != (m, k) or tuple(b.shape[-2:]) != (k, n)
+                or a.ndim != b.ndim or a.ndim not in (2, 3)
+                or a.shape[:-2] != b.shape[:-2]):
             raise ValueError(
-                f"stack executor built for ({m},{k}) x ({k},{n}), "
+                f"stack executor built for ([R,] {m},{k}) x ([R,] {k},{n}), "
                 f"got {tuple(a.shape)} x {tuple(b.shape)}")
-        a_blocks = to_blocks(kernel_operand(a), block_m, block_k)
-        b_blocks = to_blocks(kernel_operand(b), block_k, block_n)
-        # C with the padding rows' scratch block appended, zeroed once
-        c = torch.zeros((plan.n_c_blocks + 1, block_m, block_n),
+        one = a.ndim == 2    # one product: a rank axis of one
+        if one:
+            a, b = a[None], b[None]
+        ranks = a.shape[0]
+        a_blocks = to_blocks_batched(kernel_operand(a), block_m, block_k)
+        b_blocks = to_blocks_batched(kernel_operand(b), block_k, block_n)
+        # every rank's C with its own scratch block (the padding rows'),
+        # zeroed once
+        c = torch.zeros((ranks, plan.n_c_blocks + 1, block_m, block_n),
                         dtype=torch.float32, device=a.device)
         if plan.n_stacks:
-            _run_bins(plan, a_blocks, b_blocks, c, kernel)
-        return from_blocks(c[:-1], plan.nbr, plan.nbc)
+            for r in range(ranks):
+                _run_bins(plan, a_blocks[r], b_blocks[r], c[r], kernel)
+        out = from_blocks_batched(c[:, :-1], plan.nbr, plan.nbc)
+        return out[0] if one else out
 
     f.executor_plan = plan
     f.align = align
@@ -822,7 +838,9 @@ def batched_stack_executor(
     filter_eps: Optional[float] = None,
 ):
     """Build the fused batched blocked local multiply
-    ``((G, m, k), (G, k, n)) -> (G, m, n)`` (f32).
+    ``((G, m, k), (G, k, n)) -> (G, m, n)`` (f32), or the same with a
+    leading rank axis ``(R, G, m, k)``: the fused plan then runs once
+    per rank, ``R`` smm launches (see ``stack_executor``).
 
     The batched twin of ``stack_executor``: stack parameters are resolved
     ONCE per batch from the mean group fill (requests in one bucket share
@@ -833,8 +851,6 @@ def batched_stack_executor(
     cannot break bit-identity.
     """
     from ..kernels.smm.autotune import best_params_for, has_winners
-
-    from .densify import from_blocks_batched, to_blocks_batched
 
     if group_masks is None:
         group_masks = [{}] * n_groups
@@ -865,24 +881,34 @@ def batched_stack_executor(
         stack_size=stack_size, filter_eps=filter_eps)
 
     def f(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        if (tuple(a.shape) != (n_groups, m, k)
-                or tuple(b.shape) != (n_groups, k, n)):
+        if (tuple(a.shape[-3:]) != (n_groups, m, k)
+                or tuple(b.shape[-3:]) != (n_groups, k, n)
+                or a.ndim != b.ndim or a.ndim not in (3, 4)
+                or a.shape[:-3] != b.shape[:-3]):
             raise ValueError(
-                f"batched executor built for ({n_groups},{m},{k}) x "
-                f"({n_groups},{k},{n}), got {tuple(a.shape)} x "
+                f"batched executor built for ([R,] {n_groups},{m},{k}) x "
+                f"([R,] {n_groups},{k},{n}), got {tuple(a.shape)} x "
                 f"{tuple(b.shape)}")
+        lead = tuple(a.shape[:-3])
+        ranks = a.shape[0] if lead else 1
         a, b = kernel_operand(a), kernel_operand(b)
-        a_blocks = to_blocks_batched(a, block_m, block_k).reshape(
-            n_groups * nbr * nbk, block_m, block_k)
-        b_blocks = to_blocks_batched(b, block_k, block_n).reshape(
-            n_groups * nbk * nbc, block_k, block_n)
-        # every group's C with the padding rows' scratch block appended
-        c = torch.zeros((n_groups * nbr * nbc + 1, block_m, block_n),
+        a_blocks = to_blocks_batched(a.reshape(-1, m, k), block_m,
+                                     block_k).reshape(
+            ranks, n_groups * nbr * nbk, block_m, block_k)
+        b_blocks = to_blocks_batched(b.reshape(-1, k, n), block_k,
+                                     block_n).reshape(
+            ranks, n_groups * nbk * nbc, block_k, block_n)
+        # every group's C with the padding rows' scratch block appended,
+        # one such array a rank
+        c = torch.zeros((ranks, n_groups * nbr * nbc + 1, block_m, block_n),
                         dtype=torch.float32, device=a.device)
         if plan.n_stacks:
-            _run_fused(plan, a_blocks, b_blocks, c, kernel)
-        return from_blocks_batched(
-            c[:-1].reshape(n_groups, nbr * nbc, block_m, block_n), nbr, nbc)
+            for r in range(ranks):
+                _run_fused(plan, a_blocks[r], b_blocks[r], c[r], kernel)
+        out = from_blocks_batched(
+            c[:, :-1].reshape(ranks * n_groups, nbr * nbc, block_m, block_n),
+            nbr, nbc)
+        return out.reshape(lead + (n_groups, m, n))
 
     f.batched_plan = plan
     f.align = align

@@ -10,20 +10,23 @@ kernel launch each, and on small products the host side dominates.
 ``distributed_matmul_batched`` stacks the G operand pairs as
 ``(G, m, k) @ (G, k, n)`` and runs ONE schedule over them:
 
-  * the data-exchange schedule (Cannon's shifts) is shape-agnostic over
-    a leading batch dimension, so the G products ride one permutation
-    sequence;
+  * the data-exchange schedule (Cannon's shifts, SUMMA's panel
+    broadcasts) is shape-agnostic over a leading batch dimension, so the
+    G products ride one collective sequence (G times the payload a
+    message, the same message count);
   * the blocked local path fuses the per-group stack plans into one
     group-offset triple tensor (core/engine.py ``BatchedExecutorPlan``)
-    run as ONE smm launch;
+    run as ONE smm launch a rank;
   * the densified local path becomes one grouped GEMM
-    ``(G, ml, kl) @ (G, kl, nl)``: ``torch.bmm``, or the grouped_gemm
-    CUDA kernel with ``local_kernel="pallas"``.
+    ``(R*G, ml, kl) @ (R*G, kl, nl)`` over the ranks and products:
+    ``torch.bmm``, or ONE grouped_gemm launch with
+    ``local_kernel="pallas"``.
 
-This slice ports ``algorithm="cannon"`` on a 1x1 mesh.  ``"summa"``, the
-other batch-capable algorithm, raises ``NotImplementedError`` naming
-ROADMAP Queue A3, and the planner (``algorithm="auto"``,
-``return_plan``) raises naming A5.
+Supported algorithms: ``cannon`` and ``summa`` (psum broadcast), the two
+whose schedules are batch-shape-agnostic, on any mesh whose ranks the
+port simulates (launch/mesh.py): the operands carry the rank axis and
+the batch axis together, ``(R, G, ml, kl)``.  The planner
+(``algorithm="auto"``, ``return_plan``) raises naming ROADMAP Queue A5.
 
 Per-product occupancy masks and norms are accepted as sequences
 (``a_masks[g]`` etc.); the fused plan covers every group's present
@@ -48,6 +51,8 @@ from .cannon import cannon_matmul, cannon_step_masks, cannon_step_norms
 from .densify import grouped_densified_local_matmul
 from .engine import batched_stack_executor
 from .multiply import _block_masks, _masks_empty
+from .summa import (summa_matmul, summa_n_panels, summa_step_masks,
+                    summa_step_norms)
 
 __all__ = ["distributed_matmul_batched", "BATCHED_ALGORITHMS"]
 
@@ -156,8 +161,10 @@ def distributed_matmul_batched(
 ) -> torch.Tensor:
     """C[g] = A[g] @ B[g] for every product ``g`` of a fused batch.
 
-    ``a``: (G, M, K) and ``b``: (G, K, N) on the mesh's device.
-    ``algorithm="cannon"``; ``densify`` picks the local path as in
+    ``a``: (G, M, K) and ``b``: (G, K, N), global, on the mesh's
+    device.  ``algorithm`` is ``"cannon"`` or ``"summa"`` (psum
+    broadcast; ``bcast="gather"`` is refused); ``densify`` picks the
+    local path as in
     ``distributed_matmul`` (True or None: one grouped GEMM,
     ``local_kernel="pallas"`` for the grouped_gemm kernel; False: one
     fused smm launch, ``local_kernel="ref"`` for its plain version).
@@ -225,7 +232,7 @@ def _distributed_matmul_batched(
     if algorithm == "auto":
         raise NotImplementedError(
             "algorithm='auto' needs the planner: ROADMAP Queue A5; "
-            "pass algorithm='cannon'")
+            f"pass one of {BATCHED_ALGORITHMS}")
     if return_plan:
         raise NotImplementedError(
             "return_plan needs the planner: ROADMAP Queue A5")
@@ -234,9 +241,6 @@ def _distributed_matmul_batched(
             f"batched dispatch supports {BATCHED_ALGORITHMS}, got "
             f"{algorithm!r} (the tall-skinny / 2.5D schedules are not "
             f"batch-shape-agnostic)")
-    if algorithm == "summa":
-        raise NotImplementedError(
-            "algorithm='summa' is not ported yet: ROADMAP Queue A3")
 
     filtering = filter_eps is not None
     if filtering and a_norms is None and b_norms is None:
@@ -251,11 +255,25 @@ def _distributed_matmul_batched(
 
     if densify is None:
         densify = True  # mirror distributed_matmul's fixed-algorithm default
-    pg = grid.validate_square(mesh)
-    if (m % pg or k % pg or n % pg) and not densify:
-        raise ValueError(f"shape ({m},{k},{n}) not divisible by grid side {pg}")
-    ml, kl, nl = m // pg, k // pg, n // pg
 
+    # ---- local multiply geometry ------------------------------------
+    pr, pc = grid.grid_shape(mesh)
+    pg = n_panels = None
+    if algorithm == "cannon":
+        pg = grid.validate_square(mesh)
+        if (m % pg or k % pg or n % pg) and not densify:
+            raise ValueError(
+                f"shape ({m},{k},{n}) not divisible by grid side {pg}")
+        ml, kl, nl = m // pg, k // pg, n // pg
+    else:
+        n_panels = summa_n_panels(pr, pc)
+        if (m % pr or n % pc or k % n_panels) and not densify:
+            raise ValueError(
+                f"shape ({m},{k},{n}) not divisible by summa grid "
+                f"{pr}x{pc} with {n_panels} panels")
+        ml, kl, nl = m // pr, k // n_panels, n // pc
+
+    # ---- local multiply strategy ------------------------------------
     if densify:
         lm = grouped_densified_local_matmul(kernel=local_kernel)
     else:
@@ -266,13 +284,13 @@ def _distributed_matmul_batched(
         if a_masks is None and b_masks is None and not filtering:
             lm = batched_stack_executor(g_count, ml, kl, nl, **batched_kw)
         else:
-            per_group, per_group_n = [], []
+            group_ab = []
             for gi in range(g_count):
                 am, bmk = _block_masks(
                     m, k, n, block_m, block_k, block_n,
                     _per_group(a_masks, gi, g_count, "a_masks"),
                     _per_group(b_masks, gi, g_count, "b_masks"))
-                per_group.append(cannon_step_masks(am, bmk, pg))
+                an_g = bn_g = None
                 if filtering:
                     from ..sparsity.norms import normalize_block_norms
 
@@ -284,18 +302,39 @@ def _distributed_matmul_batched(
                     # >= eps comparison folds both criteria
                     an_g = np.where(am, an_g, np.float32(0.0))
                     bn_g = np.where(bmk, bn_g, np.float32(0.0))
-                    per_group_n.append(cannon_step_norms(an_g, bn_g, pg))
-            steps = [[{"pair_mask": per_group[gi][t]}
-                      for gi in range(g_count)] for t in range(pg)]
-            if filtering:
-                for t in range(pg):
-                    for gi in range(g_count):
-                        steps[t][gi]["pair_norms"] = per_group_n[gi][t]
+                group_ab.append((am, bmk, an_g, bn_g))
+            if algorithm == "cannon":
+                n_steps = pg
+                per_group = [cannon_step_masks(am, bmk, pg)
+                             for am, bmk, _, _ in group_ab]
+                steps = [[{"pair_mask": per_group[gi][t]}
+                          for gi in range(g_count)] for t in range(n_steps)]
+                if filtering:
+                    per_group_n = [cannon_step_norms(an_g, bn_g, pg)
+                                   for _, _, an_g, bn_g in group_ab]
+                    for t in range(n_steps):
+                        for gi in range(g_count):
+                            steps[t][gi]["pair_norms"] = per_group_n[gi][t]
+            else:
+                n_steps = n_panels
+                per_group = [summa_step_masks(am, bmk, pr, pc, n_panels)
+                             for am, bmk, _, _ in group_ab]
+                steps = [[dict(zip(("a_mask", "b_mask"), per_group[gi][t]))
+                          for gi in range(g_count)] for t in range(n_steps)]
+                if filtering:
+                    per_group_n = [summa_step_norms(an_g, bn_g, pr, pc,
+                                                    n_panels)
+                                   for _, _, an_g, bn_g in group_ab]
+                    for t in range(n_steps):
+                        for gi in range(g_count):
+                            una, unb = per_group_n[gi][t]
+                            steps[t][gi].update(a_norms=una, b_norms=unb)
             lm = _stepwise_batched_lm(
                 g_count, ml, kl, nl, group_mask_steps=steps,
                 filter_eps=filter_eps, **batched_kw)
 
-    c = cannon_matmul(a, b, mesh=mesh, grid=grid, local_matmul=lm,
-                      pipeline_depth=pipeline_depth,
-                      double_buffer=double_buffer, **kw)
+    # ---- data exchange (one schedule for the whole batch) ------------
+    run = cannon_matmul if algorithm == "cannon" else summa_matmul
+    c = run(a, b, mesh=mesh, grid=grid, local_matmul=lm,
+            pipeline_depth=pipeline_depth, double_buffer=double_buffer, **kw)
     return c, _collect_batched_executor_stats(lm, densify)

@@ -32,6 +32,11 @@ same float operations in the same order at each:
 
 Empty steps: the compute (and ``recv``) of an empty step is elided, but
 ``shift`` still runs — later Cannon steps need the rotated operands.
+
+Ranks: the operands carry the mesh's leading rank axis (launch/mesh.py),
+so every callable acts on all ranks at once, and the accumulator is
+``(R, [G,] m, n)``.  JAX runs the same loop once per device inside
+``shard_map``; the rolled form needs no ``pvary`` here.
 """
 from __future__ import annotations
 
@@ -121,7 +126,8 @@ def execute_schedule(
     pipeline_depth: int = DEFAULT_PIPELINE_DEPTH,
     accum_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
-    """Run a schedule's step loop on this rank's operands and return C.
+    """Run a schedule's step loop on the rank-stacked operands and
+    return the rank-stacked C.
 
     ``local_matmul`` may be *stepwise* (``local_matmul.stepwise``
     truthy): it is then called as ``local_matmul(a, b, step=t)`` and may

@@ -25,6 +25,7 @@ from repro.launch.mesh import make_mesh as jax_make_mesh
 
 from repro_torch.core import dbcsr, engine
 from repro_torch.core.cannon import cannon_matmul
+from repro_torch.core.multiply import distributed_matmul
 from repro_torch.core.multiply_batched import (BATCHED_ALGORITHMS,
                                                distributed_matmul_batched)
 from repro_torch.kernels.smm.ops import stack_run_starts
@@ -204,6 +205,27 @@ def test_distributed_matmul_batched_matches_jax(meshes, path, eps):
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("path", sorted(PATHS))
+@pytest.mark.parametrize("eps", [None, 0.5])
+def test_distributed_matmul_batched_summa_matches_jax(meshes, path, eps):
+    """The batched SUMMA (psum broadcast) on the 1x1 mesh; multi-rank
+    meshes: tests/test_torch_distributed.py."""
+    jmesh, mesh = meshes
+    rng = np.random.RandomState(12)
+    bs = 16
+    a, b, masks = _stacked(rng, 3, 64, 48, 32, bs, (1.0, 0.5, 0.2))
+    kw = dict(algorithm="summa", block_m=bs, block_k=bs, block_n=bs,
+              a_masks=masks, filter_eps=eps, pipeline_depth=1, **PATHS[path])
+    jkw = dict(kw)
+    if path == "blocked":
+        jkw["local_kernel"] = "ref"  # the JAX smm kernel's plain version
+    want = np.asarray(jax_matmul_batched(jnp.asarray(a), jnp.asarray(b),
+                                         mesh=jmesh, **jkw))
+    got = distributed_matmul_batched(torch.tensor(a), torch.tensor(b),
+                                     mesh=mesh, **kw)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
 def _requests(meshes, geoms_fills, rng, bs=32, spread=False):
     """The same seeded operands as JAX and port DBCSR matrices; the port's
     matrices carry the JAX ones' host norms.  ``spread`` scales A's blocks
@@ -316,8 +338,14 @@ def test_unported_pieces_raise_naming_their_queue_item(meshes):
     b = torch.stack([y.data for _, y in reqs])
     kw = dict(mesh=mesh, block_m=32, block_k=32, block_n=32)
     assert BATCHED_ALGORITHMS == ("cannon", "summa")
-    with pytest.raises(NotImplementedError, match="A3"):
-        distributed_matmul_batched(a, b, algorithm="summa", **kw)
+    # summa runs (it raised naming A3 before the schedules were ported):
+    # the fused batch equals its looped products bit for bit
+    c = distributed_matmul_batched(a, b, algorithm="summa", densify=False,
+                                   pipeline_depth=1, **kw)
+    for g in range(2):
+        assert torch.equal(c[g], distributed_matmul(
+            a[g], b[g], algorithm="summa", densify=False, pipeline_depth=1,
+            **kw))
     with pytest.raises(NotImplementedError, match="A5"):
         distributed_matmul_batched(a, b, algorithm="auto", **kw)
     with pytest.raises(NotImplementedError, match="A5"):

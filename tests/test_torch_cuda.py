@@ -377,3 +377,86 @@ def test_decode_attention_counts_only_kernel_launches(cuda):
     assert decode_attention.launches == before + 1
     with pytest.raises(ValueError, match="devices"):
         decode_attention(q.to(cuda), k.to(cuda), k.to(cuda), cur)
+
+
+# the distributed schedules on simulated multi-rank meshes: (algorithm,
+# extra kwargs, mesh shape, (m, k, n), steps a multiply runs)
+SCHEDULES = [
+    ("cannon", {}, (1, 1), (128, 96, 64), 1),
+    ("cannon", {}, (2, 2), (128, 96, 64), 2),
+    ("summa", {"bcast": "psum"}, (2, 2), (128, 96, 64), 2),
+    ("summa", {"bcast": "gather"}, (2, 2), (128, 96, 64), 1),
+    ("cannon25d", {"reduce": "all_reduce"}, (2, 2, 2), (128, 96, 64), 1),
+    ("cannon25d", {"reduce": "reduce_scatter"}, (2, 2, 2), (128, 96, 64), 1),
+    ("ts_k", {"reduce": "all_reduce"}, (2, 2, 2), (64, 256, 48), 1),
+    ("ts_k", {"reduce": "reduce_scatter"}, (2, 2, 2), (64, 256, 48), 1),
+    ("ts_m", {}, (2, 2), (256, 48, 64), 1),
+    ("ts_n", {}, (2, 2), (48, 64, 256), 1),
+]
+
+
+@pytest.mark.parametrize("densify", [False, True])
+@pytest.mark.parametrize(
+    "algo,kw,shape,dims,steps", SCHEDULES,
+    ids=["-".join([a, *map(str, kw.values()), "x".join(map(str, s))])
+         for a, kw, s, _, _ in SCHEDULES])
+def test_schedule_on_card_matches_matmul_and_counts_launches(
+        cuda, algo, kw, shape, dims, steps, densify):
+    """Every algorithm on a simulated 2x2 / 2x2x2 mesh on the card, dense
+    operands: within 1e-5 of torch.matmul; the blocked path launches smm
+    once per step and rank (one size bin), the densified ``pallas`` path
+    one grouped_gemm a step (tiled_matmul on one rank)."""
+    from repro_torch.core.blocking import GridSpec
+    from repro_torch.core.multiply import distributed_matmul
+
+    axes = ("pod", "data", "model") if len(shape) == 3 else ("data", "model")
+    mesh = make_mesh(shape, axes)
+    grid = GridSpec("data", "model", "pod" if len(shape) == 3 else None)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    m, k, n = dims
+    a = torch.randn(m, k, generator=gen, device=cuda)
+    b = torch.randn(k, n, generator=gen, device=cuda)
+    before = (smm_process_stack.launches, grouped_gemm.launches,
+              tiled_matmul.launches)
+    c = distributed_matmul(a, b, mesh=mesh, grid=grid, algorithm=algo,
+                           densify=densify, local_kernel="pallas" if densify
+                           else None, block_m=16, block_k=16, block_n=16,
+                           **kw)
+    torch.cuda.synchronize()
+    got = tuple(x.launches - y for x, y in zip(
+        (smm_process_stack, grouped_gemm, tiled_matmul), before))
+    ranks = int(np.prod(shape))
+    if not densify:
+        want = (steps * ranks, 0, 0)
+    elif ranks == 1:
+        want = (0, 0, steps)
+    else:
+        want = (0, steps, 0)
+    assert got == want
+    assert c.device == a.device and tuple(c.shape) == (m, n)
+    assert _rel(c, torch.matmul(a, b)) <= 1e-5
+
+
+@pytest.mark.parametrize("densify", [False, True])
+def test_batched_summa_on_card_is_bitwise_looped(cuda, densify):
+    """multiply_batched(algorithm="summa") on 2x2: the fused batch (per
+    panel one smm launch a rank, or one grouped_gemm launch) equals the
+    looped products bit for bit."""
+    mesh = make_mesh((2, 2), ("data", "model"))
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    reqs = [(dbcsr.create(torch.randn(88, 176, generator=gen, device=cuda),
+                          mesh=mesh, block_size=22),
+             dbcsr.create(torch.randn(176, 132, generator=gen, device=cuda),
+                          mesh=mesh, block_size=22)) for _ in range(3)]
+    kw = dict(mesh=mesh, algorithm="summa", densify=densify,
+              local_kernel="pallas" if densify else None, pipeline_depth=1)
+    before = smm_process_stack.launches, grouped_gemm.launches
+    fused = dbcsr.multiply_batched(reqs, fused=True, **kw)
+    torch.cuda.synchronize()
+    got = (smm_process_stack.launches - before[0],
+           grouped_gemm.launches - before[1])
+    assert got == ((0, 2) if densify else (2 * 4, 0))
+    looped = dbcsr.multiply_batched(reqs, fused=False, **kw)
+    for x, y, (a, b) in zip(fused, looped, reqs):
+        assert torch.equal(x.data, y.data)
+        assert _rel(x.data, torch.matmul(a.data, b.data)) <= 1e-5

@@ -175,16 +175,44 @@ def test_create_matches_jax(meshes):
         dbcsr.create(a, mesh=mesh, block_size=BS, block_mask=mask[:2])
 
 
-@pytest.mark.parametrize("kw, queue", [
-    (dict(algorithm="auto"), "A5"),
-    (dict(algorithm="summa"), "A3"),
-    (dict(algorithm="cannon", return_plan=True), "A5"),
-    (dict(algorithm="cannon", verify="checksum"), "A8"),
+@pytest.mark.parametrize("kw, queue, grid", [
+    pytest.param(dict(algorithm="auto"), "A5", (1, 1), id="kw0-A5"),
+    pytest.param(dict(algorithm="cannon", return_plan=True), "A5", (1, 1),
+                 id="kw2-A5"),
+    pytest.param(dict(algorithm="cannon", verify="checksum"), "A8", (1, 1),
+                 id="kw3-A8"),
+    # a multi-rank blocked multiply with eps > 0: the reference filters
+    # each rank by its own norms (rank-exact, the default there)
+    pytest.param(dict(algorithm="cannon", densify=False, filter_eps=0.5),
+                 "A6", (2, 2), id="eps-2x2-A6"),
+    pytest.param(dict(algorithm="summa", densify=False, filter_eps=0.5),
+                 "A6", (2, 2), id="summa-eps-2x2-A6"),
+    pytest.param(dict(algorithm="cannon", densify=False, rank_exact=True),
+                 "A6", (2, 2), id="rank-exact-2x2-A6"),
+    pytest.param(dict(algorithm="cannon", densify=False, rebalance=True),
+                 "A6", (2, 2), id="rebalance-2x2-A6"),
 ])
-def test_later_slices_raise(meshes, kw, queue):
-    _, _, ta, tb = _operands(meshes, 1.0)
+def test_later_slices_raise(meshes, kw, queue, grid):
+    _, _, ta, tb = _operands(meshes, 0.5)
+    mesh = make_mesh(grid, ("data", "model"), device="cpu")
     with pytest.raises(NotImplementedError, match=queue):
-        dbcsr.multiply(ta, tb, mesh=meshes[1], **kw)
+        dbcsr.multiply(ta, tb, mesh=mesh, **kw)
+
+
+@pytest.mark.parametrize("bcast", ["psum", "gather"])
+@pytest.mark.parametrize("path", sorted(PATHS))
+def test_multiply_summa_matches_jax(meshes, path, bcast):
+    """SUMMA on the 1x1 mesh: the reference's PDGEMM baseline, both
+    broadcasts (multi-rank meshes: tests/test_torch_distributed.py)."""
+    jmesh, mesh = meshes
+    ja, jb, ta, tb = _operands(meshes, 0.5, seed=10)
+    jc = jdbcsr.multiply(ja, jb, mesh=jmesh, algorithm="summa", bcast=bcast,
+                         **PATHS[path])
+    tc = dbcsr.multiply(ta, tb, mesh=mesh, algorithm="summa", bcast=bcast,
+                        **PATHS[path])
+    np.testing.assert_allclose(tc.data.numpy(), np.asarray(jc.data),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_array_equal(tc.block_mask, jc.block_mask)
 
 
 @pytest.mark.parametrize("kw", [dict(rank_exact=True),

@@ -5,6 +5,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -49,13 +50,30 @@ def test_mesh_defaults_to_cuda_and_never_falls_back():
 def test_mesh_shape_and_ranks():
     mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
     assert mesh.shape == {"data": 1, "model": 1}
-    x = torch.arange(4.0)
+    x = torch.arange(4.0).reshape(1, 4)   # the rank axis leads
     assert mesh.ppermute(x, ("data", "model"), [(0, 0)]) is x
-    assert torch.equal(mesh.ppermute(x, "model", []), torch.zeros(4))
-    with pytest.raises(NotImplementedError, match="A3"):
-        make_mesh((2, 2), ("data", "model"), device="cpu")
+    assert torch.equal(mesh.ppermute(x, "model", []), torch.zeros(1, 4))
+    # multi-rank meshes simulate their ranks on the one device (they
+    # raised naming A3 before the schedules were ported)
+    for shape, axes in (((2, 2), ("data", "model")),
+                        ((2, 4), ("data", "model")),
+                        ((2, 2, 2), ("pod", "data", "model"))):
+        mesh = make_mesh(shape, axes, device="cpu")
+        assert mesh.n_ranks == int(np.prod(shape))
+        assert mesh.shape == dict(zip(axes, shape))
+        y = torch.arange(float(mesh.n_ranks)).reshape(-1, 1)
+        assert torch.equal(mesh.axis_index(axes[-1]),
+                           torch.arange(mesh.n_ranks) % shape[-1])
+        left = mesh.ppermute(y, axes[-1], [(k, (k - 1) % shape[-1])
+                                          for k in range(shape[-1])])
+        assert torch.equal(left.flatten(), mesh.axis_index(axes[-1]).float()
+                           .add(1).remainder(shape[-1])
+                           + (y.flatten() - mesh.axis_index(axes[-1])))
     with pytest.raises(ValueError):
         Mesh((1,), ("data", "model"), torch.device("cpu"))
+    with pytest.raises(ValueError, match="rank axis"):
+        make_mesh((2, 2), ("data", "model"), device="cpu").psum(
+            torch.zeros(3, 2), "data")
 
 
 def test_multiply_refuses_operands_off_the_mesh_device():
