@@ -113,8 +113,15 @@ Phase 6  runs the distributed schedules through dbcsr.multiply on meshes
                torch.matmul and with local_kernel="pallas" (one
                grouped_gemm launch a step over the 16 ranks)
            (p) Cannon 4x4, blocked, block 22: dense, and A at ~20 %
-               block fill with filter_eps None and 0 (the union plan;
-               bitwise equal)
+               block fill with filter_eps None and 0, each on the union
+               plan (rank_exact=False) and rank-exact (the default: each
+               rank's own plan, one smm launch a step over the 16 ranks'
+               concatenated triples; bitwise the union), with per-rank
+               triples and imbalance; eps > 0 rank-exact, its retained
+               triples counted against the exact filter and its error
+               held to the dropped-norm bound (both on the card); and
+               SUMMA 4x4 on a hot-corner mask with rebalance=False and
+               True (bitwise equal; the imbalance before and after)
            (q) SUMMA 4x4 at (o)'s size, bcast "psum" and "gather",
                densified pallas
            (r) 2.5D Cannon on 2x4x4 (stack 2, 32 ranks) at (o)'s size,
@@ -561,9 +568,12 @@ def distributed(dev, counters, zero_counters, read_counters, report) -> dict:
 
     from repro_torch.core import dbcsr
     from repro_torch.core.blocking import GridSpec
-    from repro_torch.core.cannon import cannon_step_masks
+    from repro_torch.core.cannon import cannon_rank_steps, cannon_step_masks
     from repro_torch.core.densify import to_blocks_batched
-    from repro_torch.core.engine import build_executor_plan
+    from repro_torch.core.engine import (build_executor_plan,
+                                         build_rank_executor_plan,
+                                         execute_rank_plan)
+    from repro_torch.core.multiply import _distributed_matmul
     from repro_torch.kernels.grouped_gemm.ops import grouped_gemm
     from repro_torch.kernels.grouped_gemm.ref import grouped_gemm_ref
     from repro_torch.kernels.smm.ops import smm_process_stack
@@ -604,10 +614,12 @@ def distributed(dev, counters, zero_counters, read_counters, report) -> dict:
             if got[key] != want.get(key, 0):
                 raise AssertionError(f"{label}: launches {got}, expected "
                                      f"{want}")
-        err = rel_err(c.data, exact)
-        if not err <= tol:
-            raise AssertionError(f"{label}: relative error {err:.3e} > "
-                                 f"{tol:g}")
+        err = None
+        if exact is not None:   # None: the caller checks (eps > 0)
+            err = rel_err(c.data, exact)
+            if not err <= tol:
+                raise AssertionError(f"{label}: relative error {err:.3e} > "
+                                     f"{tol:g}")
         times = []
         for _ in range(reps):
             again, ms = sync_ms(lambda: dbcsr.multiply(a, b, mesh=mesh, **kw))
@@ -620,13 +632,16 @@ def distributed(dev, counters, zero_counters, read_counters, report) -> dict:
                 "first_ms": first, "repeat_ms": statistics.median(times),
                 "launches": {k: v for k, v in got.items() if v},
                 "local_ms_per_launch": local_ms,
-                "local_ms": local_ms * n_launch,
+                "local_ms": None if local_ms is None else local_ms * n_launch,
                 "matmul_ms": yard_ms, "moved_bytes": moved}
         summary.append(line)
-        print(f"  {label}: err/max|C| {err:.3e} (tol {tol:g}); first "
+        print(f"  {label}: err/max|C| "
+              + ("checked below" if err is None else f"{err:.3e}")
+              + f" (tol {tol:g}); first "
               f"{first:.1f} ms, repeat {line['repeat_ms']:.1f} ms; launches "
               f"{line['launches']}; local kernel "
-              + f"{local_ms:.3f} ms x {n_launch} = {line['local_ms']:.1f} ms"
+              + ("timed below" if local_ms is None else
+                 f"{local_ms:.3f} ms x {n_launch} = {line['local_ms']:.1f} ms")
               + f"; torch.matmul {yard_ms:.1f} ms; moved between ranks "
               f"{moved / 1e9:.3f} GB")
         return c
@@ -648,6 +663,67 @@ def distributed(dev, counters, zero_counters, read_counters, report) -> dict:
         row["max_abs_err"] = err
         rows["grouped_gemm"].append(row)
         return ms
+
+    def rank_row(rp, a, b, launches):
+        """smm at one rank-exact step: the 16 ranks' own triples
+        concatenated, ONE launch on the rank-stacked blocks of ``a`` and
+        ``b`` (global), against its plain version on the same triples
+        (30,000 rows at a time) and torch.bmm of the ranks' operands."""
+        a_r, b_r = mesh44.shard(a, spec), mesh44.shard(b, spec)
+        a_blk = to_blocks_batched(a_r, BS, BS)
+        b_blk = to_blocks_batched(b_r, BS, BS)
+        c = torch.zeros((P * P, rp.n_c_blocks, BS, BS), device=dev)
+        ms = time_ms(lambda: execute_rank_plan(rp, a_blk, b_blk, c), 3,
+                     setup=c.zero_)
+        out_k = c.clone()
+        t, r = rp.device_triples(dev)
+        flat = (a_blk.view(-1, BS, BS), b_blk.view(-1, BS, BS),
+                c.view(-1, BS, BS))
+
+        def plain():
+            for s0 in range(0, t.shape[0], 30000):
+                smm_process_stack_ref(*flat, t[s0:s0 + 30000])
+
+        plain_ms = time_ms(plain, 1, setup=c.zero_)
+        err = check_close("smm (p) rank-exact step, 16 ranks, kernel vs "
+                          "plain", out_k, c)
+        lib_ms = time_ms(lambda: torch.bmm(a_r, b_r), 3)
+        tri = rp.triples
+        used_a = np.zeros(P * P * rp.nbr * rp.nbk, dtype=bool)
+        used_b = np.zeros(P * P * rp.nbk * rp.nbc, dtype=bool)
+        used_a[tri[:, 0]] = True
+        used_b[tri[:, 1]] = True
+        row = report(
+            "smm", f"one rank-exact step of (p), 16 ranks concatenated "
+            f"({NL}^2 a rank, block {BS}, A 20 % fill)", ms, plain_ms,
+            lib_ms, 2.0 * tri.shape[0] * BS ** 3,
+            4 * BS * BS * (int(used_a.sum()) + int(used_b.sum())
+                           + 2 * int(r.shape[0]))
+            + 16 * tri.shape[0] + 4 * int(r.shape[0]), launches)
+        row["max_abs_err"] = err
+        row["rows"] = int(tri.shape[0])
+        del a_r, b_r, a_blk, b_blk, c, out_k, flat
+        return row, ms
+
+    def rank_stats(label, a, b, **kw):
+        """The executed plan's per-rank statistics for the multiply
+        dbcsr.multiply(a, b) makes (one more multiply, through the layer
+        below it, which returns them)."""
+        eps = kw.get("filter_eps")
+        norms = ({} if eps is None
+                 else dict(a_norms=a.norms(), b_norms=b.norms()))
+        _, st = _distributed_matmul(
+            a.data, b.data, mesh=mesh44, grid=grid2, algorithm="cannon",
+            densify=False, block_m=BS, block_k=BS, block_n=BS,
+            a_mask=a.block_mask, b_mask=b.block_mask, **norms, **kw)
+        print(f"    {label}: per-rank triples over the multiply "
+              f"{st['rank_entries']}; busiest {st['max_rank_entries']}, mean "
+              f"{st['mean_rank_entries']:.0f}, imbalance "
+              f"{st['rank_imbalance']:.4f}; smm launches {st['n_launches']}")
+        summary[-1].update(rank_entries=st["rank_entries"],
+                           max_rank_entries=st["max_rank_entries"],
+                           rank_imbalance=st["rank_imbalance"])
+        return st
 
     # ---------------------------------------------------------- (o)-(r)
     A = torch.randn(N, N, generator=gen, device=dev)
@@ -739,15 +815,151 @@ def distributed(dev, counters, zero_counters, read_counters, report) -> dict:
     row["max_abs_err"] = err
     rows["smm"].append(row)
     del out_k
-    c_none = run("(p) cannon 4x4 blocked, A 20 % fill, eps None", mesh44,
+    c_none = run("(p) cannon 4x4 blocked, A 20 % fill, eps None, union",
+                 mesh44, dAm, dB, exact_m, {"smm": n_masked}, t_masked, yard,
+                 algorithm="cannon", densify=False, rank_exact=False)
+    c_zero = run("(p) cannon 4x4 blocked, A 20 % fill, eps 0, union", mesh44,
                  dAm, dB, exact_m, {"smm": n_masked}, t_masked, yard,
-                 algorithm="cannon", densify=False)
-    c_zero = run("(p) cannon 4x4 blocked, A 20 % fill, eps 0", mesh44, dAm,
-                 dB, exact_m, {"smm": n_masked}, t_masked, yard,
-                 algorithm="cannon", densify=False, filter_eps=0.0)
+                 algorithm="cannon", densify=False, filter_eps=0.0,
+                 rank_exact=False)
     if not torch.equal(c_none.data, c_zero.data):
         raise AssertionError("(p) eps 0 is not bitwise equal to eps None")
-    del c_none, c_zero, dAm, exact_m, cbuf, a_blk, b_blk
+    del cbuf, a_blk, b_blk
+
+    # (p) rank-exact (the default): each rank runs its own plan, and a
+    # step is ONE smm launch over the 16 ranks' concatenated triples.
+    # The multiplies run first, so their first calls build the plans.
+    t_rank = None
+    for eps, union in ((None, c_none), (0.0, c_zero)):
+        c = run(f"(p) cannon 4x4 blocked, A 20 % fill, eps {eps}, "
+                "rank-exact", mesh44, dAm, dB, exact_m, {"smm": P}, t_rank,
+                yard, algorithm="cannon", densify=False, filter_eps=eps)
+        if not torch.equal(c.data, union.data):
+            raise AssertionError(f"(p) eps {eps}: rank-exact is not bitwise "
+                                 "the union plan")
+        rank_stats(f"(p) eps {eps} rank-exact", dAm, dB, filter_eps=eps)
+        del c
+        if t_rank is None:
+            # the plans the multiply built (memoized), one a step
+            rplans = [build_rank_executor_plan(
+                NL, NL, NL, block_m=BS, block_k=BS, block_n=BS,
+                rank_masks=rm, stack_size=30000,
+                rank_order=mesh44.flat_index(("data", "model")))
+                for rm in cannon_rank_steps(am, np.ones((nb, nb), bool), P)]
+            print("  (p) rank-exact plans: the busiest rank holds "
+                  + ", ".join(f"{100 * p.occupancy:.1f}" for p in rplans)
+                  + " % of its dense triples a step (rank imbalance "
+                  + ", ".join(f"{p.rank_imbalance:.3f}" for p in rplans)
+                  + ")")
+            row, t_rank = rank_row(rplans[0], dAm.data, B,
+                                   sum(p.n_launches for p in rplans))
+            rows["smm"].append(row)
+            line = next(x for x in summary if x["case"].endswith(
+                "eps None, rank-exact"))
+            line.update(local_ms_per_launch=t_rank, local_ms=t_rank * P)
+            print(f"    eps None rank-exact: local kernel {t_rank:.3f} ms x "
+                  f"{P} = {t_rank * P:.1f} ms")
+    del c_none, c_zero
+
+    # (p) eps > 0, rank-exact: each rank filters by its own norms, which
+    # is the exact per-triple filter (norm products of f32 norms formed
+    # in f64 are exact, so there is no rounding at eps)
+    an, bn = dAm.norms(), dB.norms()
+    ii, kk = np.nonzero(am)
+    pick = rng.randint(0, ii.size, 1 << 20)
+    eps = float(np.median(an[ii[pick], kk[pick]].astype(np.float64)
+                          * bn[kk[pick], rng.randint(0, nb, 1 << 20)]))
+    c_eps = run(f"(p) cannon 4x4 blocked, A 20 % fill, eps {eps:.4g}, "
+                "rank-exact", mesh44, dAm, dB, None, {"smm": P}, t_rank,
+                yard, algorithm="cannon", densify=False, filter_eps=eps)
+    st = rank_stats(f"(p) eps {eps:.4g} rank-exact", dAm, dB,
+                    filter_eps=eps)
+    an_d = torch.tensor(np.where(am, an, 0), dtype=torch.float64, device=dev)
+    bn_d = torch.tensor(bn, dtype=torch.float64, device=dev)
+    am_d = torch.tensor(am, device=dev)
+    kept, dropped = 0, torch.zeros((nb, nb), dtype=torch.float64, device=dev)
+    retained = torch.zeros((nb, nb), dtype=torch.bool, device=dev)
+    for i0 in range(0, nb, 45):
+        prod = an_d[i0:i0 + 45, :, None] * bn_d[None]
+        present = am_d[i0:i0 + 45, :, None].expand_as(prod)
+        keep = present & (prod >= eps)
+        kept += int(keep.sum())
+        dropped[i0:i0 + 45] = torch.where(present & ~keep, prod, 0.0).sum(1)
+        retained[i0:i0 + 45] = keep.any(dim=1)
+        del prod, present, keep
+    if sum(st["rank_entries"]) != kept:
+        raise AssertionError(f"(p) eps: the ranks ran {sum(st['rank_entries'])}"
+                             f" triples, the exact filter keeps {kept}")
+    if not np.array_equal(c_eps.block_mask, retained.cpu().numpy()):
+        raise AssertionError("(p) eps result mask != retained product mask")
+    bound = dropped + REL_TOL * float(exact_m.abs().max()) * BS
+    diff = (c_eps.data - exact_m).reshape(nb, BS, nb, BS)
+    blk_err = torch.sqrt((diff.double() ** 2).sum(dim=(1, 3)))
+    worst = float((blk_err / bound).max())
+    present_all = int(am.sum()) * nb
+    print(f"  (p) eps: {present_all - kept} of {present_all} triples dropped "
+          f"(the ranks ran exactly the {kept} the exact filter keeps); worst "
+          f"block error / dropped bound = {worst:.3f}")
+    if not worst <= 1.0:
+        raise AssertionError("(p) eps error exceeds the dropped-norm bound")
+    del c_eps, diff, blk_err, an_d, bn_d, am_d, dropped, retained, bound
+    del dAm, exact_m
+
+    # SUMMA 4x4 on a hot-corner mask (the first tenth of the block rows
+    # and columns full, 5 % elsewhere): the costed rebalance permutes
+    # block rows of A and columns of B; SUMMA's panel order does not
+    # depend on the rank, so the product is bitwise the unpermuted one
+    hot = rng.rand(nb, nb) < 0.05
+    hot[:nb // 10] = True
+    hot[:, :nb // 10] = True
+    dAh = dbcsr.create(A, mesh=mesh44, grid=grid2, block_size=BS,
+                       block_mask=hot)
+    dBh = dbcsr.create(B, mesh=mesh44, grid=grid2, block_size=BS,
+                       block_mask=hot)
+    exact_h = torch.matmul(dAh.data, dBh.data)
+    hot_out = {}
+    for rebalance in (False, True):
+        kw = dict(mesh=mesh44, grid=grid2, algorithm="summa",
+                  densify=False, block_m=BS, block_k=BS, block_n=BS,
+                  a_mask=hot, b_mask=hot, rebalance=rebalance)
+        zero_counters()
+        (c, st), first = sync_ms(
+            lambda: _distributed_matmul(dAh.data, dBh.data, **kw))
+        got = read_counters()
+        if got["smm"] != st["n_launches"] or sum(got.values()) != got["smm"]:
+            raise AssertionError(f"hot summa: launches {got}, plan "
+                                 f"{st['n_launches']}")
+        err = check_close(f"hot summa 4x4 rebalance={rebalance}", c,
+                          exact_h) / float(exact_h.abs().max())
+        times = [sync_ms(lambda: _distributed_matmul(
+            dAh.data, dBh.data, **kw))[1] for _ in range(reps)]
+        line = {"case": f"hot-corner summa 4x4 blocked, rebalance="
+                        f"{rebalance}", "rel_err": err, "tol": REL_TOL,
+                "first_ms": first, "repeat_ms": statistics.median(times),
+                "launches": {"smm": got["smm"]},
+                "rank_imbalance": st["rank_imbalance"],
+                "max_rank_entries": st["max_rank_entries"],
+                "mean_rank_entries": st["mean_rank_entries"]}
+        for key in ("rebalance_method", "rebalance_imbalance_before",
+                    "rebalance_imbalance_after"):
+            if key in st:
+                line[key] = st[key]
+        summary.append(line)
+        print(f"    first {first:.1f} ms, repeat {line['repeat_ms']:.1f} ms; "
+              f"smm launches {got['smm']}; busiest rank "
+              f"{st['max_rank_entries']} triples, mean "
+              f"{st['mean_rank_entries']:.0f}, imbalance "
+              f"{st['rank_imbalance']:.3f}"
+              + (f"; planned imbalance {st['rebalance_imbalance_before']:.3f}"
+                 f" -> {st['rebalance_imbalance_after']:.3f} "
+                 f"({st['rebalance_method']})" if rebalance else ""))
+        if rebalance and not st["rebalance_applied"]:
+            raise AssertionError("hot summa: rebalance=True permuted nothing")
+        hot_out[rebalance] = c
+    if not torch.equal(hot_out[False], hot_out[True]):
+        raise AssertionError("hot summa: the rebalanced product is not "
+                             "bitwise the unpermuted one")
+    del hot_out, c, dAh, dBh, exact_h
 
     # (r) 2.5D on 2x4x4: stack 2, R = 32, each replica half the shifts
     dA3 = dbcsr.create(A, mesh=mesh244, grid=grid3, block_size=BS)

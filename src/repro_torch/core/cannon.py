@@ -12,8 +12,9 @@ each is a device copy between the ranks of the rank axis
 This module is a pure *schedule builder* plus the driver call:
 ``build_cannon_schedule`` emits the step sequence, ``cannon_step_masks``
 and ``cannon_step_norms`` emit the per-step occupancy-mask and
-norm-product slices (host numpy, copied from the JAX package, with the
-2.5D replication ``c_repl``), and ``schedule.execute_schedule`` runs the
+norm-product slices unioned over ranks, ``cannon_rank_steps`` each
+rank's own (host numpy, copied from the JAX package, with the 2.5D
+replication ``c_repl``), and ``schedule.execute_schedule`` runs the
 loop.
 """
 from __future__ import annotations
@@ -29,7 +30,7 @@ from .schedule import (RolledSpec, Schedule, execute_schedule,
                        resolve_pipeline_depth)
 
 __all__ = ["cannon_matmul", "build_cannon_schedule", "cannon_step_masks",
-           "cannon_step_norms"]
+           "cannon_step_norms", "cannon_rank_steps"]
 
 
 def _skew_perm(pg: int, which: str):
@@ -183,6 +184,57 @@ def cannon_step_norms(
                                out=pair)
         out.append(pair)
     return out
+
+
+def cannon_rank_steps(
+    am: np.ndarray, bm: np.ndarray, pg: int, c_repl: int = 1,
+    a_norms: Optional[np.ndarray] = None,
+    b_norms: Optional[np.ndarray] = None,
+) -> List[List[dict]]:
+    """Rank-exact twin of ``cannon_step_masks``/``cannon_step_norms``:
+    per step, per RANK local mask (and norm) kwargs instead of the
+    union over ranks.
+
+    ``out[t][r]`` is the mask/norm kwarg dict for the rank with flat
+    index ``r = (p * pg + i) * pg + j`` (stack-major, matching
+    ``cannon25d._skew25d_perm``; plain Cannon is the ``c_repl == 1``
+    slice ``r = i * pg + j``) at inner shift step ``t`` — the exact A
+    chunk ``(i, q)`` x B chunk ``(q, j)`` with
+    ``q = (i + j + t + p*spr) % pg``.  The factored ``a_mask``/
+    ``b_mask`` form is exact per rank (no cross-rank union), and the
+    norms are the rank's own chunk norms — eps filtering against them
+    is DBCSR's true local filter rather than the union-of-max bound.
+    """
+    nbr, nbk = am.shape
+    nbc = bm.shape[1]
+    if nbr % pg or nbk % pg or nbc % pg:
+        raise ValueError(
+            f"block grid ({nbr},{nbk},{nbc}) not divisible by cannon grid "
+            f"side {pg}")
+    if c_repl < 1 or pg % c_repl:
+        raise ValueError(f"grid side {pg} not divisible by replication {c_repl}")
+    lr, lk, lc = nbr // pg, nbk // pg, nbc // pg
+    spr = pg // c_repl
+    if a_norms is not None:
+        a_norms = np.asarray(a_norms, dtype=np.float32)
+        b_norms = np.asarray(b_norms, dtype=np.float32)
+    steps: List[List[dict]] = []
+    for t in range(spr):
+        ranks: List[dict] = []
+        for p in range(c_repl):
+            for i in range(pg):
+                rs = slice(i * lr, (i + 1) * lr)
+                for j in range(pg):
+                    q = (i + j + t + p * spr) % pg
+                    ks = slice(q * lk, (q + 1) * lk)
+                    cs = slice(j * lc, (j + 1) * lc)
+                    kw = {"a_mask": am[rs, ks], "b_mask": bm[ks, cs]}
+                    if a_norms is not None:
+                        kw["a_norms"] = a_norms[rs, ks]
+                        kw["b_norms"] = b_norms[ks, cs]
+                    ranks.append(kw)
+        steps.append(ranks)
+    return steps
 
 
 def _default_local_matmul(a, b):

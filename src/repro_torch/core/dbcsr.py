@@ -266,6 +266,16 @@ def multiply(
     and the payload is zeroed outside it (on the densified path too).
     ``filter_eps=0.0`` gives the unfiltered result, mask and payload.
 
+    On more than one rank a masked or filtered blocked multiply runs
+    rank-exactly by default: each rank executes its own retained
+    triples (under ``filter_eps > 0`` filtered by its own norms, the
+    exact per-triple filter); ``rank_exact=False`` runs the union of the
+    ranks' plans, bitwise the same product at eps None or 0.
+    ``rebalance=True`` permutes block rows of A and block columns of B
+    to even out the ranks' work and gives C back in the caller's order.
+    On one rank, or densified, both are ignored (see
+    ``multiply.distributed_matmul``).
+
     ``verify`` and ``return_plan`` are ROADMAP Queue A8 and A5 and
     raise.
     """

@@ -21,7 +21,11 @@ the single-process half of the JAX package's ``core/engine.py``:
     H100 winners table (``kernels.smm.autotune.best_params_for``),
   * a batch of same-geometry products fuses its per-group plans into one
     group-offset triple tensor (``BatchedExecutorPlan``) that runs as ONE
-    smm launch (``batched_stack_executor``).
+    smm launch (``batched_stack_executor``),
+  * a multi-rank step whose ranks hold different masks or norms runs
+    each rank's own plan (rank-exact), all ranks' triples concatenated
+    with rank offsets into ONE smm launch (``RankExecutorPlan``,
+    ``rank_stack_executor``).
 
 Sparse planning contract: block occupancy masks (``a_mask`` (nbr, nbk),
 ``b_mask`` (nbk, nbc) or ``pair_mask`` (nbr, nbk, nbc), host numpy
@@ -44,17 +48,22 @@ import torch
 
 from .blocking import BlockLayout
 from .densify import from_blocks_batched, kernel_operand, to_blocks_batched
-from .stacks import StackPlan, build_stacks, pad_plans, STACK_SIZE
+from .stacks import (StackPlan, build_stacks, pad_plans, stack_rank_slab,
+                     STACK_SIZE)
 
 __all__ = [
     "BatchedExecutorPlan",
     "ExecutorPlan",
+    "RankExecutorPlan",
     "batched_stack_executor",
     "build_batched_executor_plan",
     "build_executor_plan",
+    "build_rank_executor_plan",
     "execute_batched_plan",
     "execute_plan",
     "execute_plans_looped",
+    "execute_rank_plan",
+    "rank_stack_executor",
     "resolve_stack_bins",
     "stack_executor",
 ]
@@ -106,6 +115,15 @@ class ExecutorPlan:
     # first use per device and kept with the memoized plan
     _uploads: Dict[str, tuple] = dataclasses.field(
         default_factory=dict, compare=False, repr=False)
+
+    @property
+    def triples(self) -> np.ndarray:
+        """The single-tensor view: every stack padded to the longest,
+        ``(n_stacks, stack_tile, 4)`` (the only bin when stack sizes
+        are uniform or binning is off)."""
+        if len(self.bin_triples) == 1:
+            return self.bin_triples[0]
+        return pad_plans(list(self.plans))
 
     def device_bins(self, device: torch.device) -> tuple:
         """Per bin, ``(triples (S, 4) int32, run_starts (R,) int32)`` on
@@ -914,4 +932,382 @@ def batched_stack_executor(
     f.align = align
     f.stack_size = stack_size
     f.n_groups = n_groups
+    return f
+
+
+# ---------------------------------------------------------------------------
+# Rank-exact execution: every rank's own plan, all ranks in one launch
+# ---------------------------------------------------------------------------
+
+# Largest value an int32 triple index or row count may take.
+_INT32_MAX = 2 ** 31 - 1
+
+
+@dataclasses.dataclass(frozen=True)
+class RankExecutorPlan:
+    """Per-rank plans for one step of a multi-rank local multiply.
+
+    ``rank_plans`` holds one memoized ``ExecutorPlan`` per rank of the
+    step builder's flat order (cannon ``i*pg + j``; cannon25d and
+    stacked tall-skinny ``(s*pr + i)*pc + j``; summa and flat
+    tall-skinny ``i*pc + j``).  A rank executes only its own mask/norm
+    retained triples, never the union over ranks.
+
+    The JAX package runs one traced program on every rank and so pads
+    every rank's plan to the busiest rank's shape: the ``(R, S, T, 4)``
+    ``slab`` (``stacks.stack_rank_slab``).  The port keeps the slab for
+    its statistics and builds it only when asked (at 16 ranks of 3,960^2
+    in blocks of 22 it is ~300 MB a step).  It executes instead
+    ``triples``: every rank of the mesh's leading rank axis
+    (``rank_order[r]`` names the plan rank ``r`` runs) with its triples
+    offset by ``(r*n_a, r*n_b, r*n_c)`` into the flattened rank-stacked
+    block arrays, concatenated without padding.  Every rank's C blocks
+    are its own and no run is split or reordered, so ONE smm launch over
+    all ranks gives each C element the sums it gets when each rank runs
+    its plan alone.
+
+    The statistics follow the JAX package: ``n_entries`` is the BUSIEST
+    rank's retained triples (the step's wall-time bound),
+    ``rank_entries`` every rank's, ``rank_imbalance`` max/mean.
+    """
+
+    rank_plans: Tuple[ExecutorPlan, ...]
+    rank_order: Tuple[int, ...]
+    triples: np.ndarray            # (rows, 4) int32, every leading rank
+    run_starts: np.ndarray         # (n_runs,) int32
+    n_c_blocks: int
+    block_m: int
+    block_k: int
+    block_n: int
+    nbr: int
+    nbk: int
+    nbc: int
+    filter_eps: Optional[float] = None
+    # device copies of (triples, run starts) per device
+    _uploads: Dict[str, tuple] = dataclasses.field(
+        default_factory=dict, compare=False, repr=False)
+
+    def device_triples(self, device: torch.device) -> tuple:
+        """``(triples (rows, 4) int32, run_starts (n_runs,) int32)`` on
+        ``device``, uploaded once per plan and device."""
+        key = str(torch.device(device))
+        cached = self._uploads.get(key)
+        if cached is None:
+            cached = (torch.tensor(self.triples, device=device),
+                      torch.tensor(self.run_starts, device=device))
+            self._uploads[key] = cached
+        return cached
+
+    @functools.cached_property
+    def slab(self) -> np.ndarray:
+        """The JAX package's ``(R, S, T, 4)`` per-rank slab, byte for
+        byte (built on first use)."""
+        slab = stack_rank_slab([p.triples for p in self.rank_plans],
+                               self.n_c_blocks)
+        slab.setflags(write=False)
+        return slab
+
+    @property
+    def n_ranks(self) -> int:
+        return len(self.rank_plans)
+
+    @property
+    def n_stacks(self) -> int:
+        return max(int(p.triples.shape[0]) for p in self.rank_plans)
+
+    @property
+    def stack_tile(self) -> int:
+        return max(max((int(p.triples.shape[1]) for p in self.rank_plans
+                        if p.triples.shape[0]), default=1), 1)
+
+    @property
+    def n_launches(self) -> int:
+        """smm kernel launches per execution: one over all ranks, unless
+        no rank has a triple."""
+        return 1 if self.run_starts.size else 0
+
+    @property
+    def rank_entries(self) -> Tuple[int, ...]:
+        """Retained (non-padding) triples each rank executes."""
+        return tuple(p.n_entries for p in self.rank_plans)
+
+    @property
+    def n_entries(self) -> int:
+        """Busiest rank's retained triples (the wall-time bound)."""
+        return max(self.rank_entries, default=0)
+
+    @property
+    def n_entries_mean(self) -> float:
+        e = self.rank_entries
+        return float(np.mean(e)) if e else 0.0
+
+    @property
+    def rank_imbalance(self) -> float:
+        """max/mean retained triples over ranks (1.0 = balanced)."""
+        mean = self.n_entries_mean
+        return float(self.n_entries) / mean if mean > 0 else 1.0
+
+    @property
+    def n_dense_triples(self) -> int:
+        return self.nbr * self.nbk * self.nbc
+
+    @property
+    def n_skipped_triples(self) -> int:
+        return self.n_dense_triples - self.n_entries
+
+    @property
+    def occupancy(self) -> float:
+        """Busiest rank's fraction of the dense local triple grid."""
+        dense = self.n_dense_triples
+        return self.n_entries / dense if dense else 1.0
+
+    @property
+    def n_padding(self) -> int:
+        """Padding rows of the busiest rank's slab slice."""
+        return self.n_stacks * self.stack_tile - self.n_entries
+
+    @property
+    def n_padding_unbinned(self) -> int:
+        return self.n_padding
+
+    @property
+    def n_unfiltered_entries(self) -> Optional[int]:
+        vals = [p.n_unfiltered_entries for p in self.rank_plans]
+        if any(v is not None for v in vals):
+            return max(v if v is not None else p.n_entries
+                       for v, p in zip(vals, self.rank_plans))
+        return None
+
+    @property
+    def n_norm_filtered_triples(self) -> int:
+        return max((p.n_norm_filtered_triples for p in self.rank_plans),
+                   default=0)
+
+    @property
+    def uniform(self) -> bool:
+        """True when every rank's slab slice is content-identical: the
+        dense / uniform-fill regime where rank-exact execution is the
+        union plan."""
+        return bool((self.slab == self.slab[:1]).all())
+
+    def stats(self) -> dict:
+        return {
+            "n_ranks": self.n_ranks,
+            "n_stacks": self.n_stacks,
+            "stack_tile": self.stack_tile,
+            "n_entries": self.n_entries,
+            "rank_entries": list(self.rank_entries),
+            "rank_entries_mean": self.n_entries_mean,
+            "rank_imbalance": self.rank_imbalance,
+            "n_dense_triples": self.n_dense_triples,
+            "occupancy": self.occupancy,
+            "n_padding": self.n_padding,
+            "n_launches": self.n_launches,
+            "n_norm_filtered_triples": self.n_norm_filtered_triples,
+            "filter_eps": self.filter_eps,
+        }
+
+
+# Concatenated plans memoized on the identities of their per-rank plans
+# and the rank order (the entry holds the plans, so their ids cannot be
+# reused while it lives); a repeated multiply reuses the triples and
+# their device upload.  Small bound: a step of 16 ranks at 3,960^2 in
+# blocks of 22 and 20 % fill holds ~300 MB of triples.
+_RANK_PLAN_CACHE_SIZE = 16
+_RANK_PLANS: "collections.OrderedDict[tuple, RankExecutorPlan]" = \
+    collections.OrderedDict()
+
+
+def build_rank_executor_plan(
+    m: int,
+    k: int,
+    n: int,
+    *,
+    block_m: int,
+    block_k: int,
+    block_n: int,
+    rank_masks,
+    stack_size: int = STACK_SIZE,
+    filter_eps: Optional[float] = None,
+    rank_order=None,
+) -> RankExecutorPlan:
+    """Build one plan per rank (memoized individually: identical ranks
+    share one cached ``ExecutorPlan``) and concatenate them in the
+    mesh's rank order.
+
+    ``rank_masks`` is a sequence of per-rank mask/norm kwarg dicts
+    (``a_mask``/``b_mask``/``pair_mask``/``a_norms``/``b_norms``/
+    ``pair_norms``) on the LOCAL geometry, in the step builder's flat
+    rank order.  ``rank_order[r]`` is the builder index of the mesh's
+    leading rank ``r`` (default: the identity).  Per-rank plans are
+    built with ``stack_bins=1``, as the JAX package builds them for its
+    slab; the concatenation has no padding to bin.  Raises when a block
+    index or row count of the concatenation exceeds int32.
+    """
+    rank_masks = list(rank_masks)
+    if not rank_masks:
+        raise ValueError("rank plan needs at least one rank")
+    plans = tuple(
+        build_executor_plan(m, k, n, block_m, block_k, block_n, stack_size,
+                            filter_eps=filter_eps, stack_bins=1, **rm)
+        for rm in rank_masks)
+    order = (tuple(range(len(plans))) if rank_order is None
+             else tuple(int(r) for r in rank_order))
+    if not order or min(order) < 0 or max(order) >= len(plans):
+        raise ValueError(f"rank order {order} does not index "
+                         f"{len(plans)} rank plans")
+    eps = None if filter_eps is None else float(filter_eps)
+    key = (tuple(id(p) for p in plans), order, eps)
+    hit = _RANK_PLANS.get(key)
+    if hit is not None:
+        _RANK_PLANS.move_to_end(key)
+        return hit
+    plan = _concat_rank_plans(plans, order, eps)
+    _RANK_PLANS[key] = plan
+    if len(_RANK_PLANS) > _RANK_PLAN_CACHE_SIZE:
+        _RANK_PLANS.popitem(last=False)
+    return plan
+
+
+def _concat_rank_plans(plans: Tuple[ExecutorPlan, ...],
+                       order: Tuple[int, ...],
+                       filter_eps: Optional[float]) -> RankExecutorPlan:
+    from ..kernels.smm.ops import stack_run_starts
+
+    base = plans[0]
+    n_a, n_b, n_c = base.nbr * base.nbk, base.nbk * base.nbc, base.n_c_blocks
+    ranks = len(order)
+    rows = {q: (np.concatenate([s.triples for s in plans[q].plans])
+                if plans[q].plans else np.zeros((0, 3), dtype=np.int32))
+            for q in set(order)}
+    total = sum(rows[q].shape[0] for q in order)
+    if ranks * max(n_a, n_b, n_c) > _INT32_MAX or total > _INT32_MAX - 32:
+        raise ValueError(
+            f"{ranks} ranks of {max(n_a, n_b, n_c)} blocks and {total} "
+            "triples overflow the smm kernel's int32 indices")
+    triples = np.empty((total, 4), dtype=np.int32)
+    triples[:, 3] = 1
+    offset = np.array([n_a, n_b, n_c], dtype=np.int32)
+    at = 0
+    for r, q in enumerate(order):
+        t = rows[q]
+        triples[at:at + t.shape[0], :3] = t + r * offset
+        at += t.shape[0]
+    run_starts = stack_run_starts(triples)
+    triples.setflags(write=False)
+    run_starts.setflags(write=False)
+    return RankExecutorPlan(
+        rank_plans=plans,
+        rank_order=order,
+        triples=triples,
+        run_starts=run_starts,
+        n_c_blocks=n_c,
+        block_m=base.block_m,
+        block_k=base.block_k,
+        block_n=base.block_n,
+        nbr=base.nbr,
+        nbk=base.nbk,
+        nbc=base.nbc,
+        filter_eps=filter_eps,
+    )
+
+
+def execute_rank_plan(
+    plan: RankExecutorPlan,
+    a_blocks: torch.Tensor,   # (R, n_a, bm, bk), R = len(plan.rank_order)
+    b_blocks: torch.Tensor,   # (R, n_b, bk, bn)
+    c_blocks: torch.Tensor,   # (R, n_c, bm, bn) float32, updated in place
+    *,
+    kernel: str = "smm",
+) -> torch.Tensor:
+    """``execute_plan``'s rank-exact twin: every rank's own triples in
+    ONE launch on the flattened rank-stacked block arrays.  Updates
+    ``c_blocks`` in place and returns it; a plan without a triple
+    returns it untouched."""
+    ranks = len(plan.rank_order)
+    if a_blocks.shape[0] != ranks or b_blocks.shape[0] != ranks \
+            or c_blocks.shape[0] != ranks:
+        raise ValueError(
+            f"rank plan for {ranks} ranks, got blocks of "
+            f"{tuple(a_blocks.shape)}, {tuple(b_blocks.shape)}, "
+            f"{tuple(c_blocks.shape)}")
+    if not plan.n_launches:
+        return c_blocks
+    process = _resolve_process(kernel)
+    triples, run_starts = plan.device_triples(c_blocks.device)
+    process(a_blocks.reshape((-1,) + tuple(a_blocks.shape[2:])),
+            b_blocks.reshape((-1,) + tuple(b_blocks.shape[2:])),
+            c_blocks.view((-1,) + tuple(c_blocks.shape[2:])),
+            triples, run_starts)
+    return c_blocks
+
+
+def rank_stack_executor(
+    m: int,
+    k: int,
+    n: int,
+    *,
+    block_m: int,
+    block_k: int,
+    block_n: int,
+    rank_masks,
+    rank_order=None,
+    stack_size: Optional[int] = None,
+    align: Optional[bool] = None,
+    kernel: str = "smm",
+    filter_eps: Optional[float] = None,
+    stack_bins: Optional[int] = None,
+):
+    """``stack_executor``'s rank-exact twin: the local multiply of one
+    schedule step on rank-stacked ``(R, m, k)`` x ``(R, k, n)``
+    operands, rank ``r`` running plan ``rank_order[r]`` of
+    ``rank_masks``, all ranks in one smm launch (``RankExecutorPlan``).
+
+    ``stack_size`` / ``align`` default to the winners table at the
+    BUSIEST rank's fill, so every rank runs the same tuned tile.
+    ``stack_bins`` is accepted for signature parity: the concatenation
+    carries no padding, so it is one launch whatever the bins.
+    """
+    from ..kernels.smm.autotune import best_params_for, has_winners
+
+    rank_masks = list(rank_masks)
+    fill = 1.0
+    if has_winners(block_m, block_k, block_n):
+        # the occupancy only picks the table's bin (see stack_executor)
+        fill = max(
+            _mask_fill(m // block_m, k // block_k, n // block_n,
+                       rm.get("a_mask"), rm.get("b_mask"),
+                       rm.get("pair_mask"), rm.get("a_norms"),
+                       rm.get("b_norms"), rm.get("pair_norms"), filter_eps)
+            for rm in rank_masks)
+    tuned_align, tuned_tile = best_params_for(block_m, block_k, block_n,
+                                              fill=fill)
+    if align is None:
+        align = tuned_align
+    if stack_size is None:
+        stack_size = tuned_tile
+    plan = build_rank_executor_plan(
+        m, k, n, block_m=block_m, block_k=block_k, block_n=block_n,
+        rank_masks=rank_masks, stack_size=stack_size,
+        filter_eps=filter_eps, rank_order=rank_order)
+    ranks = len(plan.rank_order)
+
+    def f(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        if (tuple(a.shape) != (ranks, m, k)
+                or tuple(b.shape) != (ranks, k, n)):
+            raise ValueError(
+                f"rank stack executor built for ({ranks},{m},{k}) x "
+                f"({ranks},{k},{n}), got {tuple(a.shape)} x "
+                f"{tuple(b.shape)}")
+        a_blocks = to_blocks_batched(kernel_operand(a), block_m, block_k)
+        b_blocks = to_blocks_batched(kernel_operand(b), block_k, block_n)
+        c = torch.zeros((ranks, plan.n_c_blocks, block_m, block_n),
+                        dtype=torch.float32, device=a.device)
+        execute_rank_plan(plan, a_blocks, b_blocks, c, kernel=kernel)
+        return from_blocks_batched(c, plan.nbr, plan.nbc)
+
+    f.executor_plan = plan
+    f.rank_plan = plan
+    f.align = align
+    f.stack_size = stack_size
     return f

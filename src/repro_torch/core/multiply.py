@@ -21,16 +21,28 @@ entirely.  Block norms with ``filter_eps`` ride the same slicing
 (union-of-max).  The densified path ignores the masks: absent blocks
 are stored as zeros, so one big GEMM is already correct.
 
+Rank-exact execution (the default for masked or filtered blocked
+multiplies on more than one rank; ``rank_exact=False`` restores the
+union): the per-rank builders (``cannon_rank_steps`` /
+``summa_rank_steps`` / ``summa_gather_rank_steps`` / ``ts_rank_steps``)
+emit each rank's EXACT mask and norm slices, and each step runs every
+rank's own plan, all ranks' triples in one smm launch
+(core/engine.py ``rank_stack_executor``).  Step emptiness is the
+all-ranks-empty intersection, which equals the union's, so the comm
+schedule does not depend on ``rank_exact``.  Steps whose per-rank
+slices are content-identical (dense operands, uniform fill) collapse to
+the union executor.  With ``filter_eps`` None or 0 the product is bitwise
+the union plan's; with ``filter_eps > 0`` each rank filters by its own
+norms, the exact per-triple filter.  ``rebalance=True`` adds the costed
+permutation pass (sparsity/balance.py): block rows of A and C and block
+columns of B and C are permuted on the device before the schedule runs
+and C is permuted back, so each rank's share of the retained triples
+evens out (DBCSR's randomized distribution, arXiv:1910.04796 sec. 2).
+
 What is left out raises ``NotImplementedError`` naming its ROADMAP queue
-item: the planner (``algorithm="auto"``, ``return_plan``; A5),
-rank-exact execution and rebalancing on more than one rank (A6), ABFT
-verification (A8).  The reference runs masked multiplies on more than
-one rank rank-exactly by default; with ``filter_eps`` None or 0 its
-products are bitwise its union plan's, so the port runs the union plan,
-and with ``filter_eps > 0`` on the blocked path (where each rank's own
-filter would drop a different set) it raises naming A6 unless
-``rank_exact=False`` asks for the union.  Telemetry (A9) does not exist
-in the port yet.
+item: the planner (``algorithm="auto"``, ``return_plan``, the planner's
+own rebalance decision; A5) and ABFT verification (A8).  Telemetry (A9)
+does not exist in the port yet.
 """
 from __future__ import annotations
 
@@ -40,13 +52,17 @@ import numpy as np
 import torch
 
 from .blocking import GridSpec
-from .cannon import cannon_matmul, cannon_step_masks, cannon_step_norms
+from .cannon import (cannon_matmul, cannon_rank_steps, cannon_step_masks,
+                     cannon_step_norms)
 from .cannon25d import cannon25d_matmul
 from .densify import blocked_local_matmul, densified_local_matmul
+from .engine import rank_stack_executor
 from .stacks import normalize_block_masks
-from .summa import (summa_gather_masks, summa_gather_norms, summa_matmul,
-                    summa_n_panels, summa_step_masks, summa_step_norms)
-from .tall_skinny import tall_skinny_matmul, ts_step_masks, ts_step_norms
+from .summa import (summa_gather_masks, summa_gather_norms,
+                    summa_gather_rank_steps, summa_matmul, summa_n_panels,
+                    summa_rank_steps, summa_step_masks, summa_step_norms)
+from .tall_skinny import (tall_skinny_matmul, ts_rank_steps, ts_step_masks,
+                          ts_step_norms)
 
 __all__ = ["distributed_matmul", "ALGORITHMS"]
 
@@ -116,6 +132,183 @@ def _stepwise_blocked_lm(
     return lm
 
 
+def _collect_executor_stats(lm, densify: bool, n_ranks: int) -> Optional[dict]:
+    """The executed blocked plan's statistics (None when densified):
+    entries, padding, filter accounting and ``n_launches``, the smm
+    launches the multiply makes on ``n_ranks`` ranks (a union plan
+    launches once per bin and rank, a rank-exact step once over all
+    ranks); with rank-exact steps also each rank's total entries, the
+    busiest rank's and ``rank_imbalance`` (max/mean)."""
+    if densify:
+        return None
+    if getattr(lm, "stepwise", False):
+        ex = [f.executor_plan for f in lm.step_executors if f is not None]
+        n_entries = sum(p.n_entries for p in ex)
+        n_dense = sum(p.n_dense_triples for p in ex)
+        n_padding = sum(p.n_padding for p in ex)
+        n_padding_unbinned = sum(p.n_padding_unbinned for p in ex)
+        n_unfiltered = sum(
+            p.n_entries if p.n_unfiltered_entries is None
+            else p.n_unfiltered_entries for p in ex)
+        stats = {
+            "n_steps": len(lm.step_executors),
+            "n_empty_steps": len(lm.empty_steps),
+            "n_entries": n_entries,
+            "n_dense_triples": n_dense,
+            "n_skipped_triples": n_dense - n_entries,
+            "occupancy": n_entries / n_dense if n_dense else 1.0,
+            "n_padding": n_padding,
+            "n_padding_unbinned": n_padding_unbinned,
+            "padding_triples_saved": n_padding_unbinned - n_padding,
+            # triples the binary masks admitted but the norm filter dropped
+            "n_unfiltered_triples": n_unfiltered,
+            "n_norm_filtered_triples": n_unfiltered - n_entries,
+            "n_launches": sum(_launches(p, n_ranks) for p in ex),
+        }
+        totals = _rank_totals(lm)
+        if totals is not None:
+            # the busiest rank's total bounds wall time; the mean is the
+            # flattened load rebalancing aims for (n_entries above sums
+            # the per-step busiest ranks)
+            stats.update(
+                rank_exact=True,
+                rank_entries=[int(x) for x in totals],
+                max_rank_entries=int(totals.max()),
+                mean_rank_entries=float(totals.mean()),
+                rank_imbalance=_rank_imbalance_of(totals),
+            )
+        return stats
+    plan = getattr(lm, "executor_plan", None)
+    if plan is None:
+        return None
+    stats = plan.stats()
+    stats["n_launches"] = _launches(plan, n_ranks)
+    if hasattr(plan, "rank_entries"):
+        stats["rank_exact"] = True
+    return stats
+
+
+def _launches(plan, n_ranks: int) -> int:
+    if hasattr(plan, "rank_entries"):
+        return plan.n_launches
+    return n_ranks * plan.n_launches
+
+
+# ---------------------------------------------------------------------------
+# rank-exact execution: per-rank plans + costed rebalance
+# ---------------------------------------------------------------------------
+
+
+def _rank_kwargs_equal(rank_kwargs: List[dict]) -> bool:
+    """True when every rank's step kwargs are content-identical: the
+    dense / uniform-fill collapse, where one shared plan IS every rank's
+    exact plan, so the union executor already runs rank-exactly."""
+    first = rank_kwargs[0]
+    keys = set(first)
+    for rk in rank_kwargs[1:]:
+        if set(rk) != keys:
+            return False
+        for key in keys:
+            u, v = first[key], rk[key]
+            if u is None or v is None:
+                if u is not v:
+                    return False
+            elif u.shape != v.shape or not np.array_equal(u, v):
+                return False
+    return True
+
+
+def _rank_order(algorithm: str, grid: GridSpec, mesh) -> np.ndarray:
+    """Each leading rank's index in the per-rank builders' flat order:
+    cannon ``i*pg + j``; cannon25d / stacked tall-skinny stack-major
+    ``(s*pr + i)*pc + j``; summa / flat tall-skinny ``i*pc + j``, read
+    from the mesh's coordinates whatever its axis order."""
+    stacked = (algorithm == "cannon25d"
+               or (algorithm.startswith("ts_")
+                   and grid.stack_axis is not None))
+    axes = ((grid.stack_axis, grid.row_axis, grid.col_axis) if stacked
+            else (grid.row_axis, grid.col_axis))
+    return mesh.flat_index(axes)
+
+
+def _single_rank_lm(ml: int, kl: int, nl: int, *, rank_kwargs: List[dict],
+                    rank_order, filter_eps: Optional[float] = None,
+                    **blocked_kw):
+    """Rank-exact local multiply for single-plan schedules (tall-skinny,
+    summa with the gather broadcast): one rank executor, or the union
+    ``blocked_local_matmul`` when every rank's slice is identical."""
+    if _rank_kwargs_equal(rank_kwargs):
+        return blocked_local_matmul(ml, kl, nl, **rank_kwargs[0],
+                                    filter_eps=filter_eps, **blocked_kw)
+    return rank_stack_executor(ml, kl, nl, rank_masks=rank_kwargs,
+                               rank_order=rank_order,
+                               filter_eps=filter_eps, **blocked_kw)
+
+
+def _stepwise_rank_blocked_lm(
+    ml: int, kl: int, nl: int, *, rank_steps: List[List[dict]],
+    rank_order, filter_eps: Optional[float] = None, **blocked_kw,
+):
+    """Rank-exact stepwise local multiply: one rank executor per
+    data-exchange step.  A step is empty only when every rank's is (the
+    all-ranks-empty intersection: ``max_r norm_product >= eps`` iff some
+    rank retains a triple, so this is the union path's skip set and the
+    comm schedule does not depend on ``rank_exact``).  A step whose
+    per-rank slices are content-identical collapses to the union
+    executor."""
+    fns, empty = [], set()
+    for t, rkw in enumerate(rank_steps):
+        if all(_masks_empty({**r, "filter_eps": filter_eps}) for r in rkw):
+            fns.append(None)
+            empty.add(t)
+        elif _rank_kwargs_equal(rkw):
+            fns.append(blocked_local_matmul(
+                ml, kl, nl, **rkw[0], filter_eps=filter_eps, **blocked_kw))
+        else:
+            fns.append(rank_stack_executor(
+                ml, kl, nl, rank_masks=rkw, rank_order=rank_order,
+                filter_eps=filter_eps, **blocked_kw))
+
+    def lm(a_loc: torch.Tensor, b_loc: torch.Tensor, step: int = 0):
+        f = fns[step]
+        return None if f is None else f(a_loc, b_loc)
+
+    lm.stepwise = True
+    lm.empty_steps = frozenset(empty)
+    lm.step_executors = fns
+    return lm
+
+
+def _rank_totals(lm) -> Optional[np.ndarray]:
+    """Per-rank executed-entry totals over the whole multiply (summed
+    across steps; collapsed/union steps charge every rank the shared
+    plan's entries).  None when no step executed rank-exactly."""
+    fns = getattr(lm, "step_executors", None)
+    if fns is None:
+        fns = [lm]
+    plans = [getattr(f, "executor_plan", None)
+             for f in fns if f is not None]
+    ranked = [p for p in plans if hasattr(p, "rank_entries")]
+    if not ranked:
+        return None
+    totals = np.zeros(ranked[0].n_ranks, dtype=np.int64)
+    for p in plans:
+        if p is None:
+            continue
+        if hasattr(p, "rank_entries"):
+            totals += np.asarray(p.rank_entries, dtype=np.int64)
+        else:
+            totals += int(p.n_entries)
+    return totals
+
+
+def _rank_imbalance_of(totals: Optional[np.ndarray]) -> Optional[float]:
+    if totals is None:
+        return None
+    mean = float(totals.mean())
+    return float(totals.max()) / mean if mean > 0 else 1.0
+
+
 def distributed_matmul(
     a: torch.Tensor,
     b: torch.Tensor,
@@ -169,8 +362,63 @@ def distributed_matmul(
     ``stack_size`` and ``stack_bins`` shape the stack plan (engine.py);
     ``align`` is accepted and ignored.  ``pipeline_depth``: 2 = overlap
     order, 1 = serial, 0 = rolled; all three give the same bits.
-    ``rank_exact`` / ``rebalance``: see the module docstring.
+
+    ``rank_exact`` (module docstring): None (the default) runs a masked
+    or filtered blocked multiply on more than one rank from each rank's
+    own plan, ``False`` from the union of the ranks' plans, ``True`` is
+    the default's behaviour (steps whose ranks agree collapse to the
+    union either way).  ``rebalance=True`` permutes block rows of A / C
+    and block columns of B / C to even out the ranks' retained triples
+    when the multiply is blocked, rank-exact and its block grid divides
+    by the process grid; C comes back in the caller's order.  ``None``
+    (the planner's decision, ROADMAP A5) and ``False`` permute nothing.
+    A densified multiply and a one-rank mesh ignore both.
     """
+    c, _ = _distributed_matmul(
+        a, b, mesh=mesh, grid=grid, algorithm=algorithm, densify=densify,
+        block_m=block_m, block_k=block_k, block_n=block_n,
+        stack_size=stack_size, align=align, local_kernel=local_kernel,
+        a_mask=a_mask, b_mask=b_mask, a_norms=a_norms, b_norms=b_norms,
+        filter_eps=filter_eps, stack_bins=stack_bins, rank_exact=rank_exact,
+        rebalance=rebalance, pipeline_depth=pipeline_depth,
+        double_buffer=double_buffer, verify=verify, return_plan=return_plan,
+        **kw)
+    return c
+
+
+def _distributed_matmul(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    mesh,
+    grid: GridSpec = GridSpec(),
+    algorithm: str = "auto",
+    densify: Optional[bool] = None,
+    block_m: int = 64,
+    block_k: int = 64,
+    block_n: int = 64,
+    stack_size: Optional[int] = None,
+    align: Optional[bool] = None,
+    local_kernel: Optional[str] = None,
+    a_mask: Optional[np.ndarray] = None,
+    b_mask: Optional[np.ndarray] = None,
+    a_norms: Optional[np.ndarray] = None,
+    b_norms: Optional[np.ndarray] = None,
+    filter_eps: Optional[float] = None,
+    stack_bins: Optional[int] = None,
+    rank_exact: Optional[bool] = None,
+    rebalance: Optional[bool] = None,
+    pipeline_depth: Optional[int] = None,
+    double_buffer: Optional[bool] = None,
+    verify: Optional[str] = None,
+    return_plan: bool = False,
+    **kw,
+) -> Tuple[torch.Tensor, Optional[dict]]:
+    """``distributed_matmul`` returning ``(C, executor_stats)``: the
+    executed blocked plan's statistics (``_collect_executor_stats``,
+    None when densified) with the rebalance pass's outcome
+    (``rebalance_applied`` and, when applied, ``rebalance_method`` and
+    ``rebalance_imbalance_before`` / ``_after``)."""
     m, k = a.shape
     k2, n = b.shape
     if k != k2:
@@ -189,12 +437,6 @@ def distributed_matmul(
             "ABFT verification is not ported yet: ROADMAP Queue A8")
     pr, pc = grid.grid_shape(mesh)
     n_ranks = pr * pc * grid.stack_size(mesh)
-    if (rank_exact or rebalance) and n_ranks > 1:
-        # one rank: the reference runs the ordinary multiply (rank-exact
-        # execution and its rebalance need more than one rank)
-        raise NotImplementedError(
-            "rank_exact / rebalance on a multi-rank mesh are not ported "
-            "yet: ROADMAP Queue A6")
 
     filtering = filter_eps is not None
     if filtering and a_norms is None and b_norms is None:
@@ -217,16 +459,31 @@ def distributed_matmul(
                 am.shape[0], am.shape[1], bmk.shape[1], a_norms, b_norms)
             an_g = np.where(am, an_g, np.float32(0.0))
             bn_g = np.where(bmk, bn_g, np.float32(0.0))
+    use_rank = rank_exact is not False and masked and n_ranks > 1
 
     if densify is None:
         densify = True  # the default for a fixed algorithm
-    if (not densify and masked and n_ranks > 1 and rank_exact is None
-            and filtering and filter_eps > 0):
-        raise NotImplementedError(
-            "filter_eps > 0 on a masked multi-rank blocked multiply: the "
-            "reference filters each rank by its own norms (rank-exact "
-            "execution, ROADMAP Queue A6), which a union plan does not "
-            "reproduce; pass rank_exact=False for the union-of-max filter")
+
+    # ---- costed rebalance: permute the block distribution -------------
+    # Only block rows of A / C and block cols of B / C move; K stays the
+    # identity, so every C block keeps its accumulation order.
+    rb = None
+    if (rebalance and not densify and use_rank
+            and am.shape[0] % pr == 0 and bmk.shape[1] % pc == 0):
+        from ..sparsity.balance import plan_rebalance
+
+        cand = plan_rebalance(am, bmk, pr, pc, a_norms=an_g, b_norms=bn_g,
+                              filter_eps=filter_eps)
+        if not cand.identity:
+            rb = cand
+    if rb is not None:
+        from ..sparsity.balance import permute_block_cols, permute_block_rows
+
+        a = permute_block_rows(a, rb.perm_m, block_m)
+        b = permute_block_cols(b, rb.perm_n, block_n)
+        am, bmk = am[rb.perm_m], bmk[:, rb.perm_n]
+        if an_g is not None:
+            an_g, bn_g = an_g[rb.perm_m], bn_g[:, rb.perm_n]
 
     # ---- local multiply geometry (per schedule step) ------------------
     pg = p_all = n_panels = None
@@ -270,37 +527,66 @@ def distributed_matmul(
             block_m=block_m, block_k=block_k, block_n=block_n,
             stack_size=stack_size, align=align,
             kernel=local_kernel or "smm", stack_bins=stack_bins)
+        rank_kw = {}
+        if use_rank:
+            rank_kw = dict(rank_order=_rank_order(algorithm, grid, mesh),
+                           filter_eps=filter_eps, **blocked_kw)
         if not masked:
             lm = blocked_local_matmul(ml, kl, nl, **blocked_kw)
         elif algorithm in ("cannon", "cannon25d"):
             c_repl = (grid.stack_size(mesh)
                       if algorithm == "cannon25d" else 1)
-            steps = [{"pair_mask": pm}
-                     for pm in cannon_step_masks(am, bmk, pg, c_repl)]
-            if filtering:
-                for s, pn in zip(steps, cannon_step_norms(
-                        an_g, bn_g, pg, c_repl)):
-                    s.update(pair_norms=pn, filter_eps=filter_eps)
-            lm = _stepwise_blocked_lm(ml, kl, nl, mask_steps=steps,
-                                      **blocked_kw)
+            if use_rank:
+                lm = _stepwise_rank_blocked_lm(
+                    ml, kl, nl, rank_steps=cannon_rank_steps(
+                        am, bmk, pg, c_repl, a_norms=an_g, b_norms=bn_g),
+                    **rank_kw)
+            else:
+                steps = [{"pair_mask": pm}
+                         for pm in cannon_step_masks(am, bmk, pg, c_repl)]
+                if filtering:
+                    for s, pn in zip(steps, cannon_step_norms(
+                            an_g, bn_g, pg, c_repl)):
+                        s.update(pair_norms=pn, filter_eps=filter_eps)
+                lm = _stepwise_blocked_lm(ml, kl, nl, mask_steps=steps,
+                                          **blocked_kw)
         elif algorithm == "summa" and kw.get("bcast") != "gather":
-            steps = [{"a_mask": ua, "b_mask": ub} for ua, ub in
-                     summa_step_masks(am, bmk, pr, pc, n_panels)]
-            if filtering:
-                for s, (una, unb) in zip(steps, summa_step_norms(
-                        an_g, bn_g, pr, pc, n_panels)):
-                    s.update(a_norms=una, b_norms=unb, filter_eps=filter_eps)
-            lm = _stepwise_blocked_lm(ml, kl, nl, mask_steps=steps,
-                                      **blocked_kw)
+            if use_rank:
+                lm = _stepwise_rank_blocked_lm(
+                    ml, kl, nl, rank_steps=summa_rank_steps(
+                        am, bmk, pr, pc, n_panels, a_norms=an_g,
+                        b_norms=bn_g),
+                    **rank_kw)
+            else:
+                steps = [{"a_mask": ua, "b_mask": ub} for ua, ub in
+                         summa_step_masks(am, bmk, pr, pc, n_panels)]
+                if filtering:
+                    for s, (una, unb) in zip(steps, summa_step_norms(
+                            an_g, bn_g, pr, pc, n_panels)):
+                        s.update(a_norms=una, b_norms=unb,
+                                 filter_eps=filter_eps)
+                lm = _stepwise_blocked_lm(ml, kl, nl, mask_steps=steps,
+                                          **blocked_kw)
         elif algorithm == "summa":
-            ua, ub = summa_gather_masks(am, bmk, pr, pc)
-            norm_kw = {}
-            if filtering:
-                una, unb = summa_gather_norms(an_g, bn_g, pr, pc)
-                norm_kw = dict(a_norms=una, b_norms=unb,
-                               filter_eps=filter_eps)
-            lm = blocked_local_matmul(ml, kl, nl, a_mask=ua, b_mask=ub,
-                                      **norm_kw, **blocked_kw)
+            if use_rank:
+                lm = _single_rank_lm(
+                    ml, kl, nl, rank_kwargs=summa_gather_rank_steps(
+                        am, bmk, pr, pc, a_norms=an_g, b_norms=bn_g),
+                    **rank_kw)
+            else:
+                ua, ub = summa_gather_masks(am, bmk, pr, pc)
+                norm_kw = {}
+                if filtering:
+                    una, unb = summa_gather_norms(an_g, bn_g, pr, pc)
+                    norm_kw = dict(a_norms=una, b_norms=unb,
+                                   filter_eps=filter_eps)
+                lm = blocked_local_matmul(ml, kl, nl, a_mask=ua, b_mask=ub,
+                                          **norm_kw, **blocked_kw)
+        elif use_rank:
+            lm = _single_rank_lm(
+                ml, kl, nl, rank_kwargs=ts_rank_steps(
+                    algorithm, am, bmk, p_all, a_norms=an_g, b_norms=bn_g),
+                **rank_kw)
         else:
             norm_kw = {}
             if filtering:
@@ -314,11 +600,25 @@ def distributed_matmul(
     common = dict(mesh=mesh, grid=grid, local_matmul=lm,
                   pipeline_depth=pipeline_depth)
     if algorithm == "cannon":
-        return cannon_matmul(a, b, double_buffer=double_buffer, **common,
+        c = cannon_matmul(a, b, double_buffer=double_buffer, **common, **kw)
+    elif algorithm == "cannon25d":
+        c = cannon25d_matmul(a, b, double_buffer=double_buffer, **common,
                              **kw)
-    if algorithm == "cannon25d":
-        return cannon25d_matmul(a, b, double_buffer=double_buffer,
-                                **common, **kw)
-    if algorithm.startswith("ts_"):
-        return tall_skinny_matmul(a, b, mode=algorithm, **common, **kw)
-    return summa_matmul(a, b, double_buffer=double_buffer, **common, **kw)
+    elif algorithm.startswith("ts_"):
+        c = tall_skinny_matmul(a, b, mode=algorithm, **common, **kw)
+    else:
+        c = summa_matmul(a, b, double_buffer=double_buffer, **common, **kw)
+    if rb is not None:
+        from ..sparsity.balance import permute_block_cols, permute_block_rows
+
+        c = permute_block_rows(c, rb.inv_m, block_m)
+        c = permute_block_cols(c, rb.inv_n, block_n)
+
+    es = _collect_executor_stats(lm, densify, mesh.n_ranks)
+    if es is not None:
+        es["rebalance_applied"] = rb is not None
+        if rb is not None:
+            es["rebalance_method"] = rb.method
+            es["rebalance_imbalance_before"] = rb.imbalance_before
+            es["rebalance_imbalance_after"] = rb.imbalance_after
+    return c, es

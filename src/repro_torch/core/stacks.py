@@ -26,7 +26,7 @@ from .blocking import BlockLayout, morton_order
 STACK_SIZE = 30_000  # paper: "each batch consists of maximum 30'000"
 
 __all__ = ["StackPlan", "build_stacks", "normalize_block_masks",
-           "pad_plans", "stack_statistics", "STACK_SIZE"]
+           "pad_plans", "stack_rank_slab", "stack_statistics", "STACK_SIZE"]
 
 
 def normalize_block_masks(
@@ -273,6 +273,39 @@ def pad_plans(
             raise ValueError(f"plan of size {p.size} exceeds stack_tile {tile}")
         out[i, : p.size, :3] = p.triples
         out[i, : p.size, 3] = 1
+    return out
+
+
+def stack_rank_slab(
+    rank_triples: List[np.ndarray],
+    n_c_blocks: int,
+) -> np.ndarray:
+    """Stack per-rank padded triple tensors into one ``(R, S, T, 4)`` slab.
+
+    Each rank's ``(S_r, T_r, 4)`` tensor (the single-tensor view of its
+    own plan) is grown to the across-rank maxima ``S = max(S_r)`` and
+    ``T = max(T_r)`` with the rows ``pad_plans`` pads with:
+    ``(0, 0, n_c_blocks, 0)``, the scratch block with ``valid == 0``.  A
+    rank whose plan is empty contributes an all-padding slice.  This is
+    the JAX package's per-rank plan layout (one traced shape for every
+    rank); the port keeps it for statistics and executes the ranks'
+    concatenated triples instead (core/engine.py).
+    """
+    if not rank_triples:
+        raise ValueError("no per-rank triple tensors to stack")
+    n_stacks = max(int(t.shape[0]) for t in rank_triples)
+    tile = max((int(t.shape[1]) for t in rank_triples
+                if t.shape[0]), default=1)
+    tile = max(tile, 1)
+    out = np.zeros((len(rank_triples), max(n_stacks, 0), tile, 4),
+                   dtype=np.int32)
+    out[:, :, :, 2] = n_c_blocks
+    for r, t in enumerate(rank_triples):
+        s, w = int(t.shape[0]), int(t.shape[1])
+        if w > tile or s > n_stacks:
+            raise ValueError(
+                f"rank {r} tensor {t.shape} exceeds slab ({n_stacks}, {tile})")
+        out[r, :s, :w, :] = t
     return out
 
 

@@ -27,9 +27,10 @@ slice of the rank-stacked operand (launch/mesh.py), owners are per-rank
 indices from ``Mesh.axis_index``, and the collectives are device copies.
 
 The host step builders (``summa_n_panels``, ``summa_step_masks``,
-``summa_step_norms``, ``summa_gather_masks``, ``summa_gather_norms``)
-are copied from the JAX package byte for byte.  Its per-rank builders
-belong to rank-exact execution (ROADMAP Queue A6) and are not ported.
+``summa_step_norms``, ``summa_gather_masks``, ``summa_gather_norms``
+and the rank-exact ``summa_rank_steps`` and
+``summa_gather_rank_steps``) are copied from the JAX package byte for
+byte.
 """
 from __future__ import annotations
 
@@ -45,7 +46,8 @@ from .schedule import Schedule, execute_schedule, resolve_pipeline_depth
 
 __all__ = ["summa_matmul", "summa_n_panels", "build_summa_schedule",
            "build_summa_gather_schedule", "summa_step_masks",
-           "summa_gather_masks", "summa_step_norms", "summa_gather_norms"]
+           "summa_gather_masks", "summa_step_norms", "summa_gather_norms",
+           "summa_rank_steps", "summa_gather_rank_steps"]
 
 
 def summa_n_panels(pr: int, pc: int) -> int:
@@ -221,6 +223,77 @@ def summa_gather_masks(
     for j in range(pc):
         ub |= bm[:, j * lc:(j + 1) * lc]
     return ua, ub
+
+
+def summa_rank_steps(
+    am: np.ndarray, bm: np.ndarray, pr: int, pc: int, n_panels: int,
+    a_norms: Optional[np.ndarray] = None,
+    b_norms: Optional[np.ndarray] = None,
+) -> List[List[dict]]:
+    """Rank-exact twin of ``summa_step_masks``/``summa_step_norms``:
+    per panel, per RANK exact local mask (and norm) kwargs.
+
+    ``out[p][r]`` is the kwarg dict for rank ``r = i * pc + j`` at
+    panel ``p`` — its own A row chunk against the panel's K slice and
+    the panel's K slice against its own B column chunk, no cross-rank
+    union and no union-of-max norms.
+    """
+    nbr, nbk = am.shape
+    nbc = bm.shape[1]
+    if nbr % pr or nbc % pc or nbk % n_panels:
+        raise ValueError(
+            f"block grid ({nbr},{nbk},{nbc}) not divisible by summa grid "
+            f"{pr}x{pc} with {n_panels} panels")
+    lr, lc, lkp = nbr // pr, nbc // pc, nbk // n_panels
+    if a_norms is not None:
+        a_norms = np.asarray(a_norms, dtype=np.float32)
+        b_norms = np.asarray(b_norms, dtype=np.float32)
+    steps: List[List[dict]] = []
+    for p in range(n_panels):
+        ksl = slice(p * lkp, (p + 1) * lkp)
+        ranks: List[dict] = []
+        for i in range(pr):
+            rs = slice(i * lr, (i + 1) * lr)
+            for j in range(pc):
+                cs = slice(j * lc, (j + 1) * lc)
+                kw = {"a_mask": am[rs, ksl], "b_mask": bm[ksl, cs]}
+                if a_norms is not None:
+                    kw["a_norms"] = a_norms[rs, ksl]
+                    kw["b_norms"] = b_norms[ksl, cs]
+                ranks.append(kw)
+        steps.append(ranks)
+    return steps
+
+
+def summa_gather_rank_steps(
+    am: np.ndarray, bm: np.ndarray, pr: int, pc: int,
+    a_norms: Optional[np.ndarray] = None,
+    b_norms: Optional[np.ndarray] = None,
+) -> List[dict]:
+    """Rank-exact twin of ``summa_gather_masks``/``summa_gather_norms``
+    for the single-step all-gather variant: rank ``r = i * pc + j``
+    multiplies its exact A row chunk (full K) by its exact B column
+    chunk."""
+    nbr, nbk = am.shape
+    nbc = bm.shape[1]
+    if nbr % pr or nbc % pc:
+        raise ValueError(
+            f"block grid ({nbr},{nbc}) not divisible by grid {pr}x{pc}")
+    lr, lc = nbr // pr, nbc // pc
+    if a_norms is not None:
+        a_norms = np.asarray(a_norms, dtype=np.float32)
+        b_norms = np.asarray(b_norms, dtype=np.float32)
+    ranks: List[dict] = []
+    for i in range(pr):
+        rs = slice(i * lr, (i + 1) * lr)
+        for j in range(pc):
+            cs = slice(j * lc, (j + 1) * lc)
+            kw = {"a_mask": am[rs], "b_mask": bm[:, cs]}
+            if a_norms is not None:
+                kw["a_norms"] = a_norms[rs]
+                kw["b_norms"] = b_norms[:, cs]
+            ranks.append(kw)
+    return ranks
 
 
 def build_summa_gather_schedule(row_axis: str, col_axis: str, *,

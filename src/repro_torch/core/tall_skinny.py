@@ -16,13 +16,12 @@ K = 1,982,464: only the contraction dimension is large.
 
 On the one card the reduction is a device copy between the simulated
 ranks of the rank axis (launch/mesh.py).  The host step builders
-(``ts_step_masks``, ``ts_step_norms``) and ``classify_shape`` are copied
-from the JAX package byte for byte; the per-rank builder belongs to
-rank-exact execution (ROADMAP Queue A6) and is not ported.
+(``ts_step_masks``, ``ts_step_norms``, the rank-exact ``ts_rank_steps``)
+and ``classify_shape`` are copied from the JAX package byte for byte.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -32,8 +31,8 @@ from .cannon import _default_local_matmul
 from .schedule import Schedule, execute_schedule, resolve_pipeline_depth
 
 __all__ = ["tall_skinny_matmul", "build_ts_schedule", "ts_step_masks",
-           "ts_step_norms", "classify_shape", "ts_classify_ratio",
-           "DEFAULT_TS_RATIO"]
+           "ts_step_norms", "ts_rank_steps", "classify_shape",
+           "ts_classify_ratio", "DEFAULT_TS_RATIO"]
 
 # The historical tall/skinny threshold.  The JAX package takes the live
 # threshold from its planner's cost-model crossover and falls back to
@@ -181,6 +180,60 @@ def ts_step_norms(mode: str, an: np.ndarray, bn: np.ndarray,
     for d in range(p_all):
         np.maximum(ub, bn[:, d * lc:(d + 1) * lc], out=ub)
     return {"a_norms": an, "b_norms": ub}
+
+
+def ts_rank_steps(mode: str, am: np.ndarray, bm: np.ndarray, p_all: int,
+                  a_norms: Optional[np.ndarray] = None,
+                  b_norms: Optional[np.ndarray] = None) -> List[dict]:
+    """Rank-exact twin of ``ts_step_masks``/``ts_step_norms``: one
+    exact mask/norm kwarg dict per device ``d`` (the joint-axes
+    flattened shard index), instead of the union over shards.
+
+    ts_k shards K: device ``d`` multiplies its A column chunk by its B
+    row chunk.  ts_m shards M (its A row chunk x full B); ts_n shards
+    N (full A x its B column chunk).
+    """
+    nbr, nbk = am.shape
+    nbc = bm.shape[1]
+    if a_norms is not None:
+        a_norms = np.asarray(a_norms, dtype=np.float32)
+        b_norms = np.asarray(b_norms, dtype=np.float32)
+    ranks: List[dict] = []
+    if mode == "ts_k":
+        if nbk % p_all:
+            raise ValueError(f"K block grid {nbk} not divisible by {p_all}")
+        lk = nbk // p_all
+        for d in range(p_all):
+            ks = slice(d * lk, (d + 1) * lk)
+            kw = {"a_mask": am[:, ks], "b_mask": bm[ks, :]}
+            if a_norms is not None:
+                kw["a_norms"] = a_norms[:, ks]
+                kw["b_norms"] = b_norms[ks, :]
+            ranks.append(kw)
+        return ranks
+    if mode == "ts_m":
+        if nbr % p_all:
+            raise ValueError(f"M block grid {nbr} not divisible by {p_all}")
+        lr = nbr // p_all
+        for d in range(p_all):
+            rs = slice(d * lr, (d + 1) * lr)
+            kw = {"a_mask": am[rs], "b_mask": bm}
+            if a_norms is not None:
+                kw["a_norms"] = a_norms[rs]
+                kw["b_norms"] = b_norms
+            ranks.append(kw)
+        return ranks
+    if nbc % p_all:
+        raise ValueError(f"N block grid {nbc} not divisible by {p_all}")
+    lc = nbc // p_all
+    for d in range(p_all):
+        cs = slice(d * lc, (d + 1) * lc)
+        kw = {"a_mask": am, "b_mask": bm[:, cs]}
+        if a_norms is not None:
+            kw["a_norms"] = a_norms
+            kw["b_norms"] = b_norms[:, cs]
+        ranks.append(kw)
+    return ranks
 
 
 def tall_skinny_matmul(

@@ -14,9 +14,10 @@ global tensor into the rank-stacked layout of a partition spec,
 ``unshard`` puts a result back) and the collectives of ``jax.lax`` that
 the schedules use, each with the JAX meaning over a subset of named
 axes: ``ppermute``, ``psum``, ``psum_scatter``, ``all_gather`` and
-``axis_index``.  A collective is a device copy on one card; ``traffic``
-counts the bytes a rank receives from other ranks, summed over ranks,
-as a ring implementation would move them.  A ``torch.distributed``
+``axis_index`` (``flat_index`` on the host).  A collective is a device
+copy on one card; ``traffic`` counts the bytes a rank receives from
+other ranks, summed over ranks, as a ring implementation would move
+them.  A ``torch.distributed``
 backend (one rank a process) would implement the same methods.
 
 A partition spec is a tuple with one entry per dimension of the global
@@ -150,11 +151,16 @@ class Mesh:
 
     # ------------------------------------------------------ collectives
 
+    def flat_index(self, axis: Axes) -> np.ndarray:
+        """Every rank's (flat) index over ``axis``, row-major in the order
+        of ``axis``: ``axis_index`` as a host int64 array of shape (R,)."""
+        return self._flat(self._names(axis))
+
     def axis_index(self, axis: Axes) -> torch.Tensor:
         """``jax.lax.axis_index``: every rank's (flat) index over
         ``axis``, an int64 tensor of shape (R,) on the mesh's device."""
-        return torch.as_tensor(self._flat(self._names(axis)),
-                               dtype=torch.long, device=self.device)
+        return torch.as_tensor(self.flat_index(axis), dtype=torch.long,
+                               device=self.device)
 
     def ppermute(self, x: torch.Tensor, axes: Axes,
                  perm: Sequence[Tuple[int, int]]) -> torch.Tensor:

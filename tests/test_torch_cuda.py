@@ -460,3 +460,55 @@ def test_batched_summa_on_card_is_bitwise_looped(cuda, densify):
     for x, y, (a, b) in zip(fused, looped, reqs):
         assert torch.equal(x.data, y.data)
         assert _rel(x.data, torch.matmul(a.data, b.data)) <= 1e-5
+
+
+def test_rank_exact_step_is_one_launch_over_all_ranks(cuda):
+    """A rank-exact step on the card: four ranks' own plans (one of them
+    empty), their triples concatenated with rank offsets, in ONE smm
+    launch, within 1e-5 of the plain version on the same concatenation;
+    and a banded Cannon 2x2 multiply, rank-exact by default, bitwise its
+    union plan with one smm launch a step where the union makes one a
+    rank."""
+    from repro_torch.core.blocking import GridSpec
+    from repro_torch.core.engine import rank_stack_executor
+    from repro_torch.core.multiply import distributed_matmul
+
+    rng = np.random.RandomState(3)
+    m, k, n, bs = 88, 110, 66, 22
+    masks = [{"a_mask": rng.rand(m // bs, k // bs) < 0.5,
+              "b_mask": rng.rand(k // bs, n // bs) < 0.6} for _ in range(4)]
+    masks[2]["a_mask"][:] = False
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    a = torch.randn(4, m, k, generator=gen, device=cuda)
+    b = torch.randn(4, k, n, generator=gen, device=cuda)
+    kw = dict(block_m=bs, block_k=bs, block_n=bs, rank_masks=masks,
+              stack_size=7)
+    f = rank_stack_executor(m, k, n, **kw)
+    before = smm_process_stack.launches
+    got = f(a, b)
+    torch.cuda.synchronize()
+    assert smm_process_stack.launches - before == 1
+    want = rank_stack_executor(m, k, n, kernel="ref", **kw)(a, b)
+    assert _rel(got, want) <= 1e-5
+    assert torch.equal(got[2], torch.zeros_like(got[2]))
+
+    mesh = make_mesh((2, 2), ("data", "model"))
+    idx = np.arange(8)
+    band = np.abs(idx[:, None] - idx[None, :]) <= 1
+    full = torch.tensor(np.repeat(np.repeat(band, bs, 0), bs, 1),
+                        dtype=torch.float32, device=cuda)
+    x = torch.randn(176, 176, generator=gen, device=cuda) * full
+    y = torch.randn(176, 176, generator=gen, device=cuda) * full
+    call = dict(mesh=mesh, grid=GridSpec("data", "model"),
+                algorithm="cannon", densify=False, block_m=bs, block_k=bs,
+                block_n=bs, a_mask=band, b_mask=band)
+    before = smm_process_stack.launches
+    exact = distributed_matmul(x, y, **call)
+    torch.cuda.synchronize()
+    launched = smm_process_stack.launches - before
+    union = distributed_matmul(x, y, rank_exact=False, **call)
+    torch.cuda.synchronize()
+    assert launched == 2
+    assert smm_process_stack.launches - before - launched == 2 * 4
+    assert torch.equal(exact, union)
+    assert _rel(exact, torch.matmul(x, y)) <= 1e-5

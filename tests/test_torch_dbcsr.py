@@ -181,16 +181,6 @@ def test_create_matches_jax(meshes):
                  id="kw2-A5"),
     pytest.param(dict(algorithm="cannon", verify="checksum"), "A8", (1, 1),
                  id="kw3-A8"),
-    # a multi-rank blocked multiply with eps > 0: the reference filters
-    # each rank by its own norms (rank-exact, the default there)
-    pytest.param(dict(algorithm="cannon", densify=False, filter_eps=0.5),
-                 "A6", (2, 2), id="eps-2x2-A6"),
-    pytest.param(dict(algorithm="summa", densify=False, filter_eps=0.5),
-                 "A6", (2, 2), id="summa-eps-2x2-A6"),
-    pytest.param(dict(algorithm="cannon", densify=False, rank_exact=True),
-                 "A6", (2, 2), id="rank-exact-2x2-A6"),
-    pytest.param(dict(algorithm="cannon", densify=False, rebalance=True),
-                 "A6", (2, 2), id="rebalance-2x2-A6"),
 ])
 def test_later_slices_raise(meshes, kw, queue, grid):
     _, _, ta, tb = _operands(meshes, 0.5)

@@ -78,8 +78,9 @@ BATTERY_IDS = [f"{t}-fill{f}-{p}" for t, _, _, _, _, f, p in BATTERY]
 BATTERY_MESH = {key: case[3] for key, case in zip(BATTERY_IDS, BATTERY)}
 
 # eps cases, blocked, 50 % fill: eps 0 (the reference's default,
-# rank-exact, is bitwise its union plan) and eps > 0 on the union plan
-# (rank_exact=False on both sides)
+# rank-exact, is bitwise its union plan), eps > 0 on the union plan
+# (rank_exact=False on both sides) and eps > 0 rank-exact (the default on
+# both sides: each rank filters by its own norms)
 EPS = [(_tag(a, kw, m), a, kw, m, shape, eps)
        for a, kw, m, shape in (("cannon", {}, "2x2", (64, 96, 64)),
                                ("summa", {"bcast": "psum"}, "2x4",
@@ -91,6 +92,8 @@ EPS = [(_tag(a, kw, m), a, kw, m, shape, eps)
                                ("ts_k", {"reduce": "all_reduce"}, "2x2",
                                 (32, 128, 48)))
        for eps in ("zero", "gap")]
+# each gap case's default (rank-exact) twin, on the same operands
+EPS += [case[:5] + ("gap-default",) for case in EPS if case[5] == "gap"]
 EPS_IDS = [f"{t}-eps-{e}" for t, _, _, _, _, e in EPS]
 
 
@@ -221,7 +224,10 @@ def reference(tmp_path_factory):
                       "kw": dict(algorithm=algo, **PATHS[path], **kw)}
     for i, (tag, algo, kw, m, shape, eps) in enumerate(EPS):
         key = EPS_IDS[i]
-        a, b, am, bm, an, bn = _operands(shape, 0.5, 500 + i, spread=True)
+        twin = EPS.index((tag, algo, kw, m, shape, "gap")) \
+            if eps == "gap-default" else i
+        a, b, am, bm, an, bn = _operands(shape, 0.5, 500 + twin,
+                                         spread=True)
         put(key, a=a, b=b, a_mask=am, b_mask=bm, a_norms=an, b_norms=bn)
         e = 0.0 if eps == "zero" else _gap_eps(an, bn, am, bm)
         ckw = dict(algorithm=algo, densify=False, filter_eps=e, **kw)
@@ -269,8 +275,9 @@ def test_battery_matches_jax(reference, key):
 
 @pytest.mark.parametrize("key", EPS_IDS)
 def test_eps_matches_jax(reference, key):
-    """eps 0 (the reference's rank-exact default, bitwise its union)
-    and eps > 0 on the union plan (``rank_exact=False`` both sides)."""
+    """eps 0 (the reference's rank-exact default, bitwise its union),
+    eps > 0 on the union plan (``rank_exact=False`` both sides) and
+    eps > 0 rank-exact (the default both sides)."""
     got = _port(reference, key, EPS[EPS_IDS.index(key)][3])
     np.testing.assert_allclose(got.numpy(), reference[2][key], rtol=RTOL,
                                atol=ATOL)
