@@ -141,6 +141,32 @@ Phase 6  runs the distributed schedules through dbcsr.multiply on meshes
          MultiplyService with algorithm="summa", blocked and densified
          pallas: fused == looped == served, bit for bit.
 
+Phase 7  the multiply planner (repro_torch.planner): micro_calibrate on
+         the card (the communication constants on a 4x4 mesh of
+         simulated ranks), saved to the calibration file for this
+         phase (the file is left afterwards as phase 7 found it), every
+         constant printed beside DEFAULT_HARDWARE; then dbcsr.multiply(a, b,
+         mesh=mesh) with no algorithm= or densify= at (a) (= (d)/(e)'s
+         operands), (b), (c) mask only and at eps 0, and a tall-skinny
+         1,408 x 123,904 x 1,408 on 1x1: bitwise its plan's pinned
+         (algorithm, densify), within REL_TOL of torch.matmul, last_plan
+         the returned plan, and host times of auto and every feasible
+         pinned configuration (median of interleaved rounds) with the
+         regret t_auto / t_best - 1 and predicted_s; (a) and (b) held to
+         the JAX package's gate, regret <= 10 % + 1 ms.  A batch of 16 x
+         1,980^2 (dense; dense with local_kernel="pallas"; 8 dense + 8 at
+         20 % fill) through MultiplyService() and multiply_batched with
+         no fused= or algorithm=, beside the pinned fused / looped x
+         blocked / densified dispatches and, with one bucket, the
+         service pinned to the plan's dispatch (fused blocked == looped
+         bitwise; the dense batch held to the gate twice: auto against
+         the best pinned dispatch, and MultiplyService() against the
+         pinned service).  Auto on a 4x4 mesh
+         of simulated ranks at (o)'s size, dense, A at 20 % fill and a
+         hot corner: bitwise its pinned plan, rank imbalance and the
+         rebalance decision, predicted against measured (not gated: the
+         ranks share the card).  One {"phase7": ...} line.
+
 Prints a {"kernels": [...]} line, the nvidia-smi line, and as its last
 line {"ok": true, "device": {...}}.  Any failed check raises, so the
 script exits nonzero before that line.  Without CUDA it exits 1 at once.
@@ -1056,6 +1082,427 @@ def distributed(dev, counters, zero_counters, read_counters, report) -> dict:
     return rows
 
 
+def sync_s(fn):
+    """(fn(), seconds) on the host clock, synchronized before and after."""
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def time_interleaved(fns, reps: int) -> list:
+    """Median of ``reps`` synchronized host-clock timings per callable,
+    the callables taken round-robin so drift of the host hits each alike
+    (the JAX package's benchmarks/bench_planner.py:58-70), after one
+    warm-up call each."""
+    for fn in fns:
+        sync_s(fn)
+    samples = [[] for _ in fns]
+    for _ in range(reps):
+        for i, fn in enumerate(fns):
+            samples[i].append(sync_s(fn)[1])
+    return [statistics.median(x) for x in samples]
+
+
+def regret_gate(t_auto: float, t_best: float) -> bool:
+    """The JAX package's planner gate (scripts/ci.sh: bench_planner
+    --check): auto within 10 % of the best pinned time plus 1 ms."""
+    return t_auto <= 1.10 * t_best + 1e-3
+
+
+def planner(dev, card, zero_counters, read_counters) -> dict:
+    """Phase 7: the multiply planner on the card; returns its summary.
+    It plans with the constants it measures, saved where the default
+    entry points read them, and then leaves the working directory's
+    calibration file as it found it (absent, or the one it held), so
+    that a later run or test plans as if phase 7 had not run."""
+    from repro_torch.planner import calibrate
+    from repro_torch.planner.plan import plan_cache_clear
+
+    path = calibrate.DEFAULT_CALIBRATION
+    before = None
+    if os.path.exists(path):
+        with open(path) as f:
+            before = f.read()
+    try:
+        return planner_cases(dev, card, zero_counters, read_counters)
+    finally:
+        if before is None:
+            if os.path.exists(path):
+                os.remove(path)
+        else:
+            with open(path, "w") as f:
+                f.write(before)
+        calibrate.invalidate_cache()
+        plan_cache_clear()
+
+
+def planner_cases(dev, card, zero_counters, read_counters) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.core import dbcsr
+    from repro_torch.core.blocking import GridSpec
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.planner import calibrate
+    from repro_torch.planner.plan import plan_cache_clear
+    from repro_torch.serve import MultiplyService
+
+    grid = GridSpec("data", "model")
+    mesh44 = make_mesh((4, 4), ("data", "model"))
+    mesh = make_mesh((1, 1), ("data", "model"))
+    summary = {"card": card, "cases": []}
+
+    # ------------------------------------------------- (1) calibration
+    print(f"phase 7 (1): micro_calibrate on the card ({card}); bytes_per_s, "
+          "latency_s and overlap_* on a 4x4 mesh of simulated ranks")
+    consts = calibrate.micro_calibrate(mesh44, grid, log=print)
+    path = calibrate.save_calibration(consts)
+    calibrate.invalidate_cache()
+    plan_cache_clear()
+    print(f"  saved -> {path}; constants beside DEFAULT_HARDWARE:")
+    print(calibrate.describe(consts, mesh44))
+    summary["calibration"] = consts
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    rng = np.random.RandomState(SEED + 7)
+
+    def dense(r, c):
+        return torch.randn((r, c), generator=gen, device=dev)
+
+    def winner(plan) -> str:
+        lines = plan.explain().splitlines()
+        star = [ln for ln in lines if ln.startswith("*")]
+        return lines[0] + ("\n    " + star[0].strip() if star else "")
+
+    def expect_kernel(label, plan, got, local_kernel=None):
+        """The path went through the kernels of its plan."""
+        if plan.trivial:
+            return
+        if not plan.densify and got["smm"] < 1:
+            raise AssertionError(f"{label}: blocked plan, no smm launch")
+        if plan.densify and local_kernel == "pallas" and \
+                got["grouped_gemm"] + got["tiled_matmul"] < 1:
+            raise AssertionError(f"{label}: densified pallas plan, no GEMM "
+                                 "kernel launch")
+
+    def record(label, plan, t_auto, t_best, best, rows, gate, first_s):
+        regret = t_auto / t_best - 1.0
+        line = {"case": label, "auto": f"{plan.algorithm}+"
+                + ("densified" if plan.densify else "blocked"),
+                "predicted_ms": 1e3 * plan.predicted_s,
+                "auto_ms": 1e3 * t_auto, "best_ms": 1e3 * t_best,
+                "best": best, "regret": regret, "gated": gate,
+                "first_s": first_s, "pinned": rows}
+        summary["cases"].append(line)
+        print(f"  {label}: auto {line['auto']} {1e3 * t_auto:.3f} ms "
+              f"(predicted {1e3 * plan.predicted_s:.3f} ms); best pinned "
+              f"{best} {1e3 * t_best:.3f} ms; regret {100 * regret:.1f} %"
+              + (" (gate: 10 % + 1 ms)" if gate else " (not gated)"))
+        return line
+
+    # ------------------------------------------- (2) 1x1 multiplies
+    print("phase 7 (2): dbcsr.multiply(a, b, mesh=mesh) with no algorithm= "
+          "or densify=, 1x1 mesh; every feasible pinned (algorithm, "
+          "densify) timed beside it (median of 5 interleaved rounds)")
+
+    def auto_case(label, a, b, exact, gate, **kw):
+        zero_counters()
+        (c, plan), first = sync_s(lambda: dbcsr.multiply(
+            a, b, mesh=mesh, return_plan=True, **kw))
+        got = read_counters()
+        if c.last_plan is not plan:
+            raise AssertionError(f"{label}: last_plan is not the plan")
+        expect_kernel(label, plan, got)
+        check_close(f"{label} auto vs torch.matmul", c.data, exact)
+        pinned = dbcsr.multiply(a, b, mesh=mesh, algorithm=plan.algorithm,
+                                densify=plan.densify, **kw)
+        if not torch.equal(pinned.data, c.data):
+            raise AssertionError(f"{label}: auto != its pinned plan")
+        del pinned
+        print(f"  {label}: first call {first:.3f} s, launches "
+              f"{ {k: v for k, v in got.items() if v} }; {winner(plan)}")
+        cands = [x for x in plan.candidates if x.feasible]
+        fns = [lambda x=x: dbcsr.multiply(a, b, mesh=mesh,
+                                          algorithm=x.algorithm,
+                                          densify=x.densify, **kw)
+               for x in cands]
+        fns.append(lambda: dbcsr.multiply(a, b, mesh=mesh, **kw))
+        for attempt in range(2):
+            times = time_interleaved(fns, 5 + 2 * attempt)
+            rows = [{"config": x.label, "predicted_ms": 1e3 * x.total_s,
+                     "ms": 1e3 * t} for x, t in zip(cands, times)]
+            chosen = [t for x, t in zip(cands, times)
+                      if (x.algorithm, x.densify) == (plan.algorithm,
+                                                      plan.densify)]
+            t_auto = min([times[-1]] + chosen)
+            i_best = int(np.argmin(times[:-1]))
+            if not gate or regret_gate(t_auto, times[i_best]) or attempt:
+                break
+            print(f"  {label}: regret gate failed once, measuring again")
+        line = record(label, plan, t_auto, times[i_best],
+                      cands[i_best].label, rows, gate, first)
+        if gate and not regret_gate(t_auto, times[i_best]):
+            raise AssertionError(f"{label}: regret {line['regret']:.3f} "
+                                 "over the gate")
+        return plan
+
+    A = dbcsr.create(dense(3960, 3960), mesh=mesh, block_size=22)
+    B = dbcsr.create(dense(3960, 3960), mesh=mesh, block_size=22)
+    exact = torch.matmul(A.data, B.data)
+    auto_case("(a) 3960^2 block 22 dense (= (d)/(e)'s operands)", A, B, exact,
+              True)
+    nb = 180
+    am = rng.rand(nb, nb) < 0.2
+    Am = dbcsr.create(dense(3960, 3960), mesh=mesh, block_size=22,
+                      block_mask=am)
+    exact = torch.matmul(Am.data, B.data)
+    auto_case("(c) 3960^2 block 22, A at 20 % fill, mask only", Am, B,
+              exact, False)
+    auto_case("(c) the same, filter_eps=0", Am, B, exact, False,
+              filter_eps=0.0)
+    del A, B, Am, exact
+    A = dbcsr.create(dense(4096, 4096), mesh=mesh, block_size=64)
+    B = dbcsr.create(dense(4096, 4096), mesh=mesh, block_size=64)
+    auto_case("(b) 4096^2 block 64 dense", A, B,
+              torch.matmul(A.data, B.data), True)
+    del A, B
+    # tall-skinny: one rank's share of (s), 1,408 x 123,904 x 1,408
+    A = dbcsr.create(dense(1408, 123904), mesh=mesh, block_size=22)
+    B = dbcsr.create(dense(123904, 1408), mesh=mesh, block_size=22)
+    auto_case("(t) 1408 x 123904 x 1408 block 22 dense", A, B,
+              torch.matmul(A.data, B.data), False)
+    del A, B
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------- (3) batch of 16
+    G, NB, BS = 16, 1980, 22
+    print(f"phase 7 (3): {G} requests of {NB}^2 block {BS}, 1x1 mesh, "
+          "MultiplyService() and multiply_batched with no fused= and no "
+          "algorithm=, beside the pinned fused / looped x blocked / "
+          "densified dispatches (median of 5 interleaved rounds)")
+    nbb = NB // BS
+    dense_reqs = [(dbcsr.create(dense(NB, NB), mesh=mesh, block_size=BS),
+                   dbcsr.create(dense(NB, NB), mesh=mesh, block_size=BS))
+                  for _ in range(G)]
+    sparse_reqs = [(dbcsr.create(dense(NB, NB), mesh=mesh, block_size=BS,
+                                 block_mask=rng.rand(nbb, nbb) < 0.2),
+                    dbcsr.create(dense(NB, NB), mesh=mesh, block_size=BS))
+                   for _ in range(G // 2)]
+
+    def serve(reqs, **kw):
+        svc = MultiplyService(mesh, max_batch=G, slo_s=60.0, **kw)
+        tickets = [svc.submit(a, b) for a, b in reqs]
+        svc.flush()
+        return [svc.result(t) for t in tickets], svc.stats()
+
+    def batch_case(label, reqs, gate, **kw):
+        zero_counters()
+        (served, st), first = sync_s(lambda: serve(reqs, **kw))
+        got = read_counters()
+        if st["n_error_tickets"] or st["n_degradations"]:
+            raise AssertionError(f"{label}: service stats {st}")
+        out, report = dbcsr.multiply_batched(reqs, mesh=mesh,
+                                             return_plan=True, **kw)
+        for x, y in zip(served, out):
+            if not torch.equal(x.data, y.data):
+                raise AssertionError(f"{label}: service != multiply_batched")
+        for x, (a, b) in zip(out, reqs):
+            if not rel_err(x.data, torch.matmul(a.data, b.data)) <= REL_TOL:
+                raise AssertionError(f"{label}: a product is off")
+        for r in report["buckets"]:
+            if r["plan"] is None:   # a bucket of one request goes looped
+                print(f"  {label}: bucket of {r['n_requests']}: looped, "
+                      "not priced")
+        plans = [r["plan"] for r in report["buckets"] if r["plan"]]
+        for r, plan in zip([r for r in report["buckets"] if r["plan"]],
+                           plans):
+            if plan.fuse != r["fused"]:
+                raise AssertionError(f"{label}: fuse decision not followed")
+            expect_kernel(label, plan.per_request, got,
+                          kw.get("local_kernel"))
+            print(f"  {label}: bucket of {r['n_requests']}: "
+                  f"{plan.explain().splitlines()[0]}\n    "
+                  + winner(plan.per_request).replace("\n", "\n    "))
+        print(f"    first flush {first:.3f} s, launches "
+              f"{ {k: v for k, v in got.items() if v} }")
+        algo = plans[0].algorithm
+        configs = [(f, d) for f in (True, False) for d in (True, False)]
+        fns = [lambda f=f, d=d: dbcsr.multiply_batched(
+            reqs, mesh=mesh, fused=f, algorithm=algo, densify=d, **kw)
+            for f, d in configs]
+        # with one bucket, the service pinned to the plan's own dispatch:
+        # the default service's extra time over it is the planning's
+        svc_pin = (dict(fused=plans[0].fuse, algorithm=algo,
+                        densify=plans[0].densify) if len(plans) == 1
+                   else None)
+        if svc_pin:
+            fns.append(lambda: serve(reqs, **svc_pin, **kw))
+        fns.append(lambda: serve(reqs, **kw))
+        fns.append(lambda: dbcsr.multiply_batched(reqs, mesh=mesh, **kw))
+        pinned_f = dbcsr.multiply_batched(reqs, mesh=mesh, fused=True,
+                                          algorithm=algo, densify=False,
+                                          pipeline_depth=1, **kw)
+        pinned_l = dbcsr.multiply_batched(reqs, mesh=mesh, fused=False,
+                                          algorithm=algo, densify=False,
+                                          pipeline_depth=1, **kw)
+        if not all(torch.equal(x.data, y.data)
+                   for x, y in zip(pinned_f, pinned_l)):
+            raise AssertionError(f"{label}: fused blocked != looped")
+        del pinned_f, pinned_l
+        if len(plans) == 1:
+            own = dbcsr.multiply_batched(reqs, mesh=mesh, fused=plans[0].fuse,
+                                         algorithm=algo,
+                                         densify=plans[0].densify, **kw)
+            if not all(torch.equal(x.data, y.data)
+                       for x, y in zip(own, out)):
+                raise AssertionError(f"{label}: auto != its pinned plan")
+            del own
+        # the auto dispatch's time: its own call or, with one bucket, the
+        # pinned run of the same configuration (bench_planner's rule)
+        own = ([configs.index((plans[0].fuse, plans[0].densify))]
+               if len(plans) == 1 else [])
+        def passes(times, t_auto, i_best):
+            """Both gates: multiply_batched's auto against the best
+            pinned dispatch, the default service against the pinned."""
+            return (regret_gate(t_auto, times[i_best])
+                    and (not svc_pin or regret_gate(times[-2], times[-3])))
+
+        for attempt in range(2):
+            times = time_interleaved(fns, 5 + 2 * attempt)
+            t_auto = min([times[-1]] + [times[i] for i in own])
+            i_best = int(np.argmin(times[:len(configs)]))
+            if not gate or passes(times, t_auto, i_best) or attempt:
+                break
+            print(f"  {label}: regret gate failed once, measuring again")
+        names = [f"{algo} {'fused' if f else 'looped'} "
+                 f"{'densified' if d else 'blocked'}" for f, d in configs]
+        rows = [{"config": n, "ms": 1e3 * t} for n, t in zip(names, times)]
+        rows.append({"config": "MultiplyService() flush", "ms":
+                     1e3 * times[-2]})
+        svc_regret = None
+        if svc_pin:
+            svc_regret = times[-2] / times[-3] - 1.0
+            rows.append({"config": "MultiplyService(fused="
+                         f"{svc_pin['fused']}, algorithm={algo!r}, densify="
+                         f"{svc_pin['densify']}) flush", "ms":
+                         1e3 * times[-3]})
+        print(f"    MultiplyService() submit + flush + result: "
+              f"{1e3 * times[-2]:.3f} ms"
+              + (f" against {1e3 * times[-3]:.3f} ms pinned to the plan's "
+                 f"dispatch (regret {100 * svc_regret:.1f} %)"
+                 if svc_pin else "")
+              + f"; multiply_batched auto {1e3 * times[-1]:.3f} ms")
+        pred = sum(p.predicted_fused_s if p.fuse else p.predicted_looped_s
+                   for p in plans)
+        line = record(label, plans[0].per_request, t_auto, times[i_best],
+                      names[i_best], rows, gate, first)
+        line.update(predicted_ms=1e3 * pred,
+                    fuse=[p.fuse for p in plans],
+                    auto=[p.algorithm + ("+densified" if p.densify
+                                         else "+blocked") for p in plans])
+        line["service_regret"] = svc_regret
+        print(f"    predicted (the buckets' chosen dispatch) "
+              f"{1e3 * pred:.3f} ms; fuse {line['fuse']}")
+        if gate and not passes(times, t_auto, i_best):
+            raise AssertionError(
+                f"{label}: regret {line['regret']:.3f}, service regret "
+                f"{svc_regret} over the gate")
+
+    batch_case(f"(f) {G} dense", dense_reqs, True)
+    batch_case(f"(h) {G} dense, local_kernel='pallas'", dense_reqs, False,
+               local_kernel="pallas")
+    batch_case(f"(g) {G // 2} dense + {G // 2} at 20 % fill",
+               dense_reqs[:G // 2] + sparse_reqs, False)
+    del dense_reqs, sparse_reqs
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------- (4) simulated 4x4
+    P, NL, BS = 4, 3960, 22
+    N = P * NL
+    nb = N // BS
+    print(f"phase 7 (4): auto on a 4x4 mesh of simulated ranks at (o)'s and "
+          f"(p)'s sizes ({N}^2, block {BS}), local_kernel='pallas'; the "
+          "ranks share one card, so predicted and measured are printed and "
+          "nothing is gated")
+    A = dense(N, N)
+    B = dense(N, N)
+    dB = dbcsr.create(B, mesh=mesh44, grid=grid, block_size=BS)
+    hot = rng.rand(nb, nb) < 0.05
+    hot[:nb // 10] = True
+    hot[:, :nb // 10] = True
+    cases = [("(o) dense", None, None),
+             ("(p) A at 20 % fill", rng.rand(nb, nb) < 0.2, None),
+             ("(p') hot corner A and B", hot, hot)]
+    for label, a_mask, b_mask in cases:
+        dA = dbcsr.create(A, mesh=mesh44, grid=grid, block_size=BS,
+                          block_mask=a_mask)
+        dBm = dB if b_mask is None else dbcsr.create(
+            B, mesh=mesh44, grid=grid, block_size=BS, block_mask=b_mask)
+        exact = torch.matmul(dA.data, dBm.data)
+        kw = dict(mesh=mesh44, local_kernel="pallas")
+        zero_counters()
+        (c, plan), first = sync_s(lambda: dbcsr.multiply(
+            dA, dBm, return_plan=True, **kw))
+        got = read_counters()
+        if c.last_plan is not plan:
+            raise AssertionError(f"{label}: last_plan is not the plan")
+        expect_kernel(label, plan, got, "pallas")
+        check_close(f"{label} auto vs torch.matmul", c.data, exact)
+        del exact
+        pin = dict(algorithm=plan.algorithm, densify=plan.densify,
+                   rebalance=plan.rebalance, **kw)
+        pinned, _ = sync_s(lambda: dbcsr.multiply(dA, dBm, **pin))
+        if not torch.equal(pinned.data, c.data):
+            raise AssertionError(f"{label}: auto != its pinned plan")
+        del pinned
+        t_auto = statistics.median(
+            sync_s(lambda: dbcsr.multiply(dA, dBm, **kw))[1]
+            for _ in range(2))
+        es = plan.executor_stats or {}
+        line = {"case": label, "mesh": "4x4 simulated",
+                "auto": f"{plan.algorithm}+"
+                + ("densified" if plan.densify else "blocked"),
+                "predicted_ms": 1e3 * plan.predicted_s,
+                "auto_ms": 1e3 * t_auto, "first_s": first,
+                "rank_imbalance": plan.rank_imbalance,
+                "rebalance_armed": plan.rebalance,
+                "rebalance_applied": es.get("rebalance_applied", False),
+                "launches": {k: v for k, v in got.items() if v},
+                "infeasible": [x.label + ": " + x.reason
+                               for x in plan.candidates
+                               if not x.feasible and "GB" in x.reason]}
+        if b_mask is not None:
+            # the pass's price: the same plan with the pass toggled (one
+            # warm-up call builds the other distribution's rank plans)
+            other = dict(pin, rebalance=not plan.rebalance)
+            sync_s(lambda: dbcsr.multiply(dA, dBm, **other))
+            line["toggled_rebalance_ms"] = 1e3 * statistics.median(
+                sync_s(lambda: dbcsr.multiply(dA, dBm, **other))[1]
+                for _ in range(2))
+        summary["cases"].append(line)
+        print(f"  {label}: {winner(plan)}\n    first {first:.3f} s, repeat "
+              f"{1e3 * t_auto:.1f} ms against predicted "
+              f"{1e3 * plan.predicted_s:.3f} ms (one rank's time; 16 share "
+              f"the card); rank imbalance {plan.rank_imbalance:.4f}, "
+              f"rebalance {'armed' if plan.rebalance else 'declined'} "
+              f"(saves {1e3 * plan.rebalance_saved_s:.3f} ms vs "
+              f"{1e3 * plan.rebalance_cost_s:.3f} ms permute cost)"
+              + (f"; with rebalance={not plan.rebalance} "
+                 f"{line['toggled_rebalance_ms']:.1f} ms"
+                 if "toggled_rebalance_ms" in line else "")
+              + f"; launches {line['launches']}; memory-gated candidates "
+              f"{line['infeasible'] or 'none'}")
+        del c, dA, dBm
+    del A, B, dB
+    torch.cuda.empty_cache()
+    print(json.dumps({"phase7": summary}))
+    return summary
+
+
 def main() -> int:
     import torch
 
@@ -1767,6 +2214,10 @@ def main() -> int:
     for key in ("smm", "grouped_gemm"):
         for row in rows6[key]:
             err_abs[key] = max(err_abs[key], row.pop("max_abs_err"))
+
+    # ---------------------------------------------------------- phase 7
+    print(f"phase 7: the multiply planner ({card})")
+    planner(dev, card, zero_counters, read_counters)
 
     for key, n in launches.items():
         if n < 1:

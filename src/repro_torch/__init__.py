@@ -12,7 +12,11 @@ and mirrors its layout:
     repro_torch.kernels     CUDA kernels (smm, tiled_matmul, grouped_gemm,
                             decode_attention), each with a plain PyTorch
                             version and a launch counter
-    repro_torch.sparsity    block norms and the filter_eps predicates
+    repro_torch.sparsity    block norms, the filter_eps predicates and the
+                            rank rebalance permutation
+    repro_torch.planner     the cost-model multiply planner
+                            (algorithm="auto", fused=None) and its
+                            calibration on the card
     repro_torch.configs     the LM zoo's model configurations (copied)
     repro_torch.models      dense-attention LMs: params, norms, RoPE,
                             attention, FFN, segments, caches, forward,

@@ -60,10 +60,13 @@ def build_cannon25d_schedule(
     stack_axis: str,
     reduce: str = "all_reduce",
     empty_steps: frozenset = frozenset(),
+    local_shape: Optional[tuple] = None,
+    itemsize: int = 4,
 ) -> Schedule:
     """Schedule for 2.5D Cannon: the Cannon shift steps (1/c of them,
     replica-offset via the fused-skew prologue) plus one partial-C
-    reduction over the stack axis as the epilogue."""
+    reduction over the stack axis as the epilogue.  ``local_shape`` and
+    ``itemsize`` fill the byte counts, as in ``build_cannon_schedule``."""
     if pg % c_repl:
         raise ValueError(f"grid side {pg} not divisible by replication {c_repl}")
     if reduce not in ("all_reduce", "reduce_scatter"):
@@ -71,7 +74,8 @@ def build_cannon25d_schedule(
     spr = pg // c_repl  # steps per replica
     base = build_cannon_schedule(
         pg, mesh=mesh, row_axis=row_axis, col_axis=col_axis, skew=False,
-        steps=spr, empty_steps=empty_steps)
+        steps=spr, empty_steps=empty_steps, local_shape=local_shape,
+        itemsize=itemsize)
     axes3 = (stack_axis, row_axis, col_axis)
 
     def prologue(a_blk, b_blk):
@@ -88,8 +92,17 @@ def build_cannon25d_schedule(
         return mesh.psum_scatter(c_partial, stack_axis, scatter_dimension=0,
                                  tiled=True)
 
+    prologue_bytes = epilogue_bytes = 0
+    if local_shape is not None:
+        ml, kl, nl = local_shape
+        prologue_bytes = (ml * kl + kl * nl) * itemsize
+        # partial C's reduce in f32 over the stack axis
+        epilogue_bytes = 2 * ml * nl * 4
+
     return dataclasses.replace(base, algorithm="cannon25d",
-                               prologue=prologue, epilogue=epilogue)
+                               prologue=prologue, epilogue=epilogue,
+                               prologue_comm_bytes=prologue_bytes,
+                               epilogue_comm_bytes=epilogue_bytes)
 
 
 def cannon25d_matmul(

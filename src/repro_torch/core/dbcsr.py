@@ -250,10 +250,14 @@ def multiply(
     return_plan: bool = False,
     **kw,
 ) -> DBCSRMatrix:
-    """C = A @ B through ``multiply.distributed_matmul``: a fixed
-    ``algorithm`` (cannon, cannon25d, summa, ts_k / ts_m / ts_n) on any
-    mesh whose ranks the port simulates on its device (launch/mesh.py);
-    the matrices stay global on the mesh's device.
+    """C = A @ B through ``multiply.distributed_matmul``.  With
+    ``algorithm="auto"`` (the default) the cost-model planner
+    (repro_torch.planner) picks the data-exchange algorithm AND the
+    local path for this (shape, occupancy, mesh); a fixed ``algorithm``
+    (cannon, cannon25d, summa, ts_k / ts_m / ts_n) or ``densify`` pins
+    them (``densify=None`` under a fixed algorithm means densified).
+    Any mesh whose ranks the port simulates on its device
+    (launch/mesh.py); the matrices stay global on the mesh's device.
 
     Block occupancy flows end to end: the operands' masks go to the
     dispatcher (the blocked path plans only present triples), and the
@@ -272,33 +276,39 @@ def multiply(
     exact per-triple filter); ``rank_exact=False`` runs the union of the
     ranks' plans, bitwise the same product at eps None or 0.
     ``rebalance=True`` permutes block rows of A and block columns of B
-    to even out the ranks' work and gives C back in the caller's order.
-    On one rank, or densified, both are ignored (see
-    ``multiply.distributed_matmul``).
+    to even out the ranks' work and gives C back in the caller's order;
+    ``rebalance=None`` follows the plan's costed decision.  On one rank,
+    or densified, both are ignored (see ``multiply.distributed_matmul``).
 
-    ``verify`` and ``return_plan`` are ROADMAP Queue A8 and A5 and
-    raise.
+    The product carries the executed plan as ``C.last_plan`` (a
+    ``MultiplyPlan``: ``explain()`` lists every candidate's predicted
+    cost; ``executor_stats`` what ran), and ``return_plan=True``
+    returns ``(C, plan)``, whose plan also holds the schedule's per-step
+    split (``schedule_stats``, None on ``last_plan`` otherwise).  ``verify`` is ROADMAP
+    Queue A8 and raises.
     """
-    from .multiply import distributed_matmul
+    from .multiply import _distributed_matmul
 
     an = bn = None
     if filter_eps is not None:
         an, bn = a.norms(), b.norms()
-    c_data = distributed_matmul(
+    c_data, plan = _distributed_matmul(
         a.data, b.data, mesh=mesh, grid=a.grid,
         algorithm=algorithm, densify=densify,
         block_m=a.layout.block_rows, block_k=a.layout.block_cols,
         block_n=b.layout.block_cols,
         a_mask=a.block_mask, b_mask=b.block_mask,
         a_norms=an, b_norms=bn, filter_eps=filter_eps,
-        verify=verify, return_plan=return_plan, **kw,
+        verify=verify, return_plan=True, schedule_stats=return_plan, **kw,
     )
     c_layout = BlockLayout(a.layout.rows, b.layout.cols,
                            a.layout.block_rows, b.layout.block_cols)
     mask, zero = _product_mask(a, b, an, bn, filter_eps)
     c_data = _apply_result_mask(c_data, mask, zero, a.layout.block_rows,
                                 b.layout.block_cols)
-    return DBCSRMatrix(c_data, c_layout, a.grid, mask)
+    c = DBCSRMatrix(c_data, c_layout, a.grid, mask)
+    c.last_plan = plan
+    return (c, plan) if return_plan else c
 
 
 def _bucket_key(a: DBCSRMatrix, b: DBCSRMatrix,
@@ -333,14 +343,21 @@ def _bucket_key(a: DBCSRMatrix, b: DBCSRMatrix,
 def _execute_bucket(group, *, mesh, algorithm, densify, filter_eps, fused,
                     **kw):
     """Run one bucket of same-key requests: fused (one batched dispatch)
-    or looped (per-request ``multiply``).  ``fused=None`` leaves the
-    choice to the planner, which is not ported (ROADMAP Queue A5): a
-    bucket of one request goes looped, as the JAX package's does, and a
-    larger bucket raises."""
+    or looped (per-request ``multiply``), per the planner's fuse-or-loop
+    pricing unless ``fused`` pins it.  ``fused=None`` fuses a bucket of
+    more than one request of a batch-capable algorithm when
+    ``plan_multiply_batched`` prices one fused dispatch (over the
+    requests' mean occupancy, with their spread as padding) below the
+    loop."""
+    from .multiply import _global_occupancy
     from .multiply_batched import BATCHED_ALGORITHMS
 
     a0, b0 = group[0]
     g = len(group)
+    an = bn = None
+    if filter_eps is not None:
+        an = [a.norms() for a, _ in group]
+        bn = [b.norms() for _, b in group]
     batchable = (algorithm in ("auto",) + BATCHED_ALGORITHMS
                  and kw.get("bcast") != "gather")
     if fused and not batchable:
@@ -349,41 +366,57 @@ def _execute_bucket(group, *, mesh, algorithm, densify, filter_eps, fused,
             f"{BATCHED_ALGORITHMS}, got {algorithm!r}"
             + (" with bcast='gather'" if kw.get("bcast") == "gather"
                else ""))
+    plan = None
     fuse = fused
     if fuse is None:
-        if batchable and g > 1:
-            raise NotImplementedError(
-                "fused=None asks the planner to choose fused or looped "
-                f"for a bucket of {g} requests: ROADMAP Queue A5; pass "
-                "fused=True or fused=False")
-        fuse = False
+        fuse = batchable and g > 1
+        if fuse:
+            from ..planner.plan import plan_multiply_batched
+
+            occs = [
+                _global_occupancy(
+                    a.layout.rows, a.layout.cols, b.layout.cols,
+                    a.layout.block_rows, a.layout.block_cols,
+                    b.layout.block_cols, a.block_mask, b.block_mask,
+                    an[i] if an else None, bn[i] if bn else None,
+                    filter_eps)
+                for i, (a, b) in enumerate(group)
+            ]
+            occ = sum(occs) / len(occs)
+            occ_max = max(occs)
+            plan = plan_multiply_batched(
+                g, a0.layout.rows, a0.layout.cols, b0.layout.cols,
+                blocks=(a0.layout.block_rows, a0.layout.block_cols,
+                        b0.layout.block_cols),
+                mesh_shape=a0.grid.grid_shape(mesh), occupancy=occ,
+                dtype=a0.data.dtype,
+                algorithm=None if algorithm == "auto" else algorithm,
+                densify=densify,
+                padding_frac=(1.0 - occ / occ_max if occ_max > 0 else 0.0))
+            fuse = plan.fuse
 
     if not fuse:
         out = [multiply(a, b, mesh=mesh, algorithm=algorithm,
                         densify=densify, filter_eps=filter_eps, **kw)
                for a, b in group]
-        return out, {"fused": False, "plan": None}
+        return out, {"fused": False, "plan": plan}
 
     from .multiply_batched import _distributed_matmul_batched
 
-    an = bn = None
-    if filter_eps is not None:
-        an = [a.norms() for a, _ in group]
-        bn = [b.norms() for _, b in group]
     a_masks = [a.block_mask for a, _ in group]
     b_masks = [b.block_mask for _, b in group]
     if all(x is None for x in a_masks):
         a_masks = None
     if all(x is None for x in b_masks):
         b_masks = None
-    c_data, stats = _distributed_matmul_batched(
+    c_data, bplan = _distributed_matmul_batched(
         torch.stack([a.data for a, _ in group]),
         torch.stack([b.data for _, b in group]),
         mesh=mesh, grid=a0.grid, algorithm=algorithm, densify=densify,
         block_m=a0.layout.block_rows, block_k=a0.layout.block_cols,
         block_n=b0.layout.block_cols,
         a_masks=a_masks, b_masks=b_masks, a_norms=an, b_norms=bn,
-        filter_eps=filter_eps, **kw)
+        filter_eps=filter_eps, return_plan=True, **kw)
     c_layout = BlockLayout(a0.layout.rows, b0.layout.cols,
                            a0.layout.block_rows, b0.layout.block_cols)
     out = []
@@ -394,9 +427,10 @@ def _execute_bucket(group, *, mesh, algorithm, densify, filter_eps, fused,
         cd = _apply_result_mask(c_data[gi], mask, zero,
                                 a.layout.block_rows, b.layout.block_cols)
         c = DBCSRMatrix(cd, c_layout, a.grid, mask)
-        c.last_plan = None  # the planner's BatchedMultiplyPlan: Queue A5
+        c.last_plan = bplan
         out.append(c)
-    return out, {"fused": True, "plan": None, "executor_stats": stats}
+    return out, {"fused": True, "plan": bplan,
+                 "executor_stats": bplan.executor_stats}
 
 
 def multiply_batched(
@@ -418,21 +452,24 @@ def multiply_batched(
     (see ``_bucket_key``) and each bucket runs either FUSED (operands
     stacked ``(G, m, k)``, ONE schedule and ONE fused dispatch for the
     whole bucket, core/multiply_batched.py) or LOOPED (per-request
-    ``multiply``), as ``fused=True`` / ``False`` pins it.  ``fused=None``
-    asks the planner, which is ROADMAP Queue A5: it raises for any bucket
-    of more than one request.
+    ``multiply``), whichever the planner prices cheaper
+    (``plan_multiply_batched``: the fixed per-dispatch costs a loop pays
+    per request against the fused dispatch's cross-request padding);
+    ``fused=True`` / ``False`` pins the choice.
 
     Semantics match per-request ``multiply`` exactly: per-request product
     masks, eps-retained support and payload zeroing.  At
     ``pipeline_depth=1`` with ``filter_eps`` in {None, 0.0} the fused
-    blocked path is bit-identical to the looped one.  Each fused result's
-    ``last_plan`` is None until the planner lands.
+    blocked path is bit-identical to the looped one.  Each fused result
+    carries its bucket's executed ``BatchedMultiplyPlan`` as
+    ``last_plan`` (a looped one its own ``MultiplyPlan``).
 
     ``verify`` (ABFT) is ROADMAP Queue A8 and raises.
 
     ``return_plan=True`` returns ``(results, report)``: per bucket the
-    key, request count and indices, the fuse-or-loop decision, ``"plan":
-    None`` and, for a fused bucket, the fused dispatch's
+    key, request count and indices, the fuse-or-loop decision, ``"plan"``
+    (the bucket's ``BatchedMultiplyPlan``; None for a looped bucket the
+    planner did not price) and, for a fused bucket, the fused dispatch's
     ``executor_stats`` (padding, plan sharing; None when densified).
     """
     if verify is not None:

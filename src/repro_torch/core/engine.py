@@ -495,7 +495,9 @@ def _mask_fill(
 
         return count_retained_triples(am, bm, a_norms, b_norms,
                                       filter_eps) / size
-    return float((am.astype(np.int64) @ bm.astype(np.int64)).sum()) / size
+    # sum_k (present a blocks in column k) * (present b blocks in row k)
+    return float(am.sum(axis=0, dtype=np.int64)
+                 @ bm.sum(axis=1, dtype=np.int64)) / size
 
 
 def stack_executor(

@@ -39,30 +39,36 @@ columns of B and C are permuted on the device before the schedule runs
 and C is permuted back, so each rank's share of the retained triples
 evens out (DBCSR's randomized distribution, arXiv:1910.04796 sec. 2).
 
-What is left out raises ``NotImplementedError`` naming its ROADMAP queue
-item: the planner (``algorithm="auto"``, ``return_plan``, the planner's
-own rebalance decision; A5) and ABFT verification (A8).  Telemetry (A9)
-does not exist in the port yet.
+Planning (repro_torch.planner): ``algorithm="auto"`` (the default) and
+``return_plan`` price every candidate (algorithm, local path, 2.5D
+replication) with the cost model, on the global occupancy (norm-predicted
+under ``filter_eps``) and the per-rank load imbalance of the C-chunk
+decomposition; ``rebalance=None`` follows the plan's costed decision.
+ABFT verification (``verify=``) is ROADMAP Queue A8 and raises.
+Telemetry (A9) does not exist in the port yet.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .blocking import GridSpec
-from .cannon import (cannon_matmul, cannon_rank_steps, cannon_step_masks,
-                     cannon_step_norms)
-from .cannon25d import cannon25d_matmul
+from .cannon import (build_cannon_schedule, cannon_matmul, cannon_rank_steps,
+                     cannon_step_masks, cannon_step_norms)
+from .cannon25d import build_cannon25d_schedule, cannon25d_matmul
 from .densify import blocked_local_matmul, densified_local_matmul
 from .engine import rank_stack_executor
+from .schedule import resolve_pipeline_depth, schedule_step_meta
 from .stacks import normalize_block_masks
-from .summa import (summa_gather_masks, summa_gather_norms,
+from .summa import (build_summa_gather_schedule, build_summa_schedule,
+                    summa_gather_masks, summa_gather_norms,
                     summa_gather_rank_steps, summa_matmul, summa_n_panels,
                     summa_rank_steps, summa_step_masks, summa_step_norms)
-from .tall_skinny import (tall_skinny_matmul, ts_rank_steps, ts_step_masks,
-                          ts_step_norms)
+from .tall_skinny import (build_ts_schedule, tall_skinny_matmul,
+                          ts_rank_steps, ts_step_masks, ts_step_norms)
 
 __all__ = ["distributed_matmul", "ALGORITHMS"]
 
@@ -78,6 +84,15 @@ def _block_masks(
     operand is dense (all blocks present)."""
     return normalize_block_masks(m // block_m, k // block_k, n // block_n,
                                  a_mask, b_mask)
+
+
+def _stack_kernel(local_kernel: Optional[str]) -> str:
+    """The blocked path's stack kernel for ``local_kernel``: None and
+    ``"pallas"`` (the hand-written kernels, which a caller may ask for
+    without knowing which local path the planner picks) run the smm
+    kernel; ``"ref"`` its plain version.  The JAX package raises for
+    ``"pallas"`` on the blocked path (ROADMAP Queue C)."""
+    return "smm" if local_kernel in (None, "pallas") else local_kernel
 
 
 def _masks_empty(mask_kwargs: dict) -> bool:
@@ -104,6 +119,31 @@ def _masks_empty(mask_kwargs: dict) -> bool:
         kb = np.where(ub, vn.astype(np.float64), 0.0).max(axis=1)
         return not bool((ka * kb >= float(eps)).any())
     return False
+
+
+def _global_occupancy(
+    m: int, k: int, n: int,
+    block_m: int, block_k: int, block_n: int,
+    a_mask: Optional[np.ndarray], b_mask: Optional[np.ndarray],
+    a_norms: Optional[np.ndarray] = None,
+    b_norms: Optional[np.ndarray] = None,
+    filter_eps: Optional[float] = None,
+) -> float:
+    """Retained-triple fraction of the global dense triple grid: the
+    occupancy the planner discounts blocked-path flops by.  With block
+    norms and a ``filter_eps`` it is the NORM-PREDICTED fraction, so an
+    eps that empties a product whose masks are not empty gives 0.0,
+    which the planner short-circuits to a trivial plan (the blocked cost
+    model must never divide by zero occupancy)."""
+    filtering = filter_eps is not None and (
+        a_norms is not None or b_norms is not None)
+    if a_mask is None and b_mask is None and not filtering:
+        return 1.0
+    from .engine import _mask_fill
+
+    return _mask_fill(m // block_m, k // block_k, n // block_n,
+                      a_mask, b_mask, None,
+                      a_norms, b_norms, None, filter_eps)
 
 
 def _stepwise_blocked_lm(
@@ -192,6 +232,123 @@ def _launches(plan, n_ranks: int) -> int:
     if hasattr(plan, "rank_entries"):
         return plan.n_launches
     return n_ranks * plan.n_launches
+
+
+# ---------------------------------------------------------------------------
+# schedule observability: per-step comm/compute split
+# ---------------------------------------------------------------------------
+
+
+def _build_meta_schedule(algorithm: str, *, grid: GridSpec, mesh,
+                         local_shape, itemsize: int, empty_steps,
+                         reduce_kw: dict):
+    """Rebuild the executed schedule for its host-side metadata only
+    (building a Schedule runs nothing, core/schedule.py)."""
+    pr, pc = grid.grid_shape(mesh)
+    if algorithm == "cannon":
+        return build_cannon_schedule(
+            pr, mesh=mesh, row_axis=grid.row_axis, col_axis=grid.col_axis,
+            empty_steps=empty_steps, local_shape=local_shape,
+            itemsize=itemsize)
+    if algorithm == "cannon25d":
+        return build_cannon25d_schedule(
+            pr, grid.stack_size(mesh), mesh=mesh, row_axis=grid.row_axis,
+            col_axis=grid.col_axis, stack_axis=grid.stack_axis,
+            reduce=reduce_kw.get("reduce", "all_reduce"),
+            empty_steps=empty_steps, local_shape=local_shape,
+            itemsize=itemsize)
+    if algorithm == "summa":
+        if reduce_kw.get("bcast") == "gather":
+            return build_summa_gather_schedule(
+                grid.row_axis, grid.col_axis, mesh=mesh,
+                local_shape=local_shape, itemsize=itemsize)
+        return build_summa_schedule(
+            pr, pc, mesh=mesh, row_axis=grid.row_axis,
+            col_axis=grid.col_axis, empty_steps=empty_steps,
+            local_shape=local_shape, itemsize=itemsize)
+    axes = ((grid.row_axis, grid.col_axis) if grid.stack_axis is None
+            else (grid.stack_axis, grid.row_axis, grid.col_axis))
+    return build_ts_schedule(
+        algorithm, axes, mesh=mesh,
+        reduce=reduce_kw.get("reduce", "reduce_scatter"),
+        local_shape=local_shape)
+
+
+def _schedule_stats(algorithm: str, *, grid: GridSpec, mesh, local_shape,
+                    itemsize: int, lm, densify: bool, pipeline_depth: int,
+                    reduce_kw: dict) -> dict:
+    """Per-step comm-vs-compute split of the executed schedule, priced
+    with the calibrated hardware constants (host-side observability,
+    attached to executed plans as ``schedule_stats``)."""
+    from ..planner.calibrate import get_hardware_model
+
+    hw = get_hardware_model()
+    empty = getattr(lm, "empty_steps", frozenset())
+    sched = _build_meta_schedule(
+        algorithm, grid=grid, mesh=mesh, local_shape=local_shape,
+        itemsize=itemsize, empty_steps=empty, reduce_kw=reduce_kw)
+    meta = schedule_step_meta(sched)
+
+    ml, kl, nl = local_shape
+    dense_flops = 2.0 * ml * kl * nl
+    step_execs = getattr(lm, "step_executors", None)
+    steps = []
+    for t in range(meta["n_steps"]):
+        comm_bytes = meta["step_comm_bytes"][t]
+        plan = None
+        if not densify and t not in empty:
+            ex = step_execs[t] if step_execs is not None else lm
+            plan = ex.executor_plan
+        if t in empty:
+            flops = 0.0
+            compute_s = 0.0
+        elif plan is not None:
+            flops = 2.0 * plan.n_entries * plan.block_m * plan.block_k \
+                * plan.block_n
+            compute_s = flops / hw.smm_flops_per_s \
+                + plan.n_entries * hw.stack_entry_s
+        else:
+            flops = dense_flops
+            compute_s = flops / hw.flops_per_s
+        n_dense = getattr(plan, "n_dense_triples", None)
+        ranked = plan is not None and hasattr(plan, "rank_entries")
+        steps.append({
+            "step": t,
+            "skipped": t in empty,
+            "comm_bytes": comm_bytes,
+            "comm_s": comm_bytes / hw.bytes_per_s,
+            "flops": flops,
+            "compute_s": compute_s,
+            "n_entries": None if plan is None else int(plan.n_entries),
+            "occupancy": (plan.n_entries / n_dense
+                          if plan is not None and n_dense else None),
+            # rank-exact steps: the per-rank retained counts behind the
+            # busiest-rank n_entries above (None on union/collapsed)
+            "rank_entries": (list(map(int, plan.rank_entries))
+                             if ranked else None),
+            "rank_imbalance": (float(plan.rank_imbalance)
+                               if ranked else None),
+        })
+    comm_s = sum(st["comm_s"] for st in steps)
+    compute_s = sum(st["compute_s"] for st in steps)
+    # at depth >= 2 the shift/broadcast feeding step t+1 hides behind
+    # step t's compute: all but the first step's comm is overlappable
+    overlappable = sum(st["comm_s"] for st in steps[:-1]) \
+        if meta["algorithm"] in ("cannon", "cannon25d") \
+        else sum(st["comm_s"] for st in steps[1:])
+    overlap_bound_s = (min(overlappable, compute_s)
+                       if pipeline_depth >= 2 and meta["n_steps"] > 1
+                       else 0.0)
+    return {
+        **meta,
+        "pipeline_depth": pipeline_depth,
+        "steps": steps,
+        "comm_s": comm_s,
+        "compute_s": compute_s,
+        "prologue_comm_s": meta["prologue_comm_bytes"] / hw.bytes_per_s,
+        "epilogue_comm_s": meta["epilogue_comm_bytes"] / hw.bytes_per_s,
+        "overlap_bound_s": overlap_bound_s,
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -341,6 +498,10 @@ def distributed_matmul(
     global matrices on ``mesh.device`` and C comes back global.
     ``algorithm``:
 
+      auto           — the planner's pick (repro_torch.planner), with its
+                       local path, stack size and pipeline depth where
+                       the caller leaves them None
+
       cannon         — Cannon's algorithm (square grids)
       cannon25d      — 2.5D Cannon over ``grid.stack_axis``
                        (``reduce="all_reduce"`` or ``"reduce_scatter"``)
@@ -349,9 +510,11 @@ def distributed_matmul(
       summa          — the ScaLAPACK-PDGEMM-style baseline
                        (``bcast="psum"`` or ``"gather"``)
 
-    ``densify`` picks the local path (True or None: one big GEMM,
+    ``densify`` picks the local path (True, or None under a fixed
+    algorithm: one big GEMM,
     ``local_kernel="pallas"`` for the hand-written GEMM kernels; False:
-    blocked stacks through smm, ``local_kernel="ref"`` for its plain
+    blocked stacks through smm (under ``"pallas"`` too),
+    ``local_kernel="ref"`` for its plain
     version).  ``a_mask`` / ``b_mask`` are global block occupancy masks
     ((M/block_m, K/block_k) / (K/block_k, N/block_n) numpy bool); the
     blocked path plans only present triples.  With ``filter_eps`` not
@@ -371,10 +534,18 @@ def distributed_matmul(
     and block columns of B / C to even out the ranks' retained triples
     when the multiply is blocked, rank-exact and its block grid divides
     by the process grid; C comes back in the caller's order.  ``None``
-    (the planner's decision, ROADMAP A5) and ``False`` permute nothing.
-    A densified multiply and a one-rank mesh ignore both.
+    follows the plan's costed decision (``plan.rebalance``: the compute
+    the flattened imbalance saves against the permutation's price) when
+    a plan is made (``"auto"`` or ``return_plan``); ``False`` permutes
+    nothing.  A densified multiply and a one-rank mesh ignore both.
+
+    ``return_plan=True`` returns ``(C, MultiplyPlan)``: the planner's
+    decision with every candidate's predicted cost (``explain()``), the
+    executed blocked plan's statistics (``executor_stats``) and the
+    schedule's per-step comm / compute split (``schedule_stats``).
+    ``verify`` (ABFT) is ROADMAP Queue A8 and raises.
     """
-    c, _ = _distributed_matmul(
+    c, plan = _distributed_matmul(
         a, b, mesh=mesh, grid=grid, algorithm=algorithm, densify=densify,
         block_m=block_m, block_k=block_k, block_n=block_n,
         stack_size=stack_size, align=align, local_kernel=local_kernel,
@@ -383,7 +554,7 @@ def distributed_matmul(
         rebalance=rebalance, pipeline_depth=pipeline_depth,
         double_buffer=double_buffer, verify=verify, return_plan=return_plan,
         **kw)
-    return c
+    return (c, plan) if return_plan else c
 
 
 def _distributed_matmul(
@@ -412,31 +583,30 @@ def _distributed_matmul(
     double_buffer: Optional[bool] = None,
     verify: Optional[str] = None,
     return_plan: bool = False,
+    schedule_stats: bool = True,
     **kw,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """``distributed_matmul`` returning ``(C, executor_stats)``: the
     executed blocked plan's statistics (``_collect_executor_stats``,
     None when densified) with the rebalance pass's outcome
     (``rebalance_applied`` and, when applied, ``rebalance_method`` and
-    ``rebalance_imbalance_before`` / ``_after``)."""
+    ``rebalance_imbalance_before`` / ``_after``).  With ``return_plan``
+    it returns ``(C, plan)``, the statistics on ``plan.executor_stats``
+    and, unless ``schedule_stats=False``, the schedule's per-step split
+    on ``plan.schedule_stats``.
+    """
     m, k = a.shape
     k2, n = b.shape
     if k != k2:
         raise ValueError(f"inner dims disagree: {tuple(a.shape)} @ {tuple(b.shape)}")
-    if algorithm == "auto":
-        raise NotImplementedError(
-            "algorithm='auto' needs the planner: ROADMAP Queue A5; "
-            f"pass one of {ALGORITHMS}")
-    if algorithm not in ALGORITHMS:
+    if algorithm != "auto" and algorithm not in ALGORITHMS:
         raise ValueError(f"unknown algorithm {algorithm!r}")
-    if return_plan:
-        raise NotImplementedError(
-            "return_plan needs the planner: ROADMAP Queue A5")
     if verify is not None:
         raise NotImplementedError(
             "ABFT verification is not ported yet: ROADMAP Queue A8")
     pr, pc = grid.grid_shape(mesh)
-    n_ranks = pr * pc * grid.stack_size(mesh)
+    c_stack = grid.stack_size(mesh)
+    n_ranks = pr * pc * c_stack
 
     filtering = filter_eps is not None
     if filtering and a_norms is None and b_norms is None:
@@ -461,6 +631,57 @@ def _distributed_matmul(
             bn_g = np.where(bmk, bn_g, np.float32(0.0))
     use_rank = rank_exact is not False and masked and n_ranks > 1
 
+    plan = None
+    if algorithm == "auto" or return_plan:
+        from ..planner.plan import plan_multiply
+
+        # the per-rank load imbalance of the C-chunk decomposition, for
+        # the planner's rank-exact pricing and its rebalance decision
+        rank_imb = None
+        if use_rank and am.shape[0] % pr == 0 and bmk.shape[1] % pc == 0:
+            from ..sparsity.balance import (chunk_imbalance,
+                                            retained_block_weights)
+
+            weights = retained_block_weights(am, bmk, an_g, bn_g,
+                                             filter_eps, device=mesh.device)
+            rank_imb = chunk_imbalance(weights, pr, pc)
+            # the weights count the retained triples _global_occupancy
+            # counts: one pass over the triple grid, not two
+            occ = float(weights.sum()) / (am.size * bmk.shape[1])
+        else:
+            occ = _global_occupancy(m, k, n, block_m, block_k, block_n,
+                                    a_mask, b_mask, a_norms, b_norms,
+                                    filter_eps)
+        # a pinned summa with the PUMMA broadcast is priced by the
+        # planner's "summa_gather" model (full-K gathered panels, whose
+        # operand replication the memory gate must see); auto never
+        # enumerates it
+        plan_algorithm = None if algorithm == "auto" else algorithm
+        if algorithm == "summa" and kw.get("bcast") == "gather":
+            plan_algorithm = "summa_gather"
+        plan = plan_multiply(
+            m, k, n, blocks=(block_m, block_k, block_n),
+            mesh_shape=((pr, pc) if grid.stack_axis is None
+                        else (pr, pc, c_stack)),
+            occupancy=occ, dtype=torch.promote_types(a.dtype, b.dtype),
+            algorithm=plan_algorithm,
+            # a fixed algorithm runs densified when densify is unset, and
+            # the plan must describe what runs
+            densify=(densify if algorithm == "auto" or densify is not None
+                     else True),
+            stack_size=stack_size, align=align, rank_imbalance=rank_imb)
+        if algorithm == "auto":
+            algorithm = plan.algorithm
+            if densify is None:
+                densify = plan.densify
+            if not densify:
+                if stack_size is None:
+                    stack_size = plan.stack_tile
+                if align is None:
+                    align = plan.align
+            if pipeline_depth is None and double_buffer is None:
+                pipeline_depth = plan.pipeline_depth
+
     if densify is None:
         densify = True  # the default for a fixed algorithm
 
@@ -468,7 +689,9 @@ def _distributed_matmul(
     # Only block rows of A / C and block cols of B / C move; K stays the
     # identity, so every C block keeps its accumulation order.
     rb = None
-    if (rebalance and not densify and use_rank
+    do_rebalance = (rebalance if rebalance is not None
+                    else plan is not None and plan.rebalance)
+    if (do_rebalance and not densify and use_rank
             and am.shape[0] % pr == 0 and bmk.shape[1] % pc == 0):
         from ..sparsity.balance import plan_rebalance
 
@@ -526,7 +749,7 @@ def _distributed_matmul(
         blocked_kw = dict(
             block_m=block_m, block_k=block_k, block_n=block_n,
             stack_size=stack_size, align=align,
-            kernel=local_kernel or "smm", stack_bins=stack_bins)
+            kernel=_stack_kernel(local_kernel), stack_bins=stack_bins)
         rank_kw = {}
         if use_rank:
             rank_kw = dict(rank_order=_rank_order(algorithm, grid, mesh),
@@ -621,4 +844,17 @@ def _distributed_matmul(
             es["rebalance_method"] = rb.method
             es["rebalance_imbalance_before"] = rb.imbalance_before
             es["rebalance_imbalance_after"] = rb.imbalance_after
-    return c, es
+    if not return_plan:
+        return c, es
+    ss = None
+    if schedule_stats:
+        from ..planner.plan import itemsize_of
+
+        ss = _schedule_stats(
+            algorithm, grid=grid, mesh=mesh, local_shape=(ml, kl, nl),
+            itemsize=itemsize_of(torch.promote_types(a.dtype, b.dtype)),
+            lm=lm, densify=densify,
+            pipeline_depth=resolve_pipeline_depth(pipeline_depth,
+                                                  double_buffer),
+            reduce_kw=kw)
+    return c, dataclasses.replace(plan, executor_stats=es, schedule_stats=ss)

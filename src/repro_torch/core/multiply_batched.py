@@ -25,8 +25,9 @@ kernel launch each, and on small products the host side dominates.
 Supported algorithms: ``cannon`` and ``summa`` (psum broadcast), the two
 whose schedules are batch-shape-agnostic, on any mesh whose ranks the
 port simulates (launch/mesh.py): the operands carry the rank axis and
-the batch axis together, ``(R, G, ml, kl)``.  The planner
-(``algorithm="auto"``, ``return_plan``) raises naming ROADMAP Queue A5.
+the batch axis together, ``(R, G, ml, kl)``.  ``algorithm="auto"`` (the
+default) asks the planner (``plan_multiply_batched``), restricted to
+those two.
 
 Per-product occupancy masks and norms are accepted as sequences
 (``a_masks[g]`` etc.); the fused plan covers every group's present
@@ -41,24 +42,23 @@ global scratch block.  The densified path agrees to f32 rounding.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..planner.cost_model import BATCHED_ALGORITHMS
 from .blocking import GridSpec
 from .cannon import cannon_matmul, cannon_step_masks, cannon_step_norms
 from .densify import grouped_densified_local_matmul
 from .engine import batched_stack_executor
-from .multiply import _block_masks, _masks_empty
+from .multiply import (_block_masks, _global_occupancy, _masks_empty,
+                       _stack_kernel)
 from .summa import (summa_matmul, summa_n_panels, summa_step_masks,
                     summa_step_norms)
 
 __all__ = ["distributed_matmul_batched", "BATCHED_ALGORITHMS"]
-
-# the algorithms whose schedules are batch-shape-agnostic (the JAX
-# package keeps this tuple with its planner's cost model)
-BATCHED_ALGORITHMS = ("cannon", "summa")
 
 
 def _per_group(seq: Optional[Sequence], g: int, n_groups: int, name: str):
@@ -162,12 +162,15 @@ def distributed_matmul_batched(
     """C[g] = A[g] @ B[g] for every product ``g`` of a fused batch.
 
     ``a``: (G, M, K) and ``b``: (G, K, N), global, on the mesh's
-    device.  ``algorithm`` is ``"cannon"`` or ``"summa"`` (psum
-    broadcast; ``bcast="gather"`` is refused); ``densify`` picks the
-    local path as in
-    ``distributed_matmul`` (True or None: one grouped GEMM,
+    device.  ``algorithm`` is ``"auto"`` (the planner's pick of the two
+    below, with its local path, stack size and depth where the caller
+    leaves them None), ``"cannon"`` or ``"summa"`` (psum broadcast;
+    ``bcast="gather"`` is refused); ``densify`` picks the local path as
+    in ``distributed_matmul`` (True or None under a fixed algorithm: one
+    grouped GEMM,
     ``local_kernel="pallas"`` for the grouped_gemm kernel; False: one
-    fused smm launch, ``local_kernel="ref"`` for its plain version).
+    fused smm launch, under ``"pallas"`` too; ``local_kernel="ref"`` for
+    its plain version).
 
     Per-product sparsity: ``a_masks`` / ``b_masks`` / ``a_norms`` /
     ``b_norms`` are length-G sequences (entries may be None = dense);
@@ -175,16 +178,18 @@ def distributed_matmul_batched(
     buckets requests by eps).  When filtering without explicit norms they
     are derived per product from the payloads.
 
-    ``return_plan`` needs the planner (ROADMAP Queue A5) and raises.
+    ``return_plan=True`` returns ``(C, BatchedMultiplyPlan)``: the
+    planner's fuse-or-loop pricing, with the executed fused dispatch's
+    padding and plan-sharing statistics as ``executor_stats``.
     """
-    c, _ = _distributed_matmul_batched(
+    c, plan = _distributed_matmul_batched(
         a, b, mesh=mesh, grid=grid, algorithm=algorithm, densify=densify,
         block_m=block_m, block_k=block_k, block_n=block_n,
         stack_size=stack_size, align=align, local_kernel=local_kernel,
         a_masks=a_masks, b_masks=b_masks, a_norms=a_norms, b_norms=b_norms,
         filter_eps=filter_eps, pipeline_depth=pipeline_depth,
         double_buffer=double_buffer, return_plan=return_plan, **kw)
-    return c
+    return (c, plan) if return_plan else c
 
 
 def _distributed_matmul_batched(
@@ -214,7 +219,8 @@ def _distributed_matmul_batched(
     """``distributed_matmul_batched`` returning ``(C, executor_stats)``:
     the executed fused dispatch's padding and plan-sharing statistics
     (None on the densified path), which ``dbcsr.multiply_batched``
-    reports per bucket."""
+    reports per bucket; with ``return_plan`` ``(C, plan)``, the
+    statistics on ``plan.executor_stats``."""
     if a.ndim != 3 or b.ndim != 3:
         raise ValueError(f"batched operands must be (G, M, K) x (G, K, N), "
                          f"got {tuple(a.shape)} x {tuple(b.shape)}")
@@ -229,14 +235,7 @@ def _distributed_matmul_batched(
         raise ValueError("bcast='gather' is not supported for batched "
                          "dispatch (the all-gathered full-K row would be "
                          "replicated per product)")
-    if algorithm == "auto":
-        raise NotImplementedError(
-            "algorithm='auto' needs the planner: ROADMAP Queue A5; "
-            f"pass one of {BATCHED_ALGORITHMS}")
-    if return_plan:
-        raise NotImplementedError(
-            "return_plan needs the planner: ROADMAP Queue A5")
-    if algorithm not in BATCHED_ALGORITHMS:
+    if algorithm != "auto" and algorithm not in BATCHED_ALGORITHMS:
         raise ValueError(
             f"batched dispatch supports {BATCHED_ALGORITHMS}, got "
             f"{algorithm!r} (the tall-skinny / 2.5D schedules are not "
@@ -253,11 +252,50 @@ def _distributed_matmul_batched(
                                   _per_group(b_masks, gi, g_count, "b_masks"))
                    for gi in range(g_count)]
 
+    pr, pc = grid.grid_shape(mesh)
+    plan = None
+    if algorithm == "auto" or return_plan:
+        from ..planner.plan import plan_multiply_batched
+
+        occs = [
+            _global_occupancy(
+                m, k, n, block_m, block_k, block_n,
+                _per_group(a_masks, gi, g_count, "a_masks"),
+                _per_group(b_masks, gi, g_count, "b_masks"),
+                _per_group(a_norms, gi, g_count, "a_norms"),
+                _per_group(b_norms, gi, g_count, "b_norms"),
+                filter_eps)
+            for gi in range(g_count)
+        ]
+        occ = sum(occs) / len(occs)
+        occ_max = max(occs)
+        # groups pad to the largest group's stack shape: the mean / max
+        # occupancy spread estimates the fused dispatch's padding waste
+        plan = plan_multiply_batched(
+            g_count, m, k, n, blocks=(block_m, block_k, block_n),
+            mesh_shape=(pr, pc), occupancy=occ,
+            dtype=torch.promote_types(a.dtype, b.dtype),
+            algorithm=None if algorithm == "auto" else algorithm,
+            densify=(densify if algorithm == "auto" or densify is not None
+                     else True),
+            padding_frac=1.0 - occ / occ_max if occ_max > 0 else 0.0,
+            stack_size=stack_size, align=align)
+        if algorithm == "auto":
+            algorithm = plan.algorithm
+            if densify is None:
+                densify = plan.densify
+            if not densify:
+                if stack_size is None:
+                    stack_size = plan.stack_tile
+                if align is None:
+                    align = plan.align
+            if pipeline_depth is None and double_buffer is None:
+                pipeline_depth = plan.pipeline_depth
+
     if densify is None:
         densify = True  # mirror distributed_matmul's fixed-algorithm default
 
     # ---- local multiply geometry ------------------------------------
-    pr, pc = grid.grid_shape(mesh)
     pg = n_panels = None
     if algorithm == "cannon":
         pg = grid.validate_square(mesh)
@@ -280,7 +318,7 @@ def _distributed_matmul_batched(
         batched_kw = dict(
             block_m=block_m, block_k=block_k, block_n=block_n,
             stack_size=stack_size, align=align,
-            kernel=local_kernel or "smm")
+            kernel=_stack_kernel(local_kernel))
         if a_masks is None and b_masks is None and not filtering:
             lm = batched_stack_executor(g_count, ml, kl, nl, **batched_kw)
         else:
@@ -337,4 +375,7 @@ def _distributed_matmul_batched(
     run = cannon_matmul if algorithm == "cannon" else summa_matmul
     c = run(a, b, mesh=mesh, grid=grid, local_matmul=lm,
             pipeline_depth=pipeline_depth, double_buffer=double_buffer, **kw)
-    return c, _collect_batched_executor_stats(lm, densify)
+    stats = _collect_batched_executor_stats(lm, densify)
+    if not return_plan:
+        return c, stats
+    return c, dataclasses.replace(plan, executor_stats=stats)

@@ -69,10 +69,14 @@ def build_summa_schedule(
     col_axis: str,
     n_panels: Optional[int] = None,
     empty_steps: frozenset = frozenset(),
+    local_shape: Optional[tuple] = None,
+    itemsize: int = 4,
 ) -> Schedule:
     """Schedule for psum-broadcast SUMMA: one step per contraction
     panel; ``recv`` slices the resident local blocks and broadcasts the
     panel pair by masked all-reduce along the perpendicular grid axes.
+    ``local_shape`` = (ml, kl, nl) of one panel's local multiply fills
+    the byte counts (observability).
     """
     n_panels = summa_n_panels(pr, pc) if n_panels is None else n_panels
 
@@ -106,12 +110,20 @@ def build_summa_schedule(
         b_panel = mesh.psum(b_panel, row_axis)
         return (a_panel, b_panel)
 
+    step_bytes = 0
+    if local_shape is not None:
+        ml, klp, nl = local_shape
+        # masked all-reduce moves ~2x the optimal broadcast volume
+        step_bytes = 2 * (ml * klp + klp * nl) * itemsize
+
     return Schedule(
         algorithm="summa",
         n_steps=n_panels,
         recv=recv,
         empty_steps=frozenset(empty_steps),
         comm_op=f"bcast-psum(a:{col_axis}, b:{row_axis})",
+        step_comm_bytes=tuple(
+            0 if t in empty_steps else step_bytes for t in range(n_panels)),
     )
 
 
@@ -297,7 +309,8 @@ def summa_gather_rank_steps(
 
 
 def build_summa_gather_schedule(row_axis: str, col_axis: str, *,
-                                mesh) -> Schedule:
+                                mesh, local_shape: Optional[tuple] = None,
+                                itemsize: int = 4) -> Schedule:
     """PUMMA-style SUMMA as a single-step schedule: the all-gather of
     the full local row of A / column of B is the prologue, the one
     local multiply is step 0."""
@@ -307,11 +320,17 @@ def build_summa_gather_schedule(row_axis: str, col_axis: str, *,
         b_col = mesh.all_gather(b_blk, row_axis, axis=0, tiled=True)
         return (a_row, b_col)
 
+    prologue_bytes = 0
+    if local_shape is not None:
+        ml, kl, nl = local_shape  # gathered (full-K) local geometry
+        prologue_bytes = (ml * kl + kl * nl) * itemsize
+
     return Schedule(
         algorithm="summa",
         n_steps=1,
         prologue=prologue,
         comm_op=f"all_gather(a:{col_axis}, b:{row_axis})",
+        prologue_comm_bytes=prologue_bytes,
     )
 
 

@@ -34,20 +34,22 @@ __all__ = ["tall_skinny_matmul", "build_ts_schedule", "ts_step_masks",
            "ts_step_norms", "ts_rank_steps", "classify_shape",
            "ts_classify_ratio", "DEFAULT_TS_RATIO"]
 
-# The historical tall/skinny threshold.  The JAX package takes the live
-# threshold from its planner's cost-model crossover and falls back to
-# this constant; the planner is not ported (ROADMAP Queue A5), so the
-# port always takes the fallback.
+# The historical tall/skinny threshold: the planner's fallback when its
+# cost model never crosses over (planner/cost_model.ts_crossover_ratio).
 DEFAULT_TS_RATIO = 8.0
 
 
 def ts_classify_ratio() -> float:
     """The dominance ratio at which ``classify_shape`` switches from
     Cannon to a tall-skinny variant: a shape is ``ts_<dim>`` iff its
-    largest dimension is at least this many times each other one.  The
-    JAX package's fallback, ``DEFAULT_TS_RATIO``, until the planner is
-    ported."""
-    return DEFAULT_TS_RATIO
+    largest dimension is at least this many times each other one.  It
+    is the planner's cost-model crossover (tall-skinny's O(1)
+    communication against Cannon's O(1/sqrt(P))) under the current
+    hardware constants."""
+    from ..planner.calibrate import get_hardware_model
+    from ..planner.cost_model import ts_crossover_ratio
+
+    return ts_crossover_ratio(get_hardware_model())
 
 
 def classify_shape(m: int, k: int, n: int,
@@ -74,13 +76,16 @@ def build_ts_schedule(
     *,
     mesh,
     reduce: str = "reduce_scatter",
+    local_shape: Optional[tuple] = None,
 ) -> Schedule:
     """Schedule for the tall-and-skinny variants: a single compute step
     (operands arrive pre-sharded over ``axes``), with the O(1)-in-P
     reduction of the (m, n) partial product as the epilogue (ts_k) or
-    no communication at all (ts_m / ts_n)."""
+    no communication at all (ts_m / ts_n).  ``local_shape`` fills the
+    epilogue's byte count (f32 partials)."""
     if mode not in ("ts_k", "ts_m", "ts_n"):
         raise ValueError(mode)
+    epilogue_bytes = 0
     if mode == "ts_k":
         if reduce == "all_reduce":
             def epilogue(c):
@@ -93,6 +98,9 @@ def build_ts_schedule(
         else:
             raise ValueError(reduce)
         comm_op = f"psum{'_scatter' if reduce == 'reduce_scatter' else ''}"
+        if local_shape is not None:
+            ml, _, nl = local_shape
+            epilogue_bytes = 2 * ml * nl * 4   # f32 partial both ways
     else:
         epilogue = None
         comm_op = "none (operand pre-replicated)"
@@ -102,6 +110,7 @@ def build_ts_schedule(
         algorithm=mode,
         n_steps=1,
         comm_op=comm_op,
+        epilogue_comm_bytes=epilogue_bytes,
         **kw,
     )
 

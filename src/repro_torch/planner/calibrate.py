@@ -1,0 +1,369 @@
+"""Measure the planner's hardware constants on the card.
+
+The cost models in ``cost_model.py`` are only as good as their
+constants.  Two sources, the later overriding the earlier:
+
+  1. ``cost_model.DEFAULT_HARDWARE`` — values this module measured on an
+     H100 (the run is named beside them);
+  2. ``artifacts/planner_calibration_h100.json`` (relative to the
+     working directory) — constants written by this module's CLI or by
+     ``save_calibration``.  The JAX package reads its own
+     ``planner_calibration.json``; the names differ so that neither
+     package ever reads the other's constants.
+
+``get_hardware_model()`` resolves the merge once and caches it; the plan
+cache (plan.py) keys on the resolved HardwareModel value, so a
+recalibration changes the key of every later plan.
+
+    PYTHONPATH=src python -m repro_torch.planner.calibrate [--mesh 4 4]
+
+measures on the card (it raises without one), saves the file and
+prints each constant beside its default.  On a
+mesh whose ranks are simulated on one card (launch/mesh.py),
+``bytes_per_s`` and ``latency_s`` measure device copies between those
+ranks, not NVLink.  The JAX package also fits constants from its bench
+artifacts (``fit_from_artifacts``) and checks the plans' predicted
+against measured times (``drift_report``); both wait for the port's
+benches and telemetry (ROADMAP A13, A9).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import time
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from .cost_model import DEFAULT_HARDWARE, HardwareModel
+
+__all__ = [
+    "DEFAULT_CALIBRATION",
+    "micro_calibrate",
+    "measure_overlap",
+    "get_hardware_model",
+    "save_calibration",
+    "invalidate_cache",
+]
+
+DEFAULT_CALIBRATION = os.path.join("artifacts",
+                                   "planner_calibration_h100.json")
+
+# the main path's sizes (chip_smoke.py phase 2): one rank of the
+# paper's 63,360^2 on 16x16 at block 22, and the large-block case
+DENSE_N = 3960
+SMM_CASES = ((22, 3960), (64, 4096))
+SMM_FILL = 0.2
+PSUM_SIDE = 3960        # per-rank side of the bandwidth psum: one rank of (o)
+OVERLAP_SIDE = 3960     # per-rank side of the overlap multiplies: (o)
+
+_CACHED: Optional[HardwareModel] = None
+
+
+def _load_json(path: str):
+    try:
+        with open(path) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return None
+
+
+def _timer(device: torch.device, reps: int, log: Optional[Callable]):
+    """``best_of(label, fn)``: the best of ``reps`` host-clock timings of
+    a synchronized ``fn()`` after one warm-up call, the time users pay
+    and the one the plans' ``predicted_s`` is compared with.  On the
+    card it also logs the best CUDA-event time of the same calls."""
+    cuda = device.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(device)
+
+    def best_of(label: str, fn) -> float:
+        fn()
+        sync()
+        host = event = math.inf
+        for _ in range(reps):
+            if cuda:
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                start.record()
+            t0 = time.perf_counter()
+            fn()
+            if cuda:
+                stop.record()
+            sync()
+            host = min(host, time.perf_counter() - t0)
+            if cuda:
+                event = min(event, start.elapsed_time(stop) / 1e3)
+        if log is not None:
+            log(f"  {label}: host {host * 1e3:.4f} ms"
+                + (f", CUDA events {event * 1e3:.4f} ms" if cuda else ""))
+        return host
+
+    return best_of
+
+
+def micro_calibrate(mesh=None, grid=None, reps: int = 5, *,
+                    log: Optional[Callable] = None) -> Dict[str, float]:
+    """Measure the constants live, in-process (tens of seconds).
+
+    ``flops_per_s`` from the densified local multiply (torch.matmul,
+    TF32 off) at 3,960^2; ``smm_flops_per_s`` and ``stack_entry_s``
+    from the blocked local multiply's time over its triples, dense
+    against 20 % A fill, at block 22 (3,960^2) and block 64 (4,096^2):
+    two slopes ``2*b^3/F + E``, two unknowns; ``densify_bytes_per_s``
+    from the block-layout copy of a 3,960^2 matrix; ``dispatch_s`` from
+    a 64^2 multiply on a 1x1 mesh; ``mem_bytes`` from the card.  With a
+    multi-rank ``mesh`` / ``grid``, ``latency_s`` and ``bytes_per_s``
+    from chains of psums over the grid (marginal cost per psum, tiny and
+    ``PSUM_SIDE``^2 a rank) and the overlap efficiencies from
+    ``measure_overlap``.  ``log`` (e.g. ``print``) receives each
+    measurement.  Library calls never trigger measurement implicitly.
+    """
+    from ..core.densify import (blocked_local_matmul,
+                                densified_local_matmul, to_blocks)
+    from ..core.multiply import distributed_matmul
+    from ..launch.mesh import make_mesh, resolve_device
+
+    dev = mesh.device if mesh is not None else resolve_device(None)
+    best_of = _timer(dev, reps, log)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rng = np.random.RandomState(0)
+    out: Dict[str, float] = {}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    n = DENSE_N
+    a, b = randn(1, n, n), randn(1, n, n)
+    dense = densified_local_matmul()
+    t = best_of(f"dense {n}^2 torch.matmul", lambda: dense(a, b))
+    out["flops_per_s"] = 2.0 * n ** 3 / max(t, 1e-12)
+    t = best_of(f"to_blocks {n}^2 at block 22",
+                lambda: to_blocks(a[0], 22, 22))
+    out["densify_bytes_per_s"] = n * n * a.element_size() / max(t, 1e-12)
+    del a, b
+
+    slopes = {}
+    for block, n in SMM_CASES:
+        nb = n // block
+        a, b = randn(1, n, n), randn(1, n, n)
+        mask = rng.rand(nb, nb) < SMM_FILL
+        times = {}
+        for label, a_mask in (("dense", None), ("20 % A fill", mask)):
+            lm = blocked_local_matmul(n, n, n, block_m=block, block_k=block,
+                                      block_n=block, a_mask=a_mask)
+            t = best_of(f"blocked {n}^2 block {block} {label} "
+                        f"({lm.executor_plan.n_entries} triples)",
+                        lambda: lm(a, b))
+            times[label] = (t, lm.executor_plan.n_entries)
+        (t_hi, n_hi), (t_lo, n_lo) = times["dense"], times["20 % A fill"]
+        slopes[block] = max((t_hi - t_lo) / (n_hi - n_lo), 1e-15)
+        del a, b
+    (b1, _), (b2, _) = SMM_CASES
+    s1, s2 = slopes[b1], slopes[b2]
+    if s2 > s1:
+        out["smm_flops_per_s"] = 2.0 * (b2 ** 3 - b1 ** 3) / (s2 - s1)
+        out["stack_entry_s"] = max(
+            s1 - 2.0 * b1 ** 3 / out["smm_flops_per_s"], 0.0)
+    else:  # overhead-dominated regime: the slope IS the entry cost
+        out["stack_entry_s"] = s1
+
+    mesh1 = make_mesh((1, 1), ("data", "model"), device=dev)
+    a, b = randn(64, 64), randn(64, 64)
+    out["dispatch_s"] = best_of(
+        "dispatch: 64^2 cannon densified on 1x1",
+        lambda: distributed_matmul(a, b, mesh=mesh1, algorithm="cannon",
+                                   densify=True))
+    if dev.type == "cuda":
+        out["mem_bytes"] = float(
+            torch.cuda.get_device_properties(dev).total_memory)
+
+    if mesh is not None and grid is not None and mesh.n_ranks > 1:
+        axes = (grid.row_axis, grid.col_axis)
+
+        def chain(x, n_psum):
+            def run():
+                y = x
+                for i in range(n_psum):
+                    y = mesh.psum(y + float(i), axes)
+                return y
+            return run
+
+        reps_n = 8
+        tiny = torch.ones((mesh.n_ranks, 1, 1), device=dev)
+        dt = (best_of(f"{reps_n} tiny psums (simulated ranks)",
+                      chain(tiny, reps_n))
+              - best_of("1 tiny psum (simulated ranks)", chain(tiny, 1)))
+        out["latency_s"] = max(dt / (reps_n - 1), 1e-9)
+        side = PSUM_SIDE
+        big = torch.ones((mesh.n_ranks, side, side), device=dev)
+        dt = (best_of(f"{reps_n} psums of {side}^2 a rank (simulated ranks)",
+                      chain(big, reps_n))
+              - best_of(f"1 psum of {side}^2 a rank (simulated ranks)",
+                        chain(big, 1)))
+        per_msg = max(dt / (reps_n - 1) - out["latency_s"], 1e-12)
+        out["bytes_per_s"] = 2.0 * side * side * 4 / per_msg
+        hw = DEFAULT_HARDWARE.replace(**out)
+        out.update(measure_overlap(mesh, grid, reps=reps, hw=hw, log=log))
+    return out
+
+
+def measure_overlap(mesh=None, grid=None, reps: int = 5, hw=None, *,
+                    log: Optional[Callable] = None) -> Dict[str, float]:
+    """Measure the schedule engine's *achieved* comm/compute overlap.
+
+    For each multi-step algorithm the mesh admits, times the same
+    densified multiply (``OVERLAP_SIDE``^2 a rank) at
+    ``pipeline_depth=1`` (serial) and ``pipeline_depth=2`` (the next
+    step's communication issued before this step's multiply) and
+    converts the saving into an efficiency in [0, 1] against the
+    model's predicted communication time:
+
+        overlap_<algo> = (t_serial - t_pipelined) / comm_s_model
+
+    On simulated ranks every copy and GEMM runs on the card's one
+    stream, so nothing overlaps and the honest answer is ~0.  A saving
+    under 5 % of the serial time, or a modelled communication under 10
+    % of it, calibrates to 0 (timing jitter, not overlap).
+    ``overlap_ts`` and ``overlap_cannon25d`` reuse the Cannon value
+    unless a stack axis lets 2.5D be measured directly.
+    """
+    from ..core.multiply import distributed_matmul
+
+    out: Dict[str, float] = {}
+    if mesh is None or grid is None or mesh.n_ranks <= 1:
+        return out
+    if hw is None:
+        hw = get_hardware_model()
+    best_of = _timer(mesh.device, reps, log)
+    gen = torch.Generator(device=mesh.device).manual_seed(0)
+    pr, pc = grid.grid_shape(mesh)
+    c_stack = grid.stack_size(mesh)
+
+    def timed_pair(algo, side, **kw):
+        a = torch.randn((side, side), generator=gen, device=mesh.device)
+        b = torch.randn((side, side), generator=gen, device=mesh.device)
+        return tuple(best_of(
+            f"{algo} {side}^2 densified, pipeline_depth {d}",
+            lambda d=d: distributed_matmul(
+                a, b, mesh=mesh, grid=grid, algorithm=algo, densify=True,
+                pipeline_depth=d, **kw)) for d in (1, 2))
+
+    def overlap_eff(t1, t2, comm_model_s):
+        saved = t1 - t2
+        if comm_model_s < 0.1 * t1 or saved < 0.05 * t1:
+            saved = 0.0
+        return float(min(max(saved / comm_model_s, 0.0), 1.0))
+
+    e = 4  # f32 operands
+    targets = []
+    if pr == pc:
+        side = OVERLAP_SIDE * pr
+        ml = side // pr
+        comm = pr * 2 * ml * ml * e            # pg shifts of (a, b) chunks
+        targets.append(("overlap_cannon", "cannon", side, comm))
+    side_s = OVERLAP_SIDE * max(pr, pc)
+    mls, nls = side_s // pr, side_s // pc
+    n_panels = pc if pr == pc else math.lcm(pr, pc)
+    kls = side_s // n_panels
+    comm_s_bytes = 2 * n_panels * (mls * kls + kls * nls) * e
+    targets.append(("overlap_summa", "summa", side_s, comm_s_bytes))
+
+    for key, algo, side, comm_bytes in targets:
+        t1, t2 = timed_pair(algo, side)
+        out[key] = overlap_eff(t1, t2, comm_bytes / hw.bytes_per_s)
+
+    if "overlap_cannon" in out:
+        out.setdefault("overlap_cannon25d", out["overlap_cannon"])
+        out.setdefault("overlap_ts", out["overlap_cannon"])
+    if c_stack > 1 and pr == pc:
+        side = OVERLAP_SIDE * pr
+        t1, t2 = timed_pair("cannon25d", side)
+        ml = side // pr
+        comm = (pr // c_stack) * 2 * ml * ml * e
+        out["overlap_cannon25d"] = overlap_eff(t1, t2, comm / hw.bytes_per_s)
+    return out
+
+
+def get_hardware_model(path: Optional[str] = None) -> HardwareModel:
+    """Resolve defaults <- calibration file (cached when ``path`` is
+    None)."""
+    global _CACHED
+    if _CACHED is not None and path is None:
+        return _CACHED
+    merged = DEFAULT_HARDWARE.to_dict()
+    saved = _load_json(path or DEFAULT_CALIBRATION)
+    if saved:
+        merged.update({k: v for k, v in saved.items()
+                       if k in merged and isinstance(v, (int, float))})
+    hw = HardwareModel.from_dict(merged)
+    if path is None:
+        _CACHED = hw
+    return hw
+
+
+def invalidate_cache() -> None:
+    global _CACHED
+    _CACHED = None
+
+
+def save_calibration(constants: Dict[str, float],
+                     path: str = DEFAULT_CALIBRATION) -> str:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        json.dump({k: float(v) for k, v in constants.items()}, f, indent=1)
+    invalidate_cache()
+    return path
+
+
+SIMULATED = ("bytes_per_s", "latency_s", "overlap_cannon",
+             "overlap_cannon25d", "overlap_summa", "overlap_ts")
+
+
+def describe(constants: Dict[str, float], mesh=None) -> str:
+    """One line per constant: the measured value beside the default, the
+    communication constants marked as simulated-rank copies."""
+    sim = (f"device copies between {mesh.n_ranks} ranks simulated on one "
+           "card, not NVLink") if mesh is not None else ""
+    lines = []
+    for key, default in DEFAULT_HARDWARE.to_dict().items():
+        got = constants.get(key)
+        note = f"  [{sim}]" if key in SIMULATED and got is not None and sim \
+            else ""
+        lines.append(f"  {key:20s} measured "
+                     + ("-" * 12 if got is None else f"{got:12.6g}")
+                     + f"  default {default:12.6g}{note}")
+    return "\n".join(lines)
+
+
+def main(argv=None):
+    from ..core.blocking import GridSpec
+    from ..launch.mesh import make_mesh, resolve_device
+    from .plan import plan_cache_clear
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", default=DEFAULT_CALIBRATION)
+    ap.add_argument("--mesh", type=int, nargs=2, default=(4, 4),
+                    metavar=("PR", "PC"),
+                    help="simulated grid for the communication constants")
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(None)
+    print(f"device: {torch.cuda.get_device_name(dev)}")
+    mesh = make_mesh(tuple(args.mesh), ("data", "model"), device=dev)
+    constants = micro_calibrate(mesh, GridSpec("data", "model"), log=print)
+    path = save_calibration(constants, args.out)
+    plan_cache_clear()
+    print("constants (measured beside DEFAULT_HARDWARE):")
+    print(describe(constants, mesh))
+    print(json.dumps({"calibration": constants}))
+    print("wrote ->", path)
+
+
+if __name__ == "__main__":
+    main()

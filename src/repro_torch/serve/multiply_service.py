@@ -27,7 +27,7 @@ Robustness (the degradation ladder).  A dispatch failure must never
 lose tickets or let one poison request kill its batch-mates, so
 ``_dispatch`` walks a ladder and never raises:
 
-  1. **fused** — retried up to ``max_retries``
+  1. **fused** (or the planner's choice) — retried up to ``max_retries``
      times with exponential backoff on any failure (transient backend
      errors, injected chaos faults);
   2. **looped** — the bucket re-executes as per-request dispatches
@@ -54,15 +54,13 @@ inside ``poll()`` / ``flush()`` on the caller's thread, so the caller
 controls when device work runs, and it is testable with injected
 ``clock`` / ``sleep`` / ``fault_injector``.
 
-Until the planner is ported (ROADMAP Queue A5), ``dbcsr.multiply_batched``
-cannot choose fused or looped by itself, so the service needs
-``fused=True`` or ``fused=False``; ``fused=None`` raises at construction
-(the ladder would otherwise turn that error into looped dispatches).
+With ``fused=None`` (the default) the planner prices each drained
+bucket (``plan_multiply_batched``: fuse when one fused dispatch is
+predicted cheaper than the loop); ``True`` / ``False`` pin the choice.
 
 Typical pump loop::
 
-    svc = MultiplyService(mesh, slo_s=0.005, max_batch=32, fused=True,
-                          algorithm="cannon")
+    svc = MultiplyService(mesh, slo_s=0.005, max_batch=32)
     tickets = [svc.submit(a, b) for (a, b) in stream]
     svc.flush()                      # or poll() inside the loop
     results = [svc.result(t) for t in tickets]
@@ -124,10 +122,10 @@ class MultiplyService:
                 requests, SLO notwithstanding
     filter_eps  norm-filter threshold applied to every request (part of
                 the bucket key — a service instance is eps-uniform)
-    fused       the fuse-or-loop choice per bucket: ``True`` (one fused
+    fused       the fuse-or-loop choice per bucket: ``None`` (the
+                planner's pricing per bucket), ``True`` (one fused
                 dispatch per bucket) or ``False`` (the ladder starts at
-                its looped rung); ``None`` asks the planner, ROADMAP
-                Queue A5, and raises ``NotImplementedError``
+                its looped rung)
     validate    structural request validation at ``submit()`` time
                 (guards.validate_multiply_request — reject malformed
                 requests synchronously with a typed
@@ -172,10 +170,6 @@ class MultiplyService:
     ):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
-        if fused is None:
-            raise NotImplementedError(
-                "fused=None asks the planner to choose fused or looped per "
-                "bucket: ROADMAP Queue A5; pass fused=True or fused=False")
         self.mesh = mesh
         self.slo_s = float(slo_s)
         self.max_batch = int(max_batch)
@@ -323,7 +317,7 @@ class MultiplyService:
         raises: every ticket in ``batch`` ends settled — with a result
         or with a retrievable error."""
         pairs = [(r.a, r.b) for r in batch]
-        # ladder rungs above per-request isolation: the pinned fused
+        # ladder rungs above per-request isolation: the pinned or planned
         # batched dispatch first (retried — transient failures), then
         # the looped bucket (skipped when fused=False already IS the
         # first rung)

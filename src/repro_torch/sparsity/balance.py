@@ -36,7 +36,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from .filter import retained_pair_presence
+from .norms import normalize_block_norms
 
 __all__ = [
     "RebalancePlan",
@@ -56,15 +56,51 @@ def retained_block_weights(
     a_norms: Optional[np.ndarray] = None,
     b_norms: Optional[np.ndarray] = None,
     filter_eps: Optional[float] = None,
+    *,
+    device="cpu",
 ) -> np.ndarray:
     """Per-C-block retained-triple counts ``W[i, j]``: the work of the
     rank owning C block (i, j) over a full multiply (every schedule
     gives C chunk (i, j) to rank (i, j), so C-chunk sums of ``W`` are
-    the per-rank retained loads)."""
+    the per-rank retained loads).  The norm-filtered count runs on the
+    torch ``device`` (the multiply passes its mesh's), one batched
+    comparison of float64 norm products a k-chunk: the same IEEE
+    products and counts on any device."""
     am = np.asarray(a_mask, dtype=bool)
     bm = np.asarray(b_mask, dtype=bool)
-    pres = retained_pair_presence(am, bm, a_norms, b_norms, filter_eps)
-    return pres.sum(axis=1).astype(np.int64)
+    if filter_eps is None or (a_norms is None and b_norms is None):
+        # the mask product; float64 counts are exact far beyond any grid
+        return (am.astype(np.float64) @ bm.astype(np.float64)).astype(
+            np.int64)
+    # ``retained_pair_presence(...).sum(axis=1)``, a k-chunk at a time
+    nbr, nbk = am.shape
+    nbc = bm.shape[1]
+    an, bn = normalize_block_norms(nbr, nbk, nbc, a_norms, b_norms)
+    eps = float(filter_eps)
+    if eps <= 0.0 and (an >= 0).all() and (bn >= 0).all():
+        # every norm product is >= 0 >= eps: the mask product
+        return retained_block_weights(am, bm)
+    # mask-absent blocks at norm 0 fold the masks into one ``>= eps``
+    dev = torch.device(device)
+    an_t, bn_t = (torch.from_numpy(np.where(m, x.astype(np.float64), 0.0))
+                  .to(dev) for m, x in ((am, an), (bm, bn)))
+    if eps <= 0.0:
+        am_t, bm_t = (torch.from_numpy(np.ascontiguousarray(m)).to(dev)
+                      for m in (am, bm))
+    step = max(1, _CHUNK_ELEMS // max(1, nbr * nbc))
+    w = torch.zeros((nbr, nbc), dtype=torch.int64, device=dev)
+    for k0 in range(0, nbk, step):
+        sl = slice(k0, k0 + step)
+        keep = an_t[:, sl, None] * bn_t[None, sl, :] >= eps
+        if eps <= 0.0:
+            # a product >= eps need not be mask-present: AND the masks in
+            keep &= am_t[:, sl, None] & bm_t[None, sl, :]
+        w += keep.sum(dim=1)
+    return w.cpu().numpy()
+
+
+# float64 norm products a k-chunk of ``retained_block_weights`` holds
+_CHUNK_ELEMS = 1 << 25
 
 
 def chunk_loads(W: np.ndarray, pr: int, pc: int) -> np.ndarray:

@@ -73,12 +73,17 @@ def count_retained_triples(
     nbr, nbk = am.shape
     nbc = bm.shape[1]
     if eps is None or (an is None and bn is None):
-        return int((am.astype(np.int64) @ bm.astype(np.int64)).sum())
+        # sum_k (present a blocks in column k) * (present b blocks in row k)
+        return int(am.sum(axis=0, dtype=np.int64)
+                   @ bm.sum(axis=1, dtype=np.int64))
     from .norms import normalize_block_norms
 
     an_, bn_ = normalize_block_norms(nbr, nbk, nbc, an, bn)
-    an_m, bn_m = _masked_norms(am, bm, an_, bn_)
     eps = float(eps)
+    if eps <= 0.0 and (an_ >= 0).all() and (bn_ >= 0).all():
+        # every norm product is >= 0 >= eps: the mask count
+        return count_retained_triples(am, bm, None, None, None)
+    an_m, bn_m = _masked_norms(am, bm, an_, bn_)
     total = 0
     for k0 in range(0, nbk, _CHUNK):
         sl = slice(k0, min(k0 + _CHUNK, nbk))

@@ -272,11 +272,15 @@ def test_multiply_batched_fused_equals_looped_and_jax(meshes, eps):
     assert report["n_buckets"] == 4
     assert report["n_fused_requests"] == len(reqs)
     for rep in report["buckets"]:
-        assert rep["fused"] and rep["plan"] is None
+        assert rep["fused"] and rep["plan"].n_requests == rep["n_requests"]
+        assert rep["executor_stats"] is rep["plan"].executor_stats
         assert rep["executor_stats"]["n_fused_dispatches"] == 1
+    plans = {id(rep["plan"]) for rep in report["buckets"]}
     for i, (c_f, c_l, c_j) in enumerate(zip(fused, looped, jfused)):
         assert torch.equal(c_f.data, c_l.data), i
-        assert c_f.last_plan is None
+        # the bucket's BatchedMultiplyPlan (the pinned algorithm's)
+        assert id(c_f.last_plan) in plans
+        assert c_f.last_plan.algorithm == "cannon"
         np.testing.assert_allclose(c_f.data.numpy(), np.asarray(c_j.data),
                                    rtol=RTOL, atol=ATOL)
         for c in (c_f, c_l):
@@ -346,24 +350,38 @@ def test_unported_pieces_raise_naming_their_queue_item(meshes):
         assert torch.equal(c[g], distributed_matmul(
             a[g], b[g], algorithm="summa", densify=False, pipeline_depth=1,
             **kw))
-    with pytest.raises(NotImplementedError, match="A5"):
-        distributed_matmul_batched(a, b, algorithm="auto", **kw)
-    with pytest.raises(NotImplementedError, match="A5"):
-        distributed_matmul_batched(a, b, algorithm="cannon",
-                                   return_plan=True, **kw)
+    # the planner's entry points (they raised naming A5 before it was
+    # ported): auto is bitwise its plan's pinned configuration, and
+    # return_plan gives the BatchedMultiplyPlan of what ran
+    c, plan = distributed_matmul_batched(a, b, algorithm="auto",
+                                         return_plan=True, **kw)
+    assert plan.algorithm in BATCHED_ALGORITHMS and plan.n_requests == 2
+    assert torch.equal(c, distributed_matmul_batched(
+        a, b, algorithm=plan.algorithm, densify=plan.densify, **kw))
+    c, plan = distributed_matmul_batched(a, b, algorithm="cannon",
+                                         return_plan=True, **kw)
+    assert (plan.algorithm, plan.densify) == ("cannon", True)
+    assert "batched plan: 2 requests" in plan.explain()
     with pytest.raises(ValueError, match="gather"):
         distributed_matmul_batched(a, b, algorithm="summa", bcast="gather",
                                    **kw)
     with pytest.raises(ValueError, match="supports"):
         distributed_matmul_batched(a, b, algorithm="ts_k", **kw)
-    with pytest.raises(NotImplementedError, match="A5"):
-        dbcsr.multiply_batched(reqs, mesh=mesh, algorithm="cannon")
+    # fused=None (the default) prices the bucket: fused or looped, the
+    # product is bitwise the pinned choice's
+    out, report = dbcsr.multiply_batched(reqs, mesh=mesh, algorithm="cannon",
+                                         return_plan=True)
+    (rep,) = report["buckets"]
+    assert rep["plan"].fuse == rep["fused"]
+    pinned = dbcsr.multiply_batched(reqs, mesh=mesh, algorithm="cannon",
+                                    fused=rep["fused"])
+    assert all(torch.equal(x.data, y.data) for x, y in zip(out, pinned))
     with pytest.raises(NotImplementedError, match="A8"):
         dbcsr.multiply_batched(reqs, mesh=mesh, algorithm="cannon",
                                fused=False, verify="checksum")
     with pytest.raises(ValueError, match="batch-capable"):
         dbcsr.multiply_batched(reqs, mesh=mesh, algorithm="ts_k", fused=True)
-    # a bucket of one request goes looped without the planner
+    # a bucket of one request goes looped without pricing
     out, report = dbcsr.multiply_batched(reqs[:1], mesh=mesh,
                                          algorithm="cannon", densify=False,
                                          return_plan=True)

@@ -512,3 +512,60 @@ def test_rank_exact_step_is_one_launch_over_all_ranks(cuda):
     assert smm_process_stack.launches - before - launched == 2 * 4
     assert torch.equal(exact, union)
     assert _rel(exact, torch.matmul(x, y)) <= 1e-5
+
+
+@pytest.mark.parametrize("fill", [1.0, 0.2])
+def test_auto_on_card_is_bitwise_its_pinned_plan(cuda, fill, tmp_path,
+                                                 monkeypatch):
+    """The default dbcsr.multiply on 2x2 (the planner's choice, with the
+    H100 defaults: an empty working directory has no calibration file)
+    equals its plan's pinned (algorithm, densify) bit for bit and
+    launches the kernel of its local path; the default multiply_batched
+    is bitwise its pinned fuse decision."""
+    from repro_torch.planner import calibrate
+
+    monkeypatch.chdir(tmp_path)
+    calibrate.invalidate_cache()
+    mesh = make_mesh((2, 2), ("data", "model"))
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    rng = np.random.RandomState(3)
+    mask = None if fill == 1.0 else rng.rand(8, 8) < fill
+    a = dbcsr.create(torch.randn(176, 176, generator=gen, device=cuda),
+                     mesh=mesh, block_size=22, block_mask=mask)
+    b = dbcsr.create(torch.randn(176, 176, generator=gen, device=cuda),
+                     mesh=mesh, block_size=22)
+    before = smm_process_stack.launches, grouped_gemm.launches
+    c, plan = dbcsr.multiply(a, b, mesh=mesh, local_kernel="pallas",
+                             return_plan=True)
+    torch.cuda.synchronize()
+    smm_n = smm_process_stack.launches - before[0]
+    gg_n = grouped_gemm.launches - before[1]
+    assert (smm_n > 0) == (not plan.densify) and (gg_n > 0) == plan.densify
+    pinned = dbcsr.multiply(a, b, mesh=mesh, local_kernel="pallas",
+                            algorithm=plan.algorithm, densify=plan.densify)
+    assert torch.equal(c.data, pinned.data)
+    assert _rel(c.data, torch.matmul(a.data, b.data)) <= 1e-5
+    out, report = dbcsr.multiply_batched([(a, b)] * 3, mesh=mesh,
+                                         return_plan=True)
+    (rep,) = report["buckets"]
+    again = dbcsr.multiply_batched([(a, b)] * 3, mesh=mesh,
+                                   fused=rep["plan"].fuse)
+    assert all(torch.equal(x.data, y.data) for x, y in zip(out, again))
+    calibrate.invalidate_cache()
+
+
+@pytest.mark.parametrize("eps", [0.0, 0.25])
+def test_retained_weights_on_card_equal_the_host_count(cuda, eps):
+    """The per-rank weights the planner reads, counted on the card (as
+    the multiply counts them) at a grid of 180 blocks a side, equal the
+    CPU's count exactly."""
+    from repro_torch.sparsity.balance import retained_block_weights
+
+    rng = np.random.RandomState(5)
+    am, bm = rng.rand(180, 180) < 0.2, rng.rand(180, 180) < 0.9
+    an = rng.rand(180, 180).astype(np.float32)
+    bn = rng.rand(180, 180).astype(np.float32)
+    an[:3] = -1.0
+    host = retained_block_weights(am, bm, an, bn, eps)
+    np.testing.assert_array_equal(
+        retained_block_weights(am, bm, an, bn, eps, device=cuda), host)

@@ -183,10 +183,29 @@ def test_create_matches_jax(meshes):
                  id="kw3-A8"),
 ])
 def test_later_slices_raise(meshes, kw, queue, grid):
-    _, _, ta, tb = _operands(meshes, 0.5)
+    """Each entry point a later slice ports: the A8 one still raises
+    naming its queue item.  The A5 cases raised until the planner was
+    ported; they now run through it and must agree with the JAX
+    package's multiply, bitwise with the port's own pinned plan, and
+    carry the plan as ``last_plan``."""
+    ja, jb, ta, tb = _operands(meshes, 0.5)
     mesh = make_mesh(grid, ("data", "model"), device="cpu")
-    with pytest.raises(NotImplementedError, match=queue):
-        dbcsr.multiply(ta, tb, mesh=mesh, **kw)
+    if queue != "A5":
+        with pytest.raises(NotImplementedError, match=queue):
+            dbcsr.multiply(ta, tb, mesh=mesh, **kw)
+        return
+    got = dbcsr.multiply(ta, tb, mesh=mesh, **kw)
+    c, plan = got if kw.get("return_plan") else (got, got.last_plan)
+    assert c.last_plan is plan and plan.candidates
+    assert "candidate" in plan.explain()
+    want = jdbcsr.multiply(ja, jb, mesh=meshes[0], **kw)
+    want = want[0] if kw.get("return_plan") else want
+    np.testing.assert_allclose(c.data.numpy(), np.asarray(want.data),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_array_equal(c.block_mask, want.block_mask)
+    pinned = dbcsr.multiply(ta, tb, mesh=mesh, algorithm=plan.algorithm,
+                            densify=plan.densify)
+    assert torch.equal(c.data, pinned.data)
 
 
 @pytest.mark.parametrize("bcast", ["psum", "gather"])

@@ -549,9 +549,18 @@ def test_classify_shape_matches_jax():
 
     from repro_torch.core import tall_skinny as ts
 
-    assert ts.ts_classify_ratio() == ts.DEFAULT_TS_RATIO == 8.0
+    from repro_torch.planner.calibrate import get_hardware_model
+    from repro_torch.planner.cost_model import ts_crossover_ratio
+
+    # the ratio is the planner's crossover under the port's constants
+    ratio = ts.ts_classify_ratio()
+    assert ratio == ts_crossover_ratio(get_hardware_model())
+    assert ts.DEFAULT_TS_RATIO == 8.0
     for shape in [(1408, 1982464, 1408), (4096, 4096, 4096), (100, 800, 99),
                   (100, 799, 100), (64000, 64, 64), (64, 64, 64000),
                   (640, 64, 64)]:
+        for r in (ratio, ts.DEFAULT_TS_RATIO):
+            assert ts.classify_shape(*shape, ratio=r) == jts.classify_shape(
+                *shape, ratio=r), shape
         assert ts.classify_shape(*shape) == jts.classify_shape(
-            *shape, ratio=ts.DEFAULT_TS_RATIO), shape
+            *shape, ratio=ratio), shape

@@ -35,7 +35,41 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 34
+    assert n_modules >= 38
+
+
+_IMPORT_PLANNER = r"""
+import sys
+import repro_torch.planner
+from repro_torch.planner import calibrate, cost_model, plan
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0].startswith("jax")
+                or m == "repro" or m.startswith("repro."))
+assert not leaked, leaked
+assert calibrate.DEFAULT_CALIBRATION.endswith("_h100.json")
+print("ok")
+"""
+
+
+def test_importing_the_planner_loads_no_jax_and_no_reference():
+    env = dict(os.environ, PYTHONPATH=SRC)
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_PLANNER], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.split() == ["ok"]
+
+
+def test_calibration_cli_measures_on_the_card_only(tmp_path, monkeypatch):
+    """``python -m repro_torch.planner.calibrate`` measures on the CUDA
+    device only: without a card it raises and writes no file."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU: the default device is valid")
+    from repro_torch.planner import calibrate
+
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calibrate.main([])
+    assert not (tmp_path / calibrate.DEFAULT_CALIBRATION).exists()
 
 
 def test_mesh_defaults_to_cuda_and_never_falls_back():

@@ -108,8 +108,24 @@ def test_multiply_service_bucketing(mesh):
 
 
 def test_fused_none_needs_the_planner(mesh):
-    with pytest.raises(NotImplementedError, match="A5"):
-        MultiplyService(mesh, **EXEC_KW)
+    """``fused=None`` (the default) raised until the planner was ported;
+    now each drained bucket is fused or looped as the planner prices it,
+    and the products are bitwise ``multiply_batched``'s with the same
+    choice."""
+    svc = MultiplyService(mesh, clock=FakeClock(), **EXEC_KW)
+    reqs, refs, _ = _requests(mesh, [(128, 128, 128)] * 3,
+                              np.random.RandomState(3))
+    tickets = [svc.submit(a, b) for a, b in reqs]
+    assert sorted(svc.flush()) == tickets
+    (bucket,) = svc.stats()["buckets"]
+    plan = bucket["report"]["buckets"][0]["plan"]
+    assert plan.n_requests == 3 and plan.fuse == bucket["fused"]
+    pinned = dbcsr.multiply_batched(reqs, mesh=mesh, fused=plan.fuse,
+                                    **EXEC_KW)
+    for t, c, ref in zip(tickets, pinned, refs):
+        got = svc.result(t)
+        assert torch.equal(got.data, c.data)
+        np.testing.assert_allclose(got.data.numpy(), ref, atol=1e-3)
     with pytest.raises(ValueError):
         MultiplyService(mesh, fused=True, max_batch=0)
 
