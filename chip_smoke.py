@@ -165,7 +165,40 @@ Phase 7  the multiply planner (repro_torch.planner): micro_calibrate on
          of simulated ranks at (o)'s size, dense, A at 20 % fill and a
          hot corner: bitwise its pinned plan, rank imbalance and the
          rebalance decision, predicted against measured (not gated: the
-         ranks share the card).  One {"phase7": ...} line.
+         ranks share the card).  On 1x1 ``predicted_s`` charges no
+         communication (one rank).  One {"phase7": ...} line.
+Phase 8  purification and self-verifying multiplies:
+           (u) McWeeny purification (sparsity.workloads.mcweeny_purify)
+               of banded_hamiltonian(15,840, 22) on a 4x4 mesh of
+               simulated ranks (3,960^2 a rank, (p)'s share), filter_eps
+               1e-6, blocked smm, 10 iterations with the union plans and
+               10 rank-exact; one line an iteration (occupancy, blocks,
+               retained / filtered / busiest-rank triples, ||P^2 - P||,
+               tr(P), smm launches and their CUDA-event time, wall, host
+               = wall - smm, and the host time of the planning functions,
+               exclusive, by name); the example's three properties and
+               P within PUR_TOL of the exact density (the diagonal parity
+               projector) for both runs; 3 iterations with
+               verify="checksum": no detection, bitwise the unverified
+               iterates, overhead against the unverified iterations run
+               before and after; smm at the largest rank-exact launch of
+               the peak iterate against its plain version and torch.bmm.
+           (v) verify="checksum" against verify=None at (a) blocked depth
+               1, (a) densified pallas, (c) at eps near the median and the
+               1st percentile of the norm products, (o) densified pallas
+               on 4x4 and (p) rank-exact at the median eps on 4x4, Cannon
+               pinned: no detection and bitwise the unverified product;
+               one-shot bitflip / nan / scale into the max-norm block:
+               detected, localized exactly, repaired and bitwise clean
+               wherever the change exceeds the tolerances (checked), and
+               any detection repaired bitwise; a fault in every dispatch
+               raises CorruptionDetectedError; the overhead (median of
+               interleaved rounds) beside decide_verify's and verify=
+               "auto"'s decision, against the JAX package's 25 % gate
+               (printed, not fatal).  (f)'s batch of 16 under
+               multiply_batched(verify=) runs looped, bitwise; fused=True
+               with verify= raises.  run_injection_matrix on 1x1 and 2x2
+               with the smm kernel: all green.  One {"phase8": ...} line.
 
 Prints a {"kernels": [...]} line, the nvidia-smi line, and as its last
 line {"ok": true, "device": {...}}.  Any failed check raises, so the
@@ -1503,6 +1536,610 @@ def planner_cases(dev, card, zero_counters, read_counters) -> dict:
     return summary
 
 
+# ---------------------------------------------------------------------------
+# phase 8: purification (u) and self-verifying multiplies (v)
+# ---------------------------------------------------------------------------
+
+PUR_N = 15840        # (u): (p)'s matrix, 720^2 blocks of 22 on 4x4
+PUR_ITERS = 10
+# (u): max |P - exact density| after PUR_ITERS iterations.  The exact
+# density of banded_hamiltonian is the diagonal parity projector; the
+# iteration converges to it quadratically and filter(1e-6) drops any
+# block below 1e-6, so what is left is f32 rounding of entries 0 and 1
+# (observed 0.0 at n 1,760 on the CPU).
+PUR_TOL = 1e-6
+ABFT_GATE = 0.25     # the JAX package's gate on the measured overhead
+ABFT_NL, ABFT_P = 3960, 4        # (v): one rank's side; the 4x4 grid
+ABFT_BATCH = (16, 1980)          # (v): (f)'s batch
+
+
+class HostSplit:
+    """Exclusive host time of named functions of the port: each module
+    attribute the port looks up at call time is wrapped while the split
+    is open; a function's time excludes the wrapped functions it calls."""
+
+    def __init__(self, targets):
+        self.totals = {label: 0.0 for label, _, _ in targets}
+        self._stack = []
+        self._undo = []
+        for label, mod, attr in targets:
+            fn = getattr(mod, attr)
+            setattr(mod, attr, self._wrap(label, fn))
+            self._undo.append((mod, attr, fn))
+
+    def _wrap(self, label, fn):
+        def timed(*args, **kw):
+            self._stack.append(0.0)
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                dt = time.perf_counter() - t
+                inner = self._stack.pop()
+                self.totals[label] += dt - inner
+                if self._stack:
+                    self._stack[-1] += dt
+        return timed
+
+    def take(self) -> dict:
+        out = dict(self.totals)
+        for label in self.totals:
+            self.totals[label] = 0.0
+        return out
+
+    def close(self):
+        for mod, attr, fn in reversed(self._undo):
+            setattr(mod, attr, fn)
+
+
+class KernelClock:
+    """CUDA events around every stack-kernel launch: the engine resolves
+    its stack processor (``engine._resolve_process``) at each execution,
+    and the clock wraps what it returns while open; ``take()`` syncs and
+    returns the seconds since the last take."""
+
+    def __init__(self):
+        import torch
+
+        from repro_torch.core import engine
+
+        self._engine, self._resolve = engine, engine._resolve_process
+        self._events = []
+
+        def resolve(kernel):
+            fn = self._resolve(kernel)
+
+            def timed(*args, **kw):
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(*args, **kw)
+                stop.record()
+                self._events.append((start, stop))
+                return out
+
+            return timed
+
+        engine._resolve_process = resolve
+
+    def take(self) -> float:
+        import torch
+
+        torch.cuda.synchronize()
+        s = sum(a.elapsed_time(b) for a, b in self._events) / 1e3
+        self._events = []
+        return s
+
+    def close(self):
+        self._engine._resolve_process = self._resolve
+
+
+def host_targets():
+    """The host planning functions the (u) split times, by label."""
+    from repro_torch.core import dbcsr as dbcsr_mod
+    from repro_torch.core import engine
+    from repro_torch.core import multiply as mult
+    from repro_torch.planner import plan as pplan
+    from repro_torch.robustness import abft
+    from repro_torch.sparsity import balance, norms
+    from repro_torch.sparsity import filter as sfilter
+
+    steps = [("step masks and norms", mult, name) for name in (
+        "cannon_rank_steps", "cannon_step_masks", "cannon_step_norms",
+        "summa_rank_steps", "summa_step_masks", "summa_step_norms",
+        "summa_gather_rank_steps", "summa_gather_masks",
+        "summa_gather_norms", "ts_rank_steps", "ts_step_masks",
+        "ts_step_norms", "_masks_empty")]
+    return steps + [
+        ("product_mask", sfilter, "product_mask"),
+        ("fingerprints", engine, "_array_fingerprint"),
+        ("retained_block_weights", balance, "retained_block_weights"),
+        ("mask expansion", dbcsr_mod, "_expand_mask"),
+        ("block norms", norms, "block_norms_of"),
+        ("occupancy", engine, "_mask_fill"),
+        ("stack plans", engine, "_build_executor_plan_cached"),
+        ("rank plan concat", engine, "_concat_rank_plans"),
+        ("planner", pplan, "plan_multiply"),
+        ("abft", abft, "verify_and_repair"),
+    ]
+
+
+def purification(dev, card, zero_counters, read_counters, report) -> dict:
+    """(u): McWeeny purification at (p)'s size on a simulated 4x4 mesh,
+    blocked with the smm kernel, union then rank-exact, then 3 verified
+    iterations; one smm row at a rank-exact step of its peak iterate."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import dbcsr, engine
+    from repro_torch.core.blocking import GridSpec
+    from repro_torch.examples.purification import (FILTER_EPS,
+                                                   purification_checks)
+    from repro_torch.kernels.smm.ref import smm_process_stack_ref
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sparsity.workloads import (banded_hamiltonian,
+                                                initial_density,
+                                                mcweeny_purify)
+
+    N, BS = PUR_N, 22
+    t = time.perf_counter()
+    H, mask = banded_hamiltonian(N, BS)
+    P0h = initial_density(H)
+    del H
+    mesh = make_mesh((4, 4), ("data", "model"))
+    P0 = dbcsr.create(P0h.astype(np.float32), mesh=mesh,
+                      grid=GridSpec("data", "model"), block_size=BS,
+                      block_mask=mask)
+    del P0h
+    nb = N // BS
+    print(f"phase 8 (u): McWeeny purification, {N}^2 in {nb}^2 blocks of "
+          f"{BS} on a 4x4 mesh of simulated ranks ({N // 4}^2 a rank), "
+          f"filter_eps {FILTER_EPS:g}, blocked smm, {PUR_ITERS} iterations; "
+          f"set-up {time.perf_counter() - t:.1f} s (host numpy H and P0, "
+          f"float64); P0 occupancy {P0.occupancy:.4f}, tr(P0) "
+          f"{float(P0.trace()):.2f}, electrons {N // 2}")
+    base_kw = dict(densify=False, local_kernel="smm")
+    exact = torch.zeros(N, device=dev)
+    exact[0::2] = 1.0
+    split = HostSplit(host_targets())
+    clock = KernelClock()
+    out = {"n": N, "block": BS, "eps": FILTER_EPS, "runs": {}}
+    try:
+        def trajectory(name, iters, keep=(), converged=True, **extra):
+            P, trace, kept = P0, [], {}
+            print(f"  (u) {name}: iter occupancy blocks retained filtered "
+                  f"busiest idempotency tr(P) smm_launches smm_ms wall_ms "
+                  f"host_ms | host split ms")
+            for it in range(iters):
+                split.take()
+                clock.take()
+                zero_counters()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                P, (e,) = mcweeny_purify(
+                    P, mesh=mesh, n_iter=1, filter_eps=FILTER_EPS,
+                    multiply_kw=dict(base_kw, **extra))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+                kernel = clock.take()
+                got = read_counters()
+                host = split.take()
+                e.update(iteration=it, smm_launches=got["smm"],
+                         smm_ms=1e3 * kernel, wall_ms=1e3 * wall,
+                         host_ms=1e3 * (wall - kernel),
+                         host_split_ms={k: 1e3 * v for k, v in host.items()
+                                        if v > 0})
+                trace.append(e)
+                if it in keep:
+                    kept[it] = P
+                top = sorted(e["host_split_ms"].items(),
+                             key=lambda kv: -kv[1])
+                print(f"    {it:2d} {e['occupancy']:.5f} {e['n_blocks']:6d} "
+                      f"{e.get('n_retained_triples', 0):9d} "
+                      f"{e.get('n_norm_filtered_triples', 0):9d} "
+                      f"{e.get('max_rank_entries', 0):9d} "
+                      f"{e['idempotency']:.3e} {e['trace_P']:.2f} "
+                      f"{got['smm']:3d} {1e3 * kernel:8.2f} "
+                      f"{1e3 * wall:9.1f} {1e3 * (wall - kernel):9.1f} | "
+                      + ", ".join(f"{k} {v:.1f}" for k, v in top))
+            out["runs"][name] = {"trace": trace}
+            if converged:
+                err = float((P.data - torch.diag(exact)).abs().max())
+                print(f"  (u) {name}: max |P - exact density| {err:.3e} "
+                      f"(tolerance {PUR_TOL:g})")
+                if not err <= PUR_TOL:
+                    raise AssertionError(f"(u) {name}: P is {err:.3e} from "
+                                         "the exact density")
+                out["runs"][name]["max_err_exact"] = err
+            return P, trace, kept
+
+        _, union, _ = trajectory("union", PUR_ITERS, rank_exact=False)
+        occs = [e["occupancy"] for e in union]
+        peak = occs.index(max(occs))
+        P_r, exact_tr, kept = trajectory("rank-exact", PUR_ITERS,
+                                         keep=(2, peak))
+        for name, tr in (("union", union), ("rank-exact", exact_tr)):
+            ok = purification_checks(tr, union if name == "rank-exact"
+                                     else tr, N)
+            print(f"  (u) {name}: {ok}")
+            if not (ok["monotone"] and ok["decayed"] and ok["electrons"]):
+                raise AssertionError(f"(u) {name}: purification properties "
+                                     f"{ok}")
+            if name == "rank-exact" and not ok["shrunk"]:
+                raise AssertionError("(u) rank-exact did not shrink the "
+                                     "busiest rank's load on every iteration")
+            out["runs"][name]["checks"] = ok
+        if sum(e["smm_launches"] for e in exact_tr) < 1:
+            raise AssertionError("(u) no smm launch")
+        for name in ("union", "rank-exact"):
+            tr = out["runs"][name]["trace"]
+            wall = sum(e["wall_ms"] for e in tr)
+            kern = sum(e["smm_ms"] for e in tr)
+            split_tot = {}
+            for e in tr:
+                for k, v in e["host_split_ms"].items():
+                    split_tot[k] = split_tot.get(k, 0.0) + v
+            split_tot["other host (wall - smm - the above)"] = (
+                wall - kern - sum(split_tot.values()))
+            out["runs"][name]["totals_ms"] = {"wall": wall, "smm": kern,
+                                             **split_tot}
+            print(f"  (u) {name} over {PUR_ITERS} iterations: wall "
+                  f"{wall:.1f} ms, smm {kern:.1f} ms; host split ms: "
+                  + ", ".join(f"{k} {v:.1f}" for k, v in sorted(
+                      split_tot.items(), key=lambda kv: -kv[1])))
+
+        # 3 iterations with verify="checksum": no detection, bitwise the
+        # unverified rank-exact iterates
+        real = dbcsr.multiply
+        reports = []
+
+        def spy(*args, **kw):
+            res = real(*args, **kw)
+            c = res[0] if isinstance(res, tuple) else res
+            reports.append(c.verification)
+            return res
+
+        # the same 3 iterations unverified before and after, their plans
+        # memoized as the verified run's are
+        _, warm0, _ = trajectory("rank-exact again", 3, converged=False)
+        dbcsr.multiply = spy
+        try:
+            P_v, ver_tr, _ = trajectory("rank-exact verify=checksum", 3,
+                                        converged=False, verify="checksum")
+        finally:
+            dbcsr.multiply = real
+        _, warm1, _ = trajectory("rank-exact again", 3, converged=False)
+        bad = [r for r in reports
+               if not r["enabled"] or r["report"].detected]
+        if bad or len(reports) != 6:
+            raise AssertionError(f"(u) verified iterations: {len(reports)} "
+                                 f"multiplies, {len(bad)} not clean")
+        if not torch.equal(P_v.data, kept[2].data):
+            raise AssertionError("(u) verified iterates differ from the "
+                                 "unverified ones")
+        over = [2.0 * v["wall_ms"] / (u0["wall_ms"] + u1["wall_ms"]) - 1.0
+                for v, u0, u1 in zip(ver_tr, warm0, warm1)]
+        fracs = [r["overhead_frac"] for r in reports]
+        print(f"  (u) verify=checksum: 6 multiplies, no detection, bitwise "
+              f"the unverified iterates; iteration wall overhead against "
+              f"the mean of the unverified runs before and after "
+              + ", ".join(f"{100 * x:.1f} %" for x in over)
+              + "; decide_verify overhead_frac "
+              + ", ".join(f"{100 * x:.1f} %" for x in fracs))
+        out["verify"] = {"wall_overhead": over, "overhead_frac": fracs}
+        del P_v, P_r
+
+        # smm at the shape (u) gives it: the largest rank-exact launch of
+        # P_peak @ P_peak, replayed against its plain version
+        P_pk = kept[peak]
+        seen = {}
+        real_exec = engine.execute_rank_plan
+
+        def capture(plan, a_blocks, b_blocks, c_blocks, **kw):
+            rows_ = int(plan.triples.shape[0])
+            if rows_ > seen.get("rows", -1):
+                seen.update(rows=rows_, plan=plan, a=a_blocks, b=b_blocks,
+                            c=c_blocks.clone())
+            return real_exec(plan, a_blocks, b_blocks, c_blocks, **kw)
+
+        engine.execute_rank_plan = capture
+        try:
+            dbcsr.multiply(P_pk, P_pk, mesh=mesh, filter_eps=FILTER_EPS,
+                           **base_kw)
+        finally:
+            engine.execute_rank_plan = real_exec
+    finally:
+        split.close()
+        clock.close()
+    rp, a_blk, b_blk, c0 = (seen["plan"], seen["a"], seen["b"], seen["c"])
+    c = c0.clone()
+    ms = time_ms(lambda: real_exec(rp, a_blk, b_blk, c), 3,
+                 setup=lambda: c.copy_(c0))
+    c.copy_(c0)
+    real_exec(rp, a_blk, b_blk, c)
+    out_k = c.clone()
+    trip, runs = rp.device_triples(dev)
+    R = a_blk.shape[0]
+    flat = (a_blk.reshape((-1, BS, BS)), b_blk.reshape((-1, BS, BS)),
+            c.view(-1, BS, BS))
+
+    def plain():
+        for s0 in range(0, trip.shape[0], 30000):
+            smm_process_stack_ref(*flat, trip[s0:s0 + 30000])
+
+    plain_ms = time_ms(plain, 1, setup=lambda: c.copy_(c0))
+    c.copy_(c0)
+    plain()
+    err = check_close(f"smm (u) rank-exact launch of iterate {peak}, kernel "
+                      "vs plain", out_k, c)
+    a_r = (a_blk.reshape(R, rp.nbr, rp.nbk, BS, BS).permute(0, 1, 3, 2, 4)
+           .reshape(R, rp.nbr * BS, rp.nbk * BS))
+    b_r = (b_blk.reshape(R, rp.nbk, rp.nbc, BS, BS).permute(0, 1, 3, 2, 4)
+           .reshape(R, rp.nbk * BS, rp.nbc * BS))
+    lib_ms = time_ms(lambda: torch.bmm(a_r, b_r), 3)
+    tri = rp.triples
+    valid = tri[:, 3] != 0 if tri.shape[1] > 3 else np.ones(len(tri), bool)
+    used = [np.unique(tri[valid, i]).size for i in range(3)]
+    row = report(
+        "smm", f"(u) one rank-exact launch of P @ P at iterate {peak} "
+        f"({R} ranks, {rp.nbr * BS}^2 a rank, block {BS})", ms, plain_ms,
+        lib_ms, 2.0 * int(valid.sum()) * BS ** 3,
+        4 * BS * BS * (used[0] + used[1] + 2 * used[2])
+        + 16 * tri.shape[0] + 4 * int(runs.shape[0]), 1)
+    row["max_abs_err"] = err
+    row["rows"] = int(tri.shape[0])
+    out["smm_row"] = {k: row[k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "library_ms")}
+    del a_r, b_r, flat, c, c0, out_k, seen, kept, P_pk, P0
+    torch.cuda.empty_cache()
+    return out, row
+
+
+def abft(dev, card, zero_counters, read_counters) -> dict:
+    """(v): verify="checksum" against verify=None at five points, the
+    batch of 16 under multiply_batched, and the injection matrices."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import dbcsr
+    from repro_torch.core import multiply as mult
+    from repro_torch.core.blocking import GridSpec
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.robustness import chaos, guards
+    from repro_torch.sparsity.norms import compute_block_norms
+
+    NL, BS, P = ABFT_NL, 22, ABFT_P
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    rng = np.random.RandomState(SEED + 8)
+    grid = GridSpec("data", "model")
+    mesh11 = make_mesh((1, 1), ("data", "model"))
+    mesh44 = make_mesh((P, P), ("data", "model"))
+    rows = []
+
+    def dense(n):
+        return torch.randn((n, n), generator=gen, device=dev)
+
+    def gap_eps(a, am, b, q=50.0):
+        """An eps near the q-th percentile of the present triples' norm
+        products, in the widest gap among the 2,000 products around it
+        (all products, sorted on the card).  Cannon's step plans compare
+        f32 products with eps while the tolerance's dropped mass forms
+        them in f64, so a product within f32 rounding of eps could be
+        dropped by one and kept by the other (as phase 2 does for (c))."""
+        an = torch.tensor(np.where(am, a.norms(), 0), dtype=torch.float64,
+                          device=dev)
+        bn = torch.tensor(b.norms(), dtype=torch.float64, device=dev)
+        ii, kk = np.nonzero(am)
+        ii, kk = torch.from_numpy(ii).to(dev), torch.from_numpy(kk).to(dev)
+        prod = (an[ii, kk][:, None] * bn[kk]).flatten().sort().values
+        mid = int(prod.numel() * q / 100.0)
+        half = max(min(1000, prod.numel() // 400), 1)
+        win = prod[max(mid - half, 0):mid + half + 1]
+        i = int(torch.argmax(win[1:] / win[:-1]))
+        eps = float(torch.sqrt(win[i] * win[i + 1]))
+        del an, bn, prod, win
+        return eps
+
+    def margin(res, tol):
+        """The largest residual / tolerance where the tolerance is not 0
+        (a block row of zeros has both 0)."""
+        ok = tol > 0
+        return float(np.max(res[ok] / tol[ok])) if ok.any() else 0.0
+
+    def point(label, mesh, a, b, reps, **kw):
+        kw = dict(mesh=mesh, algorithm="cannon", **kw)
+        zero_counters()
+        clean = dbcsr.multiply(a, b, **kw)
+        got = read_counters()
+        cv, plan = dbcsr.multiply(a, b, verify="checksum", return_plan=True,
+                                  **kw)
+        info = plan.verification
+        rep = info["report"]
+        if not info["enabled"] or rep.detected:
+            raise AssertionError(f"(v) {label}: clean run {info}")
+        if not torch.equal(cv.data, clean.data):
+            raise AssertionError(f"(v) {label}: verified != unverified")
+        del cv
+        norms = compute_block_norms(clean.data, BS, BS)
+        i0, j0 = (int(x) for x in np.unravel_index(int(np.argmax(norms)),
+                                                     norms.shape))
+        line = {"case": label, "launches": {k: v for k, v in got.items()
+                                            if v},
+                "clean_margin": max(margin(rep.row_residual, rep.row_tol),
+                                    margin(rep.col_residual, rep.col_tol)),
+                "block": [i0, j0], "modes": {}}
+        for mode in ("bitflip", "nan", "scale"):
+            # the corruption's own checksum signature: one block moves
+            # each checksum element of its block row and column by the
+            # element it changes, so detection (and exact localization)
+            # is guaranteed when the largest change exceeds both
+            # tolerances plus the clean residuals
+            delta = (chaos.FaultInjector(seed=SEED).corrupt_block(
+                clean.data, i0, j0, block_m=BS, block_n=BS, mode=mode)
+                - clean.data)[i0 * BS:(i0 + 1) * BS, j0 * BS:(j0 + 1) * BS]
+            sig = float(delta.double().abs().max())
+            need_r = rep.row_tol[i0] + rep.row_residual[i0]
+            need_c = rep.col_tol[j0] + rep.col_residual[j0]
+            guaranteed = not (sig <= max(need_r, need_c))
+            hook = chaos.FaultInjector(seed=SEED).one_shot_result_hook(
+                i0, j0, block_m=BS, block_n=BS, mode=mode)
+            with chaos.result_corruption(hook):
+                cr, pl = dbcsr.multiply(a, b, verify="checksum",
+                                        return_plan=True, **kw)
+            r = pl.verification["report"]
+            res = {"signature_over_tol": sig / max(need_r, need_c),
+                   "guaranteed": guaranteed, "detected": r.detected,
+                   "localized_exact": r.flagged_blocks == ((i0, j0),),
+                   "flagged_rows": list(r.flagged_rows[:8]),
+                   "flagged_cols": list(r.flagged_cols[:8]),
+                   "repaired": r.repaired,
+                   "bitwise_clean": bool(torch.equal(cr.data, clean.data))}
+            line["modes"][mode] = res
+            del cr
+            ok = (res["detected"] and res["localized_exact"]
+                  and res["repaired"] and res["bitwise_clean"])
+            if guaranteed and not ok:
+                raise AssertionError(f"(v) {label} {mode}: {res}")
+            if r.detected and not (r.repaired and res["bitwise_clean"]):
+                raise AssertionError(f"(v) {label} {mode}: detected but not "
+                                     f"repaired bitwise: {res}")
+        # a persistent fault (every dispatch corrupted, the repair too)
+        real = mult.cannon_matmul
+
+        def corrupted(*args, **kwargs):
+            return chaos.corrupt_block(real(*args, **kwargs), i0, j0,
+                                       block_m=BS, block_n=BS, mode="nan")
+
+        mult.cannon_matmul = corrupted
+        try:
+            dbcsr.multiply(a, b, verify="checksum", **kw)
+            raise AssertionError(f"(v) {label}: a persistent fault passed")
+        except guards.CorruptionDetectedError:
+            line["persistent_raises"] = True
+        finally:
+            mult.cannon_matmul = real
+        auto = dbcsr.multiply(a, b, verify="auto", **kw).verification
+        t_none, t_ver = time_interleaved(
+            [lambda: dbcsr.multiply(a, b, **kw),
+             lambda: dbcsr.multiply(a, b, verify="checksum", **kw)], reps)
+        over = t_ver / t_none - 1.0
+        line.update(none_ms=1e3 * t_none, checksum_ms=1e3 * t_ver,
+                    overhead=over, predicted_ms=1e3 * plan.predicted_s,
+                    overhead_frac=info["overhead_frac"],
+                    predicted_overhead_ms=1e3 * info["predicted_overhead_s"],
+                    auto_enabled=auto["enabled"])
+        rows.append(line)
+        def outcome(x):
+            if not x["detected"]:
+                return "MISSED"
+            where = ("exact" if x["localized_exact"] else
+                     f"rows {x['flagged_rows']} x cols {x['flagged_cols']}")
+            return (f"detected, {where}, repaired"
+                    + (" bitwise" if x["bitwise_clean"] else " NOT bitwise"))
+
+        modes = "; ".join(
+            f"{m} {outcome(x)} (largest change / tolerance "
+            f"{x['signature_over_tol']:.3g}"
+            + (")" if x["guaranteed"] else ": not guaranteed)")
+            for m, x in line["modes"].items())
+        print(f"  (v) {label}: launches {line['launches']}; clean: no "
+              f"detection (max residual / tolerance "
+              f"{line['clean_margin']:.3g}); block ({i0}, {j0}): {modes}; "
+              f"persistent NaN raises CorruptionDetectedError\n"
+              f"      verify=None {1e3 * t_none:.3f} ms, checksum "
+              f"{1e3 * t_ver:.3f} ms: overhead {100 * over:.1f} % (gate "
+              f"{100 * ABFT_GATE:.0f} %: "
+              f"{'within' if over <= ABFT_GATE else 'MISSED, not fatal'}); "
+              f"decide_verify predicts "
+              f"{1e3 * info['predicted_overhead_s']:.3f} ms = "
+              f"{100 * info['overhead_frac']:.1f} % of predicted "
+              f"{1e3 * plan.predicted_s:.3f} ms; verify=\"auto\" "
+              f"{'enables' if auto['enabled'] else 'declines'}")
+        return line
+
+    print(f"phase 8 (v): verify=\"checksum\" against verify=None, algorithm="
+          f"\"cannon\" pinned ({card})")
+    A = dbcsr.create(dense(NL), mesh=mesh11, block_size=BS)
+    B = dbcsr.create(dense(NL), mesh=mesh11, block_size=BS)
+    point(f"(a) {NL}^2 block 22 blocked, depth 1", mesh11, A, B, 5,
+          densify=False, pipeline_depth=1)
+    point(f"(a) {NL}^2 densified pallas (tiled_matmul)", mesh11, A, B, 5,
+          densify=True, local_kernel="pallas")
+    nb = NL // BS
+    am = rng.rand(nb, nb) < 0.2
+    Am = dbcsr.create(dense(NL), mesh=mesh11, block_size=BS, block_mask=am)
+    for q in (50.0, 1.0):
+        eps = gap_eps(Am, am, B, q)
+        point(f"(c) A 20 % fill, blocked, eps {eps:.4g} (percentile {q:g} "
+              "of the norm products)", mesh11, Am, B, 5, densify=False,
+              filter_eps=eps)
+    del A, B, Am
+    N = P * NL
+    A = dbcsr.create(dense(N), mesh=mesh44, grid=grid, block_size=BS)
+    B = dbcsr.create(dense(N), mesh=mesh44, grid=grid, block_size=BS)
+    point(f"(o) {N}^2 4x4 densified pallas (grouped_gemm)", mesh44, A, B, 3,
+          densify=True, local_kernel="pallas")
+    am = rng.rand(N // BS, N // BS) < 0.2
+    Am = dbcsr.create(A.data, mesh=mesh44, grid=grid, block_size=BS,
+                      block_mask=am)
+    del A
+    eps = gap_eps(Am, am, B)
+    point(f"(p) {N}^2 4x4 blocked rank-exact, A 20 % fill, eps {eps:.4g}",
+          mesh44, Am, B, 3, densify=False, filter_eps=eps)
+    del Am, B
+    torch.cuda.empty_cache()
+
+    # (f)'s batch of 16 under verify: looped, bitwise the unverified loop
+    G, NB = ABFT_BATCH
+    reqs = [(dbcsr.create(dense(NB), mesh=mesh11, block_size=BS),
+             dbcsr.create(dense(NB), mesh=mesh11, block_size=BS))
+            for _ in range(G)]
+    bkw = dict(mesh=mesh11, algorithm="cannon", densify=False)
+    out, rep = dbcsr.multiply_batched(reqs, verify="checksum",
+                                      return_plan=True, **bkw)
+    looped = dbcsr.multiply_batched(reqs, fused=False, **bkw)
+    if any(b["fused"] for b in rep["buckets"]):
+        raise AssertionError("(v) (f) under verify= ran fused")
+    for x, y in zip(out, looped):
+        if not torch.equal(x.data, y.data) or \
+                x.verification["report"].detected:
+            raise AssertionError("(v) (f) verified batch differs or detects")
+    try:
+        dbcsr.multiply_batched(reqs, verify="checksum", fused=True, **bkw)
+        raise AssertionError("(v) fused=True with verify= did not raise")
+    except ValueError:
+        pass
+    print(f"  (v) (f) {G} x {NB}^2 multiply_batched(verify=\"checksum\"): "
+          "looped, no detection, bitwise the unverified loop; fused=True "
+          "with verify= raises ValueError")
+    del reqs, out, looped
+
+    matrix = {}
+    for name, shape in (("1x1", (1, 1)), ("2x2", (2, 2))):
+        mrows = chaos.run_injection_matrix(
+            make_mesh(shape, ("data", "model")), name, local_kernel="smm")
+        bad = [r for r in mrows if not r["ok"]]
+        inj = [r for r in mrows if r["injected_block"] is not None]
+        fp = sum(r["detected"] for r in mrows if r["injected_block"] is None)
+        print(f"  (v) run_injection_matrix {name}, smm: {len(inj)} "
+              f"injections, {sum(r['ok'] for r in inj)} detected, exact, "
+              f"repaired, bitwise; {len(mrows) - len(inj)} clean runs, "
+              f"{fp} false positives")
+        if bad:
+            raise AssertionError(f"(v) injection matrix {name}: {bad}")
+        matrix[name] = len(mrows)
+    return {"points": rows, "matrix_rows": matrix}
+
+
+def robustness(dev, card, zero_counters, read_counters, report) -> list:
+    """Phase 8; returns the smm row of (u) for the kernels line."""
+    pur, row = purification(dev, card, zero_counters, read_counters, report)
+    ver = abft(dev, card, zero_counters, read_counters)
+    print(json.dumps({"phase8": {"card": card, "purification": pur,
+                                 "abft": ver}}))
+    return [row]
+
+
 def main() -> int:
     import torch
 
@@ -2218,6 +2855,13 @@ def main() -> int:
     # ---------------------------------------------------------- phase 7
     print(f"phase 7: the multiply planner ({card})")
     planner(dev, card, zero_counters, read_counters)
+
+    # ---------------------------------------------------------- phase 8
+    print(f"phase 8: purification and self-verifying multiplies ({card})")
+    torch.cuda.empty_cache()
+    for row in robustness(dev, card, zero_counters, read_counters, report):
+        err_abs["smm"] = max(err_abs["smm"], row.pop("max_abs_err"))
+        smm_rows.append(row)
 
     for key, n in launches.items():
         if n < 1:

@@ -8,7 +8,8 @@ densification pass (densify.py).
 
 Everything in this module is host-side and static: plain ints and
 numpy.  ``morton_order`` must stay byte-equal to the JAX package's, so
-the stack plans of the two packages are identical.
+the stack plans of the two packages are identical; ``ceil_div`` and
+``pad_to_multiple`` are the same integer helpers as the JAX package's.
 """
 from __future__ import annotations
 
@@ -17,7 +18,16 @@ from typing import Tuple
 
 import numpy as np
 
-__all__ = ["BlockLayout", "GridSpec", "morton_order"]
+__all__ = ["BlockLayout", "GridSpec", "ceil_div", "morton_order",
+           "pad_to_multiple"]
+
+
+def ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def pad_to_multiple(n: int, m: int) -> int:
+    return ceil_div(n, m) * m
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +60,10 @@ class BlockLayout:
     @property
     def nblock_cols(self) -> int:
         return self.cols // self.block_cols
+
+    @property
+    def nblocks(self) -> int:
+        return self.nblock_rows * self.nblock_cols
 
 
 @dataclasses.dataclass(frozen=True)

@@ -284,8 +284,21 @@ def multiply(
     ``MultiplyPlan``: ``explain()`` lists every candidate's predicted
     cost; ``executor_stats`` what ran), and ``return_plan=True``
     returns ``(C, plan)``, whose plan also holds the schedule's per-step
-    split (``schedule_stats``, None on ``last_plan`` otherwise).  ``verify`` is ROADMAP
-    Queue A8 and raises.
+    split (``schedule_stats``, None on ``last_plan`` otherwise).
+
+    ``verify`` — ABFT self-verification (repro_torch.robustness):
+    ``"checksum"`` verifies the raw product against block checksums
+    *before* the result mask is applied (tolerances scaled by the norm
+    cache and the eps-dropped mass), localizes a corrupted block,
+    repairs it by one re-run of the same dispatch (bitwise equal to a
+    clean run) and raises ``guards.CorruptionDetectedError`` when the
+    corruption survives; operands are screened by the NaN/Inf tripwires
+    first.  ``"auto"`` verifies only when the planner prices the
+    checksum overhead within ``verify_budget`` (default 25 %) of the
+    plan's predicted time.  ``None`` (default) adds no work: bitwise the
+    unverified multiply.  The outcome is ``C.verification`` (and
+    ``plan.verification``): the pricing decision and, when it ran, the
+    ``VerificationReport``.
     """
     from .multiply import _distributed_matmul
 
@@ -308,6 +321,7 @@ def multiply(
                                 b.layout.block_cols)
     c = DBCSRMatrix(c_data, c_layout, a.grid, mask)
     c.last_plan = plan
+    c.verification = plan.verification
     return (c, plan) if return_plan else c
 
 
@@ -341,17 +355,25 @@ def _bucket_key(a: DBCSRMatrix, b: DBCSRMatrix,
 
 
 def _execute_bucket(group, *, mesh, algorithm, densify, filter_eps, fused,
-                    **kw):
+                    verify=None, **kw):
     """Run one bucket of same-key requests: fused (one batched dispatch)
     or looped (per-request ``multiply``), per the planner's fuse-or-loop
     pricing unless ``fused`` pins it.  ``fused=None`` fuses a bucket of
     more than one request of a batch-capable algorithm when
     ``plan_multiply_batched`` prices one fused dispatch (over the
     requests' mean occupancy, with their spread as padding) below the
-    loop."""
+    loop.  ``verify`` forces the looped path: ABFT checksums verify one
+    product at a time (as in the JAX package, which has no verification
+    of the fused dispatch)."""
     from .multiply import _global_occupancy
     from .multiply_batched import BATCHED_ALGORITHMS
 
+    if verify is not None:
+        if fused:
+            raise ValueError(
+                "verify= requires the looped path (ABFT on the fused "
+                "batched dispatch is not implemented); drop fused=True")
+        fused = False
     a0, b0 = group[0]
     g = len(group)
     an = bn = None
@@ -397,7 +419,8 @@ def _execute_bucket(group, *, mesh, algorithm, densify, filter_eps, fused,
 
     if not fuse:
         out = [multiply(a, b, mesh=mesh, algorithm=algorithm,
-                        densify=densify, filter_eps=filter_eps, **kw)
+                        densify=densify, filter_eps=filter_eps,
+                        verify=verify, **kw)
                for a, b in group]
         return out, {"fused": False, "plan": plan}
 
@@ -464,7 +487,10 @@ def multiply_batched(
     carries its bucket's executed ``BatchedMultiplyPlan`` as
     ``last_plan`` (a looped one its own ``MultiplyPlan``).
 
-    ``verify`` (ABFT) is ROADMAP Queue A8 and raises.
+    ``verify``: per-request ABFT verification with the semantics of
+    ``multiply(verify=...)``; it forces the looped path, so a verified
+    bucket trades the fusion win for per-request detection and repair
+    (``fused=True`` with ``verify`` raises ``ValueError``).
 
     ``return_plan=True`` returns ``(results, report)``: per bucket the
     key, request count and indices, the fuse-or-loop decision, ``"plan"``
@@ -472,9 +498,6 @@ def multiply_batched(
     planner did not price) and, for a fused bucket, the fused dispatch's
     ``executor_stats`` (padding, plan sharing; None when densified).
     """
-    if verify is not None:
-        raise NotImplementedError(
-            "ABFT verification is not ported yet: ROADMAP Queue A8")
     requests = list(requests)
     if not requests:
         return ([], {"n_requests": 0, "n_buckets": 0, "buckets": []}) \
@@ -487,7 +510,8 @@ def multiply_batched(
     for key, idxs in buckets.items():
         out, rep = _execute_bucket(
             [requests[i] for i in idxs], mesh=mesh, algorithm=algorithm,
-            densify=densify, filter_eps=filter_eps, fused=fused, **kw)
+            densify=densify, filter_eps=filter_eps, fused=fused,
+            verify=verify, **kw)
         for i, c in zip(idxs, out):
             results[i] = c
         bucket_reports.append({

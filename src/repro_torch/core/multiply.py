@@ -44,7 +44,9 @@ Planning (repro_torch.planner): ``algorithm="auto"`` (the default) and
 replication) with the cost model, on the global occupancy (norm-predicted
 under ``filter_eps``) and the per-rank load imbalance of the C-chunk
 decomposition; ``rebalance=None`` follows the plan's costed decision.
-ABFT verification (``verify=``) is ROADMAP Queue A8 and raises.
+ABFT verification (``verify=``, repro_torch.robustness.abft) checks the
+raw product against block checksums computed by a separate GEMM path,
+and repairs a corrupted block by re-running the same dispatch once.
 Telemetry (A9) does not exist in the port yet.
 """
 from __future__ import annotations
@@ -466,6 +468,45 @@ def _rank_imbalance_of(totals: Optional[np.ndarray]) -> Optional[float]:
     return float(totals.max()) / mean if mean > 0 else 1.0
 
 
+def _verified_result(verify, a, b, c, rerun, *, plan, n_ranks, block_m,
+                     block_k, block_n, a_mask, b_mask, a_norms, b_norms,
+                     filter_eps, verify_budget):
+    """ABFT verification of a raw product (repro_torch.robustness.abft):
+    price the checksum overhead against the plan (``verify="auto"``),
+    screen the operands with the finite tripwires, apply any installed
+    chaos hook (test-only corruption, modelling a soft error between
+    compute and verification), then verify / one-shot-repair through
+    ``rerun``.  Returns ``(c, verification_dict)``; the dict lands on
+    the plan as ``plan.verification``."""
+    from ..planner.plan import decide_verify, itemsize_of
+
+    m, k = a.shape
+    n = b.shape[1]
+    pricing = decide_verify(
+        plan, m, k, n, blocks=(block_m, block_k, block_n), n_ranks=n_ranks,
+        itemsize=itemsize_of(torch.promote_types(a.dtype, b.dtype)),
+        budget=verify_budget)
+    enabled = verify == "checksum" or (verify == "auto"
+                                       and pricing["auto_enabled"])
+    if plan is not None and plan.trivial:
+        enabled = False  # empty product: nothing executed to corrupt
+    info = {"mode": verify, "enabled": enabled, **pricing, "report": None}
+    if not enabled:
+        return c, info
+    from ..robustness import abft, chaos, guards
+
+    guards.assert_finite(a, "A")
+    guards.assert_finite(b, "B")
+    c = chaos.apply_result_hook(c)
+    c, report = abft.verify_and_repair(
+        a, b, c, recompute=rerun,
+        block_m=block_m, block_k=block_k, block_n=block_n,
+        a_mask=a_mask, b_mask=b_mask, a_norms=a_norms, b_norms=b_norms,
+        filter_eps=filter_eps)
+    info["report"] = report
+    return c, info
+
+
 def distributed_matmul(
     a: torch.Tensor,
     b: torch.Tensor,
@@ -491,6 +532,7 @@ def distributed_matmul(
     pipeline_depth: Optional[int] = None,
     double_buffer: Optional[bool] = None,
     verify: Optional[str] = None,
+    verify_budget: Optional[float] = None,
     return_plan: bool = False,
     **kw,
 ) -> torch.Tensor:
@@ -543,7 +585,20 @@ def distributed_matmul(
     decision with every candidate's predicted cost (``explain()``), the
     executed blocked plan's statistics (``executor_stats``) and the
     schedule's per-step comm / compute split (``schedule_stats``).
-    ``verify`` (ABFT) is ROADMAP Queue A8 and raises.
+
+    ``verify`` — ABFT self-verification (repro_torch.robustness.abft):
+    ``"checksum"`` verifies the raw product against block checksums
+    (``S_A @ B``, ``A @ T_B`` by ``torch.matmul`` in IEEE f32) with
+    norm-aware tolerances, so float accumulation order and eps filtering
+    never false-positive; a corrupted block is localized and repaired
+    by one re-run of the same dispatch (rank-exact plans, rebalance and
+    all), bitwise equal to a clean run; corruption that survives the
+    repair raises ``guards.CorruptionDetectedError``.  ``"auto"``
+    verifies only when the planner's priced overhead
+    (``planner.plan.decide_verify``) fits ``verify_budget`` (default
+    25 %) of the plan's predicted time.  ``None`` (default) adds no work
+    and is bitwise the unverified multiply.  The outcome lands on the
+    plan as ``plan.verification``.
     """
     c, plan = _distributed_matmul(
         a, b, mesh=mesh, grid=grid, algorithm=algorithm, densify=densify,
@@ -552,8 +607,8 @@ def distributed_matmul(
         a_mask=a_mask, b_mask=b_mask, a_norms=a_norms, b_norms=b_norms,
         filter_eps=filter_eps, stack_bins=stack_bins, rank_exact=rank_exact,
         rebalance=rebalance, pipeline_depth=pipeline_depth,
-        double_buffer=double_buffer, verify=verify, return_plan=return_plan,
-        **kw)
+        double_buffer=double_buffer, verify=verify,
+        verify_budget=verify_budget, return_plan=return_plan, **kw)
     return (c, plan) if return_plan else c
 
 
@@ -582,6 +637,7 @@ def _distributed_matmul(
     pipeline_depth: Optional[int] = None,
     double_buffer: Optional[bool] = None,
     verify: Optional[str] = None,
+    verify_budget: Optional[float] = None,
     return_plan: bool = False,
     schedule_stats: bool = True,
     **kw,
@@ -593,7 +649,8 @@ def _distributed_matmul(
     ``rebalance_imbalance_before`` / ``_after``).  With ``return_plan``
     it returns ``(C, plan)``, the statistics on ``plan.executor_stats``
     and, unless ``schedule_stats=False``, the schedule's per-step split
-    on ``plan.schedule_stats``.
+    on ``plan.schedule_stats``, and ``verify``'s outcome on
+    ``plan.verification``.
     """
     m, k = a.shape
     k2, n = b.shape
@@ -601,9 +658,9 @@ def _distributed_matmul(
         raise ValueError(f"inner dims disagree: {tuple(a.shape)} @ {tuple(b.shape)}")
     if algorithm != "auto" and algorithm not in ALGORITHMS:
         raise ValueError(f"unknown algorithm {algorithm!r}")
-    if verify is not None:
-        raise NotImplementedError(
-            "ABFT verification is not ported yet: ROADMAP Queue A8")
+    if verify not in (None, "checksum", "auto"):
+        raise ValueError(
+            f"verify must be None, 'checksum' or 'auto', got {verify!r}")
     pr, pc = grid.grid_shape(mesh)
     c_stack = grid.stack_size(mesh)
     n_ranks = pr * pc * c_stack
@@ -632,7 +689,7 @@ def _distributed_matmul(
     use_rank = rank_exact is not False and masked and n_ranks > 1
 
     plan = None
-    if algorithm == "auto" or return_plan:
+    if algorithm == "auto" or return_plan or verify is not None:
         from ..planner.plan import plan_multiply
 
         # the per-rank load imbalance of the C-chunk decomposition, for
@@ -700,10 +757,6 @@ def _distributed_matmul(
         if not cand.identity:
             rb = cand
     if rb is not None:
-        from ..sparsity.balance import permute_block_cols, permute_block_rows
-
-        a = permute_block_rows(a, rb.perm_m, block_m)
-        b = permute_block_cols(b, rb.perm_n, block_n)
         am, bmk = am[rb.perm_m], bmk[:, rb.perm_n]
         if an_g is not None:
             an_g, bn_g = an_g[rb.perm_m], bn_g[:, rb.perm_n]
@@ -822,20 +875,42 @@ def _distributed_matmul(
     # ---- data-exchange algorithm (all via the schedule engine) --------
     common = dict(mesh=mesh, grid=grid, local_matmul=lm,
                   pipeline_depth=pipeline_depth)
-    if algorithm == "cannon":
-        c = cannon_matmul(a, b, double_buffer=double_buffer, **common, **kw)
-    elif algorithm == "cannon25d":
-        c = cannon25d_matmul(a, b, double_buffer=double_buffer, **common,
-                             **kw)
-    elif algorithm.startswith("ts_"):
-        c = tall_skinny_matmul(a, b, mode=algorithm, **common, **kw)
-    else:
-        c = summa_matmul(a, b, double_buffer=double_buffer, **common, **kw)
-    if rb is not None:
-        from ..sparsity.balance import permute_block_cols, permute_block_rows
 
-        c = permute_block_rows(c, rb.inv_m, block_m)
-        c = permute_block_cols(c, rb.inv_n, block_n)
+    def _run() -> torch.Tensor:
+        # one deterministic dispatch in the caller's frame: the rebalance
+        # permutation and its inverse stay inside, so an ABFT repair
+        # re-runs exactly this and splices blocks of the same frame
+        a_x, b_x = a, b
+        if rb is not None:
+            from ..sparsity.balance import (permute_block_cols,
+                                            permute_block_rows)
+
+            a_x = permute_block_rows(a, rb.perm_m, block_m)
+            b_x = permute_block_cols(b, rb.perm_n, block_n)
+        if algorithm == "cannon":
+            c = cannon_matmul(a_x, b_x, double_buffer=double_buffer,
+                              **common, **kw)
+        elif algorithm == "cannon25d":
+            c = cannon25d_matmul(a_x, b_x, double_buffer=double_buffer,
+                                 **common, **kw)
+        elif algorithm.startswith("ts_"):
+            c = tall_skinny_matmul(a_x, b_x, mode=algorithm, **common, **kw)
+        else:
+            c = summa_matmul(a_x, b_x, double_buffer=double_buffer,
+                             **common, **kw)
+        if rb is not None:
+            c = permute_block_rows(c, rb.inv_m, block_m)
+            c = permute_block_cols(c, rb.inv_n, block_n)
+        return c
+
+    c = _run()
+    verification = None
+    if verify is not None:
+        c, verification = _verified_result(
+            verify, a, b, c, _run, plan=plan, n_ranks=n_ranks,
+            block_m=block_m, block_k=block_k, block_n=block_n,
+            a_mask=a_mask, b_mask=b_mask, a_norms=a_norms, b_norms=b_norms,
+            filter_eps=filter_eps, verify_budget=verify_budget)
 
     es = _collect_executor_stats(lm, densify, mesh.n_ranks)
     if es is not None:
@@ -857,4 +932,5 @@ def _distributed_matmul(
             pipeline_depth=resolve_pipeline_depth(pipeline_depth,
                                                   double_buffer),
             reduce_kw=kw)
-    return c, dataclasses.replace(plan, executor_stats=es, schedule_stats=ss)
+    return c, dataclasses.replace(plan, executor_stats=es, schedule_stats=ss,
+                                  verification=verification)

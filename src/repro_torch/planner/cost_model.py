@@ -1,5 +1,7 @@
 """Analytic per-algorithm cost models for the multiply planner (a copy
-of the JAX package's ``planner/cost_model.py``: the same formulas; the
+of the JAX package's ``planner/cost_model.py``: the same formulas,
+except that a one-rank mesh is charged no communication and no message
+latency, which then only orders candidates whose totals tie; the
 constants are the H100's own).
 
 The paper's driver layer wins ("up to 2.5x over optimized PDGEMM for
@@ -211,6 +213,10 @@ class CandidateCost:
     # candidate is densified, imbalance-free, or priced by the legacy
     # union model
     imbalance: float = 1.0
+    # one rank only: the schedule's data movement the JAX package's
+    # formulas charge (comm + message latency - overlap) and the port
+    # does not; it orders candidates whose totals tie (0 elsewhere)
+    unpriced_s: float = 0.0
 
     @property
     def label(self) -> str:
@@ -479,7 +485,7 @@ def candidate_cost(
         mem = (ml * kl + kl * nl + ml * nl) * e
 
     comm_s = comm_bytes / hw.bytes_per_s
-    overhead_s += messages * hw.latency_s
+    latency_s = messages * hw.latency_s
     # calibrated overlap discount: the ts_* operand prefetch applies at
     # any depth (it is not a loop property); the pipelined-loop overlap
     # of the multi-step algorithms needs the double-buffered driver
@@ -487,6 +493,17 @@ def candidate_cost(
     if not algorithm.startswith("ts_") and (pipeline_depth < 2 or steps < 2):
         eff = 0.0
     overlap_s = eff * min(overlappable / hw.bytes_per_s, compute_s)
+    unpriced_s = 0.0
+    if prob.p_all == 1:
+        # one rank: nothing moves between ranks, so no communication time
+        # and no message latency (a departure from the JAX package's
+        # formulas, which charge both on a 1x1 mesh too).  Every
+        # algorithm is then the same local multiply to the model; what
+        # the schedules still do on one rank (skews, shifts and
+        # reductions as device copies) is kept as the tie-break
+        unpriced_s = comm_s + latency_s - overlap_s
+        comm_s = latency_s = overlap_s = 0.0
+    overhead_s += latency_s
     total = comm_s + compute_s + overhead_s - overlap_s
     if mem > hw.mem_bytes:
         # geometry works but the replicas/shards don't fit: infeasible,
@@ -496,10 +513,10 @@ def candidate_cost(
             algorithm, densify, c_repl, False,
             f"needs {mem / 1e9:.2f} GB/device > {hw.mem_bytes / 1e9:.2f} GB",
             comm_s, compute_s, overhead_s, overlap_s, mem, total,
-            imbalance=imbalance)
+            imbalance=imbalance, unpriced_s=unpriced_s)
     return CandidateCost(algorithm, densify, c_repl, True, "",
                          comm_s, compute_s, overhead_s, overlap_s, mem, total,
-                         imbalance=imbalance)
+                         imbalance=imbalance, unpriced_s=unpriced_s)
 
 
 def batched_dispatch_cost(
@@ -541,11 +558,11 @@ def verify_overhead_s(
     block_m: int,
     block_n: int,
     itemsize: int,
+    n_ranks: int,
 ) -> float:
     """Predicted price of ABFT checksum verification of one product
-    (the JAX package's robustness.abft; ROADMAP A8 in the port) — what
-    makes ``verify="auto"`` a costed decision like every other planner
-    choice.
+    (``repro_torch.robustness.abft``) — what makes ``verify="auto"`` a
+    costed decision like every other planner choice.
 
     Charged terms, matching what ``verify_product`` executes:
 
@@ -558,6 +575,10 @@ def verify_overhead_s(
         ``(block_m*n + m*block_n) * e`` plus a handful of collective
         latencies (residuals land on host).
 
+    On ``n_ranks == 1`` the last term is zero: there is no other rank
+    to reduce with (like ``candidate_cost``'s one-rank pricing, a
+    departure from the JAX package, which charges it on a 1x1 mesh too).
+
     Relative to the multiply's own 2*m*k*n flops the flop overhead is
     ~(block_m/m + block_n/n): small blocks on big matrices verify for
     a few percent; tiny problems are latency-dominated and ``auto``
@@ -565,11 +586,12 @@ def verify_overhead_s(
     """
     flops = 2.0 * block_m * k * n + 2.0 * m * k * block_n + 2.0 * m * n
     touch_bytes = 2.0 * (m * k + k * n + m * n) * itemsize
-    comm_bytes = (block_m * n + m * block_n) * itemsize
-    return (flops / hw.flops_per_s
-            + touch_bytes / hw.densify_bytes_per_s
-            + comm_bytes / hw.bytes_per_s
-            + 4.0 * hw.latency_s)
+    cost = flops / hw.flops_per_s + touch_bytes / hw.densify_bytes_per_s
+    if n_ranks > 1:
+        comm_bytes = (block_m * n + m * block_n) * itemsize
+        cost += comm_bytes / hw.bytes_per_s
+        cost += 4.0 * hw.latency_s
+    return cost
 
 
 def feasible(prob: Problem, algorithm: str, densify: bool,

@@ -1,7 +1,7 @@
 """plan_multiply — pick (algorithm, local path, 2.5D replication,
 stack params) for one distributed multiply (a copy of the JAX package's
-``planner/plan.py``, without ``plan_contract`` (ROADMAP A10) and
-``decide_verify`` (A8)).
+``planner/plan.py``, without ``plan_contract`` (ROADMAP A10)), and
+``decide_verify``, the costed half of ``verify="auto"``.
 
 This is the paper's driver behaviour made explicit: DBCSR's headline
 win over vendor PDGEMM comes from choosing the right decomposition per
@@ -40,13 +40,19 @@ import torch
 from .cost_model import (BATCHED_ALGORITHMS, CandidateCost, HardwareModel,
                          Problem, algorithm_steps, batched_dispatch_cost,
                          enumerate_candidates, feasible, overlap_efficiency,
-                         rebalance_cost_s)
+                         rebalance_cost_s, verify_overhead_s)
 
 __all__ = ["MultiplyPlan", "BatchedMultiplyPlan", "plan_multiply",
-           "plan_multiply_batched", "plan_cache_info", "plan_cache_clear",
-           "plan_cache_stats", "itemsize_of"]
+           "plan_multiply_batched", "decide_verify", "plan_cache_info",
+           "plan_cache_clear", "plan_cache_stats", "itemsize_of",
+           "DEFAULT_VERIFY_BUDGET"]
 
 _PLAN_CACHE_SIZE = 512
+
+# verify="auto" enables checksum verification only when its predicted
+# overhead stays within this fraction of the plan's predicted time (the
+# JAX package gates its MEASURED overhead at the same 25 %)
+DEFAULT_VERIFY_BUDGET = 0.25
 
 
 def itemsize_of(dtype) -> int:
@@ -84,6 +90,10 @@ class MultiplyPlan:
     overlap_eff: float = 0.0       # calibrated overlap term of the winner
     executor_stats: Optional[dict] = None
     schedule_stats: Optional[dict] = None
+    # ABFT outcome (core/multiply.py attaches post-execution, like the
+    # stats above — cached plan objects stay verification-free): pricing
+    # from decide_verify plus the VerificationReport when it ran
+    verification: Optional[dict] = None
     # rank-exact pricing: the per-rank retained-triple
     # imbalance (max/mean) the blocked candidates were charged under,
     # and the costed permutation-pass decision (sparsity/balance.py) —
@@ -226,8 +236,9 @@ def _plan_cached(
         hw, prob, algorithm, densify,
         stack_tile=tuned_tile, smm_flops_per_s=smm_rate,
         rank_imbalance=rank_imbalance)
+    # ``unpriced_s`` is 0 except on one rank, where it orders ties
     ranked = sorted([c for c in candidates if c.feasible],
-                    key=lambda c: c.total_s)
+                    key=lambda c: (c.total_s, c.unpriced_s))
     if not ranked:
         # no fully-feasible candidate: fall back to the least-bad
         # geometry-valid one (finite total = only the memory gate
@@ -235,7 +246,7 @@ def _plan_cached(
         # executor raises its own loud error if it truly cannot run)
         ranked = sorted([c for c in candidates
                          if math.isfinite(c.total_s)],
-                        key=lambda c: c.total_s)
+                        key=lambda c: (c.total_s, c.unpriced_s))
     if ranked:
         best = ranked[0]
     elif algorithm is not None:
@@ -439,7 +450,9 @@ def plan_multiply_batched(
                       hw=hw)
         for algo in algos
     ]
-    best = min(plans, key=lambda p: p.predicted_s)
+    # on one rank the algorithms' totals tie; ``unpriced_s`` orders them
+    best = min(plans, key=lambda p: (
+        p.predicted_s, p.chosen.unpriced_s if p.chosen else 0.0))
     g = int(n_requests)
     if best.trivial:
         return BatchedMultiplyPlan(
@@ -470,6 +483,52 @@ def plan_multiply_batched(
         predicted_looped_s=looped_s,
         per_request=best,
     )
+
+
+def decide_verify(
+    plan: Optional[MultiplyPlan],
+    m: int,
+    k: int,
+    n: int,
+    *,
+    blocks: Tuple[int, int, int],
+    n_ranks: int,
+    itemsize: int = 4,
+    budget: Optional[float] = None,
+    hw: Optional[HardwareModel] = None,
+) -> dict:
+    """Price ABFT checksum verification against a plan — the costed
+    half of ``verify="auto"`` (core/multiply.py).
+
+    Returns ``{"auto_enabled", "predicted_overhead_s", "overhead_frac",
+    "budget"}``: verification is auto-enabled when the predicted
+    checksum overhead (``cost_model.verify_overhead_s`` on ``n_ranks``
+    ranks) fits within ``budget`` (default ``DEFAULT_VERIFY_BUDGET``) of
+    the plan's predicted multiply time.  A trivial (empty-product) plan
+    reports infinite relative overhead — there is nothing worth
+    verifying.
+    """
+    if budget is None:
+        budget = DEFAULT_VERIFY_BUDGET
+    budget = float(budget)
+    if hw is None:
+        from .calibrate import get_hardware_model
+
+        hw = get_hardware_model()
+    bm, _, bn = (int(x) for x in blocks)
+    overhead = verify_overhead_s(hw, int(m), int(k), int(n), bm, bn,
+                                 int(itemsize), int(n_ranks))
+    base = 0.0 if plan is None else float(plan.predicted_s)
+    if plan is not None and plan.trivial:
+        frac = math.inf
+    else:
+        frac = overhead / base if base > 0.0 else math.inf
+    return {
+        "auto_enabled": bool(frac <= budget),
+        "predicted_overhead_s": float(overhead),
+        "overhead_frac": float(frac),
+        "budget": budget,
+    }
 
 
 def plan_cache_info():

@@ -26,8 +26,8 @@ Exception taxonomy (the JAX package's)::
       +-- NonFiniteOperandError   NaN/Inf in an input payload
       +-- NonFiniteResultError    NaN/Inf in a computed result
     CorruptionDetectedError(RuntimeError)   ABFT detected corruption that
-                                            repair could not clear (ABFT
-                                            itself is ROADMAP Queue A8)
+                                            repair could not clear
+                                            (robustness/abft.py)
 """
 from __future__ import annotations
 

@@ -142,8 +142,12 @@ class MultiplyService:
     sleep       injectable backoff sleep (``time.sleep``-like)
     fault_injector  chaos hook: ``check(stage=..., attempt=...)`` is
                 called before every dispatch attempt and may raise
-    **kw        forwarded to ``dbcsr.multiply_batched`` (algorithm,
-                densify, local_kernel, pipeline_depth, ...)
+    **kw        forwarded to ``dbcsr.multiply_batched`` and, on the
+                per-request rung, to ``dbcsr.multiply`` (algorithm,
+                densify, local_kernel, pipeline_depth, verify, ...);
+                ``verify=`` (ABFT) reaches every request on every rung
+                and runs it looped: the fused rung then raises under
+                ``fused=True`` and the ladder degrades to the looped one
 
     ``stats()`` reports request/dispatch counters, per-bucket fusion
     accounting, retry/degradation/error-ticket counts, and

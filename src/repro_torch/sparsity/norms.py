@@ -9,6 +9,9 @@ device.  The result is pulled to HOST numpy: norms are static planning
 metadata exactly like the occupancy masks, and filtering decisions
 happen at stack-generation time.
 
+``product_norm_bound`` is the host-side bound on the product's block
+norms.
+
 Norms accumulate in float32 whatever the payload dtype: they gate an
 approximation, and a fixed dtype keeps the engine's content-fingerprint
 memo stable across payload dtypes.
@@ -20,7 +23,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["compute_block_norms", "block_norms_of", "normalize_block_norms"]
+__all__ = ["compute_block_norms", "block_norms_of", "normalize_block_norms",
+           "product_norm_bound"]
 
 
 def compute_block_norms(x: torch.Tensor, block_m: int,
@@ -72,3 +76,15 @@ def normalize_block_norms(
         raise ValueError(
             f"b_norms shape {bn.shape} != block grid {(nbk, nbc)}")
     return an, bn
+
+
+def product_norm_bound(a_norms: np.ndarray,
+                       b_norms: np.ndarray) -> np.ndarray:
+    """(nbr, nbc) upper bound on the product's block norms:
+    ``||C_ij||_F <= sum_k ||A_ik||_F * ||B_kj||_F`` (submultiplicativity
+    + triangle inequality).  This is what makes the post-multiply mask
+    predictable *before* executing: any C block whose bound is below
+    eps is guaranteed filtered."""
+    an = np.asarray(a_norms, dtype=np.float64)
+    bn = np.asarray(b_norms, dtype=np.float64)
+    return an @ bn

@@ -376,9 +376,19 @@ def test_unported_pieces_raise_naming_their_queue_item(meshes):
     pinned = dbcsr.multiply_batched(reqs, mesh=mesh, algorithm="cannon",
                                     fused=rep["fused"])
     assert all(torch.equal(x.data, y.data) for x, y in zip(out, pinned))
-    with pytest.raises(NotImplementedError, match="A8"):
+    # verify= (A8) runs each request looped and verified, bitwise the
+    # unverified loop; with fused=True it raises, as in the JAX package
+    out, report = dbcsr.multiply_batched(reqs, mesh=mesh, algorithm="cannon",
+                                         verify="checksum", return_plan=True)
+    assert not any(b["fused"] for b in report["buckets"])
+    looped = dbcsr.multiply_batched(reqs, mesh=mesh, algorithm="cannon",
+                                    fused=False)
+    for c, ref in zip(out, looped):
+        assert torch.equal(c.data, ref.data)
+        assert not c.verification["report"].detected
+    with pytest.raises(ValueError, match="fused"):
         dbcsr.multiply_batched(reqs, mesh=mesh, algorithm="cannon",
-                               fused=False, verify="checksum")
+                               fused=True, verify="checksum")
     with pytest.raises(ValueError, match="batch-capable"):
         dbcsr.multiply_batched(reqs, mesh=mesh, algorithm="ts_k", fused=True)
     # a bucket of one request goes looped without pricing

@@ -183,16 +183,30 @@ def test_create_matches_jax(meshes):
                  id="kw3-A8"),
 ])
 def test_later_slices_raise(meshes, kw, queue, grid):
-    """Each entry point a later slice ports: the A8 one still raises
-    naming its queue item.  The A5 cases raised until the planner was
-    ported; they now run through it and must agree with the JAX
-    package's multiply, bitwise with the port's own pinned plan, and
-    carry the plan as ``last_plan``."""
+    """Each entry point a later slice ported; each raised naming its
+    queue item until then.  The A5 cases run through the planner and
+    must agree with the JAX package's multiply, bitwise with the port's
+    own pinned plan, and carry the plan as ``last_plan``.  The A8 case
+    (``verify="checksum"``) must agree with the JAX package's verified
+    multiply (product, report, residual tolerances to 1e-6 relative:
+    both are float64 host sums of the same f32 norms), be bitwise the
+    port's unverified product, and carry ``verification``."""
     ja, jb, ta, tb = _operands(meshes, 0.5)
     mesh = make_mesh(grid, ("data", "model"), device="cpu")
-    if queue != "A5":
-        with pytest.raises(NotImplementedError, match=queue):
-            dbcsr.multiply(ta, tb, mesh=mesh, **kw)
+    if queue == "A8":
+        c = dbcsr.multiply(ta, tb, mesh=mesh, **kw)
+        want = jdbcsr.multiply(ja, jb, mesh=meshes[0], **kw)
+        np.testing.assert_allclose(c.data.numpy(), np.asarray(want.data),
+                                   rtol=RTOL, atol=ATOL)
+        np.testing.assert_array_equal(c.block_mask, want.block_mask)
+        rep, wrep = c.verification["report"], want.verification["report"]
+        assert c.verification["enabled"] and want.verification["enabled"]
+        assert not rep.detected and not wrep.detected
+        np.testing.assert_allclose(rep.row_tol, wrep.row_tol, rtol=1e-6)
+        np.testing.assert_allclose(rep.col_tol, wrep.col_tol, rtol=1e-6)
+        plain = dbcsr.multiply(ta, tb, mesh=mesh, algorithm="cannon")
+        assert plain.verification is None
+        assert torch.equal(c.data, plain.data)
         return
     got = dbcsr.multiply(ta, tb, mesh=mesh, **kw)
     c, plan = got if kw.get("return_plan") else (got, got.last_plan)
