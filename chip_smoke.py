@@ -199,6 +199,40 @@ Phase 8  purification and self-verifying multiplies:
                multiply_batched(verify=) runs looped, bitwise; fused=True
                with verify= raises.  run_injection_matrix on 1x1 and 2x2
                with the smm kernel: all green.  One {"phase8": ...} line.
+Phase 9  telemetry and tensor contractions:
+           (w) obs.enable() around (a) blocked on 1x1, a verify=
+               "checksum" multiply at (a) with a NaN injected (multiply
+               -> verify -> repair -> second dispatch, repaired bitwise,
+               the abft counters), (f)'s 16 x 1,980^2 through
+               MultiplyService() and through the service pinned to its
+               plan (each flush split into the roots' plan and dispatch
+               spans and the time outside them; the untraced gap, median
+               of interleaved rounds) and (p) Cannon 4x4 rank-exact at
+               20 %: per call render_breakdown, every dispatch's host
+               interval beside its CUDA-event device_s, a valid Chrome
+               trace, step spans summing to their dispatch within
+               STEP_SUM_TOL, check_drift over the outcome rows; telemetry
+               off is bitwise the traced result and adds no registry
+               entry; traced against untraced at (a) and (p), median of
+               interleaved rounds, beside the JAX package's 5 % gate
+               (printed, not fatal).
+           (x) the tensor example's integral tensor B[i,a,P] made on the
+               card from a seed (its decay formula, rate 30; blocks (8,
+               16, 16)) at N_I 128, N_A 1,024, N_P = N_Q 2,048 (1.07 GB
+               f32), eps 1e-8: iaP,PQ->iaQ and RPA's iaP,iaQ->PQ
+               (contracted 131,072 deep) on 1x1 and on a simulated 2x2:
+               auto's layout, path and predicted_s, every pinned layout
+               timed (median of interleaved rounds), the regret, launches,
+               one traced auto call (its breakdown, the dispatch's host
+               time beside device_s, a valid trace, check_drift),
+               the error against torch.einsum of the unfiltered tensors
+               (in f64) within REL_TOL of max|C| plus the dropped-norm
+               bound (Tolerances, below), and
+               at auto's layout (blocked on 1x1, densified on 2x2)
+               contract bitwise the hand-matricized dbcsr.multiply.  One
+               {"phase9": ...} line.
+``--phase 9`` builds the kernels and runs phase 9 alone (development:
+no kernels line and no ok line).
 
 Prints a {"kernels": [...]} line, the nvidia-smi line, and as its last
 line {"ok": true, "device": {...}}.  Any failed check raises, so the
@@ -211,7 +245,13 @@ decode_attention: 2e-4 (rtol and atol, the JAX package's kernel test) in
 f32; with bf16 q and caches its bf16 output may lie one bf16 step from
 the plain version's f32 output rounded to bf16, which ``bf16_worst``
 allows and no more.  Phase 5: J_TOL and K_TOL below, each stated beside the value
-observed.
+observed.  Phase 9 (x): against torch.einsum in f64 of the unfiltered
+tensors, REL_TOL of max|C| plus the dropped-norm bound (the largest sum
+of norm products eps drops from one C block).  A densified product is
+torch.matmul's f32 sum, which at RPA's 131,072-deep contraction misses
+REL_TOL itself (the f32 torch.einsum: 6.3e-5 of max|C| on an H100, the
+smm path 1.7e-6): such a product is held to twice the f32 einsum's
+error, measured in the same run, where that exceeds REL_TOL.
 """
 from __future__ import annotations
 
@@ -2140,8 +2180,514 @@ def robustness(dev, card, zero_counters, read_counters, report) -> list:
     return [row]
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# phase 9: telemetry on the card (w) and tensor contractions (x)
+# ---------------------------------------------------------------------------
+STEP_SUM_TOL = 0.05   # step spans against their dispatch: the JAX
+#                       package's STEP_SUM_TOL (benchmarks/bench_obs.py:48)
+OBS_GATE = 0.05       # its traced-over-untraced overhead gate (printed)
+OBS_ROUNDS = 5
+P_ROUNDS = 3          # (p): ~0.7 s a call
+OBS_A = (3960, 22)                # (a): side, block
+OBS_F = (16, 1980)                # (f): requests, side
+OBS_P = (4, 3960)                 # (p): grid side, side a rank
+TEN_DIMS = (128, 1024, 2048)      # N_I, N_A, N_P = N_Q (x)
+TEN_BLOCKS = (8, 16, 16)          # the tensor example's blocks
+TEN_EPS = 1e-8                    # the tensor example's filter_eps
+TEN_ROUNDS = 3
+
+
+def traced(fn):
+    """``fn()`` with telemetry on (a fresh tracer and outcome log):
+    ``(out, spans, outcomes, host_s)``, the host time synchronized."""
+    from repro_torch import obs
+
+    obs.clear_plan_outcomes()
+    tracer = obs.enable()
+    try:
+        out, host_s = sync_s(fn)
+    finally:
+        obs.disable()
+    return out, list(tracer.spans), obs.plan_outcomes(), host_s
+
+
+def check_trace(label, spans, outcomes) -> dict:
+    """The telemetry contract on one traced call: the breakdown, every
+    dispatch's host interval beside its CUDA-event time, a valid Chrome
+    trace, step spans summing to their dispatch within STEP_SUM_TOL, and
+    the scoreboard / drift check over the call's outcome rows."""
+    from repro_torch import obs
+
+    print(f"  {label}: " + obs.render_breakdown(spans).replace(
+        "\n", "\n    "))
+    disps = [s for s in spans if s.name == "dispatch"]
+    if not disps:
+        raise AssertionError(f"{label}: no dispatch span")
+    rows = []
+    for d in disps:
+        kids = [s for s in spans if s.parent_id == d.span_id]
+        step_sum = sum(s.dur for s in kids)
+        rel = abs(step_sum - d.dur) / d.dur
+        dev_s = d.attrs.get("device_s")
+        if dev_s is None or not 0.0 < dev_s <= d.dur:
+            raise AssertionError(f"{label}: dispatch device_s {dev_s} "
+                                 f"against host {d.dur}")
+        if not kids or rel > STEP_SUM_TOL:
+            raise AssertionError(f"{label}: step spans sum {step_sum} "
+                                 f"against dispatch {d.dur}")
+        rows.append({"host_ms": 1e3 * d.dur, "device_ms": 1e3 * dev_s,
+                     "host_minus_device_ms": 1e3 * (d.dur - dev_s),
+                     "steps": len(kids), "step_sum_rel": rel})
+        print(f"    dispatch: host {1e3 * d.dur:.3f} ms, device_s "
+              f"{1e3 * dev_s:.3f} ms (host - device "
+              f"{1e3 * (d.dur - dev_s):.3f} ms); {len(kids)} step spans "
+              f"sum to the dispatch within {100 * rel:.4f} % "
+              f"(tol {100 * STEP_SUM_TOL:.0f} %)")
+    errs = obs.validate_chrome_trace(obs.to_chrome_trace(spans))
+    if errs:
+        raise AssertionError(f"{label}: Chrome trace invalid: {errs[:3]}")
+    drift = obs.check_drift(outcomes)
+    print(f"    Chrome trace valid ({len(spans)} spans); scoreboard:\n      "
+          + obs.render_scoreboard(drift["scoreboard"]).replace(
+              "\n", "\n      ")
+          + f"\n    check_drift: ok={drift['ok']} flagged "
+          f"{ {k: round(v, 3) for k, v in drift['flagged'].items()} }")
+    return {"case": label,
+            "breakdown_ms": {k: 1e3 * v for k, v in
+                             obs.category_breakdown(spans).items()},
+            "dispatches": rows, "drift_ok": drift["ok"],
+            "drift_flagged": drift["flagged"],
+            "scoreboard": drift["scoreboard"]}
+
+
+def telemetry(dev, card, zero_counters, read_counters) -> dict:
+    """Phase 9 (w): traced multiplies on the card."""
+    import numpy as np
     import torch
+
+    from repro_torch import obs
+    from repro_torch.core import dbcsr
+    from repro_torch.core.blocking import GridSpec
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.robustness import chaos
+    from repro_torch.serve import MultiplyService
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    rng = np.random.RandomState(SEED + 9)
+    mesh = make_mesh((1, 1), ("data", "model"))
+    out = {"traces": [], "overhead": []}
+
+    def dense(r, c):
+        return torch.randn((r, c), generator=gen, device=dev)
+
+    def overhead(label, fn, rounds):
+        """Untraced against traced, median of interleaved rounds."""
+        def on():
+            obs.enable()
+            try:
+                return fn()
+            finally:
+                obs.disable()
+        t_off, t_on = time_interleaved([fn, on], rounds)
+        ratio = t_on / t_off - 1.0
+        print(f"  {label} overhead: traced {1e3 * t_on:.3f} ms against "
+              f"untraced {1e3 * t_off:.3f} ms: {100 * ratio:+.2f} % (median "
+              f"of {rounds} interleaved rounds; the JAX package's gate "
+              f"{100 * OBS_GATE:.0f} %, printed, not enforced)")
+        out["overhead"].append({"case": label, "untraced_ms": 1e3 * t_off,
+                                "traced_ms": 1e3 * t_on, "overhead": ratio,
+                                "rounds": rounds})
+
+    def off_path(label, fn, ref):
+        """Telemetry off: bitwise the traced result, no registry entry."""
+        n0 = len(obs.registry())
+        c = fn()
+        torch.cuda.synchronize()
+        if len(obs.registry()) != n0:
+            raise AssertionError(f"{label}: an untraced call added "
+                                 "registry entries")
+        if not torch.equal(c.data, ref.data):
+            raise AssertionError(f"{label}: untraced != traced")
+        print(f"  {label}: telemetry off: bitwise the traced result, "
+              f"registry unchanged ({n0} entries)")
+
+    # ---- (a) 3,960^2 block 22 blocked, 1x1
+    NB, BS = OBS_A
+    A = dbcsr.create(dense(NB, NB), mesh=mesh, block_size=BS)
+    B = dbcsr.create(dense(NB, NB), mesh=mesh, block_size=BS)
+    kw_a = dict(mesh=mesh, algorithm="cannon", densify=False)
+    dbcsr.multiply(A, B, **kw_a)  # the plan's first call, untraced
+    zero_counters()
+    c_a, spans, outc, host_s = traced(lambda: dbcsr.multiply(A, B, **kw_a))
+    got = read_counters()
+    if got["smm"] < 1:
+        raise AssertionError("(a) traced: no smm launch")
+    check_close("(a) traced vs torch.matmul", c_a.data,
+                torch.matmul(A.data, B.data))
+    out["traces"].append(check_trace(
+        f"(a) {NB}^2 block {BS} blocked 1x1, traced", spans, outc))
+    off_path("(a)", lambda: dbcsr.multiply(A, B, **kw_a), c_a)
+    overhead("(a)", lambda: dbcsr.multiply(A, B, **kw_a), OBS_ROUNDS)
+
+    # ---- verify="checksum" at (a), a NaN injected into the product
+    nb = NB // BS
+    i0, j0 = int(rng.randint(nb)), int(rng.randint(nb))
+    before = {k: obs.counter(f"abft.{k}").value
+              for k in ("detections", "repairs")}
+    hook = chaos.FaultInjector(seed=SEED).one_shot_result_hook(
+        i0, j0, block_m=BS, block_n=BS, mode="nan")
+
+    def verified():
+        with chaos.result_corruption(hook):
+            return dbcsr.multiply(A, B, verify="checksum", **kw_a)
+    c_v, spans, outc, _ = traced(verified)
+    if not torch.equal(c_v.data, c_a.data):
+        raise AssertionError("(a) verified: repair is not bitwise clean")
+    rep = c_v.verification["report"]
+    root = [s for s in spans if s.parent_id is None]
+    ver = [s for s in spans if s.name == "verify"]
+    repair = [s for s in spans if s.name == "repair"]
+    disps = [s for s in spans if s.name == "dispatch"]
+    if not (len(root) == 1 and len(ver) == 1 and len(repair) == 1
+            and ver[0].parent_id == root[0].span_id
+            and repair[0].parent_id == ver[0].span_id and len(disps) == 2
+            and sorted(d.parent_id for d in disps)
+            == sorted([root[0].span_id, repair[0].span_id])
+            and rep.flagged_blocks == ((i0, j0),) and rep.repaired):
+        raise AssertionError(f"(a) verified: span nesting or report wrong "
+                             f"({[(s.name, s.parent_id) for s in spans][:8]},"
+                             f" {rep.flagged_blocks})")
+    deltas = {k: obs.counter(f"abft.{k}").value - v
+              for k, v in before.items()}
+    if deltas != {"detections": 1, "repairs": 1}:
+        raise AssertionError(f"(a) verified: abft counters {deltas}")
+    print(f"  (a) verify='checksum', NaN at block ({i0}, {j0}): multiply -> "
+          f"verify -> repair -> dispatch nests as the reference's; "
+          f"repaired bitwise; abft counters {deltas}")
+    out["traces"].append(check_trace("(a) verified, NaN injected", spans,
+                                     outc))
+    first_disp = min(disps, key=lambda s: s.t0)
+    (row,) = [r for r in outc if r.get("kind") == "multiply"]
+    if not abs(row["measured_s"] - first_disp.dur) <= 0.05 * first_disp.dur:
+        raise AssertionError("(a) verified: the outcome row is not the "
+                             "first dispatch's time")
+    del c_v
+
+    # ---- (f) 16 x 1,980^2: MultiplyService() against its pinned service
+    G, NF = OBS_F
+    reqs = [(dbcsr.create(dense(NF, NF), mesh=mesh, block_size=BS),
+             dbcsr.create(dense(NF, NF), mesh=mesh, block_size=BS))
+            for _ in range(G)]
+    _, report = dbcsr.multiply_batched(reqs, mesh=mesh, return_plan=True)
+    (bucket,) = report["buckets"]
+    plan = bucket["plan"]
+    pin = dict(fused=plan.fuse, algorithm=plan.algorithm,
+               densify=plan.densify)
+
+    def serve(**kw):
+        svc = MultiplyService(mesh, max_batch=G, slo_s=60.0, **kw)
+        tickets = [svc.submit(a, b) for a, b in reqs]
+        svc.flush()
+        return [svc.result(t) for t in tickets]
+
+    svc_rows = {}
+    for name, kw in (("MultiplyService()", {}),
+                     (f"MultiplyService({pin})", pin)):
+        serve(**kw)   # warm: plans and executors built
+        res, spans, outc, host_s = traced(lambda: serve(**kw))
+        roots = [s for s in spans if s.parent_id is None]
+        plan_s = sum(s.dur for s in spans if s.name == "plan")
+        disp = [s for s in spans if s.name == "dispatch"]
+        row = check_trace(f"(f) {name}, one flush", spans, outc)
+        row.update(flush_ms=1e3 * host_s,
+                   roots_ms=1e3 * sum(s.dur for s in roots),
+                   plan_ms=1e3 * plan_s,
+                   dispatch_host_ms=1e3 * sum(d.dur for d in disp),
+                   dispatch_device_ms=1e3 * sum(d.attrs["device_s"]
+                                                for d in disp),
+                   outside_roots_ms=1e3 * (host_s - sum(s.dur
+                                                        for s in roots)),
+                   roots=[s.name for s in roots])
+        svc_rows[name] = row
+        out["traces"].append(row)
+        print(f"    flush {row['flush_ms']:.3f} ms = roots "
+              f"{row['roots_ms']:.3f} ({row['roots']}: plan "
+              f"{row['plan_ms']:.3f}, dispatch host "
+              f"{row['dispatch_host_ms']:.3f} / device "
+              f"{row['dispatch_device_ms']:.3f}) + outside the roots "
+              f"{row['outside_roots_ms']:.3f} ms")
+        for x, (a, b) in zip(res, reqs[:2]):
+            check_close(f"(f) {name} product", x.data,
+                        torch.matmul(a.data, b.data))
+        del res
+    t_def, t_pin = time_interleaved([lambda: serve(),
+                                     lambda: serve(**pin)], OBS_ROUNDS)
+    (d_row, p_row) = svc_rows.values()
+    gap = {"untraced_default_ms": 1e3 * t_def,
+           "untraced_pinned_ms": 1e3 * t_pin,
+           "gap_ms": 1e3 * (t_def - t_pin),
+           "gap_outside_roots_ms": d_row["outside_roots_ms"]
+           - p_row["outside_roots_ms"],
+           "gap_plan_ms": d_row["plan_ms"] - p_row["plan_ms"],
+           "gap_dispatch_host_ms": d_row["dispatch_host_ms"]
+           - p_row["dispatch_host_ms"]}
+    out["service_gap"] = gap
+    print(f"  (f) untraced flush: MultiplyService() {1e3 * t_def:.3f} ms, "
+          f"pinned {1e3 * t_pin:.3f} ms (median of {OBS_ROUNDS} interleaved "
+          f"rounds): gap {gap['gap_ms']:.3f} ms.  The spans place the "
+          f"traced gap: outside the multiply_batched roots "
+          f"{gap['gap_outside_roots_ms']:+.3f} ms (the bucket's fuse "
+          f"decision, dbcsr._execute_bucket), plan span "
+          f"{gap['gap_plan_ms']:+.3f} ms, dispatch "
+          f"{gap['gap_dispatch_host_ms']:+.3f} ms")
+    del reqs, A, B, c_a
+    torch.cuda.empty_cache()
+
+    # ---- (p) Cannon 4x4 rank-exact, 15,840^2, A at 20 %
+    P, NL = OBS_P
+    N = P * NL
+    nbp = N // BS
+    mesh44 = make_mesh((P, P), ("data", "model"))
+    grid = GridSpec("data", "model")
+    am = rng.rand(nbp, nbp) < 0.2
+    Ap = dbcsr.create(dense(N, N), mesh=mesh44, grid=grid, block_size=BS,
+                      block_mask=am)
+    Bp = dbcsr.create(dense(N, N), mesh=mesh44, grid=grid, block_size=BS)
+    kw_p = dict(mesh=mesh44, algorithm="cannon", densify=False)
+    _, first = sync_s(lambda: dbcsr.multiply(Ap, Bp, **kw_p))
+    print(f"  (p) first call (rank-exact plans built) {first:.2f} s")
+    zero_counters()
+    c_p, spans, outc, host_s = traced(lambda: dbcsr.multiply(Ap, Bp, **kw_p))
+    got = read_counters()
+    if got["smm"] < 1:
+        raise AssertionError("(p) traced: no smm launch")
+    check_close("(p) traced vs torch.matmul", c_p.data,
+                torch.matmul(Ap.data, Bp.data))
+    steps = [s for s in spans if s.cat == "schedule-step"]
+    imbs = [s.attrs.get("rank_imbalance") for s in steps]
+    print(f"  (p) smm launches {got['smm']}; step spans' rank_imbalance "
+          f"{[None if x is None else round(x, 3) for x in imbs]}")
+    out["traces"].append(check_trace(
+        f"(p) cannon {P}x{P} rank-exact {N}^2, A 20 %, traced", spans, outc))
+    off_path("(p)", lambda: dbcsr.multiply(Ap, Bp, **kw_p), c_p)
+    overhead("(p)", lambda: dbcsr.multiply(Ap, Bp, **kw_p), P_ROUNDS)
+    del Ap, Bp, c_p
+    torch.cuda.empty_cache()
+    return out
+
+
+def dropped_norm_bound(con, a, b, eps) -> float:
+    """max over C blocks of the sum of the norm products ``||A_blk|| *
+    ||B_blk||`` the filter drops (present blocks, product below eps): a
+    bound on any element's change from eps filtering.  Computed on the
+    spec-order layout's matricized norm grids, in float64."""
+    import numpy as np
+
+    from repro_torch.tensor import enumerate_layouts
+    from repro_torch.tensor.matricize import layout_operands, unfold_grid
+
+    _, lrows, lcols, _, rrows, rcols, _, _ = layout_operands(
+        con, enumerate_layouts(con)[0])
+    an = unfold_grid(a.norms(), con.a_indices, lrows, lcols).astype(
+        np.float64)
+    bn = unfold_grid(b.norms(), con.b_indices, rrows, rcols).astype(
+        np.float64)
+    worst = 0.0
+    for i0 in range(0, an.shape[0], 64):
+        prod = an[i0:i0 + 64, :, None] * bn[None]
+        prod = np.where(prod < eps, prod, 0.0)
+        worst = max(worst, float(prod.sum(axis=1).max()))
+    return worst
+
+
+def tensors(dev, card, zero_counters, read_counters) -> list:
+    """Phase 9 (x): the tensor example's integral tensor at the size of
+    a CP2K RPA run, both contractions on 1x1 and on a simulated 2x2."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import dbcsr
+    from repro_torch.examples.tensor_contraction import (DECAY, block_decay,
+                                                         integral_mask)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.tensor import enumerate_layouts, parse_contraction
+    from repro_torch.tensor.matricize import (fold_to_tensor,
+                                              layout_operands, unfold_tensor)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    ni, na, np_ = TEN_DIMS
+    bi, ba, bp = TEN_BLOCKS
+    scale = block_decay(ni // bi, np_ // bp)
+    mask = integral_mask(scale, na // ba)
+    mesh11 = make_mesh((1, 1), ("data", "model"))
+    mesh22 = make_mesh((2, 2), ("data", "model"))
+    # B[i,a,P] made on the card from a seed: normal entries times the
+    # example's block decay (rate DECAY), blocks below 1e-6 masked out
+    data = torch.randn(TEN_DIMS, generator=gen, device=dev)
+    full = torch.as_tensor(scale, dtype=torch.float32, device=dev)
+    data *= full.repeat_interleave(bi, 0).repeat_interleave(bp, 1)[:, None]
+    Bt = dbcsr.create_tensor(data, mesh=mesh11, block_sizes=TEN_BLOCKS,
+                             block_mask=mask, compute_norms=True)
+    del data, full
+    Mt = dbcsr.create_tensor(torch.randn((np_, np_), generator=gen,
+                                         device=dev), mesh=mesh11,
+                             block_sizes=(bp, bp), compute_norms=True)
+    print(f"  B[i,a,P] {TEN_DIMS} in blocks {TEN_BLOCKS} (decay rate "
+          f"{DECAY:g}), occupancy {Bt.occupancy:.4f}, "
+          f"{Bt.data.numel() * 4 / 1e9:.2f} GB f32; eps {TEN_EPS:g}")
+    rows = []
+    for spec in ("iaP,PQ->iaQ", "iaP,iaQ->PQ"):
+        other = Mt if spec == "iaP,PQ->iaQ" else Bt
+        con = parse_contraction(spec)
+        layouts = enumerate_layouts(con)
+        # torch.einsum of the unfiltered tensors in f64 is the reference;
+        # the f32 einsum's own error beside it (a 131,072-deep f32 sum)
+        exact = torch.einsum(spec, Bt.data.double(), other.data.double())
+        scale_c = float(exact.abs().max())
+        lib_err = float((torch.einsum(spec, Bt.data, other.data).double()
+                         - exact).abs().max())
+        bound = dropped_norm_bound(con, Bt, other, TEN_EPS)
+        tol = REL_TOL * scale_c + bound
+        # a densified product is torch.matmul's f32 sum: held to twice
+        # the f32 einsum's error where that exceeds REL_TOL
+        tol_dense = max(tol, 2.0 * lib_err + bound)
+        print(f"  {spec}: max|C| {scale_c:.4e}; the f32 torch.einsum is "
+              f"{lib_err / scale_c:.3e} of it off the f64 one; dropped-norm "
+              f"bound at eps {TEN_EPS:g}: {bound:.3e}")
+        for mname, mesh in (("1x1", mesh11), ("2x2", mesh22)):
+            label = f"(x) {spec} on {mname}"
+
+            def run(**kw):
+                return dbcsr.contract(spec, Bt, other, mesh=mesh,
+                                      filter_eps=TEN_EPS, **kw)
+            zero_counters()
+            (C, plan), first = sync_s(lambda: run(return_plan=True))
+            got = read_counters()
+            err = float((C.data.double() - exact).abs().max())
+            if not err <= (tol_dense if plan.densify else tol):
+                raise AssertionError(
+                    f"{label}: max err {err:.3e} > {REL_TOL:g} x "
+                    f"{scale_c:.3e} + dropped-norm bound {bound:.3e}"
+                    + (f" (or 2 x the f32 einsum's {lib_err:.3e})"
+                       if plan.densify else ""))
+            if tuple(C.shape) != tuple(exact.shape) or not bool(
+                    torch.isfinite(C.data).all()):
+                raise AssertionError(f"{label}: result shape or values")
+            del C
+            fns = [lambda L=L: run(layout=L.label) for L in layouts]
+            fns.append(lambda: run())
+            times = time_interleaved(fns, TEN_ROUNDS)
+            t_auto, pinned = times[-1], times[:-1]
+            i_best = int(np.argmin(pinned))
+            regret = t_auto / pinned[i_best] - 1.0
+            table = {L.label: 1e3 * t for L, t in zip(layouts, pinned)}
+            print(f"  {label}: auto {plan.layout} {plan.algorithm}+"
+                  f"{'densified' if plan.densify else 'blocked'}, "
+                  f"predicted {1e3 * plan.predicted_s:.3f} ms (copy "
+                  f"{1e3 * plan.copy_s:.3f}); first call {first:.3f} s, "
+                  f"launches { {k: v for k, v in got.items() if v} }")
+            print(f"    pinned layouts (median of {TEN_ROUNDS} interleaved "
+                  f"rounds): "
+                  + ", ".join(f"{k} {v:.3f} ms" for k, v in table.items())
+                  + f"; auto {1e3 * t_auto:.3f} ms; regret "
+                  f"{100 * regret:.1f} % against {layouts[i_best].label}")
+            # one traced call: where the host time of a contraction goes
+            _, spans, outc, host_s = traced(lambda: run())
+            tr = check_trace(f"{label}, auto, traced", spans, outc)
+            disp = [x for x in spans if x.name == "dispatch"]
+            tr.update(call_ms=1e3 * host_s,
+                      device_ms=1e3 * sum(d.attrs["device_s"] for d in disp))
+            print(f"    traced call {tr['call_ms']:.3f} ms, of which the "
+                  f"dispatch's device_s {tr['device_ms']:.3f} ms "
+                  f"({100 * tr['device_ms'] / tr['call_ms']:.1f} %)")
+            print(f"    max |C - f64 einsum| {err:.3e} = {err / scale_c:.3e} "
+                  f"of max|C| (tol {REL_TOL:g} + the dropped-norm bound"
+                  + (f", or 2 x the f32 einsum's {lib_err / scale_c:.3e}"
+                     " for a densified product" if plan.densify else "")
+                  + ")")
+            # at one pinned layout, contract is bitwise the
+            # hand-matricized dbcsr.multiply: blocked (smm) on 1x1,
+            # densified on 2x2
+            L = next(x for x in layouts if x.label == plan.layout)
+            dens = mname != "1x1"
+            zero_counters()
+            Cb, pb = run(layout=L.label, densify=dens, return_plan=True)
+            got_b = read_counters()
+            if not dens and got_b["smm"] < 1:
+                raise AssertionError(f"{label}: blocked, no smm launch")
+            lsrc, lrows, lcols, rsrc, rrows, rcols, crows, ccols = \
+                layout_operands(con, L)
+            left, lidx = ((Bt, con.a_indices) if lsrc == "a"
+                          else (other, con.b_indices))
+            right, ridx = ((other, con.b_indices) if rsrc == "b"
+                           else (Bt, con.a_indices))
+            dims = {**dict(zip(con.a_indices, Bt.shape)),
+                    **dict(zip(con.b_indices, other.shape))}
+            bsz = {**dict(zip(con.a_indices, Bt.block_sizes)),
+                   **dict(zip(con.b_indices, other.block_sizes))}
+            ma = unfold_tensor(left, lidx, lrows, lcols, mesh=mesh)
+            mb = unfold_tensor(right, ridx, rrows, rcols, mesh=mesh)
+            c2d = dbcsr.multiply(ma, mb, mesh=mesh,
+                                 algorithm=pb.plan.algorithm, densify=dens,
+                                 filter_eps=TEN_EPS)
+            hand = fold_to_tensor(c2d, con.out_indices, crows, ccols, dims,
+                                  bsz, Bt.grid, mesh=mesh)
+            del ma, mb, c2d
+            if not torch.equal(Cb.data, hand.data):
+                raise AssertionError(f"{label}: contract at {L.label} != "
+                                     "the hand-matricized multiply")
+            err_b = float((Cb.data.double() - exact).abs().max())
+            print(f"    at {L.label} {'densified' if dens else 'blocked'} "
+                  f"({pb.algorithm}; launches "
+                  f"{ {k: v for k, v in got_b.items() if v} }): bitwise the "
+                  f"hand-matricized dbcsr.multiply; max err "
+                  f"{err_b / scale_c:.3e} of max|C|")
+            if not err_b <= (tol_dense if dens else tol):
+                raise AssertionError(f"{label}: bitwise case err {err_b}")
+            del Cb, hand
+            rows.append({"case": label, "auto": plan.layout,
+                         "algorithm": plan.algorithm,
+                         "densify": plan.densify,
+                         "predicted_ms": 1e3 * plan.predicted_s,
+                         "auto_ms": 1e3 * t_auto, "pinned_ms": table,
+                         "regret": regret, "first_s": first,
+                         "launches": got, "bitwise_layout": L.label,
+                         "bitwise_launches": got_b, "max_abs_err": err,
+                         "rel_err": err / scale_c,
+                         "bitwise_rel_err": err_b / scale_c,
+                         "einsum_f32_rel_err": lib_err / scale_c,
+                         "dropped_norm_bound": bound, "trace": tr})
+        del exact
+        torch.cuda.empty_cache()
+    return rows
+
+
+def obs_and_tensors(dev, card, zero_counters, read_counters) -> dict:
+    """Phase 9; prints one {"phase9": ...} line."""
+    from repro_torch import obs
+
+    try:
+        tel = telemetry(dev, card, zero_counters, read_counters)
+        print(f"phase 9 (x): tensor contractions at a CP2K RPA size "
+              f"({card})")
+        ten = tensors(dev, card, zero_counters, read_counters)
+    finally:
+        obs.disable()
+    summary = {"card": card, "telemetry": tel, "tensor": ten}
+    print(json.dumps({"phase9": summary}, default=str))
+    return summary
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--phase", type=int, choices=[9], default=None,
+                    help="development: build the kernels and run this "
+                         "phase alone (prints no kernels and no ok line)")
+    only = ap.parse_args(argv).phase
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2188,6 +2734,27 @@ def main() -> int:
     per_source = ", ".join(f"{k} {v['seconds']:.2f} s" for k, v in built.items())
     print(f"  built {sorted(built)} in {time.perf_counter() - t0:.2f} s "
           f"(one nvcc per source, in parallel: {per_source})")
+    counters = {"smm": smm_process_stack, "tiled_matmul": tiled_matmul,
+                "grouped_gemm": grouped_gemm,
+                "decode_attention": decode_attention}
+    launches = {key: 0 for key in counters}
+
+    def zero_counters():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read_counters():
+        got = {key: fn.launches for key, fn in counters.items()}
+        for key in launches:
+            launches[key] += got[key]
+        return got
+
+    if only is not None:
+        # a development run of one phase: no kernels line, no ok line
+        print(f"phase {only} ({card})")
+        {9: obs_and_tensors}[only](dev, card, zero_counters, read_counters)
+        print(f"phase {only} alone: done; launches {launches}")
+        return 0
 
     # ---------------------------------------------------------- phase 1
     print("phase 1: kernels against their plain versions")
@@ -2355,20 +2922,6 @@ def main() -> int:
     # ---------------------------------------------------------- phase 2
     print("phase 2: dbcsr.create -> dbcsr.multiply on a 1x1 mesh")
     mesh = make_mesh((1, 1), ("data", "model"))
-    counters = {"smm": smm_process_stack, "tiled_matmul": tiled_matmul,
-                "grouped_gemm": grouped_gemm,
-                "decode_attention": decode_attention}
-    launches = {key: 0 for key in counters}
-
-    def zero_counters():
-        for fn in counters.values():
-            fn.launches = 0
-
-    def read_counters():
-        got = {key: fn.launches for key, fn in counters.items()}
-        for key in launches:
-            launches[key] += got[key]
-        return got
 
     def run(label, a, b, **kw):
         zero_counters()
@@ -2862,6 +3415,11 @@ def main() -> int:
     for row in robustness(dev, card, zero_counters, read_counters, report):
         err_abs["smm"] = max(err_abs["smm"], row.pop("max_abs_err"))
         smm_rows.append(row)
+
+    # ---------------------------------------------------------- phase 9
+    print(f"phase 9 (w): telemetry on the card ({card})")
+    torch.cuda.empty_cache()
+    obs_and_tensors(dev, card, zero_counters, read_counters)
 
     for key, n in launches.items():
         if n < 1:

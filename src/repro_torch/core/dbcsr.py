@@ -17,6 +17,10 @@ matrix can move from the reference to the port.
 ``multiply_batched`` runs many independent products, bucketed by
 ``_bucket_key`` (geometry, occupancy bin, eps), one fused dispatch per
 bucket (core/multiply_batched.py).
+
+``create_tensor`` / ``contract`` are the N-d siblings (repro_torch.tensor,
+after arXiv:1910.13555): blocked tensors whose einsum contractions lower
+onto ``multiply`` by matricization.
 """
 from __future__ import annotations
 
@@ -26,11 +30,12 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import obs
 from .blocking import BlockLayout, GridSpec
 
 __all__ = ["DBCSRMatrix", "create", "from_state", "multiply",
            "multiply_batched", "multiply_vector", "add", "trace",
-           "transpose"]
+           "transpose", "contract", "create_tensor"]
 
 
 def _expand_mask(mask: np.ndarray, block_rows: int, block_cols: int,
@@ -325,6 +330,83 @@ def multiply(
     return (c, plan) if return_plan else c
 
 
+def create_tensor(array, *, mesh, grid=GridSpec(), block_sizes,
+                  block_mask=None, compute_norms=False):
+    """Create a blocked N-d ``DBCSRTensor`` (repro_torch.tensor) — the
+    tensor analogue of ``create``: uniform per-axis blocking, an optional
+    N-d block occupancy mask (absent blocks' payload zeroed) and a
+    lazily cached per-block Frobenius norm tensor, on the mesh's device.
+    Tensors are contracted with ``contract``."""
+    from ..tensor import create_tensor as _create_tensor
+
+    return _create_tensor(array, mesh=mesh, grid=grid,
+                          block_sizes=block_sizes, block_mask=block_mask,
+                          compute_norms=compute_norms)
+
+
+def contract(
+    spec: str,
+    a,
+    b,
+    *,
+    mesh,
+    algorithm: str = "auto",
+    layout="auto",
+    densify: Optional[bool] = None,
+    filter_eps: Optional[float] = None,
+    verify: Optional[str] = None,
+    rank_exact: Optional[bool] = None,
+    return_plan: bool = False,
+    **kw,
+):
+    """C = contraction of two blocked tensors per an einsum ``spec``
+    (``"ijk,kl->ijl"``) — the N-d sibling of ``multiply`` /
+    ``multiply_batched`` (repro_torch.tensor, after arXiv:1910.13555):
+    the spec is parsed into (contracted, A-free, B-free) index groups,
+    the tensors are MATRICIZED — each group fused into one blocked
+    matrix dimension at the block level, so masks lower by a pure
+    block-grid transpose (an N-d block is retained iff its 2D image is)
+    and the Frobenius norm cache lowers exactly (norms are invariant to
+    the intra-block permutation) — the 2D product runs through the
+    ordinary ``multiply``, and the result folds back into the spec's
+    output frame as a ``DBCSRTensor`` carrying the retained N-d mask.
+
+    ``layout`` — the matricization is a COSTED choice: every legal
+    layout (fusion orders of the three index groups x the transposed
+    variant) is priced by the planner as its own 2D multiply plan
+    (per-layout occupancy and rank imbalance from the matricized masks)
+    plus its unfold/refold copy cost (``cost_model.matricize_cost_s``).
+    ``"auto"`` (default) lets ``planner.plan_contract`` pick — LRU-cached
+    on the contraction signature, so a repeated contraction replans for
+    free; a ``Layout`` instance or its label string (e.g.
+    ``"(ij|k)@(k|l)"``) pins it.  The result carries the executed
+    ``ContractionPlan`` as ``C.last_plan``, whose ``explain()`` prints
+    the per-layout table above the winning layout's per-candidate
+    multiply breakdown.
+
+    ``algorithm`` / ``densify`` / ``filter_eps`` / ``verify`` /
+    ``rank_exact`` and any further kwargs thread through to the
+    underlying ``multiply`` with identical semantics: eps filtering uses
+    the lowered norms (``filter_eps=0`` bit-identical to unfiltered),
+    ABFT verification detects, localizes and repairs corruption before
+    the refold (reported as ``C.verification``), and rank-exact per-rank
+    plans see the matricized masks.
+
+    At a FIXED layout the result is bitwise equal to hand-matricizing
+    the operands and calling ``multiply`` directly (the fold is a pure
+    element permutation); different layouts change the fused
+    accumulation order and agree to float tolerance only.
+
+    ``return_plan=True`` returns ``(C, ContractionPlan)``.
+    """
+    from ..tensor import contract as _contract
+
+    return _contract(spec, a, b, mesh=mesh, algorithm=algorithm,
+                     layout=layout, densify=densify,
+                     filter_eps=filter_eps, verify=verify,
+                     rank_exact=rank_exact, return_plan=return_plan, **kw)
+
+
 def _bucket_key(a: DBCSRMatrix, b: DBCSRMatrix,
                 filter_eps: Optional[float]) -> tuple:
     """The batching bucket contract: requests fuse only when they agree
@@ -514,6 +596,11 @@ def multiply_batched(
             verify=verify, **kw)
         for i, c in zip(idxs, out):
             results[i] = c
+        if obs.enabled():
+            # fuse-or-loop decision accounting (planner or pinned)
+            obs.counter("batched.requests_fused" if rep["fused"]
+                        else "batched.requests_looped").inc(len(idxs))
+            obs.counter("batched.buckets").inc()
         bucket_reports.append({
             "key": key, "n_requests": len(idxs), "request_indices": idxs,
             **rep})

@@ -46,6 +46,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from .blocking import BlockLayout
 from .densify import from_blocks_batched, kernel_operand, to_blocks_batched
 from .stacks import (StackPlan, build_stacks, pad_plans, stack_rank_slab,
@@ -218,6 +219,16 @@ class ExecutorPlan:
             s["norm_retained_fraction"] = (
                 self.n_entries / self.n_unfiltered_entries
                 if self.n_unfiltered_entries else 1.0)
+        if obs.enabled():
+            # publish into the process-wide registry (gated: the
+            # disabled path must add zero registry entries)
+            obs.counter("executor.stats_reports").inc()
+            obs.counter("executor.entries").inc(self.n_entries)
+            obs.counter("executor.padding_triples_saved").inc(
+                s["padding_triples_saved"])
+            obs.counter("executor.norm_filtered_triples").inc(
+                self.n_norm_filtered_triples)
+            obs.histogram("executor.occupancy").observe(self.occupancy)
         return s
 
 
@@ -680,6 +691,12 @@ class BatchedExecutorPlan:
     def stats(self) -> dict:
         """Per-group padding and cross-request fusion accounting."""
         flop_per_entry = 2 * self.block_m * self.block_k * self.block_n
+        if obs.enabled():
+            obs.counter("executor.batched_stats_reports").inc()
+            obs.counter("executor.batched_shared_plans").inc(
+                self.n_shared_plans)
+            obs.histogram("executor.batched_padding_frac").observe(
+                self.padding_frac)
         return {
             "n_groups": self.n_groups,
             "n_shared_plans": self.n_shared_plans,
@@ -1093,6 +1110,9 @@ class RankExecutorPlan:
         return bool((self.slab == self.slab[:1]).all())
 
     def stats(self) -> dict:
+        if obs.enabled():
+            obs.histogram("executor.rank_imbalance").observe(
+                self.rank_imbalance)
         return {
             "n_ranks": self.n_ranks,
             "n_stacks": self.n_stacks,

@@ -47,16 +47,27 @@ decomposition; ``rebalance=None`` follows the plan's costed decision.
 ABFT verification (``verify=``, repro_torch.robustness.abft) checks the
 raw product against block checksums computed by a separate GEMM path,
 and repairs a corrupted block by re-running the same dispatch once.
-Telemetry (A9) does not exist in the port yet.
+
+Telemetry (repro_torch.obs): with ``obs.enable()`` on, each call records
+a ``multiply`` span nesting plan -> dispatch -> schedule-step ->
+comm/stacks (and verify -> repair -> dispatch), and logs the plan's
+predicted against its measured cost for the planner scoreboard.  The
+dispatch span is the host interval of the schedule's run up to a
+synchronize on the mesh's device and, on a CUDA mesh, carries
+``device_s`` from a pair of CUDA events around the same run.  Off (the
+default), or vetoed (torch.compile tracing, CUDA-graph capture), the
+call runs the untraced path: no span, event or synchronize.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .. import obs
 from .blocking import GridSpec
 from .cannon import (build_cannon_schedule, cannon_matmul, cannon_rank_steps,
                      cannon_step_masks, cannon_step_norms)
@@ -278,29 +289,37 @@ def _build_meta_schedule(algorithm: str, *, grid: GridSpec, mesh,
 
 def _schedule_stats(algorithm: str, *, grid: GridSpec, mesh, local_shape,
                     itemsize: int, lm, densify: bool, pipeline_depth: int,
-                    reduce_kw: dict) -> dict:
+                    reduce_kw: dict, n_groups: int = 1) -> dict:
     """Per-step comm-vs-compute split of the executed schedule, priced
     with the calibrated hardware constants (host-side observability,
-    attached to executed plans as ``schedule_stats``)."""
+    attached to executed plans as ``schedule_stats`` and emitted as
+    schedule-step spans by the telemetry layer).  ``n_groups`` scales
+    comm bytes and dense flops for the fused batched dispatch, whose
+    every step moves and computes G same-geometry products at once."""
     from ..planner.calibrate import get_hardware_model
 
     hw = get_hardware_model()
     empty = getattr(lm, "empty_steps", frozenset())
     sched = _build_meta_schedule(
         algorithm, grid=grid, mesh=mesh, local_shape=local_shape,
-        itemsize=itemsize, empty_steps=empty, reduce_kw=reduce_kw)
+        itemsize=itemsize * n_groups, empty_steps=empty,
+        reduce_kw=reduce_kw)
     meta = schedule_step_meta(sched)
 
     ml, kl, nl = local_shape
-    dense_flops = 2.0 * ml * kl * nl
+    dense_flops = 2.0 * ml * kl * nl * n_groups
     step_execs = getattr(lm, "step_executors", None)
     steps = []
     for t in range(meta["n_steps"]):
         comm_bytes = meta["step_comm_bytes"][t]
         plan = None
         if not densify and t not in empty:
+            # stepwise executors carry .executor_plan (blocked path) or
+            # .batched_plan (fused batched path); both expose n_entries
+            # and the block sizes, enough to price the stack dispatch
             ex = step_execs[t] if step_execs is not None else lm
-            plan = ex.executor_plan
+            plan = (getattr(ex, "executor_plan", None)
+                    or getattr(ex, "batched_plan", None))
         if t in empty:
             flops = 0.0
             compute_s = 0.0
@@ -351,6 +370,89 @@ def _schedule_stats(algorithm: str, *, grid: GridSpec, mesh, local_shape,
         "epilogue_comm_s": meta["epilogue_comm_bytes"] / hw.bytes_per_s,
         "overlap_bound_s": overlap_bound_s,
     }
+
+
+def _emit_step_spans(parent, t0: float, total_s: float, ss: dict) -> None:
+    """Carve the measured dispatch interval ``[t0, t0+total_s]`` into
+    synthetic schedule-step spans (prologue / step[t] {comm, stacks} /
+    epilogue), each sized by the cost model's per-step weight from
+    ``_schedule_stats`` and scaled so they sum exactly to the measured
+    wall time.  The steps run back to back on one device queue and are
+    not timed one by one, so this is the per-step attribution the
+    telemetry gives; attrs carry the *exact* comm-bytes/flops/occupancy."""
+    tracer = obs.get_tracer()
+    if tracer is None or parent is None or total_s <= 0.0:
+        return
+    w_pro = ss.get("prologue_comm_s", 0.0)
+    w_epi = ss.get("epilogue_comm_s", 0.0)
+    steps = ss.get("steps", [])
+    w_sum = w_pro + w_epi + sum(s["comm_s"] + s["compute_s"]
+                                for s in steps)
+    if w_sum <= 0.0:
+        return
+    scale = total_s / w_sum
+    cur = t0
+    if w_pro > 0.0:
+        tracer.emit("prologue", "comm", t0=cur, dur=w_pro * scale,
+                    parent=parent,
+                    attrs={"comm_bytes": ss.get("prologue_comm_bytes", 0),
+                           "comm_op": ss.get("comm_op")})
+        cur += w_pro * scale
+    for s in steps:
+        sdur = (s["comm_s"] + s["compute_s"]) * scale
+        srec = tracer.emit(
+            f"step[{s['step']}]", "schedule-step", t0=cur, dur=sdur,
+            parent=parent,
+            attrs={"step": s["step"], "skipped": s["skipped"],
+                   "comm_bytes": s["comm_bytes"], "flops": s["flops"],
+                   "occupancy": s.get("occupancy"),
+                   "n_entries": s.get("n_entries"),
+                   "rank_entries": s.get("rank_entries"),
+                   "rank_imbalance": s.get("rank_imbalance")})
+        if s["comm_s"] > 0.0:
+            tracer.emit("comm", "comm", t0=cur, dur=s["comm_s"] * scale,
+                        parent=srec,
+                        attrs={"comm_bytes": s["comm_bytes"],
+                               "comm_op": ss.get("comm_op")})
+        if s["compute_s"] > 0.0:
+            tracer.emit("stacks", "compute",
+                        t0=cur + s["comm_s"] * scale,
+                        dur=s["compute_s"] * scale, parent=srec,
+                        attrs={"flops": s["flops"],
+                               "occupancy": s.get("occupancy")})
+        cur += sdur
+    if w_epi > 0.0:
+        tracer.emit("epilogue", "comm", t0=cur, dur=w_epi * scale,
+                    parent=parent,
+                    attrs={"comm_bytes": ss.get("epilogue_comm_bytes", 0),
+                           "comm_op": ss.get("comm_op")})
+
+
+def _timed_dispatch(run, device: torch.device, attrs: dict):
+    """One traced dispatch: ``run()`` inside a ``dispatch`` span whose
+    interval is the host's, from a synchronized start to a synchronize
+    on ``device``; on a CUDA device a pair of CUDA events around the same
+    ``run()`` adds ``device_s``.  Returns ``(result, span, t0, dt)``;
+    host minus device time is the dispatch's host share."""
+    cuda = device.type == "cuda"
+    if cuda:
+        # work queued before the dispatch is not the dispatch's
+        stream = torch.cuda.current_stream(device)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize(device)
+    with obs.span("dispatch", cat="dispatch", **attrs) as dsp:
+        t0 = time.perf_counter()
+        if cuda:
+            start.record(stream)
+        c = run()
+        if cuda:
+            stop.record(stream)
+            torch.cuda.synchronize(device)
+        dt = time.perf_counter() - t0
+        if cuda:
+            dsp.set(device_s=start.elapsed_time(stop) / 1e3)
+    return c, dsp, t0, dt
 
 
 # ---------------------------------------------------------------------------
@@ -470,7 +572,7 @@ def _rank_imbalance_of(totals: Optional[np.ndarray]) -> Optional[float]:
 
 def _verified_result(verify, a, b, c, rerun, *, plan, n_ranks, block_m,
                      block_k, block_n, a_mask, b_mask, a_norms, b_norms,
-                     filter_eps, verify_budget):
+                     filter_eps, verify_budget, _tele: bool = False):
     """ABFT verification of a raw product (repro_torch.robustness.abft):
     price the checksum overhead against the plan (``verify="auto"``),
     screen the operands with the finite tripwires, apply any installed
@@ -495,14 +597,24 @@ def _verified_result(verify, a, b, c, rerun, *, plan, n_ranks, block_m,
         return c, info
     from ..robustness import abft, chaos, guards
 
-    guards.assert_finite(a, "A")
-    guards.assert_finite(b, "B")
-    c = chaos.apply_result_hook(c)
-    c, report = abft.verify_and_repair(
-        a, b, c, recompute=rerun,
-        block_m=block_m, block_k=block_k, block_n=block_n,
-        a_mask=a_mask, b_mask=b_mask, a_norms=a_norms, b_norms=b_norms,
-        filter_eps=filter_eps)
+    def _repair_rerun():
+        # a detection re-executes the deterministic dispatch once; the
+        # repair span makes that second dispatch visible in the trace
+        with obs.maybe_span(_tele, "repair", cat="repair"):
+            return rerun()
+
+    with obs.maybe_span(_tele, "verify", cat="verify", mode=verify) as vsp:
+        guards.assert_finite(a, "A")
+        guards.assert_finite(b, "B")
+        c = chaos.apply_result_hook(c)
+        c, report = abft.verify_and_repair(
+            a, b, c, recompute=_repair_rerun,
+            block_m=block_m, block_k=block_k, block_n=block_n,
+            a_mask=a_mask, b_mask=b_mask, a_norms=a_norms, b_norms=b_norms,
+            filter_eps=filter_eps)
+        vsp.set(detected=bool(report.detected),
+                repaired=bool(report.repaired),
+                n_flagged_blocks=len(report.flagged_blocks))
     info["report"] = report
     return c, info
 
@@ -599,6 +711,13 @@ def distributed_matmul(
     25 %) of the plan's predicted time.  ``None`` (default) adds no work
     and is bitwise the unverified multiply.  The outcome lands on the
     plan as ``plan.verification``.
+
+    Telemetry (repro_torch.obs): with ``obs.enable()`` on, and only
+    then, the call records a ``multiply`` span nesting plan -> dispatch
+    -> schedule-step -> comm/stacks (plus verify -> repair) and logs the
+    plan's predicted-vs-measured cost for the planner scoreboard.  Off
+    (the default), under torch.compile tracing or CUDA-graph capture
+    the call adds one boolean check and the output is bit identical.
     """
     c, plan = _distributed_matmul(
         a, b, mesh=mesh, grid=grid, algorithm=algorithm, densify=densify,
@@ -612,7 +731,23 @@ def distributed_matmul(
     return (c, plan) if return_plan else c
 
 
-def _distributed_matmul(
+def _distributed_matmul(a: torch.Tensor, b: torch.Tensor, **kw
+                        ) -> Tuple[torch.Tensor, Optional[dict]]:
+    """``_distributed_matmul_impl`` (its docstring) under the call's
+    telemetry flag: untraced when ``obs.recording()`` is false, else
+    inside a ``multiply`` root span.  ``distributed_matmul`` and
+    ``dbcsr.multiply`` enter here."""
+    if not obs.recording():
+        return _distributed_matmul_impl(a, b, **kw)
+    attrs = {"algorithm": kw.get("algorithm", "auto")}
+    if a.ndim == 2 and b.ndim == 2:
+        attrs.update(m=int(a.shape[0]), k=int(a.shape[1]),
+                     n=int(b.shape[1]))
+    with obs.span("multiply", cat="multiply", **attrs):
+        return _distributed_matmul_impl(a, b, _tele=True, **kw)
+
+
+def _distributed_matmul_impl(
     a: torch.Tensor,
     b: torch.Tensor,
     *,
@@ -640,6 +775,7 @@ def _distributed_matmul(
     verify_budget: Optional[float] = None,
     return_plan: bool = False,
     schedule_stats: bool = True,
+    _tele: bool = False,
     **kw,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """``distributed_matmul`` returning ``(C, executor_stats)``: the
@@ -650,7 +786,8 @@ def _distributed_matmul(
     it returns ``(C, plan)``, the statistics on ``plan.executor_stats``
     and, unless ``schedule_stats=False``, the schedule's per-step split
     on ``plan.schedule_stats``, and ``verify``'s outcome on
-    ``plan.verification``.
+    ``plan.verification``.  ``_tele`` is the call's telemetry flag
+    (``_distributed_matmul``).
     """
     m, k = a.shape
     k2, n = b.shape
@@ -689,55 +826,67 @@ def _distributed_matmul(
     use_rank = rank_exact is not False and masked and n_ranks > 1
 
     plan = None
-    if algorithm == "auto" or return_plan or verify is not None:
+    # telemetry forces a plan even for pinned algorithms: the planner
+    # scoreboard needs predicted_s for every executed plan
+    if algorithm == "auto" or return_plan or verify is not None or _tele:
         from ..planner.plan import plan_multiply
 
-        # the per-rank load imbalance of the C-chunk decomposition, for
-        # the planner's rank-exact pricing and its rebalance decision
-        rank_imb = None
-        if use_rank and am.shape[0] % pr == 0 and bmk.shape[1] % pc == 0:
-            from ..sparsity.balance import (chunk_imbalance,
-                                            retained_block_weights)
+        with obs.maybe_span(_tele, "plan", cat="plan") as psp:
+            # the per-rank load imbalance of the C-chunk decomposition, for
+            # the planner's rank-exact pricing and its rebalance decision
+            rank_imb = None
+            if (use_rank and am.shape[0] % pr == 0
+                    and bmk.shape[1] % pc == 0):
+                from ..sparsity.balance import (chunk_imbalance,
+                                                retained_block_weights)
 
-            weights = retained_block_weights(am, bmk, an_g, bn_g,
-                                             filter_eps, device=mesh.device)
-            rank_imb = chunk_imbalance(weights, pr, pc)
-            # the weights count the retained triples _global_occupancy
-            # counts: one pass over the triple grid, not two
-            occ = float(weights.sum()) / (am.size * bmk.shape[1])
-        else:
-            occ = _global_occupancy(m, k, n, block_m, block_k, block_n,
-                                    a_mask, b_mask, a_norms, b_norms,
-                                    filter_eps)
-        # a pinned summa with the PUMMA broadcast is priced by the
-        # planner's "summa_gather" model (full-K gathered panels, whose
-        # operand replication the memory gate must see); auto never
-        # enumerates it
-        plan_algorithm = None if algorithm == "auto" else algorithm
-        if algorithm == "summa" and kw.get("bcast") == "gather":
-            plan_algorithm = "summa_gather"
-        plan = plan_multiply(
-            m, k, n, blocks=(block_m, block_k, block_n),
-            mesh_shape=((pr, pc) if grid.stack_axis is None
-                        else (pr, pc, c_stack)),
-            occupancy=occ, dtype=torch.promote_types(a.dtype, b.dtype),
-            algorithm=plan_algorithm,
-            # a fixed algorithm runs densified when densify is unset, and
-            # the plan must describe what runs
-            densify=(densify if algorithm == "auto" or densify is not None
-                     else True),
-            stack_size=stack_size, align=align, rank_imbalance=rank_imb)
-        if algorithm == "auto":
-            algorithm = plan.algorithm
-            if densify is None:
-                densify = plan.densify
-            if not densify:
-                if stack_size is None:
-                    stack_size = plan.stack_tile
-                if align is None:
-                    align = plan.align
-            if pipeline_depth is None and double_buffer is None:
-                pipeline_depth = plan.pipeline_depth
+                weights = retained_block_weights(
+                    am, bmk, an_g, bn_g, filter_eps, device=mesh.device)
+                rank_imb = chunk_imbalance(weights, pr, pc)
+                # the weights count the retained triples
+                # _global_occupancy counts: one pass over the triple
+                # grid, not two
+                occ = float(weights.sum()) / (am.size * bmk.shape[1])
+            else:
+                occ = _global_occupancy(m, k, n, block_m, block_k, block_n,
+                                        a_mask, b_mask, a_norms, b_norms,
+                                        filter_eps)
+            # a pinned summa with the PUMMA broadcast is priced by the
+            # planner's "summa_gather" model (full-K gathered panels,
+            # whose operand replication the memory gate must see); auto
+            # never enumerates it
+            plan_algorithm = None if algorithm == "auto" else algorithm
+            if algorithm == "summa" and kw.get("bcast") == "gather":
+                plan_algorithm = "summa_gather"
+            plan = plan_multiply(
+                m, k, n, blocks=(block_m, block_k, block_n),
+                mesh_shape=((pr, pc) if grid.stack_axis is None
+                            else (pr, pc, c_stack)),
+                occupancy=occ,
+                dtype=torch.promote_types(a.dtype, b.dtype),
+                algorithm=plan_algorithm,
+                # a fixed algorithm runs densified when densify is unset,
+                # and the plan must describe what runs
+                densify=(densify
+                         if algorithm == "auto" or densify is not None
+                         else True),
+                stack_size=stack_size, align=align,
+                rank_imbalance=rank_imb)
+            if algorithm == "auto":
+                algorithm = plan.algorithm
+                if densify is None:
+                    densify = plan.densify
+                if not densify:
+                    if stack_size is None:
+                        stack_size = plan.stack_tile
+                    if align is None:
+                        align = plan.align
+                if pipeline_depth is None and double_buffer is None:
+                    pipeline_depth = plan.pipeline_depth
+            psp.set(algorithm=plan.algorithm, densify=bool(plan.densify),
+                    predicted_s=float(plan.predicted_s),
+                    occupancy=float(plan.occupancy),
+                    trivial=bool(plan.trivial))
 
     if densify is None:
         densify = True  # the default for a fixed algorithm
@@ -760,6 +909,10 @@ def _distributed_matmul(
         am, bmk = am[rb.perm_m], bmk[:, rb.perm_n]
         if an_g is not None:
             an_g, bn_g = an_g[rb.perm_m], bn_g[:, rb.perm_n]
+        if obs.enabled():
+            # gated, unlike the JAX package's: with telemetry off a
+            # multiply adds no registry entry
+            obs.counter("planner.rebalance.applied").inc()
 
     # ---- local multiply geometry (per schedule step) ------------------
     pg = p_all = n_panels = None
@@ -872,6 +1025,11 @@ def _distributed_matmul(
                 ml, kl, nl, **ts_step_masks(algorithm, am, bmk, p_all),
                 **norm_kw, **blocked_kw)
 
+    if not densify and obs.enabled():
+        imb = _rank_imbalance_of(_rank_totals(lm))
+        if imb is not None:
+            obs.histogram("executor.rank_imbalance").observe(imb)
+
     # ---- data-exchange algorithm (all via the schedule engine) --------
     common = dict(mesh=mesh, grid=grid, local_matmul=lm,
                   pipeline_depth=pipeline_depth)
@@ -903,14 +1061,57 @@ def _distributed_matmul(
             c = permute_block_cols(c, rb.inv_n, block_n)
         return c
 
-    c = _run()
+    from ..planner.plan import itemsize_of
+
+    depth = resolve_pipeline_depth(pipeline_depth, double_buffer)
+    sched_stats_cache = []
+
+    def _sched_stats():
+        if not sched_stats_cache:
+            sched_stats_cache.append(_schedule_stats(
+                algorithm, grid=grid, mesh=mesh, local_shape=(ml, kl, nl),
+                itemsize=itemsize_of(torch.promote_types(a.dtype, b.dtype)),
+                lm=lm, densify=densify, pipeline_depth=depth,
+                reduce_kw=kw))
+        return sched_stats_cache[0]
+
+    dispatch_times: List[float] = []
+
+    def _run_traced() -> torch.Tensor:
+        # telemetry off: exactly the untraced path, no timing, no sync
+        if not _tele:
+            return _run()
+        c, dsp, t0, dt = _timed_dispatch(
+            _run, mesh.device, dict(algorithm=algorithm,
+                                    densify=bool(densify),
+                                    pipeline_depth=depth))
+        dispatch_times.append(dt)
+        try:
+            ss = _sched_stats()
+        except Exception:
+            ss = None  # telemetry must never break the multiply
+        if ss is not None:
+            dsp.set(comm_bytes=int(ss.get("total_comm_bytes", 0)))
+            _emit_step_spans(dsp.rec, t0, dt, ss)
+        return c
+
+    c = _run_traced()
     verification = None
     if verify is not None:
         c, verification = _verified_result(
-            verify, a, b, c, _run, plan=plan, n_ranks=n_ranks,
+            verify, a, b, c, _run_traced, plan=plan, n_ranks=n_ranks,
             block_m=block_m, block_k=block_k, block_n=block_n,
             a_mask=a_mask, b_mask=b_mask, a_norms=a_norms, b_norms=b_norms,
-            filter_eps=filter_eps, verify_budget=verify_budget)
+            filter_eps=filter_eps, verify_budget=verify_budget, _tele=_tele)
+    if _tele and plan is not None and not plan.trivial and dispatch_times:
+        # predicted-vs-actual planner accounting: the first dispatch is
+        # the clean run (a repair re-execution would re-measure the same
+        # deterministic program)
+        obs.record_plan_outcome(
+            kind="multiply", algorithm=algorithm, densify=bool(densify),
+            m=m, k=k, n=n, occupancy=float(plan.occupancy),
+            predicted_s=float(plan.predicted_s),
+            measured_s=float(dispatch_times[0]), pipeline_depth=int(depth))
 
     es = _collect_executor_stats(lm, densify, mesh.n_ranks)
     if es is not None:
@@ -921,16 +1122,6 @@ def _distributed_matmul(
             es["rebalance_imbalance_after"] = rb.imbalance_after
     if not return_plan:
         return c, es
-    ss = None
-    if schedule_stats:
-        from ..planner.plan import itemsize_of
-
-        ss = _schedule_stats(
-            algorithm, grid=grid, mesh=mesh, local_shape=(ml, kl, nl),
-            itemsize=itemsize_of(torch.promote_types(a.dtype, b.dtype)),
-            lm=lm, densify=densify,
-            pipeline_depth=resolve_pipeline_depth(pipeline_depth,
-                                                  double_buffer),
-            reduce_kw=kw)
+    ss = _sched_stats() if schedule_stats else None
     return c, dataclasses.replace(plan, executor_stats=es, schedule_stats=ss,
                                   verification=verification)

@@ -39,6 +39,12 @@ Bit-identity contract: at ``pipeline_depth=1`` (serial) with
 bit-identical to G sequential ``distributed_matmul`` calls: stack fusion
 never reorders any C block's k-run and padding rows only touch the
 global scratch block.  The densified path agrees to f32 rounding.
+
+Telemetry (repro_torch.obs): with ``obs.enable()`` on, a call records a
+``multiply_batched`` span nesting plan -> dispatch -> schedule-step
+children (G-scaled comm bytes and flops) and logs the batched plan's
+predicted against its measured fused cost; off or vetoed, the call is
+the untraced path.
 """
 from __future__ import annotations
 
@@ -48,13 +54,16 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..planner.cost_model import BATCHED_ALGORITHMS
 from .blocking import GridSpec
 from .cannon import cannon_matmul, cannon_step_masks, cannon_step_norms
 from .densify import grouped_densified_local_matmul
 from .engine import batched_stack_executor
-from .multiply import (_block_masks, _global_occupancy, _masks_empty,
-                       _stack_kernel)
+from .multiply import (_block_masks, _emit_step_spans, _global_occupancy,
+                       _masks_empty, _schedule_stats, _stack_kernel,
+                       _timed_dispatch)
+from .schedule import resolve_pipeline_depth
 from .summa import (summa_matmul, summa_n_panels, summa_step_masks,
                     summa_step_norms)
 
@@ -181,6 +190,11 @@ def distributed_matmul_batched(
     ``return_plan=True`` returns ``(C, BatchedMultiplyPlan)``: the
     planner's fuse-or-loop pricing, with the executed fused dispatch's
     padding and plan-sharing statistics as ``executor_stats``.
+
+    With telemetry on (``obs.enable()``) the call records a
+    ``multiply_batched`` span (module docstring); off, or under
+    torch.compile tracing or CUDA-graph capture, it is bit identical
+    with one boolean of overhead.
     """
     c, plan = _distributed_matmul_batched(
         a, b, mesh=mesh, grid=grid, algorithm=algorithm, densify=densify,
@@ -192,7 +206,22 @@ def distributed_matmul_batched(
     return (c, plan) if return_plan else c
 
 
-def _distributed_matmul_batched(
+def _distributed_matmul_batched(a: torch.Tensor, b: torch.Tensor, **kw):
+    """``_distributed_matmul_batched_impl`` under the call's telemetry
+    flag: untraced when ``obs.recording()`` is false, else inside a
+    ``multiply_batched`` root span.  ``distributed_matmul_batched`` and
+    ``dbcsr.multiply_batched``'s fused buckets enter here."""
+    if not obs.recording():
+        return _distributed_matmul_batched_impl(a, b, **kw)
+    attrs = {"algorithm": kw.get("algorithm", "auto")}
+    if a.ndim == 3 and b.ndim == 3:
+        attrs.update(n_groups=int(a.shape[0]), m=int(a.shape[1]),
+                     k=int(a.shape[2]), n=int(b.shape[2]))
+    with obs.span("multiply_batched", cat="multiply", **attrs):
+        return _distributed_matmul_batched_impl(a, b, _tele=True, **kw)
+
+
+def _distributed_matmul_batched_impl(
     a: torch.Tensor,
     b: torch.Tensor,
     *,
@@ -214,13 +243,15 @@ def _distributed_matmul_batched(
     pipeline_depth: Optional[int] = None,
     double_buffer: Optional[bool] = None,
     return_plan: bool = False,
+    _tele: bool = False,
     **kw,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """``distributed_matmul_batched`` returning ``(C, executor_stats)``:
     the executed fused dispatch's padding and plan-sharing statistics
     (None on the densified path), which ``dbcsr.multiply_batched``
     reports per bucket; with ``return_plan`` ``(C, plan)``, the
-    statistics on ``plan.executor_stats``."""
+    statistics on ``plan.executor_stats``.  ``_tele`` is the call's
+    telemetry flag (``_distributed_matmul_batched``)."""
     if a.ndim != 3 or b.ndim != 3:
         raise ValueError(f"batched operands must be (G, M, K) x (G, K, N), "
                          f"got {tuple(a.shape)} x {tuple(b.shape)}")
@@ -254,43 +285,51 @@ def _distributed_matmul_batched(
 
     pr, pc = grid.grid_shape(mesh)
     plan = None
-    if algorithm == "auto" or return_plan:
+    # telemetry forces a plan even for pinned algorithms (the scoreboard
+    # needs the predicted fused cost)
+    if algorithm == "auto" or return_plan or _tele:
         from ..planner.plan import plan_multiply_batched
 
-        occs = [
-            _global_occupancy(
-                m, k, n, block_m, block_k, block_n,
-                _per_group(a_masks, gi, g_count, "a_masks"),
-                _per_group(b_masks, gi, g_count, "b_masks"),
-                _per_group(a_norms, gi, g_count, "a_norms"),
-                _per_group(b_norms, gi, g_count, "b_norms"),
-                filter_eps)
-            for gi in range(g_count)
-        ]
-        occ = sum(occs) / len(occs)
-        occ_max = max(occs)
-        # groups pad to the largest group's stack shape: the mean / max
-        # occupancy spread estimates the fused dispatch's padding waste
-        plan = plan_multiply_batched(
-            g_count, m, k, n, blocks=(block_m, block_k, block_n),
-            mesh_shape=(pr, pc), occupancy=occ,
-            dtype=torch.promote_types(a.dtype, b.dtype),
-            algorithm=None if algorithm == "auto" else algorithm,
-            densify=(densify if algorithm == "auto" or densify is not None
-                     else True),
-            padding_frac=1.0 - occ / occ_max if occ_max > 0 else 0.0,
-            stack_size=stack_size, align=align)
-        if algorithm == "auto":
-            algorithm = plan.algorithm
-            if densify is None:
-                densify = plan.densify
-            if not densify:
-                if stack_size is None:
-                    stack_size = plan.stack_tile
-                if align is None:
-                    align = plan.align
-            if pipeline_depth is None and double_buffer is None:
-                pipeline_depth = plan.pipeline_depth
+        with obs.maybe_span(_tele, "plan", cat="plan") as psp:
+            occs = [
+                _global_occupancy(
+                    m, k, n, block_m, block_k, block_n,
+                    _per_group(a_masks, gi, g_count, "a_masks"),
+                    _per_group(b_masks, gi, g_count, "b_masks"),
+                    _per_group(a_norms, gi, g_count, "a_norms"),
+                    _per_group(b_norms, gi, g_count, "b_norms"),
+                    filter_eps)
+                for gi in range(g_count)
+            ]
+            occ = sum(occs) / len(occs)
+            occ_max = max(occs)
+            # groups pad to the largest group's stack shape: the mean / max
+            # occupancy spread estimates the fused dispatch's padding waste
+            plan = plan_multiply_batched(
+                g_count, m, k, n, blocks=(block_m, block_k, block_n),
+                mesh_shape=(pr, pc), occupancy=occ,
+                dtype=torch.promote_types(a.dtype, b.dtype),
+                algorithm=None if algorithm == "auto" else algorithm,
+                densify=(densify if algorithm == "auto" or densify is not None
+                         else True),
+                padding_frac=1.0 - occ / occ_max if occ_max > 0 else 0.0,
+                stack_size=stack_size, align=align)
+            if algorithm == "auto":
+                algorithm = plan.algorithm
+                if densify is None:
+                    densify = plan.densify
+                if not densify:
+                    if stack_size is None:
+                        stack_size = plan.stack_tile
+                    if align is None:
+                        align = plan.align
+                if pipeline_depth is None and double_buffer is None:
+                    pipeline_depth = plan.pipeline_depth
+            psp.set(algorithm=plan.algorithm, fuse=bool(plan.fuse),
+                    densify=bool(plan.densify),
+                    predicted_fused_s=float(plan.predicted_fused_s),
+                    predicted_looped_s=float(plan.predicted_looped_s),
+                    occupancy=float(occ), trivial=bool(plan.trivial))
 
     if densify is None:
         densify = True  # mirror distributed_matmul's fixed-algorithm default
@@ -373,8 +412,44 @@ def _distributed_matmul_batched(
 
     # ---- data exchange (one schedule for the whole batch) ------------
     run = cannon_matmul if algorithm == "cannon" else summa_matmul
-    c = run(a, b, mesh=mesh, grid=grid, local_matmul=lm,
-            pipeline_depth=pipeline_depth, double_buffer=double_buffer, **kw)
+
+    def _run():
+        return run(a, b, mesh=mesh, grid=grid, local_matmul=lm,
+                   pipeline_depth=pipeline_depth,
+                   double_buffer=double_buffer, **kw)
+
+    if not _tele:
+        c = _run()
+    else:
+        from ..planner.plan import itemsize_of
+
+        depth = resolve_pipeline_depth(pipeline_depth, double_buffer)
+        c, dsp, t0, dt = _timed_dispatch(
+            _run, mesh.device, dict(algorithm=algorithm,
+                                    densify=bool(densify),
+                                    pipeline_depth=depth,
+                                    n_groups=g_count))
+        try:
+            # per-step spans from the single-product schedule model,
+            # G-scaled (comm bytes and dense flops multiply by the group
+            # count on the fused batch)
+            ss = _schedule_stats(
+                algorithm, grid=grid, mesh=mesh, local_shape=(ml, kl, nl),
+                itemsize=itemsize_of(torch.promote_types(a.dtype, b.dtype)),
+                lm=lm, densify=densify, pipeline_depth=depth, reduce_kw=kw,
+                n_groups=g_count)
+        except Exception:
+            ss = None  # telemetry must never break the multiply
+        if ss is not None:
+            dsp.set(comm_bytes=int(ss.get("total_comm_bytes", 0)))
+            _emit_step_spans(dsp.rec, t0, dt, ss)
+        if plan is not None and not plan.trivial:
+            obs.record_plan_outcome(
+                kind="multiply_batched", algorithm=algorithm,
+                densify=bool(densify), n_groups=g_count, m=m, k=k, n=n,
+                fuse=bool(plan.fuse),
+                predicted_s=float(plan.predicted_fused_s),
+                measured_s=float(dt), pipeline_depth=int(depth))
     stats = _collect_batched_executor_stats(lm, densify)
     if not return_plan:
         return c, stats

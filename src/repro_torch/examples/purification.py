@@ -15,8 +15,9 @@ The trajectory runs twice, with the union-of-ranks plans
 rank's executed triples are compared: on the banded support the union
 plan makes every rank execute every rank's band chunks, so rank-exact
 execution must shrink the busiest rank's load on every sparse
-iteration.  The JAX example also checks its telemetry gauges; the port
-has no telemetry switch yet (ROADMAP A9).
+iteration.  The rank-exact run is traced (``obs.enable()``): every
+multiply leaves a span tree, and the ``purification.occupancy`` gauge's
+sample history must equal the trace's occupancy curve.
 
     PYTHONPATH=src python -m repro_torch.examples.purification --device cpu
 """
@@ -27,6 +28,7 @@ import time
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core import dbcsr
 from repro_torch.core.blocking import GridSpec
 from repro_torch.launch.mesh import make_mesh
@@ -84,9 +86,16 @@ def main(argv=None):
     _, union_trace = mcweeny_purify(
         P0, mesh=mesh, n_iter=args.iters, filter_eps=FILTER_EPS,
         multiply_kw=dict(base_kw, rank_exact=False))
+    gauge = obs.gauge("purification.occupancy")
+    n_before = len(gauge.samples)
     t0 = time.perf_counter()
-    _, trace = mcweeny_purify(P0, mesh=mesh, n_iter=args.iters,
-                              filter_eps=FILTER_EPS, multiply_kw=base_kw)
+    obs.enable()
+    try:
+        _, trace = mcweeny_purify(P0, mesh=mesh, n_iter=args.iters,
+                                  filter_eps=FILTER_EPS,
+                                  multiply_kw=base_kw)
+    finally:
+        obs.disable()
     dt = time.perf_counter() - t0
 
     print(f"{'iter':>4s} {'occupancy':>10s} {'blocks':>7s} "
@@ -98,7 +107,13 @@ def main(argv=None):
               f"{t.get('n_norm_filtered_triples', 0):9d} "
               f"{t.get('retained_flops', 0) / 1e6:10.2f} "
               f"{t['idempotency']:12.3e} {t['trace_P']:8.2f}")
-    print(f"{args.iters} rank-exact iterations in {dt:.2f} s")
+    print(f"{args.iters} rank-exact iterations in {dt:.2f} s (traced)")
+    samples = gauge.samples[n_before:]
+    print("occupancy as telemetry gauge samples "
+          "(obs.gauge('purification.occupancy')): "
+          + " ".join(f"{x:.4f}" for x in samples))
+    assert samples == [t["occupancy"] for t in trace], \
+        "gauge samples should mirror the trace"
 
     print(f"{'iter':>4s} {'union/rank':>10s} {'busiest':>8s} "
           f"{'shrink':>7s} {'imbalance':>9s}")

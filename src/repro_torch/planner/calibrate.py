@@ -21,10 +21,18 @@ measures on the card (it raises without one), saves the file and
 prints each constant beside its default.  On a
 mesh whose ranks are simulated on one card (launch/mesh.py),
 ``bytes_per_s`` and ``latency_s`` measure device copies between those
-ranks, not NVLink.  The JAX package also fits constants from its bench
-artifacts (``fit_from_artifacts``) and checks the plans' predicted
-against measured times (``drift_report``); both wait for the port's
-benches and telemetry (ROADMAP A13, A9).
+ranks, not NVLink.
+
+    PYTHONPATH=src python -m repro_torch.planner.calibrate --check-drift \
+        [--drift-log artifacts/obs/plan_outcomes.jsonl] [--strict]
+
+reads instead the predicted-vs-measured plan outcomes a traced run wrote
+(``obs.enable(log_dir=...)``), prints the planner scoreboard and warns
+where an algorithm's median |relative error| exceeds the threshold
+(``drift_report``); ``--scoreboard`` prints the scoreboard alone.
+Neither needs a card.  The JAX package also fits constants from its
+bench artifacts (``fit_from_artifacts``), which waits for the port's
+benches (ROADMAP A13).
 """
 from __future__ import annotations
 
@@ -42,6 +50,8 @@ from .cost_model import DEFAULT_HARDWARE, HardwareModel
 
 __all__ = [
     "DEFAULT_CALIBRATION",
+    "DEFAULT_PLAN_LOG",
+    "drift_report",
     "micro_calibrate",
     "measure_overlap",
     "get_hardware_model",
@@ -341,6 +351,51 @@ def describe(constants: Dict[str, float], mesh=None) -> str:
     return "\n".join(lines)
 
 
+DEFAULT_PLAN_LOG = os.path.join("artifacts", "obs", "plan_outcomes.jsonl")
+
+
+def drift_report(path: str = DEFAULT_PLAN_LOG, *,
+                 threshold: float = 1.0, min_samples: int = 1) -> dict:
+    """Check the telemetry layer's predicted-vs-actual plan-outcome log
+    (``obs.record_plan_outcome`` rows, written by traced multiplies) for
+    calibration drift: algorithms whose median |relative error| exceeds
+    ``threshold`` are flagged, the signal that this card's constants
+    need recalibration."""
+    from ..obs import read_jsonl
+    from ..obs.scoreboard import check_drift
+
+    records = read_jsonl(path)
+    result = check_drift(records, threshold=threshold,
+                         min_samples=min_samples)
+    result["path"] = path
+    result["n_records"] = len(records)
+    return result
+
+
+def _check_drift(args) -> None:
+    from ..obs.scoreboard import render_scoreboard
+
+    result = drift_report(args.drift_log, threshold=args.drift_threshold)
+    if not result["n_records"]:
+        print(f"no plan outcomes at {args.drift_log} — run a traced "
+              f"multiply (obs.enable(log_dir=...)) first")
+        if args.strict:
+            raise SystemExit(1)
+        return
+    print(render_scoreboard(result["scoreboard"]))
+    if args.scoreboard:
+        return
+    for algo, err in sorted(result["flagged"].items()):
+        print(f"WARNING: {algo}: median |rel err| {err:.2f} exceeds "
+              f"drift threshold {args.drift_threshold:.2f} — "
+              f"recalibrate (python -m repro_torch.planner.calibrate)")
+    if result["ok"]:
+        print(f"calibration drift OK ({result['n_records']} outcomes, "
+              f"threshold {args.drift_threshold:.2f})")
+    elif args.strict:
+        raise SystemExit(f"calibration drift: {sorted(result['flagged'])}")
+
+
 def main(argv=None):
     from ..core.blocking import GridSpec
     from ..launch.mesh import make_mesh, resolve_device
@@ -351,7 +406,26 @@ def main(argv=None):
     ap.add_argument("--mesh", type=int, nargs=2, default=(4, 4),
                     metavar=("PR", "PC"),
                     help="simulated grid for the communication constants")
+    ap.add_argument("--check-drift", action="store_true",
+                    help="instead of calibrating, read the predicted-vs-"
+                         "actual plan-outcome log and warn when a per-"
+                         "algorithm median |rel err| exceeds the "
+                         "threshold")
+    ap.add_argument("--scoreboard", action="store_true",
+                    help="instead of calibrating, print the plan-outcome "
+                         "log's predicted-vs-measured scoreboard")
+    ap.add_argument("--drift-log", default=DEFAULT_PLAN_LOG,
+                    help="plan-outcome JSONL (obs.enable(log_dir=...))")
+    ap.add_argument("--drift-threshold", type=float, default=1.0,
+                    help="median |predicted-measured|/measured per "
+                         "algorithm above which drift is flagged")
+    ap.add_argument("--strict", action="store_true",
+                    help="with --check-drift: exit nonzero when drift "
+                         "is flagged (or the log is missing/empty)")
     args = ap.parse_args(argv)
+    if args.check_drift or args.scoreboard:
+        _check_drift(args)
+        return
 
     dev = resolve_device(None)
     print(f"device: {torch.cuda.get_device_name(dev)}")

@@ -649,8 +649,8 @@ def rebalance_cost_s(hw: HardwareModel, prob: Problem) -> float:
 
 def matricize_cost_s(hw: HardwareModel, copy_bytes) -> float:
     """Price of a tensor layout's unfold/refold data movement
-    (the JAX package's tensor.matricize, ROADMAP A10 in the port,
-    reports the moved bytes: one read + one write per non-trivial
+    (``tensor.matricize.contraction_layout_stats`` reports the moved
+    bytes: one read + one write per non-trivial
     unfold of A, B and refold of C), at the same host copy bandwidth as
     the densify pass.  This is the copy term a
     matricization candidate carries on top of its 2D multiply plan."""

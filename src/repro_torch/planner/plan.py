@@ -1,7 +1,8 @@
 """plan_multiply — pick (algorithm, local path, 2.5D replication,
 stack params) for one distributed multiply (a copy of the JAX package's
-``planner/plan.py``, without ``plan_contract`` (ROADMAP A10)), and
-``decide_verify``, the costed half of ``verify="auto"``.
+``planner/plan.py``), ``plan_contract`` — the matricization layout of a
+tensor contraction — and ``decide_verify``, the costed half of
+``verify="auto"``.
 
 This is the paper's driver behaviour made explicit: DBCSR's headline
 win over vendor PDGEMM comes from choosing the right decomposition per
@@ -42,10 +43,11 @@ from .cost_model import (BATCHED_ALGORITHMS, CandidateCost, HardwareModel,
                          enumerate_candidates, feasible, overlap_efficiency,
                          rebalance_cost_s, verify_overhead_s)
 
-__all__ = ["MultiplyPlan", "BatchedMultiplyPlan", "plan_multiply",
-           "plan_multiply_batched", "decide_verify", "plan_cache_info",
-           "plan_cache_clear", "plan_cache_stats", "itemsize_of",
-           "DEFAULT_VERIFY_BUDGET"]
+__all__ = ["MultiplyPlan", "BatchedMultiplyPlan", "ContractionPlan",
+           "LayoutCandidate", "plan_multiply", "plan_multiply_batched",
+           "plan_contract", "decide_verify", "plan_cache_info",
+           "plan_cache_clear", "plan_cache_stats", "contract_cache_info",
+           "contract_cache_clear", "itemsize_of", "DEFAULT_VERIFY_BUDGET"]
 
 _PLAN_CACHE_SIZE = 512
 
@@ -103,6 +105,10 @@ class MultiplyPlan:
     rebalance: bool = False
     rebalance_saved_s: float = 0.0
     rebalance_cost_s: float = 0.0
+    # tensor contractions (repro_torch.tensor): the matricization layout
+    # this plan executes under, e.g. "(ij|k)@(k|l)" — None for plain 2D
+    # multiplies.  plan_contract stamps it on the winning layout's plan.
+    layout: Optional[str] = None
 
     @property
     def chosen(self) -> Optional[CandidateCost]:
@@ -117,6 +123,7 @@ class MultiplyPlan:
         path = "densified" if self.densify else "blocked"
         head = (f"plan: {self.algorithm} + {path}"
                 + (f" (c={self.c_repl})" if self.c_repl > 1 else "")
+                + (f"  layout={self.layout}" if self.layout else "")
                 + f"  occupancy={self.occupancy:.3g}"
                 + f"  predicted={self.predicted_s * 1e3:.3g} ms")
         if self.trivial:
@@ -483,6 +490,200 @@ def plan_multiply_batched(
         predicted_looped_s=looped_s,
         per_request=best,
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class LayoutCandidate:
+    """One priced matricization of a tensor contraction: the 2D
+    problem the layout induces, its copy traffic, and its best multiply
+    plan's predicted time (infeasible layouts carry the reason
+    instead)."""
+
+    layout: str
+    m: int
+    k: int
+    n: int
+    occupancy: float
+    rank_imbalance: float
+    copy_s: float
+    multiply_s: float
+    total_s: float
+    algorithm: str
+    densify: bool
+    feasible: bool
+    reason: str = ""
+
+
+@dataclasses.dataclass(frozen=True)
+class ContractionPlan:
+    """The planner's decision for one tensor contraction: WHICH
+    matricization layout to execute (the new candidate axis on top of
+    the 2D algorithm/path choice), wrapping the winning layout's
+    ``MultiplyPlan`` (its ``layout`` field stamped).
+
+    ``predicted_s = copy_s + plan.predicted_s``: a layout is priced as
+    its unfold/refold data movement (``cost_model.matricize_cost_s``)
+    plus its own 2D multiply plan — each layout gets its own occupancy
+    and per-rank imbalance estimate from the matricized masks.
+    """
+
+    spec: str
+    layout: str
+    copy_s: float
+    predicted_s: float
+    layouts: Tuple[LayoutCandidate, ...]
+    plan: MultiplyPlan
+    verification: Optional[dict] = None
+
+    @property
+    def algorithm(self) -> str:
+        return self.plan.algorithm
+
+    @property
+    def densify(self) -> bool:
+        return self.plan.densify
+
+    @property
+    def trivial(self) -> bool:
+        return self.plan.trivial
+
+    @property
+    def chosen(self) -> Optional[LayoutCandidate]:
+        for c in self.layouts:
+            if c.layout == self.layout:
+                return c
+        return None
+
+    def explain(self) -> str:
+        """Per-layout predicted costs (the layout column), then the
+        winning layout's full multiply-plan breakdown."""
+        head = (f"contraction plan: {self.spec}  layout={self.layout}"
+                f"  algorithm={self.algorithm}"
+                f"  predicted={self.predicted_s * 1e3:.3g} ms")
+        lines = [head,
+                 f"  {'layout':26s} {'m x k x n':>18s} {'occ':>6s} "
+                 f"{'imbal':>6s} {'copy_ms':>8s} {'mult_ms':>8s} "
+                 f"{'total_ms':>9s}"]
+        for c in sorted(self.layouts,
+                        key=lambda c: (not c.feasible, c.total_s)):
+            star = "*" if c.layout == self.layout else " "
+            shape = f"{c.m}x{c.k}x{c.n}"
+            if c.feasible:
+                lines.append(
+                    f"{star} {c.layout:26s} {shape:>18s} "
+                    f"{c.occupancy:6.3f} {c.rank_imbalance:6.2f} "
+                    f"{c.copy_s * 1e3:8.3f} {c.multiply_s * 1e3:8.3f} "
+                    f"{c.total_s * 1e3:9.3f}")
+            else:
+                lines.append(f"{star} {c.layout:26s} {shape:>18s} "
+                             f"infeasible: {c.reason}")
+        return "\n".join(lines) + "\n" + self.plan.explain()
+
+
+@functools.lru_cache(maxsize=_PLAN_CACHE_SIZE)
+def _plan_contract_cached(
+    spec: str,
+    stats: tuple,
+    pr: int, pc: int,
+    itemsize: int,
+    algorithm: Optional[str],
+    densify: Optional[bool],
+    hw: HardwareModel,
+    winners_stamp=None,
+) -> ContractionPlan:
+    from .cost_model import matricize_cost_s
+
+    cands = []
+    best = None       # (total_s, LayoutCandidate, MultiplyPlan)
+    for ls in stats:
+        if not ls.feasible:
+            cands.append(LayoutCandidate(
+                layout=ls.label, m=ls.m, k=ls.k, n=ls.n,
+                occupancy=ls.occupancy,
+                rank_imbalance=ls.rank_imbalance or 1.0,
+                copy_s=0.0, multiply_s=math.inf, total_s=math.inf,
+                algorithm="-", densify=False, feasible=False,
+                reason=ls.reason))
+            continue
+        dtype = {4: np.float32, 8: np.float64, 2: np.float16}.get(
+            itemsize, np.float32)
+        try:
+            mp = plan_multiply(
+                ls.m, ls.k, ls.n,
+                blocks=(ls.block_m, ls.block_k, ls.block_n),
+                mesh_shape=(pr, pc), occupancy=ls.occupancy,
+                dtype=dtype, algorithm=algorithm, densify=densify,
+                hw=hw, rank_imbalance=ls.rank_imbalance)
+        except ValueError as e:
+            cands.append(LayoutCandidate(
+                layout=ls.label, m=ls.m, k=ls.k, n=ls.n,
+                occupancy=ls.occupancy,
+                rank_imbalance=ls.rank_imbalance or 1.0,
+                copy_s=0.0, multiply_s=math.inf, total_s=math.inf,
+                algorithm="-", densify=False, feasible=False,
+                reason=str(e)))
+            continue
+        copy_s = matricize_cost_s(hw, ls.copy_bytes)
+        total = copy_s + mp.predicted_s
+        cand = LayoutCandidate(
+            layout=ls.label, m=ls.m, k=ls.k, n=ls.n,
+            occupancy=ls.occupancy,
+            rank_imbalance=mp.rank_imbalance,
+            copy_s=copy_s, multiply_s=mp.predicted_s, total_s=total,
+            algorithm=mp.algorithm, densify=mp.densify, feasible=True)
+        cands.append(cand)
+        if best is None or total < best[0]:
+            best = (total, cand, mp)
+    if best is None:
+        reasons = "; ".join(f"{c.layout}: {c.reason}" for c in cands)
+        raise ValueError(f"no feasible matricization for {spec!r} on a "
+                         f"{pr}x{pc} grid — {reasons}")
+    total, cand, mp = best
+    return ContractionPlan(
+        spec=spec, layout=cand.layout, copy_s=cand.copy_s,
+        predicted_s=total, layouts=tuple(cands),
+        plan=dataclasses.replace(mp, layout=cand.layout))
+
+
+def plan_contract(
+    spec: str,
+    layout_stats,
+    *,
+    mesh_shape=(1, 1),
+    dtype=np.float32,
+    algorithm: Optional[str] = None,
+    densify: Optional[bool] = None,
+    hw: Optional[HardwareModel] = None,
+) -> ContractionPlan:
+    """Choose the matricization layout (and, through ``plan_multiply``,
+    the 2D algorithm + local path) for one tensor contraction.
+
+    ``layout_stats`` is the tuple of per-layout geometry statistics
+    from ``repro_torch.tensor.matricize.contraction_layout_stats`` — frozen
+    and hashable, so together with the normalized spec and the mesh it
+    forms the contraction signature the result is LRU-cached on: a
+    second identical contraction performs ZERO cost-model evaluations
+    (shared ``_PLAN_CACHE_SIZE`` budget with the multiply cache; the
+    per-layout ``plan_multiply`` sub-plans land in that cache too, so
+    the inner multiply of an executed contraction replans for free).
+    """
+    pr, pc, _ = _normalize_mesh_shape(mesh_shape)
+    if hw is None:
+        from .calibrate import get_hardware_model
+
+        hw = get_hardware_model()
+    return _plan_contract_cached(
+        str(spec), tuple(layout_stats), pr, pc, itemsize_of(dtype),
+        algorithm, None if densify is None else bool(densify),
+        hw, _winners_stamp())
+
+
+def contract_cache_info():
+    return _plan_contract_cached.cache_info()
+
+
+def contract_cache_clear() -> None:
+    _plan_contract_cached.cache_clear()
 
 
 def decide_verify(

@@ -49,9 +49,10 @@ clean run.  If the recheck still fails, the fault is persistent and
 raised.
 
 Scope: checksums verify that C is consistent with the *given* A and B;
-corrupted inputs are the domain of ``guards``' tripwires.  The JAX
-package's telemetry counters (``abft.verifications`` ...) wait for the
-port's telemetry switch (ROADMAP A9).
+corrupted inputs are the domain of ``guards``' tripwires.  With
+telemetry on (``obs.enable()``) verification publishes the
+``abft.verifications`` / ``abft.detections`` and ``abft.repairs`` /
+``abft.repair_failures`` counters.
 """
 from __future__ import annotations
 
@@ -62,6 +63,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from . import guards
 from ..sparsity.norms import block_norms_of, normalize_block_norms
 
@@ -228,6 +230,11 @@ def verify_product(
         blocks = tuple((i, j) for i in range(nbr) for j in cols)
     else:
         blocks = ()
+    if obs.enabled():
+        # gated telemetry counters: the disabled path publishes nothing
+        obs.counter("abft.verifications").inc()
+        if blocks:
+            obs.counter("abft.detections").inc()
     return VerificationReport(
         detected=bool(blocks),
         flagged_rows=rows,
@@ -300,6 +307,9 @@ def verify_and_repair(
         repaired=not recheck.detected,
         n_recomputed_blocks=len(report.flagged_blocks),
     )
+    if obs.enabled():
+        obs.counter("abft.repairs" if report.repaired
+                    else "abft.repair_failures").inc()
     if recheck.detected:
         raise guards.CorruptionDetectedError(
             f"corruption persisted after one-shot repair: blocks "

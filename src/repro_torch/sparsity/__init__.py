@@ -14,7 +14,8 @@ under the block masks and ``norm(A_ik) * norm(B_kj) >= eps``, so
 mask-only path; ``filter_eps=None`` disables the norm machinery.
 """
 from .norms import (block_norms_of, compute_block_norms,
-                    normalize_block_norms, product_norm_bound)
+                    normalize_block_norms, product_norm_bound,
+                    tensor_block_norms)
 from .filter import (count_retained_triples, norm_filter_stats,
                      product_mask, retained_pair_presence)
 from .balance import (RebalancePlan, chunk_imbalance, chunk_loads,
@@ -36,6 +37,7 @@ __all__ = [
     "compute_block_norms",
     "normalize_block_norms",
     "product_norm_bound",
+    "tensor_block_norms",
     "count_retained_triples",
     "norm_filter_stats",
     "product_mask",

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 __all__ = ["compute_block_norms", "block_norms_of", "normalize_block_norms",
-           "product_norm_bound"]
+           "product_norm_bound", "tensor_block_norms"]
 
 
 def compute_block_norms(x: torch.Tensor, block_m: int,
@@ -47,6 +47,44 @@ def block_norms_of(x: torch.Tensor, block_m: int, block_n: int,
     blocks report norm 0 even if the payload carries stray nonzeros,
     so norms never resurrect a block the mask declares absent."""
     norms = compute_block_norms(x, block_m, block_n)
+    if block_mask is not None:
+        norms = np.where(np.asarray(block_mask, dtype=bool), norms,
+                         np.float32(0.0)).astype(np.float32)
+    return norms
+
+
+def tensor_block_norms(
+    x: torch.Tensor,
+    block_sizes: Tuple[int, ...],
+    block_mask: Optional[np.ndarray] = None,
+) -> np.ndarray:
+    """N-d payload -> ``block_grid``-shaped float32 numpy of per-block
+    Frobenius norms, mask-zeroed like ``block_norms_of``: one float32
+    reduction on the payload's device.
+
+    These norms are EXACT under matricization: the tensor unfold
+    (repro_torch.tensor.matricize) permutes elements *within* a block
+    and a Frobenius norm is permutation-invariant, so the 2D views of a
+    tensor lower this cache through a pure block-grid transpose+reshape
+    instead of touching device data again.
+    """
+    block_sizes = tuple(int(b) for b in block_sizes)
+    if len(block_sizes) != x.ndim:
+        raise ValueError(
+            f"block_sizes names {len(block_sizes)} axes but the payload "
+            f"has {x.ndim}")
+    for ax, (d, bs) in enumerate(zip(x.shape, block_sizes)):
+        if bs <= 0 or d % bs:
+            raise ValueError(
+                f"axis {ax}: dim {d} not divisible by block size {bs}")
+    inter = []
+    for d, bs in zip(x.shape, block_sizes):
+        inter += [d // bs, bs]
+    nb = tuple(d // bs for d, bs in zip(x.shape, block_sizes))
+    # sum of squares over the interleaved intra-block axes: no copy
+    y = x.reshape(inter).to(torch.float32)
+    sq = torch.sum(y * y, dim=tuple(range(1, 2 * len(nb), 2)))
+    norms = torch.sqrt(sq).reshape(nb).cpu().numpy().astype(np.float32)
     if block_mask is not None:
         norms = np.where(np.asarray(block_mask, dtype=bool), norms,
                          np.float32(0.0)).astype(np.float32)

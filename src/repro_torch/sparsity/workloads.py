@@ -26,6 +26,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import obs
+
 __all__ = ["banded_hamiltonian", "initial_density", "mcweeny_purify"]
 
 
@@ -131,9 +133,10 @@ def mcweeny_purify(
     ``rank_imbalance`` on rank-exact runs, ``idempotency`` (the
     Frobenius norm ||P^2 - P||, the convergence measure, reduced in
     float64 on the payloads' device: no host copy of P) and ``trace_P``
-    (electron-count conservation).  The JAX package also publishes
-    occupancy and idempotency as telemetry gauges when telemetry is
-    enabled; the port has no telemetry switch yet (ROADMAP A9).
+    (electron-count conservation).  With telemetry enabled
+    (``obs.enable()``) each iteration also sets the
+    ``purification.occupancy`` and ``purification.idempotency`` gauges,
+    whose sample history is the sparsity-evolution curve.
     """
     from ..core import dbcsr
 
@@ -185,6 +188,12 @@ def mcweeny_purify(
             entry["max_rank_entries"] = busiest
             if rank_imbs:
                 entry["rank_imbalance"] = max(rank_imbs)
+        if obs.enabled():
+            # the canonical sparsity-evolution signal as gauge samples:
+            # occupancy rises for a step or two, then decays to the
+            # converged support (gauge history renders the curve)
+            obs.gauge("purification.occupancy").set(entry["occupancy"])
+            obs.gauge("purification.idempotency").set(entry["idempotency"])
         trace.append(entry)
         P = Pn
     return P, trace

@@ -569,3 +569,47 @@ def test_retained_weights_on_card_equal_the_host_count(cuda, eps):
     host = retained_block_weights(am, bm, an, bn, eps)
     np.testing.assert_array_equal(
         retained_block_weights(am, bm, an, bn, eps, device=cuda), host)
+
+
+def test_traced_dispatch_carries_device_time(cuda):
+    """A traced multiply on the card: its dispatch span carries
+    ``device_s`` from CUDA events around the same run, no larger than the
+    host interval (which ends at a synchronize), its step spans fill the
+    interval, the smm kernel launched inside it, and telemetry off gives
+    the same bits with no registry entry."""
+    from repro_torch import obs
+    from repro_torch.tensor import contract, create_tensor
+
+    mesh = make_mesh((1, 1), ("data", "model"), device=cuda)
+    rng = np.random.RandomState(9)
+    a = dbcsr.create(rng.randn(352, 352).astype(np.float32), mesh=mesh,
+                     block_size=22)
+    b = dbcsr.create(rng.randn(352, 352).astype(np.float32), mesh=mesh,
+                     block_size=22)
+    kw = dict(mesh=mesh, algorithm="cannon", densify=False)
+    obs.enable()
+    obs.disable()
+    obs.clear_metrics()
+    off = dbcsr.multiply(a, b, **kw)
+    assert len(obs.registry()) == 0
+    smm_process_stack.launches = 0
+    obs.enable()
+    try:
+        on = dbcsr.multiply(a, b, **kw)
+        spans = obs.last_trace()
+        t = create_tensor(rng.randn(16, 32, 64).astype(np.float32),
+                          mesh=mesh, block_sizes=(8, 16, 16))
+        contract("iaP,iaQ->PQ", t, t, mesh=mesh)
+        cspans = obs.last_trace()
+    finally:
+        obs.disable()
+        obs.clear_metrics()
+        obs.clear_plan_outcomes()
+    assert torch.equal(on.data, off.data)
+    assert smm_process_stack.launches >= 1
+    (disp,) = [s for s in spans if s.name == "dispatch"]
+    assert 0.0 < disp.attrs["device_s"] <= disp.dur
+    steps = [s for s in spans if s.parent_id == disp.span_id]
+    assert sum(s.dur for s in steps) == pytest.approx(disp.dur, rel=0.05)
+    assert any(s.name == "dispatch" and s.attrs["device_s"] > 0
+               for s in cspans)

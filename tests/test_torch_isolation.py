@@ -35,7 +35,7 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 38
+    assert n_modules >= 82
 
 
 _IMPORT_PLANNER = r"""
@@ -57,6 +57,52 @@ def test_importing_the_planner_loads_no_jax_and_no_reference():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.split() == ["ok"]
+
+
+_BLOCKED_RUN = r"""
+import importlib.abc, sys
+
+
+class _Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        top = name.split(".")[0]
+        if top.startswith("jax") or top == "repro":
+            raise ImportError(f"blocked: {name}")
+        return None
+
+
+sys.meta_path.insert(0, _Refuse())
+import numpy as np
+from repro_torch import obs, tensor
+from repro_torch.core import dbcsr
+from repro_torch.examples import tensor_contraction
+from repro_torch.launch.mesh import make_mesh
+
+mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+data, mask = tensor_contraction.build_integral_tensor(
+    np.random.RandomState(0), 16, 32, 64)
+B = dbcsr.create_tensor(data, mesh=mesh, block_sizes=(8, 16, 16),
+                        block_mask=mask, compute_norms=True)
+obs.enable()
+C = tensor.contract("iaP,iaQ->PQ", B, B, mesh=mesh, filter_eps=1e-8)
+obs.disable()
+names = sorted({s.name for s in obs.last_trace()})
+assert {"contract", "plan", "matricize", "multiply", "dispatch"} <= set(
+    names), names
+assert obs.validate_chrome_trace(obs.to_chrome_trace(obs.last_trace())) == []
+print("ok", C.shape)
+"""
+
+
+def test_obs_tensor_and_example_run_with_jax_and_the_reference_blocked():
+    """``repro_torch.obs``, ``repro_torch.tensor`` and the tensor example
+    import and run a traced contraction while any import of jax or of
+    the JAX package raises."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.split() == ["ok", "(64,", "64)"]
 
 
 def test_calibration_cli_measures_on_the_card_only(tmp_path, monkeypatch):
