@@ -22,7 +22,8 @@ Phase 1  holds each kernel against its plain PyTorch version on the card:
          decode_attention at the four cases of the JAX package's kernel
          test, a bf16 cache, and cur_len 0, 1, 513 and S at the serve
          heads with an S that is no multiple of the kernel's 16-row tile
-         (513: beside a boundary of the CTAs' row ranges), and at head
+         (513: beside a boundary of the CTAs' row ranges), at Jamba's
+         heads (32/8, Dh 128) at phase 10 (z)'s B and S, and at head
          sizes 33 and 65 (rows copied 4 bytes at a time, or by plain
          loads in bf16), f32 and bf16.
 Phase 2  runs the main path, dbcsr.create -> dbcsr.multiply with
@@ -47,11 +48,12 @@ Phase 3  times each kernel at the shapes of (a), (b), (c) (both stack
          rate), the plain version (smm: stack by stack) and torch.matmul
          (torch.bmm for a batch) of the operands, which computes the same
          function for every timed plan (absent blocks are stored as
-         zeros).  decode_attention at three shapes, bf16 caches, 8 KV
-         heads of 6 query heads each, Dh 128:
+         zeros).  decode_attention at four shapes, bf16 caches, 8 KV
+         heads of 6 query heads each (of 4 at (z)), Dh 128:
            (l) B=8, S=4,096, cur_len = S: the serve case's cache when full
            (m) B=16, S=32,768, cur_len = S: decode_32k's context
            (n) B=8, S=4,096, cur_len = 2,064: (k)'s cache half way
+           (z) (n) at Jamba's 32/8 heads: phase 10 (z)'s decode
          beside its bound (q, the output and the K and V rows below
          cur_len read once), its plain version and torch's
          scaled_dot_product_attention (enable_gqa, a cur_len mask; it
@@ -231,8 +233,38 @@ Phase 9  telemetry and tensor contractions:
                at auto's layout (blocked on 1x1, densified on 2x2)
                contract bitwise the hand-matricized dbcsr.multiply.  One
                {"phase9": ...} line.
-``--phase 9`` builds the kernels and runs phase 9 alone (development:
-no kernels line and no ok line).
+Phase 10 the MLA, MoE, Mamba and RWKV-6 layer kinds at their published
+         widths in bf16, random weights from SEED, one model at a time,
+         each built, served and freed before the next; only depth is cut
+         (one whole period of the layer pattern, printed):
+           (y) DeepSeek-V3 671B, 61 -> 4 layers (the 3 dense ones and
+               one MoE layer; MLA, 256 experts top-8 with a sigmoid
+               router and a shared expert, the MTP parameters): 4 prompts
+               of 1,024 tokens, max_len 2,048, 16 greedy tokens
+           (z) Jamba-v0.1 52B, 32 -> 8 layers (Mamba, GQA 32/8 at layer
+               4, softmax MoE 16 experts top-2 at 1, 3, 5, 7): 8 prompts
+               of 2,048 tokens, max_len 4,096, 16 greedy tokens
+           (aa) RWKV-6 1.6B, whole: 8 prompts of 1,024, 32 greedy tokens
+         Each: weights by the JAX package's init rule first, for the
+         record: a forward of 1 x 64 tokens with max|x| printed after
+         every layer, by kind, and whether a norm's f32 mean square
+         overflows (Jamba's does: max|x| 1.2e20).  Then phase 10's
+         weights, by that rule on each layer's own shape
+         (``init_per_layer``; a departure, printed: the JAX rule draws a
+         stack of one layer at std 1).  In f32 at full width: prefill of
+         2 x 255 tokens then decode of token 256 against forward's last
+         logits (drop-free capacity): argmax equal, error within
+         KIND_TOL, beside the controls that bracket it.  In bf16 (the
+         served dtype, the same seed): the probe again, then serving at
+         the published capacity: weights and cache bytes, prefill ms and
+         prompt tokens/s, decode ms a token and tokens/s with the launch
+         counters zeroed before and read after (decode_attention once a
+         step per attention layer, nothing else), finite logits; (z)'s
+         kernel against the plain decode_attention over 8 greedy steps
+         (tokens equal, 8 launches); a profiler window of 4 steps
+         (launches and device time a step).  One {"phase10": ...} line.
+``--phase 9`` (or 10) builds the kernels and runs that phase alone
+(development: no kernels line and no ok line).
 
 Prints a {"kernels": [...]} line, the nvidia-smi line, and as its last
 line {"ok": true, "device": {...}}.  Any failed check raises, so the
@@ -394,20 +426,14 @@ def time_ms(fn, reps: int, setup=None, inner: int = 1) -> float:
     return statistics.median(times)
 
 
-def serve_lm(dev, zero_counters, read_counters, decode_attention,
-             decode_attention_ref, hbm_rate) -> dict:
-    """Phase 5: serve Qwen2-1.5B at full width; returns the decode
-    kernel's main-path numbers for the kernels line."""
-    import dataclasses
-
-    import torch
-
-    from repro_torch.configs.base import get_config
+def attention_swaps(decode_attention, decode_attention_ref):
+    """(model_decode, plain_f32, plain_decode, swapped): the model's decode
+    attention (the kernel's caller), its plain version in f32 and in the
+    query's dtype, and ``swapped(fn, *args, attn=..., launches=...)``,
+    which runs fn(*args) with the model's decode attention replaced by
+    ``attn`` (default: the plain version) and checks that it launched the
+    kernel ``launches`` times."""
     from repro_torch.models import attention as attention_mod
-    from repro_torch.models import transformer as T
-    from repro_torch.models.common import tree_leaves, tree_map
-    from repro_torch.serve import engine
-    from repro_torch.serve.prefill import prefill_step
 
     model_decode = attention_mod.decode_attention   # the kernel's caller
 
@@ -421,9 +447,6 @@ def serve_lm(dev, zero_counters, read_counters, decode_attention,
         return plain_f32(q, k_cache, v_cache, cur_len, scale).to(q.dtype)
 
     def swapped(fn, *args, attn=plain_decode, launches=0):
-        """fn(*args) with the model's decode attention replaced by
-        ``attn`` (default: the plain version), which must launch the
-        kernel ``launches`` times."""
         before = decode_attention.launches
         attention_mod.decode_attention = attn
         try:
@@ -435,20 +458,46 @@ def serve_lm(dev, zero_counters, read_counters, decode_attention,
                     f"{attn.__name__} launched the kernel "
                     f"{decode_attention.launches - before} times")
 
-    def step_logits(params, cfg, tok, cache, cur):
-        """decode_step's forward: (B, V) logits of one step; the cache is
-        written in place."""
-        return T.forward(params, tok, cfg, cache=cache, cur_len=cur)[0][:, -1]
+    return model_decode, plain_f32, plain_decode, swapped
+
+
+def step_logits(params, cfg, tok, cache, cur):
+    """decode_step's forward: (B, V) logits of one step; the cache is
+    written in place."""
+    from repro_torch.models import transformer as T
+
+    return T.forward(params, tok, cfg, cache=cache, cur_len=cur)[0][:, -1]
+
+
+def sync_time(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def serve_lm(dev, zero_counters, read_counters, decode_attention,
+             decode_attention_ref, hbm_rate) -> dict:
+    """Phase 5: serve Qwen2-1.5B at full width; returns the decode
+    kernel's main-path numbers for the kernels line."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.serve import engine
+    from repro_torch.serve.prefill import prefill_step
+
+    model_decode, plain_f32, plain_decode, swapped = attention_swaps(
+        decode_attention, decode_attention_ref)
 
     def clone(tree):
         return tree_map(lambda t: t.clone(), tree)
-
-    def sync_time(fn):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t
 
     base = get_config("qwen2_1_5b")
     gen = torch.Generator(device=dev)
@@ -657,6 +706,323 @@ def profile_steps(params, cfg, engine, state, tok, steps=4) -> dict:
           f"ms ({100 * out['decode_attention_share']:.1f} %)")
     return out
 
+
+# ---------------------------------------------------------------------------
+# phase 10: the MLA, MoE, Mamba and RWKV-6 layer kinds at full width
+# ---------------------------------------------------------------------------
+
+# (cell, arch, depth cut, B, prompt tokens, max_len, greedy tokens).  The
+# published widths stay; only depth is cut, keeping one whole period of
+# the layer pattern (the leading dense layers count once).
+KIND_CELLS = (
+    ("(y)", "deepseek_v3_671b", {"num_layers": 4}, 4, 1024, 2048, 16),
+    ("(z)", "jamba_v0_1_52b", {"num_layers": 8}, 8, 2048, 4096, 16),
+    ("(aa)", "rwkv6_1_6b", {}, 8, 1024, 2048, 32),
+)
+KIND_CHECK = (2, 256)   # prefill + decode against forward: B, S
+# max |logits - forward's| / max |forward's| of one f32 decode step
+# against the teacher-forced f32 forward at full width (J_TOL's
+# derivation): the two paths differ in summation order and, for MLA, in
+# the contraction order (the absorbed decode contracts wk_b into the
+# query, the expanded prefill into the keys).  f32, not the served bf16:
+# bf16 rounding differs between the paths by ~4e-3, enough to swap a
+# token's k-th expert where two router scores lie that close, and one
+# swapped expert moves the logits by ~1 (a bf16 version of this check
+# moved Jamba's argmax on an H100).  Bracketed in every run by two
+# controls: the decode step with layer 0's output one ulp up (the noise
+# of a right path), printed, and with every cache zeroed (a planted
+# fault: the prompt's state lost), which must exceed it.  Observed on an
+# H100: (y) 4.9e-6, (z) 1.4e-5, (aa) 4.7e-5 (one ulp in layer 0: 4.4e-6,
+# 1.4e-5, 5.5e-5; every cache zeroed: 1.32, 1.40, 1.47).
+KIND_TOL = 3e-4
+
+
+def init_per_layer(cfg, generator, device):
+    """Random parameters by the JAX package's rule applied to each
+    layer's own shape: std scale / sqrt(n), n the first dim of the leaf
+    without its layer axis (the JAX rule reads the layer count there: std
+    1 for a stack of one layer)."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import ParamDef, init_params, tree_map
+
+    def per_layer(d):
+        if d.init in ("zeros", "ones"):
+            return d
+        layer = d.shape[1:]
+        n = layer[0] if len(layer) > 1 else max(layer[-1], 1)
+        # init_params divides by sqrt(shape[0]), the layer count
+        return dataclasses.replace(d, scale=d.scale * math.sqrt(d.shape[0] / n))
+
+    defs = T.model_defs(cfg)
+    defs["segments"] = tree_map(per_layer, defs["segments"],
+                                is_leaf=lambda x: isinstance(x, ParamDef))
+    return init_params(defs, generator, dtype_override=getattr(torch, cfg.dtype),
+                       device=device)
+
+
+def layer_trace(fn):
+    """fn() with every layer's output recorded: [(kind, max|x|, whether
+    the next norm's f32 mean square is finite)]."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    rows, inner = [], T._apply_layer
+
+    def traced(kind, *args, **kw):
+        x, aux, nc = inner(kind, *args, **kw)
+        xf = x.float()
+        rows.append((kind, float(xf.abs().max()),
+                     bool(torch.isfinite(xf.square().mean(-1)).all())))
+        return x, aux, nc
+
+    T._apply_layer = traced
+    try:
+        return fn(), rows
+    finally:
+        T._apply_layer = inner
+
+
+def healthy(rows, logits) -> bool:
+    """Every layer's output finite and inside the norm's f32 range, and
+    the logits finite and not all equal (a norm that overflows to inf
+    outputs zeros, and the logits of a zero hidden state are constant)."""
+    import torch
+
+    return (all(ok and x < float("inf") for _, x, ok in rows)
+            and bool(torch.isfinite(logits).all())
+            and float(logits.float().std()) > 0)
+
+
+def print_layers(rows):
+    by_kind = {}
+    for kind, x, ok in rows:
+        by_kind.setdefault(kind, []).append((x, ok))
+    for kind, xs in by_kind.items():
+        print(f"    {kind[0]}/{kind[1]} ({len(xs)} layers): max|x| "
+              + ", ".join(f"{x:.3g}" for x, _ in xs)
+              + ("" if all(ok for _, ok in xs)
+                 else "  (the next norm's f32 mean square overflows)"))
+
+
+def layer_kinds(dev, card, zero_counters, read_counters, decode_attention,
+                decode_attention_ref, hbm_rate) -> list:
+    """Phase 10: DeepSeek-V3 (MLA, sigmoid MoE, MTP), Jamba (Mamba, GQA,
+    softmax MoE) and RWKV-6 at their published widths in bf16, served
+    through prefill_step / decode_step; returns one summary per model."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.serve import engine
+    from repro_torch.serve.prefill import prefill_step
+
+    model_decode, _, _, swapped = attention_swaps(decode_attention,
+                                                  decode_attention_ref)
+    gen = torch.Generator(device=dev)
+    out, failed = [], []
+
+    def check(ok: bool, what: str):
+        """a failed check is printed and raised after the last model, so
+        that one run shows every model's numbers"""
+        if not ok:
+            print(f"  FAILED: {what}")
+            failed.append(what)
+
+    def clone(tree):
+        return tree_map(lambda t: t.clone(), tree)
+
+    def probe_layers(params, cfg) -> bool:
+        probe = torch.randint(0, cfg.vocab_size, (1, 64), generator=gen,
+                              dtype=torch.int32, device=dev)
+        logits, rows = layer_trace(lambda: T.forward(params, probe, cfg)[0])
+        print_layers(rows)
+        return healthy(rows, logits)
+
+    def decode_check(params, cfg):
+        """prefill S-1 tokens, decode token S; max err / max|logits|
+        against forward's last logits, argmax equal, and the two
+        controls: layer 0's output one ulp up in the decode step, and
+        every cache zeroed before it"""
+        cb, cs = KIND_CHECK
+        seq = torch.randint(0, cfg.vocab_size, (cb, cs), generator=gen,
+                            dtype=torch.int32, device=dev)
+        want = T.forward(params, seq, cfg)[0][:, -1].float()
+        _, pcache, cur = prefill_step(params, seq[:, :-1], cfg)
+        cache = engine.pad_cache(pcache, cfg, cb, cs + 16)
+        del pcache
+
+        def first_step(nudge=False, zero=False):
+            c = clone(cache)
+            if zero:
+                tree_map(lambda t: t.zero_(), c)
+            inner, calls = T._apply_layer, [0]
+
+            def nudged(*args, **kw):
+                x, aux, nc = inner(*args, **kw)
+                calls[0] += 1
+                if calls[0] == 1:       # one ulp up, in x's own dtype
+                    bits = torch.int16 if x.element_size() == 2 else torch.int32
+                    x = (x.view(bits) + 1).view(x.dtype)
+                return x, aux, nc
+
+            T._apply_layer = nudged if nudge else inner
+            try:
+                return step_logits(params, cfg, seq[:, -1:], c, cur).float()
+            finally:
+                T._apply_layer = inner
+
+        got = first_step()
+        ok = bool(torch.isfinite(got).all())
+        same = torch.equal(got.argmax(-1), want.argmax(-1))
+        err, err_n, err_f = (rel_err(x, want) for x in (
+            got, first_step(nudge=True), first_step(zero=True)))
+        print(f"  {cfg.dtype}: forward({cb} x {cs}) vs prefill({cs - 1}) + "
+              f"decode: max err / max|logits| {err:.3e} (tolerance "
+              f"{KIND_TOL:g}), argmax equal {same}; controls: layer 0's "
+              f"output one ulp up {err_n:.3e}, every cache zeroed "
+              f"{err_f:.3e}")
+        return ok and same and err <= KIND_TOL, err, err_n, err_f
+
+    for cell, arch, cut, B, S, MAX_LEN, STEPS in KIND_CELLS:
+        base = get_config(arch)
+        cfg = dataclasses.replace(base, **cut)
+        kinds = [cfg.layer_kind(l) for l in range(cfg.num_layers)]
+        n_attn = sum(mix == "attention" for mix, _ in kinds)
+        print(f"phase 10 {cell}: {cfg.name} at its published widths in "
+              f"{cfg.dtype}"
+              + (f", num_layers {base.num_layers} -> {cfg.num_layers} (depth "
+                 "cut: one whole period, leading dense layers once)"
+                 if cut else ", whole")
+              + f"; {B} prompts of {S} tokens, max_len {MAX_LEN}, {STEPS} "
+              f"greedy tokens ({card})")
+        print(f"  layers: {kinds}")
+        # the check runs drop-free: which tokens a full expert drops
+        # depends on their order, which prefill and decode do not share
+        ccfg = cfg
+        if cfg.moe:
+            ccfg = dataclasses.replace(
+                cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+            print(f"  DEPARTURE (check only): capacity_factor "
+                  f"{ccfg.capacity_factor:g}, drop-free; served at "
+                  f"{cfg.capacity_factor:g}")
+
+        # ---- the JAX package's init rule, for the record
+        print("  the JAX package's init rule (std 1/sqrt(shape[0]); 1 for "
+              "a stack of one layer), forward of 1 x 64 tokens:")
+        params = T.model_init(cfg, gen.manual_seed(SEED), device=dev)
+        jax_rule_ok = probe_layers(params, cfg)
+        if not jax_rule_ok:
+            print("  the JAX package's rule overflows: a norm's f32 mean "
+                  "square is infinite or the logits are constant")
+        del params
+        torch.cuda.empty_cache()
+
+        # ---- phase 10's weights: that rule on each layer's own shape;
+        # the check in f32 (bf16 rounding moves MoE routing between the
+        # two paths: an expert swapped for one token moves its logits by
+        # ~1), serving in bf16
+        print("  DEPARTURE: weights drawn by the JAX package's rule on each "
+              "layer's own shape (init_per_layer)")
+        fcfg = dataclasses.replace(ccfg, dtype="float32")
+        params = init_per_layer(fcfg, gen.manual_seed(SEED), dev)
+        ok, err, err_n, err_f = decode_check(params, fcfg)
+        check(ok, f"{cell} prefill + decode == forward")
+        check(err_f > KIND_TOL, f"{cell} KIND_TOL tells a lost state from "
+              "the forward")
+        del params
+        torch.cuda.empty_cache()
+        params = init_per_layer(cfg, gen.manual_seed(SEED), dev)
+        print(f"  {cfg.dtype}, forward of 1 x 64 tokens:")
+        check(probe_layers(params, cfg), f"{cell} finite at the per-layer "
+              "init rule")
+        w_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+        print(f"  weights {w_bytes / 1e9:.2f} GB "
+              f"({sum(t.numel() for t in tree_leaves(params)) / 1e9:.2f} B "
+              f"parameters) from seed {SEED}")
+
+        # ---- serving at the published capacity
+        prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                                dtype=torch.int32, device=dev)
+        prefill_step(params, prompts[:1, :64], cfg)          # warm-up
+        (tok, pcache, cur), prefill_s = sync_time(
+            lambda: prefill_step(params, prompts, cfg))
+        cache = engine.pad_cache(pcache, cfg, B, MAX_LEN)
+        del pcache
+        c_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(cache))
+        print(f"  cache {c_bytes / 1e9:.3f} GB; prefill {1e3 * prefill_s:.1f} "
+              f"ms ({B * S / prefill_s:.0f} prompt tokens/s)")
+        state = {"cache": cache, "cur_len": cur}
+        zero_counters()
+        step_s, toks = [], [tok]
+        for _ in range(STEPS):
+            (tok, state), dt = sync_time(
+                lambda: engine.decode_step(params, state, tok, cfg))
+            step_s.append(dt)
+            toks.append(tok)
+        got = read_counters()
+        want = {key: 0 for key in got}
+        want["decode_attention"] = n_attn * STEPS
+        print(f"  launches over {STEPS} decode steps: {got}")
+        check(got == want, f"{cell} launches {got} == {want}")
+        toks = torch.cat(toks, 1)
+        check(toks.shape == (B, STEPS + 1)
+              and int(state["cur_len"][0]) == S + STEPS,
+              f"{cell} tokens and cache length")
+        final = step_logits(params, cfg, tok, clone(state["cache"]),
+                            state["cur_len"])
+        check(bool(torch.isfinite(final).all()), f"{cell} finite logits")
+        step = statistics.median(step_s[1:])
+        print(f"  decode: {1e3 * step:.3f} ms/token (median of steps "
+              f"2-{STEPS}; first {1e3 * step_s[0]:.3f} ms), "
+              f"{B / step:.1f} tokens/s; weights' bound a step "
+              f"{1e3 * w_bytes / hbm_rate:.3f} ms")
+
+        if n_attn:
+            # the decode kernel against its plain version, token for token
+            def greedy(cache, cur, tok, steps=8):
+                toks = []
+                for _ in range(steps):
+                    tok = step_logits(params, cfg, tok, cache,
+                                      cur).argmax(-1, keepdim=True).int()
+                    cur = cur + 1
+                    toks.append(tok)
+                return torch.cat(toks, 1)
+
+            start = (state["cur_len"], tok)
+            toks_k = swapped(greedy, clone(state["cache"]), *start,
+                             attn=model_decode, launches=8 * n_attn)
+            toks_p = swapped(greedy, clone(state["cache"]), *start)
+            print(f"  8 greedy steps, kernel ({8 * n_attn} launches) vs plain "
+                  f"decode_attention: tokens equal "
+                  f"{torch.equal(toks_k, toks_p)}")
+            check(torch.equal(toks_k, toks_p),
+                  f"{cell} kernel decode == plain decode")
+        busy = profile_steps(params, cfg, engine, state, tok)
+        out.append({
+            "cell": cell, "model": cfg.name, "layers": cfg.num_layers,
+            "weights_gb": w_bytes / 1e9, "cache_gb": c_bytes / 1e9,
+            "prefill_ms": 1e3 * prefill_s,
+            "prompt_tokens_per_s": B * S / prefill_s,
+            "decode_ms_per_token": 1e3 * step, "tokens_per_s": B / step,
+            "weight_bound_ms": 1e3 * w_bytes / hbm_rate,
+            "check_err": err, "check_noise": err_n, "check_state_lost": err_f,
+            "jax_rule_finite": jax_rule_ok,
+            "profile": busy})
+        del params, state, cache, final, prompts
+        torch.cuda.empty_cache()
+    print(json.dumps({"phase10": {"card": card, "cells": out}}))
+    if failed:
+        raise AssertionError("phase 10: " + "; ".join(failed))
+    return out
 
 def distributed(dev, counters, zero_counters, read_counters, report) -> dict:
     """Phase 6: the distributed schedules on meshes whose ranks are
@@ -2684,7 +3050,7 @@ def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phase", type=int, choices=[9], default=None,
+    ap.add_argument("--phase", type=int, choices=[9, 10], default=None,
                     help="development: build the kernels and run this "
                          "phase alone (prints no kernels and no ok line)")
     only = ap.parse_args(argv).phase
@@ -2752,7 +3118,11 @@ def main(argv=None) -> int:
     if only is not None:
         # a development run of one phase: no kernels line, no ok line
         print(f"phase {only} ({card})")
-        {9: obs_and_tensors}[only](dev, card, zero_counters, read_counters)
+        if only == 9:
+            obs_and_tensors(dev, card, zero_counters, read_counters)
+        else:
+            layer_kinds(dev, card, zero_counters, read_counters,
+                        decode_attention, decode_attention_ref, hbm_rate)
         print(f"phase {only} alone: done; launches {launches}")
         return 0
 
@@ -2913,6 +3283,9 @@ def main(argv=None) -> int:
     for cur in (0, 1, 513, 1000):   # the serve heads, S = 1,000 = 62 tiles + 8
         for dtype in (torch.float32, torch.bfloat16):
             decode_case(2, 8, 6, 128, 1000, cur, dtype)
+    # Jamba's attention layer in phase 10 (z): 32/8 heads (R 4), Dh 128
+    for dtype in (torch.float32, torch.bfloat16):
+        decode_case(8, 8, 4, 128, 4096, 2064, dtype)
     # Dh % 4 != 0: 4-byte copies in f32, plain loads in bf16; ragged S
     for case in ((1, 2, 3, 33, 130, 70), (2, 2, 6, 65, 200, 200),
                  (1, 1, 4, 33, 70, 0)):
@@ -3246,7 +3619,9 @@ def main(argv=None) -> int:
 
     decode_rows = [decode_times("(l) B=8 S=4096", 8, 4096, 4096),
                    decode_times("(m) B=16 S=32768", 16, 32768, 32768),
-                   decode_times("(n) B=8 S=4096 cur_len=2064", 8, 4096, 2064)]
+                   decode_times("(n) B=8 S=4096 cur_len=2064", 8, 4096, 2064),
+                   decode_times("(z) Jamba heads 32/8, B=8 S=4096 "
+                                "cur_len=2064", 8, 4096, 2064, r=4)]
 
     # ---------------------------------------------------------- phase 4
     print("phase 4: MultiplyService -> dbcsr.multiply_batched, "
@@ -3420,6 +3795,13 @@ def main(argv=None) -> int:
     print(f"phase 9 (w): telemetry on the card ({card})")
     torch.cuda.empty_cache()
     obs_and_tensors(dev, card, zero_counters, read_counters)
+
+    # ---------------------------------------------------------- phase 10
+    print(f"phase 10: the MLA, MoE, Mamba and RWKV-6 layer kinds at full "
+          f"width ({card})")
+    torch.cuda.empty_cache()
+    layer_kinds(dev, card, zero_counters, read_counters, decode_attention,
+                decode_attention_ref, hbm_rate)
 
     for key, n in launches.items():
         if n < 1:

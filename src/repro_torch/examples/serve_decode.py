@@ -1,7 +1,13 @@
 """Serving example: prefill a batch of prompts, pad the prefill caches
 into a ``max_len`` decode cache, then decode tokens greedily — the
-port's counterpart of ``examples/serve_decode.py`` for dense attention
-models (GQA / MQA / MHA).
+port's counterpart of ``examples/serve_decode.py``.
+
+Works for every architecture of the registry: attention KV caches, MLA
+latent caches, Mamba conv and SSM states, RWKV shift and WKV states, MoE
+feed-forwards (try ``--arch rwkv6_1_6b`` or ``--arch jamba_v0_1_52b``).
+Stub-frontend archs (MusicGen, LLaVA) take embeddings: the prompt is
+random embeddings and each decode step feeds the embedding of the token
+sampled last.
 
     PYTHONPATH=src python -m repro_torch.examples.serve_decode --arch qwen2_1_5b
 
@@ -42,8 +48,13 @@ def main(argv=None):
     gen = torch.Generator(device=dev).manual_seed(0)
     params = T.model_init(cfg, gen, device=dev)
     max_len = args.prompt_len + args.gen + 8
-    prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
-                            generator=gen, dtype=torch.int32, device=dev)
+    if cfg.input_mode == "embeddings":
+        prompts = torch.randn((args.batch, args.prompt_len, cfg.d_model),
+                              generator=gen, device=dev)
+    else:
+        prompts = torch.randint(0, cfg.vocab_size,
+                                (args.batch, args.prompt_len), generator=gen,
+                                dtype=torch.int32, device=dev)
 
     # ---- prefill -------------------------------------------------------
     _sync(dev)
@@ -59,7 +70,12 @@ def main(argv=None):
     generated = [tok]
     t0 = time.perf_counter()
     for _ in range(args.gen - 1):
-        tok, state = engine.decode_step(params, state, tok, cfg)
+        if cfg.input_mode == "embeddings":
+            # stub frontend: feed the embedding of the sampled token id
+            feed = params["embed"].index_select(0, tok[:, 0])[:, None]
+            tok, state = engine.decode_step(params, state, feed.float(), cfg)
+        else:
+            tok, state = engine.decode_step(params, state, tok, cfg)
         generated.append(tok)
     _sync(dev)
     t_decode = time.perf_counter() - t0

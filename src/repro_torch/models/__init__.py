@@ -1,5 +1,6 @@
-"""The LM zoo's dense-attention serving path, ported from
-``repro.models``: ``common`` (params, norms, RoPE, activations),
-``attention`` (GQA, blockwise prefill, the decode kernel), ``ffn``,
-``transformer`` (segments, caches, forward) and ``convert`` (carry-over
-of the JAX package's parameters and caches)."""
+"""The LM zoo's serving path, ported from ``repro.models``: ``common``
+(params, norms, RoPE, activations), the mixers ``attention`` (GQA,
+blockwise prefill, the decode kernel), ``mla``, ``mamba`` and ``rwkv6``,
+the feed-forwards ``ffn`` and ``moe``, ``transformer`` (segments, caches,
+forward) and ``convert`` (carry-over of the JAX package's parameters and
+caches)."""

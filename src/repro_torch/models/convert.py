@@ -1,9 +1,11 @@
 """Carry parameters and caches over from the JAX package.
 
 The JAX package's parameter tree (``repro.models.transformer.model_init``)
-and its serve caches, given as numpy arrays in the same nested dicts,
-lists and tuples (``jax.tree_util.tree_map(np.asarray, tree)``), become
-the port's tensors.  The two packages declare the same tree, so the
+of any architecture of the registry (attention, MLA, MoE, Mamba and
+RWKV-6 layers, DeepSeek's MTP parameters) and its serve caches, given as
+numpy arrays in the same nested dicts, lists and tuples
+(``jax.tree_util.tree_map(np.asarray, tree)``), become the port's
+tensors.  The two packages declare the same tree, so the
 carry-over is leaf for leaf; every shape is checked against the port's
 declaration.  Tests use it so that both packages compute with the same
 weights.
@@ -14,7 +16,7 @@ import numpy as np
 import torch
 
 from .common import resolve_device
-from .transformer import cache_shapes, model_param_shapes
+from .transformer import cache_shapes, model_param_shapes, segment_plan
 
 __all__ = ["params_from_numpy", "cache_from_numpy"]
 
@@ -49,11 +51,17 @@ def params_from_numpy(tree, cfg, *, dtype=None, device=None):
 
 def cache_from_numpy(tree, cfg, *, device=None):
     """A serve cache of ``cfg`` (numpy leaves; a decode cache of any
-    max_len or a prefill cache) as the port's, in ``cfg.dtype`` on
-    ``device`` (default CUDA)."""
+    max_len or a prefill cache) as the port's, each leaf in the dtype
+    ``cache_shapes`` gives it, on ``device`` (default CUDA).  The length
+    is read from the first attention or MLA cache; a model with none
+    (RWKV) has no length-dependent cache."""
     first = np.asarray(tree[0][0][0])
-    if first.ndim < 3:
+    if first.ndim < 2:
         raise ValueError(f"cache leaf of shape {first.shape} is not "
-                         "(layers, batch, length, ...)")
-    expected = cache_shapes(cfg, first.shape[1], first.shape[2])
+                         "(layers, batch, ...)")
+    lengths = [np.shape(tree[si][pi][0])[2]
+               for si, (_, period) in enumerate(segment_plan(cfg))
+               for pi, (mix, _) in enumerate(period)
+               if mix in ("attention", "mla")]
+    expected = cache_shapes(cfg, first.shape[1], lengths[0] if lengths else 0)
     return _carry(tree, expected, resolve_device(device), "cache")

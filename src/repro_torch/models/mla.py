@@ -1,0 +1,133 @@
+"""Multi-head Latent Attention (DeepSeek-V2/V3), the counterpart of
+``repro.models.mla``.
+
+MLA compresses the KV stream into a small latent: per token the cache
+holds kv_lora_rank + qk_rope_dim values (512 + 64 = 576 for DeepSeek-V3)
+instead of 2 * H * Dh.
+
+Two paths, as in the JAX package:
+  * prefill: expand the latent into per-head K_nope and V and run the
+    port's causal attention (full, or blockwise past
+    ``long_seq_threshold``), with V zero-padded to the Q/K head size and
+    sliced back;
+  * decode: the *absorbed* form.  wk_b's K half folds into the query (a
+    query in latent space), scores are taken against the latent cache in
+    f32, and the attention-weighted sum stays in latent space until the
+    V half expands it for the one new token.  The new token's latent and
+    rope key are written into the caches in place at the device-resident
+    ``cur_len`` (``index_copy_``), so a decode step never waits for the
+    host.  MLA does not use the decode_attention kernel, in the JAX
+    package or here.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .attention import (NEG_INF, _einsum_f32, blockwise_causal_attention,
+                        full_causal_attention)
+from .common import ParamDef, apply_rope, rms_norm
+
+__all__ = ["mla_defs", "mla_apply"]
+
+
+def mla_defs(cfg) -> Dict[str, ParamDef]:
+    d = cfg.d_model
+    h = cfg.num_heads
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    return {
+        "wq_a": ParamDef((d, qr)),
+        "q_a_norm": {"scale": ParamDef((qr,), "ones")},
+        "wq_b": ParamDef((qr, h, dn + dr)),
+        "wkv_a": ParamDef((d, kvr + dr)),
+        "kv_a_norm": {"scale": ParamDef((kvr,), "ones")},
+        "wk_b": ParamDef((kvr, h, dn)),
+        "wv_b": ParamDef((kvr, h, dv)),
+        "wo": ParamDef((h, dv, d)),
+    }
+
+
+def _project_q(params, x, positions, cfg):
+    dn = cfg.qk_nope_dim
+    q_lat = x @ params["wq_a"].to(x.dtype)
+    q_lat = rms_norm(q_lat, params["q_a_norm"]["scale"])
+    q = torch.einsum("bsr,rhk->bshk", q_lat, params["wq_b"].to(x.dtype))
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _project_kv_latent(params, x, positions, cfg):
+    kvr = cfg.kv_lora_rank
+    kv = x @ params["wkv_a"].to(x.dtype)
+    c_kv, k_rope = kv[..., :kvr], kv[..., kvr:]
+    c_kv = rms_norm(c_kv, params["kv_a_norm"]["scale"])
+    # the rope part is a single shared "head"
+    k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    return c_kv, k_rope
+
+
+def mla_apply(
+    params: Dict,
+    x: torch.Tensor,                 # (B, S, d)
+    positions: torch.Tensor,         # (B, S)
+    cfg,
+    *,
+    cache: Optional[Tuple] = None,   # (c_kv_cache, k_rope_cache, cur_len)
+    block_q: int = 512,
+    block_kv: int = 512,
+    long_seq_threshold: int = 8192,
+):
+    """Returns (out (B, S, d), new_cache).  Prefill returns the latents it
+    would cache, (c_kv (B, S, kvr), k_rope (B, S, dr)); decode writes them
+    into the caches in place and returns those same tensors."""
+    h = cfg.num_heads
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    scale = (dn + dr) ** -0.5
+
+    q_nope, q_rope = _project_q(params, x, positions, cfg)
+    c_kv, k_rope = _project_kv_latent(params, x, positions, cfg)
+
+    if cache is None:
+        # expanded path
+        k_nope = torch.einsum("bsr,rhk->bshk", c_kv, params["wk_b"].to(x.dtype))
+        v = torch.einsum("bsr,rhk->bshk", c_kv, params["wv_b"].to(x.dtype))
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+            *k_nope.shape[:3], dr)], dim=-1)
+        # V's head dim padded to Q/K's so one attention serves both
+        v = F.pad(v, (0, dn + dr - dv))
+        if x.shape[1] > long_seq_threshold:
+            out = blockwise_causal_attention(q, k, v, scale=scale,
+                                             block_q=block_q,
+                                             block_kv=block_kv)
+        else:
+            out = full_causal_attention(q, k, v, scale=scale)
+        out = out[..., :dv]
+        new_cache = (c_kv, k_rope)
+    else:
+        # absorbed decode: scores and reads stay in latent space
+        c_cache, r_cache, cur_len = cache
+        s = x.shape[1]
+        start = torch.clamp(cur_len.reshape(1).long(), max=c_cache.shape[1] - s)
+        idx = start + torch.arange(s, device=x.device)
+        c_cache.index_copy_(1, idx, c_kv)
+        r_cache.index_copy_(1, idx, k_rope)
+        # wk_b absorbed into q: q_lat (B, S, H, kvr)
+        q_lat = torch.einsum("bshk,rhk->bshr", q_nope,
+                             params["wk_b"].to(x.dtype))
+        scores = (_einsum_f32("bshr,bkr->bhsk", q_lat, c_cache)
+                  + _einsum_f32("bshr,bkr->bhsk", q_rope, r_cache)) * scale
+        valid = (torch.arange(c_cache.shape[1], device=x.device)
+                 < (cur_len.reshape(1) + 1))
+        scores = torch.where(valid[None, None, None], scores, NEG_INF)
+        p = torch.softmax(scores, dim=-1).to(x.dtype)
+        attn_lat = torch.einsum("bhsk,bkr->bshr", p, c_cache)
+        out = torch.einsum("bshr,rhk->bshk", attn_lat,
+                           params["wv_b"].to(x.dtype))
+        new_cache = (c_cache, r_cache)
+
+    out = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
+    return out, new_cache

@@ -1,0 +1,161 @@
+"""RWKV-6 "Finch" mixer (attention-free, data-dependent decay), the
+counterpart of ``repro.models.rwkv6``.
+
+Time mix: a token shift with data-dependent (LoRA) interpolation feeds
+the r / k / v / gate / decay projections; per head the WKV state runs
+    S_t = diag(w_t) S_{t-1} + k_t (x) v_t
+    y_t = r_t . (S_{t-1} + diag(u) k_t (x) v_t)
+with w_t = exp(-exp(w_base + lora(x))) per channel, then a per-head
+group norm (eps 64e-5) in f32.  The recurrence is a Python loop over the
+sequence (the JAX package's ``lax.scan`` over time), its state in f32.
+
+Channel mix: squared-ReLU MLP with token shift and a receptance gate.
+
+Decode carries (time-mix shift, WKV state) and the channel-mix shift in
+the serve cache; each function writes its part in place when given a
+cache.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .common import ParamDef
+
+__all__ = ["rwkv6_defs", "rwkv6_time_mix", "rwkv6_channel_mix"]
+
+_LORA_R = 32
+_DECAY_R = 64
+
+
+def rwkv6_defs(cfg) -> Dict[str, ParamDef]:
+    d = cfg.d_model
+    hs = cfg.rwkv_head_size
+    h = d // hs
+    return {
+        "tm": {
+            # base lerp coefficients for the (w, k, v, r, g) shifts
+            "mix_base": ParamDef((5, d), "zeros"),
+            "mix_lora_a": ParamDef((d, 5 * _LORA_R)),
+            "mix_lora_b": ParamDef((5, _LORA_R, d), "zeros"),
+            "w_base": ParamDef((d,), "zeros"),
+            "w_lora_a": ParamDef((d, _DECAY_R)),
+            "w_lora_b": ParamDef((_DECAY_R, d), "zeros"),
+            "u": ParamDef((h, hs), "zeros"),
+            "wr": ParamDef((d, h, hs)),
+            "wk": ParamDef((d, h, hs)),
+            "wv": ParamDef((d, h, hs)),
+            "wg": ParamDef((d, h, hs)),
+            "ln_x": {"scale": ParamDef((h, hs), "ones"),
+                     "bias": ParamDef((h, hs), "zeros")},
+            "wo": ParamDef((h, hs, d)),
+        },
+        "cm": {
+            "mix_k": ParamDef((d,), "zeros"),
+            "mix_r": ParamDef((d,), "zeros"),
+            "wk": ParamDef((d, cfg.d_ff)),
+            "wr": ParamDef((d, d)),
+            "wv": ParamDef((cfg.d_ff, d)),
+        },
+    }
+
+
+def _token_shift(x, shift_state):
+    """x (B, S, d) -> the previous-token stream; shift_state (B, d) is
+    x_{-1}."""
+    return torch.cat([shift_state[:, None], x[:, :-1]], dim=1)
+
+
+def rwkv6_time_mix(
+    params: Dict,
+    x: torch.Tensor,                   # (B, S, d)
+    cfg,
+    *,
+    cache: Optional[Tuple] = None,     # (shift_state (B,d), wkv_state (B,H,hs,hs))
+):
+    """Returns (out (B, S, d), (shift, wkv_state)): the cache's tensors,
+    written in place, when one is given."""
+    p = params["tm"]
+    bsz, s, d = x.shape
+    hs = cfg.rwkv_head_size
+    h = d // hs
+
+    shift_state = (cache[0] if cache is not None
+                   else torch.zeros((bsz, d), dtype=x.dtype, device=x.device))
+    prev = _token_shift(x, shift_state)
+    dx = prev - x
+
+    # data-dependent lerp (LoRA over the 5 mix streams)
+    lora = torch.tanh((x + dx * p["mix_base"][0])
+                      @ p["mix_lora_a"].to(x.dtype))
+    lora = lora.reshape(bsz, s, 5, _LORA_R)
+    delta = torch.einsum("bsfr,frd->bsfd", lora, p["mix_lora_b"].to(x.dtype))
+    mix = p["mix_base"].to(x.dtype)[None, None] + delta    # (B, S, 5, d)
+    xw, xk, xv, xr, xg = (x + dx * mix[:, :, i] for i in range(5))
+
+    # decay (per channel, data dependent)
+    w = p["w_base"].float() + (
+        torch.tanh(xw @ p["w_lora_a"].to(x.dtype)).float()
+        @ p["w_lora_b"].float())
+    w = torch.exp(-torch.exp(w))                            # (B, S, d) in (0, 1)
+
+    def heads(xs, wt):
+        return torch.einsum("bsd,dhk->bshk", xs, wt.to(x.dtype))
+
+    r, k, v = heads(xr, p["wr"]), heads(xk, p["wk"]), heads(xv, p["wv"])
+    g = F.silu(heads(xg, p["wg"]))
+    w = w.reshape(bsz, s, h, hs)
+    u = p["u"].float()
+
+    rf, kf, vf, wf = (t.float() for t in (r, k, v, w))
+    state = (cache[1].float() if cache is not None
+             else torch.zeros((bsz, h, hs, hs), dtype=torch.float32,
+                              device=x.device))
+    ys = []
+    for t in range(s):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]    # (B, H, hs, hs)
+        ys.append(torch.einsum("bhi,bhij->bhj", rf[:, t],
+                               state + u[..., :, None] * kv))
+        state = wf[:, t, :, :, None] * state + kv
+    y = torch.stack(ys, dim=1)                               # (B, S, H, hs)
+
+    # per-head group norm
+    mu = y.mean(dim=-1, keepdim=True)
+    var = y.var(dim=-1, unbiased=False, keepdim=True)
+    y = (y - mu) * torch.rsqrt(var + 64e-5)
+    y = y * p["ln_x"]["scale"].float() + p["ln_x"]["bias"].float()
+    y = y.to(x.dtype) * g
+    out = torch.einsum("bshk,hkd->bsd", y, p["wo"].to(x.dtype))
+    if cache is None:
+        return out, (x[:, -1], state)
+    cache[0].copy_(x[:, -1])
+    cache[1].copy_(state)
+    return out, (cache[0], cache[1])
+
+
+def rwkv6_channel_mix(
+    params: Dict,
+    x: torch.Tensor,
+    cfg,
+    *,
+    cache: Optional[torch.Tensor] = None,   # shift state (B, d)
+):
+    """Returns (out (B, S, d), shift): the cache, written in place, when
+    one is given."""
+    p = params["cm"]
+    bsz, s, d = x.shape
+    shift_state = (cache if cache is not None
+                   else torch.zeros((bsz, d), dtype=x.dtype, device=x.device))
+    prev = _token_shift(x, shift_state)
+    dx = prev - x
+    xk = x + dx * p["mix_k"].to(x.dtype)
+    xr = x + dx * p["mix_r"].to(x.dtype)
+    k = torch.square(F.relu(xk @ p["wk"].to(x.dtype)))
+    kv = k @ p["wv"].to(x.dtype)
+    r = torch.sigmoid(xr @ p["wr"].to(x.dtype))
+    if cache is None:
+        return r * kv, x[:, -1]
+    cache.copy_(x[:, -1])
+    return r * kv, cache

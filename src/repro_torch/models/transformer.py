@@ -1,6 +1,6 @@
 """Model assembly: embeddings, layer-pattern segments (stacked), LM head,
-KV caches — the counterpart of ``repro.models.transformer`` for dense
-attention models.
+KV / latent / state caches, the multi-token-prediction parameters — the
+counterpart of ``repro.models.transformer`` for serving.
 
 Layer patterns are normalised into *segments*: (n_repeats, [period of
 layer kinds]), as in the JAX package.  The parameters of each period
@@ -10,10 +10,13 @@ package runs a segment under ``jax.lax.scan``, ``forward`` loops over
 the stack in Python, taking each layer's parameters and cache as views
 of the stacks (no copies).
 
-Ported layer kind: ``("attention", "dense")``.  The ``mla``, ``moe``,
-``mamba`` and ``rwkv6`` kinds, the losses and rematerialisation raise
-``NotImplementedError`` (ROADMAP A11); the sharding helpers
-(``dp_axes``, ``cache_specs``, ``model_param_specs``) wait for A12.
+Every layer kind of the registry is ported: mixers ``attention``,
+``mla``, ``mamba`` and ``rwkv6``; feed-forwards ``dense``, ``moe`` and
+``rwkv_cm`` (RWKV's channel mix, whose parameters live in the mixer's).
+Decode writes every cache in place.  Training raises
+``NotImplementedError``: the LM and MTP losses and rematerialisation
+(ROADMAP A11); the sharding helpers (``dp_axes``, ``cache_specs``,
+``model_param_specs``) wait for A12.
 """
 from __future__ import annotations
 
@@ -26,6 +29,11 @@ from .common import (ParamDef, apply_norm, init_params, norm_defs,
                      param_shapes, resolve_device, sinusoidal_positions,
                      stack_defs, tree_map)
 from .ffn import ffn_apply, ffn_defs
+from .mamba import _dims as mamba_dims
+from .mamba import mamba_apply, mamba_defs
+from .mla import mla_apply, mla_defs
+from .moe import moe_apply, moe_defs
+from .rwkv6 import rwkv6_channel_mix, rwkv6_defs, rwkv6_time_mix
 
 __all__ = ["segment_plan", "model_defs", "model_param_shapes", "model_init",
            "cache_shapes", "cache_init", "forward", "lm_head", "lm_loss"]
@@ -71,28 +79,39 @@ def segment_plan(cfg) -> List[Tuple[int, List[Tuple[str, str]]]]:
 def _mixer_defs(kind: str, cfg):
     if kind == "attention":
         return attention_defs(cfg)
-    raise NotImplementedError(f"mixer {kind!r} {_NOT_PORTED}")
+    if kind == "mla":
+        return mla_defs(cfg)
+    if kind == "mamba":
+        return mamba_defs(cfg)
+    if kind == "rwkv6":
+        return rwkv6_defs(cfg)       # includes the channel-mix params
+    raise ValueError(kind)
 
 
 def _ffn_defs(kind: str, cfg):
     if kind == "dense":
         return ffn_defs(cfg)
-    raise NotImplementedError(f"ffn {kind!r} {_NOT_PORTED}")
+    if kind == "moe":
+        return moe_defs(cfg)
+    if kind == "rwkv_cm":
+        return {}                    # lives inside rwkv6_defs
+    raise ValueError(kind)
 
 
 def _layer_defs(kind: Tuple[str, str], cfg) -> Dict[str, Any]:
     mix, ff = kind
-    return {
+    defs = {
         "norm1": norm_defs(cfg.d_model, cfg.norm),
         "norm2": norm_defs(cfg.d_model, cfg.norm),
         "mixer": _mixer_defs(mix, cfg),
-        "ffn": _ffn_defs(ff, cfg),
     }
+    ffd = _ffn_defs(ff, cfg)
+    if ffd:                          # no "ffn" entry for rwkv_cm
+        defs["ffn"] = ffd
+    return defs
 
 
 def model_defs(cfg) -> Dict[str, Any]:
-    if cfg.mtp:
-        raise NotImplementedError(f"multi-token prediction {_NOT_PORTED}")
     d, v = cfg.d_model, cfg.vocab_size
     defs: Dict[str, Any] = {
         "embed": ParamDef((v, d), "normal"),
@@ -103,6 +122,16 @@ def model_defs(cfg) -> Dict[str, Any]:
     defs["segments"] = [
         [stack_defs(_layer_defs(kind, cfg), n_rep) for kind in period]
         for n_rep, period in segment_plan(cfg)]
+    if cfg.mtp:
+        # DeepSeek-V3's multi-token-prediction module (depth 1); serving
+        # carries it, only the training loss reads it
+        defs["mtp"] = {
+            "proj": ParamDef((2 * d, d)),
+            "norm_h": norm_defs(d, cfg.norm),
+            "norm_e": norm_defs(d, cfg.norm),
+            "block": _layer_defs((("mla" if cfg.mixer == "mla"
+                                   else "attention"), "dense"), cfg),
+        }
     return defs
 
 
@@ -126,12 +155,28 @@ def model_init(cfg, generator: torch.Generator, dtype=None, *, device=None):
 def _layer_cache_shape(kind: Tuple[str, str], cfg, batch: int, max_len: int):
     """Meta tensors of one layer's serve cache."""
     mix, _ = kind
+    dt = _dtype(cfg)
+
+    def meta(shape, dtype=dt):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
     if mix == "attention":
         _, hkv_eff = effective_heads(cfg)
         kv = (batch, max_len, hkv_eff, cfg.resolved_head_dim)
-        return tuple(torch.empty(kv, dtype=_dtype(cfg), device="meta")
-                     for _ in range(2))
-    raise NotImplementedError(f"the {mix!r} cache {_NOT_PORTED}")
+        return (meta(kv), meta(kv))
+    if mix == "mla":
+        return (meta((batch, max_len, cfg.kv_lora_rank)),
+                meta((batch, max_len, cfg.qk_rope_dim)))
+    if mix == "mamba":
+        d_in, _, n, k = mamba_dims(cfg)
+        return (meta((batch, k - 1, d_in)),
+                meta((batch, d_in, n), torch.float32))
+    if mix == "rwkv6":
+        d, hs = cfg.d_model, cfg.rwkv_head_size
+        return (meta((batch, d)),
+                meta((batch, d // hs, hs, hs), torch.float32),
+                meta((batch, d)))             # the channel-mix shift
+    raise ValueError(mix)
 
 
 def cache_shapes(cfg, batch: int, max_len: int):
@@ -163,25 +208,44 @@ def _apply_layer(kind, lp, x, positions, cfg, cache, cur_len, collect=False):
     """One layer.  cache is None (prefill) or this layer's cache slice
     (decode), which is updated in place.  With collect=True (prefill) the
     cache the layer *would have written* is returned even when none was
-    passed in.  Returns (x, new_cache); the JAX package's third output,
-    the MoE router loss, comes with the moe kind."""
+    passed in.  Returns (x, aux, new_cache); aux is the MoE router loss,
+    None for the other kinds (no zero tensor launched a layer)."""
     mix, ff = kind
+    aux = None
     h = apply_norm(x, lp["norm1"], cfg.norm)
-    if mix != "attention":
-        raise NotImplementedError(f"mixer {mix!r} {_NOT_PORTED}")
-    c = None if cache is None else (cache[0], cache[1], cur_len)
-    out, new_c = attention_apply(
-        lp["mixer"], h, positions, cfg, cache=c,
-        block_q=cfg.attn_block_q, block_kv=cfg.attn_block_kv,
-        long_seq_threshold=cfg.long_seq_threshold)
+    if mix in ("attention", "mla"):
+        c = None if cache is None else (cache[0], cache[1], cur_len)
+        apply = attention_apply if mix == "attention" else mla_apply
+        out, new_c = apply(
+            lp["mixer"], h, positions, cfg, cache=c,
+            block_q=cfg.attn_block_q, block_kv=cfg.attn_block_kv,
+            long_seq_threshold=cfg.long_seq_threshold)
+    elif mix == "mamba":
+        c = None if cache is None else (cache[0], cache[1])
+        out, new_c = mamba_apply(lp["mixer"], h, cfg, cache=c)
+    elif mix == "rwkv6":
+        c = None if cache is None else (cache[0], cache[1])
+        out, new_c = rwkv6_time_mix(lp["mixer"], h, cfg, cache=c)
+    else:
+        raise ValueError(mix)
     x = x + out
+
     h = apply_norm(x, lp["norm2"], cfg.norm)
-    if ff != "dense":
-        raise NotImplementedError(f"ffn {ff!r} {_NOT_PORTED}")
-    x = x + ffn_apply(lp["ffn"], h, cfg)
+    if ff == "dense":
+        x = x + ffn_apply(lp["ffn"], h, cfg)
+    elif ff == "moe":
+        out, aux = moe_apply(lp["ffn"], h, cfg)
+        x = x + out
+    elif ff == "rwkv_cm":
+        cm_cache = None if cache is None else cache[2]
+        out, cm_state = rwkv6_channel_mix(lp["mixer"], h, cfg, cache=cm_cache)
+        x = x + out
+        new_c = new_c + (cm_state,)
+    else:
+        raise ValueError(ff)
     if cache is None and not collect:
         new_c = None
-    return x, new_c
+    return x, aux, new_c
 
 
 def _remat_wrap(fn, cfg):
@@ -193,7 +257,7 @@ def backbone(params: Dict, inputs: torch.Tensor, cfg, *,
              cur_len: Optional[torch.Tensor] = None,
              collect_cache: bool = False):
     """Embeddings, every layer and the final norm.  Returns (hidden,
-    new_cache); see ``forward``."""
+    aux, new_cache); see ``forward``."""
     dt = _dtype(cfg)
     if cfg.input_mode == "embeddings" or inputs.ndim == 3:
         x = inputs.to(dt)
@@ -211,6 +275,7 @@ def backbone(params: Dict, inputs: torch.Tensor, cfg, *,
     if cfg.pos_emb == "sinusoidal":
         x = x + sinusoidal_positions(positions, cfg.d_model).to(dt)
 
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache = [] if (cache is not None or collect_cache) else None
     for si, (n_rep, period) in enumerate(segment_plan(cfg)):
         seg_params = params["segments"][si]
@@ -221,8 +286,11 @@ def backbone(params: Dict, inputs: torch.Tensor, cfg, *,
                 lp = tree_map(lambda t: t[i], seg_params[pi])
                 cslice = (None if seg_cache is None
                           else tuple(c[i] for c in seg_cache[pi]))
-                x, nc = _apply_layer(kind, lp, x, positions, cfg, cslice,
-                                     cur_len, collect=collect_cache)
+                x, aux, nc = _apply_layer(kind, lp, x, positions, cfg,
+                                          cslice, cur_len,
+                                          collect=collect_cache)
+                if aux is not None:
+                    aux_total = aux_total + aux
                 if nc is not None and seg_cache is None:
                     collected[pi].append(nc)
         if new_cache is not None:
@@ -231,7 +299,7 @@ def backbone(params: Dict, inputs: torch.Tensor, cfg, *,
             else:
                 new_cache.append([tuple(torch.stack(parts) for parts in
                                         zip(*layers)) for layers in collected])
-    return apply_norm(x, params["final_norm"], cfg.norm), new_cache
+    return apply_norm(x, params["final_norm"], cfg.norm), aux_total, new_cache
 
 
 def lm_head(params: Dict, hidden: torch.Tensor, cfg) -> torch.Tensor:
@@ -253,13 +321,14 @@ def forward(
 ):
     """Returns (logits, hidden, aux_loss, new_cache).
 
-    With ``cache`` (decode), every layer writes its new K and V into the
-    cache in place and ``new_cache`` holds the same tensors.  aux_loss is
-    0: only the moe layer kind (not ported) adds to it."""
-    hidden, new_cache = backbone(params, inputs, cfg, positions=positions,
-                                 cache=cache, cur_len=cur_len,
-                                 collect_cache=collect_cache)
-    aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    With ``cache`` (decode), every layer writes its new K and V (or
+    latents, or states) into the cache in place and ``new_cache`` holds
+    the same tensors.  aux_loss is the MoE router loss summed over the
+    layers (f32; 0 for a model without MoE layers)."""
+    hidden, aux, new_cache = backbone(params, inputs, cfg,
+                                      positions=positions, cache=cache,
+                                      cur_len=cur_len,
+                                      collect_cache=collect_cache)
     return lm_head(params, hidden, cfg), hidden, aux, new_cache
 
 

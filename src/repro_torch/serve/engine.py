@@ -1,11 +1,13 @@
 """Serving: decode steps over the segment-structured cache (the
 counterpart of ``repro.serve.engine``).
 
-``decode_step`` appends one token.  The cache is updated in place and
-``cur_len`` stays a one-element int32 tensor on the device from end to
-end, so a decode step never waits for the host: no ``.item()``, no copy
-to the CPU.  ``decode_shardings`` and ``serve_input_specs`` (sharding
-and the dry-run) wait for ROADMAP A12.
+``decode_step`` appends one token, for every layer kind: attention KV,
+MLA latents, Mamba conv and SSM states, RWKV shifts and WKV states.
+Every cache is updated in place and ``cur_len`` stays a one-element
+int32 tensor on the device from end to end, so a decode step never waits
+for the host: no ``.item()``, no copy to the CPU.  ``decode_shardings``
+and ``serve_input_specs`` (sharding and the dry-run) wait for ROADMAP
+A12.
 """
 from __future__ import annotations
 
@@ -26,11 +28,19 @@ def init_serve_state(cfg, batch: int, max_len: int, *, device=None):
 
 def pad_cache(prefill_cache, cfg, batch: int, max_len: int):
     """A ``max_len`` decode cache, on the prefill cache's device, that
-    holds the prefill cache's rows (``prefill_step`` returns a cache of
-    the prompt's length); the rows after them are zero."""
+    holds the prefill cache (``prefill_step`` returns one of the prompt's
+    length).  Attention and MLA caches keep the prompt's rows, and the
+    rows after them are zero; Mamba and RWKV states are copied whole."""
     dev = tree_leaves(prefill_cache)[0].device
     full = T.cache_init(cfg, batch, max_len, device=dev)
-    tree_map(lambda f, p: f[:, :, :p.shape[2]].copy_(p), full, prefill_cache)
+    for (_, period), seg, pseg in zip(T.segment_plan(cfg), full,
+                                      prefill_cache):
+        for (mix, _), layer, player in zip(period, seg, pseg):
+            if mix in ("attention", "mla"):      # (layers, B, length, ...)
+                tree_map(lambda f, p: f[:, :, :p.shape[2]].copy_(p), layer,
+                         player)
+            else:
+                tree_map(lambda f, p: f.copy_(p), layer, player)
     return full
 
 

@@ -1,5 +1,6 @@
-"""Prefill: full-sequence forward that also materialises the KV caches
-decode will consume (the counterpart of ``repro.serve.prefill``)."""
+"""Prefill: full-sequence forward that also materialises the KV / latent
+/ state caches decode will consume (the counterpart of
+``repro.serve.prefill``)."""
 from __future__ import annotations
 
 import torch
@@ -19,7 +20,8 @@ def prefill_step(params, inputs, cfg):
     projected onto the vocabulary: its logits equal ``forward``'s there,
     and the (B, S, V) logits are never materialised.
     """
-    hidden, cache = T.backbone(params, inputs, cfg, collect_cache=True)
+    hidden, _aux, cache = T.backbone(params, inputs, cfg,
+                                     collect_cache=True)
     logits = T.lm_head(params, hidden[:, -1:], cfg)
     next_tokens = torch.argmax(logits, dim=-1).to(torch.int32)
     s = inputs.shape[1]

@@ -613,3 +613,36 @@ def test_traced_dispatch_carries_device_time(cuda):
     assert sum(s.dur for s in steps) == pytest.approx(disp.dur, rel=0.05)
     assert any(s.name == "dispatch" and s.attrs["device_s"] > 0
                for s in cspans)
+
+
+@pytest.mark.parametrize("arch", ["deepseek_v3_671b", "qwen3_moe_30b_a3b",
+                                  "jamba_v0_1_52b", "rwkv6_1_6b"])
+def test_layer_kinds_serve_on_the_card(cuda, arch):
+    """Reduced MLA / MoE / Mamba / RWKV-6 models in f32 on the card:
+    prefill then decode equals the teacher-forced forward (1e-4 of
+    max|logits|; Jamba 3e-3, as in test_torch_serve_lm.py), and a decode
+    step launches decode_attention once per attention layer, nothing for
+    the other kinds."""
+    from repro_torch.configs import base
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import engine
+    from repro_torch.serve.prefill import prefill_step
+
+    cfg = base.reduced_config(base.get_config(arch))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = T.model_init(cfg, gen, device=cuda)
+    seq = torch.randint(0, cfg.vocab_size, (2, 24), generator=gen,
+                        dtype=torch.int32, device=cuda)
+    full = T.forward(params, seq, cfg)[0]
+    tok, pcache, cur = prefill_step(params, seq[:, :20], cfg)
+    state = {"cache": engine.pad_cache(pcache, cfg, 2, 32), "cur_len": cur}
+    n_attn = sum(cfg.layer_kind(l)[0] == "attention"
+                 for l in range(cfg.num_layers))
+    rel = 3e-3 if arch.startswith("jamba") else 1e-4
+    for i in range(20, 23):
+        before = decode_attention.launches
+        logits = T.forward(params, seq[:, i:i + 1], cfg,
+                           cache=state["cache"], cur_len=state["cur_len"])[0]
+        assert decode_attention.launches - before == n_attn
+        assert _rel(logits[:, 0], full[:, i]) <= rel
+        state["cur_len"] = state["cur_len"] + 1
