@@ -263,7 +263,33 @@ Phase 10 the MLA, MoE, Mamba and RWKV-6 layer kinds at their published
          kernel against the plain decode_attention over 8 greedy steps
          (tokens equal, 8 launches); a profiler window of 4 steps
          (launches and device time a step).  One {"phase10": ...} line.
-``--phase 9`` (or 10) builds the kernels and runs that phase alone
+Phase 11 trains (ROADMAP A11), printing nvidia-smi's name and power
+         limit beside its numbers:
+           (ab) Qwen2-1.5B whole at its published widths in bf16,
+                remat "full", AdamW: 8 steps of make_train_step through
+                run_loop on one batch of 4 x 2,048 tokens (data.make_batch);
+                the loss must descend and every loss and grad norm be
+                finite; step ms (median of steps 2-8), tokens/s, peak
+                max_memory_allocated, the bound (GEMM flops at the bf16
+                peak, the attention's products at the TF32 rate of its
+                forward and the f32 rate of its backward), the four
+                kernels' launches a step (0: printed, not gated), 3 steps
+                with TF32 allowed in the backward, and a profiler window of
+                one step
+           (ac) 2 layers in f32, B=1, S=512: loss and every gradient leaf
+                against float64 autograd of the same function on the card
+                (F64_TOL); remat full and dots bitwise none; two
+                microbatches against one (B=2)
+           (ad) 4 layers in bf16: run_loop of 6 steps, a checkpoint every 2,
+                a failure injected at step 3; final params and optimizer
+                state bitwise the uninterrupted run's (under deterministic
+                algorithms if not as run, naming the leaves that needed
+                it); the last checkpoint restores bitwise; its bytes and
+                save and restore seconds, in a temporary directory
+           (ae) all ten architectures at reduced_config in f32 and bf16:
+                4 AdamW steps on one batch descend and stay finite (MoE
+                aux and MTP losses printed).  One {"phase11": ...} line.
+``--phase 9`` (or 10, 11) builds the kernels and runs that phase alone
 (development: no kernels line and no ok line).
 
 Prints a {"kernels": [...]} line, the nvidia-smi line, and as its last
@@ -288,6 +314,7 @@ error, measured in the same run, where that exceeds REL_TOL.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -1023,6 +1050,433 @@ def layer_kinds(dev, card, zero_counters, read_counters, decode_attention,
     if failed:
         raise AssertionError("phase 10: " + "; ".join(failed))
     return out
+
+# ---------------------------------------------------------------------------
+# phase 11: training
+# ---------------------------------------------------------------------------
+
+TRAIN_AB = (4, 2048, 8)        # (ab): B, S, steps; Qwen2-1.5B whole
+TRAIN_AB_TF32 = 3              # (ab): steps more with TF32 in the backward
+TRAIN_AC = (2, 1, 512)         # (ac): layers, B, S (f32 against f64)
+TRAIN_AD = (4, 2, 512, 6, 2, 3)  # (ad): layers, B, S, steps, ckpt_every, fail
+TRAIN_AE = (2, 16, 4)          # (ae): B, S, steps at reduced_config
+# NVIDIA's H100 SXM data sheet, dense: bf16 and TF32 tensor-core rates and
+# the f32 rate outside the tensor cores
+TRAIN_PEAKS = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12}
+# (ac): the port's f32 loss and gradients against float64 autograd of the
+# same function on the card, max |g32 - g64| / max |g64| for each leaf,
+# with weights by the JAX package's rule on each layer's own shape
+# (init_per_layer).  The JAX rule itself (std 1/sqrt(2) on every stacked
+# weight at 2 layers) makes the attention's softmax so sharp that f32
+# rounding moves the gradients by ~2e-2 of a leaf's largest magnitude
+# (CPU, full width, 2 layers, S = 128); with per-layer weights f32
+# rounding is 3.0e-6 there.  F64_TOL allows 30 times that.
+F64_TOL = 1e-4
+F64_LOSS_TOL = 1e-5
+
+
+def f64_reference():
+    """A context in which the functions that upcast to f32 (norms, RoPE,
+    the attention products, the loss) compute in the input's own dtype
+    instead: the same function in f32 (where the upcast does nothing)
+    and, for an f64 model, the whole of it in f64."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.models import attention, common, transformer
+
+    def rms_norm(x, weight, eps=1e-6):
+        return x * torch.rsqrt(x.square().mean(-1, keepdim=True) + eps) * weight
+
+    def apply_rope(x, positions, theta=10000.0):
+        dh = x.shape[-1]
+        freqs = 1.0 / theta ** (torch.arange(0, dh, 2, dtype=x.dtype,
+                                             device=x.device) / dh)
+        angles = positions[..., None].to(x.dtype) * freqs
+        cos, sin = torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+        x1, x2 = x.chunk(2, dim=-1)
+        return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+
+    def cross_entropy(logits, labels, *, valid_mask=None):
+        nll = torch.logsumexp(logits, -1) - logits.gather(
+            -1, labels.long()[..., None])[..., 0]
+        if valid_mask is None:
+            return nll.mean()
+        valid = valid_mask.to(nll.dtype)
+        return (nll * valid).sum() / torch.clamp_min(valid.sum(), 1.0)
+
+    patches = ((common, "rms_norm", rms_norm),
+               (attention, "rms_norm", rms_norm),
+               (attention, "apply_rope", apply_rope),
+               (attention, "_einsum_f32", torch.einsum),
+               (transformer, "cross_entropy_logits_sharded", cross_entropy))
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = [(m, n, getattr(m, n)) for m, n, _ in patches]
+        for m, n, f in patches:
+            setattr(m, n, f)
+        try:
+            yield
+        finally:
+            for m, n, f in saved:
+                setattr(m, n, f)
+
+    return ctx()
+
+
+def train_flops(cfg, b, s):
+    """(GEMM flops, attention flops at the forward's rate, attention flops
+    at the backward's rate) of one training step under remat "full":
+    each layer runs forward, its recompute and a backward of twice the
+    forward; the LM head forward and backward.  The attention counts
+    the causal triangle, at the configured (padded) head counts."""
+    from repro_torch.models.attention import effective_heads
+
+    d, dh, f = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
+    h, hkv = effective_heads(cfg)
+    per_token = d * h * dh + 2 * d * hkv * dh + h * dh * d + 3 * d * f
+    gemm = 2 * b * s * (4 * cfg.num_layers * per_token
+                        + 3 * d * cfg.vocab_size)
+    attn = 2 * 2 * b * h * dh * s * (s + 1) // 2 * cfg.num_layers
+    return gemm, 2 * attn, 2 * attn
+
+
+def profile_train_step(step) -> dict:
+    """One training step in a torch.profiler window: wall and device busy
+    time, kernels, and the kernels that took the most device time; {} if
+    the profiler records no device activity here."""
+    import torch
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t)
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        print("  profiler: no device activity recorded (not measured)")
+        return {}
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:          # union of the kernels' intervals
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end
+                                                      - e.time_range.start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    print(f"  profiler, one step: {len(kernels)} kernels, device busy "
+          f"{busy / 1e3:.1f} ms of {wall_ms:.1f} ms ({100 * busy / 1e3 / wall_ms:.1f} %); "
+          f"the most device time:")
+    for name, us in top:
+        print(f"    {us / 1e3:9.1f} ms  {name[:110]}")
+    return {"kernels": len(kernels), "wall_ms": wall_ms,
+            "device_busy_ms": busy / 1e3,
+            "top": [[name[:110], us / 1e3] for name, us in top]}
+
+
+def training(dev, card, zero_counters, read_counters) -> dict:
+    """Phase 11: the train step, the loop, checkpoints and recovery on the
+    card; returns the phase's summary."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs.base import ARCHS, get_config, reduced_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.data import make_batch
+    from repro_torch.train.elastic import FailureInjector, run_loop
+    from repro_torch.train.optimizer import OptConfig, make_optimizer
+    from repro_torch.train.train_step import _grads_of, make_train_step
+
+    gen = torch.Generator(device=dev)
+    out = {"card": card}
+
+    def batch_of(cfg, b, s, step=0):
+        return {k: torch.from_numpy(v).to(dev) for k, v in make_batch(
+            step, global_batch=b, seq_len=s, vocab=cfg.vocab_size,
+            input_mode=cfg.input_mode, d_model=cfg.d_model).items()}
+
+    def clone(tree):
+        return tree_map(lambda t: t.clone(), tree)
+
+    def recorded(step_fn, seen):
+        def step(p, o, b):
+            zero_counters()
+            p, o, m = step_fn(p, o, b)
+            row = {k: float(v) for k, v in m.items()}
+            row["launches"] = read_counters()
+            seen.append(row)
+            return p, o, m
+        return step
+
+    # ---- (ab) Qwen2-1.5B at full width, bf16, remat "full", AdamW
+    B, S, STEPS = TRAIN_AB
+    cfg = get_config("qwen2_1_5b")
+    print(f"phase 11 (ab): {cfg.name} at full width ({cfg.num_layers} "
+          f"layers, d_model {cfg.d_model}), {cfg.dtype}, remat "
+          f"{cfg.remat!r}, AdamW; {STEPS} steps of make_train_step through "
+          f"run_loop on one batch of {B} x {S} ({card})")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = T.model_init(cfg, gen.manual_seed(SEED), device=dev)
+    opt = make_optimizer(OptConfig())
+    opt_state = opt.init(params)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    batch = batch_of(cfg, B, S)
+    seen = []
+    with tempfile.TemporaryDirectory() as tmp:
+        res = run_loop(train_step=recorded(make_train_step(cfg, opt), seen),
+                       make_batch=lambda step: batch, params=params,
+                       opt_state=opt_state, n_steps=STEPS, ckpt_dir=tmp,
+                       ckpt_every=STEPS + 1)
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [h["loss"] for h in res["history"]]
+    norms = [r["grad_norm"] for r in seen]
+    step_s = statistics.median(h["dt"] for h in res["history"][1:])
+    gemm, attn_fwd, attn_bwd = train_flops(cfg, B, S)
+    bound_parts = (gemm / TRAIN_PEAKS["bf16"], attn_fwd / TRAIN_PEAKS["tf32"],
+                   attn_bwd / TRAIN_PEAKS["f32"])
+    print(f"  {n_params / 1e9:.3f} B parameters; losses "
+          + ", ".join(f"{x:.4f}" for x in losses) + "; grad norms "
+          + ", ".join(f"{x:.3g}" for x in norms))
+    print(f"  step {1e3 * step_s:.1f} ms (median of steps 2-{STEPS}; first "
+          f"{1e3 * res['history'][0]['dt']:.1f} ms), {B * S / step_s:.0f} "
+          f"tokens/s, peak memory {peak / 1e9:.2f} GB "
+          f"(max_memory_allocated)")
+    print(f"  bound {1e3 * sum(bound_parts):.1f} ms a step: GEMMs "
+          f"{gemm / 1e12:.1f} TFLOP at bf16 ({1e3 * bound_parts[0]:.1f} ms), "
+          f"attention {attn_fwd / 1e12:.1f} TFLOP forward and recompute at "
+          f"TF32 ({1e3 * bound_parts[1]:.1f} ms) and {attn_bwd / 1e12:.1f} "
+          f"TFLOP backward at f32 ({1e3 * bound_parts[2]:.1f} ms); the "
+          f"step at {100 * sum(bound_parts) / step_s:.1f} % of it")
+    print(f"  hand-written kernels launched a step: "
+          f"{[r['launches'] for r in seen[-1:]]} (expected 0: the training "
+          f"path reaches none of them)")
+    ok = all(map(math.isfinite, losses + norms)) and losses[-1] < losses[0]
+    # what IEEE f32 in the attention's backward costs: the same steps with
+    # TF32 allowed there (the forward already multiplies the bf16
+    # operands in TF32; bf16 GEMMs do not read the flag)
+    flags = torch.backends.cuda.matmul
+    flags.allow_tf32 = True
+    try:
+        tf32 = []
+        step = make_train_step(cfg, opt)
+        for _ in range(TRAIN_AB_TF32):
+            _, dt = sync_time(lambda: step(params, opt_state, batch))
+            tf32.append(dt)
+    finally:
+        flags.allow_tf32 = False
+    tf32_s = statistics.median(tf32)
+    print(f"  with TF32 in the attention's backward: step {1e3 * tf32_s:.1f} "
+          f"ms (median of {TRAIN_AB_TF32}); IEEE f32 there costs "
+          f"{1e3 * (step_s - tf32_s):.1f} ms a step")
+    busy = profile_train_step(lambda: step(params, opt_state, batch))
+    out["ab"] = {"params_b": n_params / 1e9, "losses": losses,
+                 "grad_norms": norms, "step_ms": 1e3 * step_s,
+                 "tokens_per_s": B * S / step_s, "peak_gb": peak / 1e9,
+                 "bound_ms": 1e3 * sum(bound_parts),
+                 "bound_parts_ms": [1e3 * x for x in bound_parts],
+                 "step_ms_tf32_backward": 1e3 * tf32_s, "profile": busy,
+                 "launches_a_step": seen[-1]["launches"]}
+    if not ok:
+        raise AssertionError(f"(ab): losses {losses}, grad norms {norms}: "
+                             "not finite or not descending")
+    del params, opt_state, batch, res
+    torch.cuda.empty_cache()
+
+    # ---- (ac) gradients on the card against f64
+    layers, B, S = TRAIN_AC
+    cfg = dataclasses.replace(get_config("qwen2_1_5b"), num_layers=layers,
+                              dtype="float32")
+    print(f"phase 11 (ac): {cfg.name} at full width, {layers} layers, f32, "
+          f"B={B}, S={S}: loss and gradients against float64 autograd of the "
+          f"same function on the card; DEPARTURE: weights by the JAX "
+          f"package's rule on each layer's own shape (init_per_layer) "
+          f"({card})")
+    params = init_per_layer(cfg, gen.manual_seed(SEED), dev)
+    batch = batch_of(cfg, B, S)
+    loss, _, grads = _grads_of(params, batch, cfg)
+    with f64_reference():
+        loss64, _, grads64 = _grads_of(
+            tree_map(lambda t: t.double(), params), batch,
+            dataclasses.replace(cfg, dtype="float64"))
+    loss_err = abs(float(loss) - float(loss64)) / abs(float(loss64))
+    errs = [rel_err(g, g64) for g, g64 in zip(tree_leaves(grads),
+                                              tree_leaves(grads64))]
+    worst = max(errs)
+    print(f"  loss {float(loss):.6f} vs f64 {float(loss64):.6f} (rel "
+          f"{loss_err:.2e}, tolerance {F64_LOSS_TOL:g}); gradients: worst "
+          f"leaf {worst:.3e} of its max|g| (tolerance {F64_TOL:g}), median "
+          f"{statistics.median(errs):.3e}")
+    del grads64
+    if not (loss_err <= F64_LOSS_TOL and worst <= F64_TOL):
+        raise AssertionError(f"(ac): loss {loss_err:.3e}, gradients "
+                             f"{worst:.3e} against f64")
+    same = {}
+    for remat in ("full", "dots"):
+        l2, _, g2 = _grads_of(params, batch, dataclasses.replace(
+            cfg, remat=remat))
+        same[remat] = bool(torch.equal(l2, loss)) and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(g2),
+                                              tree_leaves(grads)))
+    print(f"  remat full / dots bitwise none's loss and gradients: {same}")
+    if cfg.remat != "none" and not all(same.values()):
+        raise AssertionError(f"(ac) remat not bitwise: {same}")
+    mb = batch_of(cfg, 2, S)
+    micro = {}
+    for n in (1, 2):
+        mopt = make_optimizer(OptConfig(eps=1.0))
+        p = clone(params)
+        _, st, m = make_train_step(cfg, mopt, n_microbatches=n)(
+            p, mopt.init(p), mb)
+        micro[n] = (float(m["loss"]), float(m["grad_norm"]), st["m"])
+    m_err = max(rel_err(a, b) for a, b in zip(tree_leaves(micro[2][2]),
+                                             tree_leaves(micro[1][2])))
+    print(f"  n_microbatches 2 vs 1 at B=2: loss {micro[2][0]:.6f} / "
+          f"{micro[1][0]:.6f}, grad norm {micro[2][1]:.6f} / "
+          f"{micro[1][1]:.6f}, first moments {m_err:.2e} of max")
+    if not (abs(micro[2][0] - micro[1][0]) <= 1e-5 * abs(micro[1][0])
+            and abs(micro[2][1] - micro[1][1]) <= 1e-5 * micro[1][1]
+            and m_err <= 1e-4):
+        raise AssertionError("(ac): two microbatches differ from one")
+    out["ac"] = {"loss_rel_err": loss_err, "grad_worst": worst,
+                 "grad_median": statistics.median(errs),
+                 "remat_bitwise": same, "micro_moment_err": m_err}
+    del params, grads, micro
+    torch.cuda.empty_cache()
+
+    # ---- (ad) recovery: bitwise against the uninterrupted run
+    layers, B, S, STEPS, EVERY, FAIL = TRAIN_AD
+    cfg = dataclasses.replace(get_config("qwen2_1_5b"), num_layers=layers)
+    print(f"phase 11 (ad): {cfg.name} at full width, {layers} layers, "
+          f"{cfg.dtype}: run_loop of {STEPS} steps (B={B}, S={S}, a new "
+          f"batch a step), checkpoints every {EVERY}, a failure injected at "
+          f"step {FAIL}, against the uninterrupted run ({card})")
+    params = T.model_init(cfg, gen.manual_seed(SEED), device=dev)
+    opt = make_optimizer(OptConfig())
+    opt_state = opt.init(params)
+    step = make_train_step(cfg, opt)
+
+    def run(d, fail):
+        # the uninterrupted run writes no checkpoint
+        return run_loop(
+            train_step=step, make_batch=lambda i: batch_of(cfg, B, S, i),
+            params=clone(params), opt_state=clone(opt_state), n_steps=STEPS,
+            ckpt_dir=d, ckpt_every=EVERY if fail else STEPS + 1,
+            failure_injector=FailureInjector([FAIL] if fail else []))
+
+    def keys_of(tree):
+        return [ckpt._leaf_key(p) for p, _ in ckpt._flatten_with_path(tree)]
+
+    def recover(tmp):
+        plain = run(os.path.join(tmp, "plain"), False)["final_state"]
+        res = run(os.path.join(tmp, "fail"), True)
+        differ = [k for k, a, b in zip(keys_of(plain),
+                                       tree_leaves(plain),
+                                       tree_leaves(res["final_state"]))
+                  if not torch.equal(a, b)]
+        return plain, res, differ
+
+    with tempfile.TemporaryDirectory() as tmp:
+        plain, res, differ = recover(tmp)
+        print(f"  restarts {res['restarts']}, steps run "
+              f"{[h['step'] for h in res['history']]}; leaves that differ "
+              f"from the uninterrupted run: {differ or 'none'}")
+        deterministic = bool(differ)
+        if differ:
+            # index_select's backward (the embedding gradient) adds with
+            # atomics on CUDA; deterministic mode sorts instead
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                shutil.rmtree(os.path.join(tmp, "fail"))
+                plain, res, differ = recover(tmp)
+            finally:
+                torch.use_deterministic_algorithms(False)
+            print(f"  under torch.use_deterministic_algorithms: leaves that "
+                  f"differ {differ or 'none'}")
+        if differ or res["restarts"] != 1:
+            raise AssertionError(f"(ad): recovery not bitwise: {differ}")
+        final = res["final_state"]
+        last = ckpt.latest_step(os.path.join(tmp, "fail"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored = ckpt.restore_checkpoint(os.path.join(tmp, "fail"), last,
+                                           final)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if not all(a.dtype == b.dtype and torch.equal(a, b) for a, b in
+                   zip(tree_leaves(restored), tree_leaves(final))):
+            raise AssertionError("(ad): the last checkpoint does not restore "
+                                 "the final state")
+        del restored
+        t0 = time.perf_counter()
+        ckpt.save_checkpoint(os.path.join(tmp, "timed"), last, final)
+        save_s = time.perf_counter() - t0
+        files = os.path.join(tmp, "timed", f"step_{last}")
+        n_bytes = sum(os.path.getsize(os.path.join(files, f))
+                      for f in os.listdir(files))
+    dtypes = sorted({str(t.dtype)[6:] for t in tree_leaves(final)})
+    print(f"  bitwise: final params and optimizer state "
+          f"({'under deterministic algorithms' if deterministic else 'as run'}"
+          f"); checkpoint of step {last}: {n_bytes / 1e9:.3f} GB ({dtypes}), "
+          f"save {save_s:.2f} s ({n_bytes / save_s / 1e9:.2f} GB/s), restore "
+          f"{restore_s:.2f} s onto the card, bitwise")
+    out["ad"] = {"bitwise": True, "needed_deterministic": deterministic,
+                 "ckpt_gb": n_bytes / 1e9, "save_s": save_s,
+                 "restore_s": restore_s,
+                 "losses": [h["loss"] for h in res["history"]]}
+    del params, opt_state, plain, res, final
+    torch.cuda.empty_cache()
+
+    # ---- (ae) every architecture at reduced_config, f32 and bf16
+    B, S, STEPS = TRAIN_AE
+    print(f"phase 11 (ae): all {len(ARCHS)} architectures at reduced_config, "
+          f"{STEPS} AdamW steps (lr 5e-3) on one batch of {B} x {S}, f32 and "
+          f"bf16 ({card})")
+    rows, failed = [], []
+    for arch in ARCHS:
+        for dtype in ("float32", "bfloat16"):
+            cfg = reduced_config(get_config(arch), dtype=dtype)
+            params = T.model_init(cfg, gen.manual_seed(SEED), device=dev)
+            opt = make_optimizer(OptConfig(lr=5e-3))
+            state = opt.init(params)
+            step = make_train_step(cfg, opt)
+            batch = batch_of(cfg, B, S)
+            ms = []
+            for _ in range(STEPS):
+                params, state, m = step(params, state, batch)
+                ms.append({k: float(v) for k, v in m.items()})
+            losses = [m["loss"] for m in ms]
+            good = (all(math.isfinite(v) for m in ms for v in m.values())
+                    and losses[-1] < losses[0])
+            extra = "".join(f", {k} {ms[-1][k]:.4f}" for k in ("aux", "mtp")
+                            if k in ms[-1] and (k == "mtp" or cfg.moe))
+            print(f"  {arch} {dtype}: losses "
+                  + ", ".join(f"{x:.4f}" for x in losses) + extra
+                  + ("" if good else "  FAILED"))
+            rows.append({"arch": arch, "dtype": dtype, "losses": losses,
+                         **{k: ms[-1][k] for k in ("aux", "mtp")
+                            if k in ms[-1]}})
+            if not good:
+                failed.append(f"{arch} {dtype}")
+    out["ae"] = rows
+    print(json.dumps({"phase11": out}))
+    if failed:
+        raise AssertionError("phase 11 (ae): " + "; ".join(failed))
+    return out
+
 
 def distributed(dev, counters, zero_counters, read_counters, report) -> dict:
     """Phase 6: the distributed schedules on meshes whose ranks are
@@ -3050,7 +3504,7 @@ def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phase", type=int, choices=[9, 10], default=None,
+    ap.add_argument("--phase", type=int, choices=[9, 10, 11], default=None,
                     help="development: build the kernels and run this "
                          "phase alone (prints no kernels and no ok line)")
     only = ap.parse_args(argv).phase
@@ -3120,9 +3574,11 @@ def main(argv=None) -> int:
         print(f"phase {only} ({card})")
         if only == 9:
             obs_and_tensors(dev, card, zero_counters, read_counters)
-        else:
+        elif only == 10:
             layer_kinds(dev, card, zero_counters, read_counters,
                         decode_attention, decode_attention_ref, hbm_rate)
+        else:
+            training(dev, card, zero_counters, read_counters)
         print(f"phase {only} alone: done; launches {launches}")
         return 0
 
@@ -3802,6 +4258,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     layer_kinds(dev, card, zero_counters, read_counters, decode_attention,
                 decode_attention_ref, hbm_rate)
+
+    # ---------------------------------------------------------- phase 11
+    print(f"phase 11: training ({card})")
+    torch.cuda.empty_cache()
+    training(dev, card, zero_counters, read_counters)
 
     for key, n in launches.items():
         if n < 1:

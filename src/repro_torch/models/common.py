@@ -24,7 +24,8 @@ from ..launch.mesh import resolve_device
 __all__ = ["ParamDef", "tree_map", "tree_leaves", "resolve_device",
            "init_params", "param_shapes", "stack_defs", "rms_norm",
            "layer_norm", "apply_norm", "norm_defs", "act_fn",
-           "rope_frequencies", "apply_rope", "sinusoidal_positions"]
+           "rope_frequencies", "apply_rope", "sinusoidal_positions",
+           "cross_entropy_logits_sharded"]
 
 
 # ---------------------------------------------------------------------------
@@ -193,3 +194,23 @@ def sinusoidal_positions(positions: torch.Tensor, d: int) -> torch.Tensor:
     dim = torch.arange(0, d, 2, dtype=torch.float32, device=positions.device)
     angle = pos / torch.pow(10000.0, dim / d)          # (..., S, d/2)
     return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+
+def cross_entropy_logits_sharded(logits, labels, *, valid_mask=None):
+    """logits (B, S, V), labels (B, S) -> the mean nll over the valid
+    tokens, computed in f32 as logsumexp minus the label's logit.  The
+    name is the JAX package's, whose V may be sharded; one card holds it
+    whole."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    label_logit = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = lse - label_logit
+    if valid_mask is None:
+        return nll.mean()
+    valid = valid_mask.float()
+    return (nll * valid).sum() / torch.clamp_min(valid.sum(), 1.0)

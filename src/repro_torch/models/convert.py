@@ -18,7 +18,7 @@ import torch
 from .common import resolve_device
 from .transformer import cache_shapes, model_param_shapes, segment_plan
 
-__all__ = ["params_from_numpy", "cache_from_numpy"]
+__all__ = ["params_from_numpy", "opt_state_from_numpy", "cache_from_numpy"]
 
 
 def _carry(tree, expected, dev, path="tree"):
@@ -47,6 +47,15 @@ def params_from_numpy(tree, cfg, *, dtype=None, device=None):
     port's, in ``dtype`` (default ``cfg.dtype``) on ``device`` (default
     CUDA)."""
     return _carry(tree, model_param_shapes(cfg, dtype), resolve_device(device))
+
+
+def opt_state_from_numpy(tree, cfg, opt, *, dtype=None, device=None):
+    """The JAX package's optimizer state for the parameters of ``cfg``
+    (numpy leaves; AdamW's m, v and step, or Adafactor's factored and
+    unfactored second moments and step) as the port's optimizer ``opt``
+    holds it, on ``device`` (default CUDA)."""
+    expected = opt.init(model_param_shapes(cfg, dtype))
+    return _carry(tree, expected, resolve_device(device), "opt_state")
 
 
 def cache_from_numpy(tree, cfg, *, device=None):

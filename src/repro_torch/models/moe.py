@@ -133,24 +133,34 @@ def moe_local(params: Dict, x: torch.Tensor, cfg, *,
         buf.index_copy_(0, slot[:, kk], x)
     buf = buf[:-1].view(e, cap, d)
 
-    # the experts' outputs, in a buffer whose scratch row reads 0
-    flat = torch.empty((e * cap + 1, d), dtype=x.dtype, device=x.device)
-    flat[-1] = 0
-    buf_out = flat[:-1].view(e, cap, d)
-    wg, wu, wd = params["w_gate"], params["w_up"], params["w_down"]
-    if local_path == "densified":
-        _expert_ffn(buf, wg, wu, wd, act, out=buf_out)
-    elif local_path == "blocked":
-        # DBCSR's 'blocked' regime: the capacity buffer in token blocks,
-        # each block a separate batch of small GEMMs
+    # the experts' outputs, in a buffer whose scratch row reads 0.
+    # DBCSR's 'blocked' regime runs the capacity buffer in token blocks,
+    # each block a separate batch of small GEMMs
+    if local_path == "blocked":
         if cap % block_c:
             raise ValueError(f"capacity {cap} is no multiple of block_c "
                              f"{block_c}")
-        for i in range(0, cap, block_c):
-            buf_out[:, i:i + block_c] = _expert_ffn(buf[:, i:i + block_c],
-                                                    wg, wu, wd, act)
-    else:
+    elif local_path != "densified":
         raise ValueError(local_path)
+    wg, wu, wd = params["w_gate"], params["w_up"], params["w_down"]
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, wg, wu, wd)):
+        # training: autograd refuses out=, so the blocks are concatenated
+        # and the zero scratch row is padded on
+        step = block_c if local_path == "blocked" else cap
+        y = torch.cat([_expert_ffn(buf[:, i:i + step], wg, wu, wd, act)
+                       for i in range(0, cap, step)], dim=1)
+        flat = torch.nn.functional.pad(y.reshape(e * cap, d), (0, 0, 0, 1))
+    else:
+        flat = torch.empty((e * cap + 1, d), dtype=x.dtype, device=x.device)
+        flat[-1] = 0
+        buf_out = flat[:-1].view(e, cap, d)
+        if local_path == "densified":
+            _expert_ffn(buf, wg, wu, wd, act, out=buf_out)
+        else:
+            for i in range(0, cap, block_c):
+                buf_out[:, i:i + block_c] = _expert_ffn(
+                    buf[:, i:i + block_c], wg, wu, wd, act)
     del buf
 
     # combine: gather back (the scratch row reads 0), weight, sum the k

@@ -13,21 +13,24 @@ of the stacks (no copies).
 Every layer kind of the registry is ported: mixers ``attention``,
 ``mla``, ``mamba`` and ``rwkv6``; feed-forwards ``dense``, ``moe`` and
 ``rwkv_cm`` (RWKV's channel mix, whose parameters live in the mixer's).
-Decode writes every cache in place.  Training raises
-``NotImplementedError``: the LM and MTP losses and rematerialisation
-(ROADMAP A11); the sharding helpers (``dp_axes``, ``cache_specs``,
-``model_param_specs``) wait for A12.
+Decode writes every cache in place.  Training is ``lm_loss`` (the
+next-token loss, the MoE router loss and DeepSeek's MTP loss) through
+autograd, with ``cfg.remat`` mapped onto ``torch.utils.checkpoint``
+(``_remat_wrap``).  The sharding helpers (``dp_axes``, ``cache_specs``,
+``model_param_specs``) wait for ROADMAP A12.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .attention import attention_apply, attention_defs, effective_heads
-from .common import (ParamDef, apply_norm, init_params, norm_defs,
-                     param_shapes, resolve_device, sinusoidal_positions,
-                     stack_defs, tree_map)
+from .common import (ParamDef, apply_norm, cross_entropy_logits_sharded,
+                     init_params, norm_defs, param_shapes, resolve_device,
+                     sinusoidal_positions, stack_defs, tree_map)
 from .ffn import ffn_apply, ffn_defs
 from .mamba import _dims as mamba_dims
 from .mamba import mamba_apply, mamba_defs
@@ -37,8 +40,6 @@ from .rwkv6 import rwkv6_channel_mix, rwkv6_defs, rwkv6_time_mix
 
 __all__ = ["segment_plan", "model_defs", "model_param_shapes", "model_init",
            "cache_shapes", "cache_init", "forward", "lm_head", "lm_loss"]
-
-_NOT_PORTED = "is not ported yet (ROADMAP A11)"
 
 
 def _dtype(cfg) -> torch.dtype:
@@ -235,6 +236,8 @@ def _apply_layer(kind, lp, x, positions, cfg, cache, cur_len, collect=False):
         x = x + ffn_apply(lp["ffn"], h, cfg)
     elif ff == "moe":
         out, aux = moe_apply(lp["ffn"], h, cfg)
+        if cfg.remat == "save_moe" and torch.is_grad_enabled():
+            out = _moe_out(out)
         x = x + out
     elif ff == "rwkv_cm":
         cm_cache = None if cache is None else cache[2]
@@ -248,8 +251,101 @@ def _apply_layer(kind, lp, x, positions, cfg, cache, cur_len, collect=False):
     return x, aux, new_c
 
 
+@torch.library.custom_op("repro_torch::moe_out", mutates_args=())
+def _moe_out(x: torch.Tensor) -> torch.Tensor:
+    """The MoE layer's output under a name of its own, as the JAX
+    package's ``checkpoint_name(out, "moe_out")``: ``save_moe`` saves what
+    this op returns (a copy: a custom op may not return its input)."""
+    return x.clone()
+
+
+_moe_out.register_fake(torch.empty_like)
+_moe_out.register_autograd(lambda ctx, grad: grad)
+
+
+def _save_dots(ctx, func, *args, **kwargs):
+    """``dots_with_no_batch_dims_saveable``: save the products that have no
+    batch dimension (``mm``, ``addmm``, and the ``bmm`` of batch 1 that
+    ``einsum`` makes of a projection) and recompute the rest, the
+    attention's batched products among them."""
+    if func in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default) or (
+            func is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _save_moe(ctx, func, *args, **kwargs):
+    """``save_only_these_names("moe_out")``: of everything a checkpointed
+    period computes, keep only each MoE layer's output."""
+    if func is torch.ops.repro_torch.moe_out.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_POLICIES = {"full": None, "dots": _save_dots, "save_moe": _save_moe}
+
+
 def _remat_wrap(fn, cfg):
-    raise NotImplementedError(f"rematerialisation (training) {_NOT_PORTED}")
+    """``fn`` rematerialised as ``cfg.remat`` says: ``none`` runs it as it
+    is; the others run it under ``torch.utils.checkpoint``, which keeps
+    its inputs and recomputes it in the backward.  ``full`` saves nothing
+    else, ``dots`` the products with no batch dimension (``_save_dots``)
+    and ``save_moe`` each MoE layer's output (``_save_moe``).  A
+    recompute runs the same operations on the same inputs, so every
+    policy gives ``none``'s values bitwise."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat not in _POLICIES:
+        raise ValueError(f"unknown remat policy {cfg.remat!r}")
+    policy = _POLICIES[cfg.remat]
+
+    def wrapped(*args):
+        if policy is None:
+            return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=lambda: create_selective_checkpoint_contexts(
+                              policy))
+
+    return wrapped
+
+
+def _unstack(tree, n: int) -> list:
+    """The n layers of a stacked parameter tree, as views made by one
+    ``unbind`` a leaf (whose backward stacks the layers' gradients once;
+    n ``select``s would each write a zero-filled stack)."""
+    parts = []
+
+    def cut(t):
+        parts.append(t.unbind(0))
+        return len(parts) - 1
+
+    where = tree_map(cut, tree)
+    return [tree_map(lambda j, i=i: parts[j][i], where) for i in range(n)]
+
+
+def _train_period(period, positions, cfg):
+    """One repeat of a period without caches: (x, aux, [layer params]) ->
+    (x, aux).  A period of several layers (Jamba's 8) checkpoints each
+    layer as well when remat is on, as the JAX package nests them, so
+    the period's backward holds one layer's internals at a time."""
+    nested = len(period) > 1 and cfg.remat != "none"
+
+    def run(x, aux_total, lps):
+        for kind, lp in zip(period, lps):
+            def layer(lp, x, kind=kind):
+                x, aux, _ = _apply_layer(kind, lp, x, positions, cfg, None,
+                                         None)
+                return x, aux
+
+            if nested:
+                x, aux = checkpoint(layer, lp, x, use_reentrant=False)
+            else:
+                x, aux = layer(lp, x)
+            if aux is not None:
+                aux_total = aux_total + aux
+        return x, aux_total
+
+    return _remat_wrap(run, cfg)
 
 
 def backbone(params: Dict, inputs: torch.Tensor, cfg, *,
@@ -257,7 +353,8 @@ def backbone(params: Dict, inputs: torch.Tensor, cfg, *,
              cur_len: Optional[torch.Tensor] = None,
              collect_cache: bool = False):
     """Embeddings, every layer and the final norm.  Returns (hidden,
-    aux, new_cache); see ``forward``."""
+    aux, new_cache); see ``forward``.  With autograd on and no cache
+    (training), each repeat of a period runs under ``cfg.remat``."""
     dt = _dtype(cfg)
     if cfg.input_mode == "embeddings" or inputs.ndim == 3:
         x = inputs.to(dt)
@@ -277,17 +374,22 @@ def backbone(params: Dict, inputs: torch.Tensor, cfg, *,
 
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache = [] if (cache is not None or collect_cache) else None
+    train = cache is None and not collect_cache and torch.is_grad_enabled()
     for si, (n_rep, period) in enumerate(segment_plan(cfg)):
-        seg_params = params["segments"][si]
+        per_layer = [_unstack(p, n_rep) for p in params["segments"][si]]
+        if train:
+            run = _train_period(period, positions, cfg)
+            for i in range(n_rep):
+                x, aux_total = run(x, aux_total, [lp[i] for lp in per_layer])
+            continue
         seg_cache = cache[si] if cache is not None else None
         collected = [[] for _ in period]
         for i in range(n_rep):
             for pi, kind in enumerate(period):
-                lp = tree_map(lambda t: t[i], seg_params[pi])
                 cslice = (None if seg_cache is None
                           else tuple(c[i] for c in seg_cache[pi]))
-                x, aux, nc = _apply_layer(kind, lp, x, positions, cfg,
-                                          cslice, cur_len,
+                x, aux, nc = _apply_layer(kind, per_layer[pi][i], x, positions,
+                                          cfg, cslice, cur_len,
                                           collect=collect_cache)
                 if aux is not None:
                     aux_total = aux_total + aux
@@ -338,8 +440,43 @@ def forward(
 
 
 def lm_loss(params, batch, cfg):
-    raise NotImplementedError(f"the LM loss (training) {_NOT_PORTED}")
+    """batch: {"inputs": (B, S) tokens or (B, S, d) embeddings, "labels":
+    (B, S)} -> (loss, {"nll", "aux"[, "mtp"]}), every value an f32
+    scalar: the next-token nll, plus 0.01 x the MoE router loss and
+    ``cfg.mtp_weight`` x the MTP loss where the model has them."""
+    logits, hidden, aux, _ = forward(params, batch["inputs"], cfg)
+    loss = cross_entropy_logits_sharded(logits, batch["labels"])
+    metrics = {"nll": loss, "aux": aux}
+    if cfg.moe:
+        loss = loss + 0.01 * aux
+    if cfg.mtp:
+        mtp_loss = _mtp_loss(params, hidden, batch, cfg)
+        metrics["mtp"] = mtp_loss
+        loss = loss + cfg.mtp_weight * mtp_loss
+    return loss, metrics
 
 
 def _mtp_loss(params, hidden, batch, cfg):
-    raise NotImplementedError(f"the multi-token prediction loss {_NOT_PORTED}")
+    """DeepSeek-V3 multi-token prediction (depth 1, a dense-FFN block):
+    from the final hidden state and the embedding of the next token,
+    predict the token after it (the last position has none)."""
+    mp = params["mtp"]
+    tokens = batch["labels"]            # next tokens (t+1) at each position
+    dt = hidden.dtype
+    b, s = tokens.shape
+    emb_next = params["embed"].index_select(0, tokens.reshape(-1)).reshape(
+        b, s, -1).to(dt)
+    h = torch.cat([apply_norm(hidden, mp["norm_h"], cfg.norm),
+                   apply_norm(emb_next, mp["norm_e"], cfg.norm)], dim=-1)
+    h = h @ mp["proj"].to(dt)
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=h.device).expand(b, s)
+    kind = ("mla" if cfg.mixer == "mla" else "attention", "dense")
+    h, _, _ = _apply_layer(kind, mp["block"], h, positions, cfg, None, None)
+    logits = lm_head(params, apply_norm(h, params["final_norm"], cfg.norm),
+                     cfg)
+    # predict t+2: labels shifted one more step
+    labels2 = torch.cat([tokens[:, 1:], tokens[:, -1:]], dim=1)
+    valid = torch.ones((b, s), dtype=torch.bool, device=h.device)
+    valid[:, -1] = False
+    return cross_entropy_logits_sharded(logits, labels2, valid_mask=valid)

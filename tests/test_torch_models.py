@@ -385,21 +385,3 @@ def test_param_and_cache_shapes_match_the_jax_package(arch):
                                 tcfg, device="cpu")
     for t, j in zip(TC.tree_leaves(tparams), jax.tree_util.tree_leaves(params)):
         assert np.array_equal(t.numpy(), np.asarray(j))
-
-
-@pytest.mark.parametrize("arch", ["deepseek_v3_671b", "jamba_v0_1_52b",
-                                  "rwkv6_1_6b", "qwen3_moe_30b_a3b"])
-def test_layer_kinds_not_ported_raise(arch):
-    """Every layer kind serves; training (the LM and MTP losses,
-    rematerialisation) still raises (ROADMAP A11)."""
-    cfg = tbase.reduced_config(tbase.get_config(arch))
-    defs = TT.model_defs(cfg)
-    assert ("mtp" in defs) == cfg.mtp
-    layer = defs["segments"][-1][0]
-    assert ("ffn" in layer) == (cfg.mixer != "rwkv6")
-    with pytest.raises(NotImplementedError, match="A11"):
-        TT.lm_loss(None, None, cfg)
-    with pytest.raises(NotImplementedError, match="A11"):
-        TT._mtp_loss(None, None, None, cfg)
-    with pytest.raises(NotImplementedError, match="A11"):
-        TT._remat_wrap(None, cfg)
