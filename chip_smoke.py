@@ -289,8 +289,32 @@ Phase 11 trains (ROADMAP A11), printing nvidia-smi's name and power
            (ae) all ten architectures at reduced_config in f32 and bf16:
                 4 AdamW steps on one batch descend and stay finite (MoE
                 aux and MTP losses printed).  One {"phase11": ...} line.
-``--phase 9`` (or 10, 11) builds the kernels and runs that phase alone
-(development: no kernels line and no ok line).
+         (ab)'s bound is launch.roofline's over the cost counter's meta
+         count of the step (launch.cost_counter) on the card's HW; phases
+         5 and 10 take their weights bound from launch.roofline too.
+Phase 12 the launch tools (ROADMAP A12), on the meta device: nothing
+         allocated or launched by the counts:
+           (af) the dry-run grid, python -m repro_torch.launch.dryrun in
+                the background on the host's CPU from the end of phase 0
+                (niced, CUDA hidden): every architecture's train_4k,
+                decode_32k and long_500k on 1x1 (counted) and on the
+                production mesh 32 x 8 (per-device argument bytes), and
+                prefill_32k of Qwen2-1.5B and DeepSeek-V3 on 1x1, but
+                RWKV-6's train_4k on 1x1 (its time loop: DRYRUN_GRID); every
+                cell ok or skipped by cell_is_supported, within
+                DRYRUN_BUDGET_S of its start; the table and each cell's
+                seconds
+           (ag) predictions held against the card: (ab)'s step counted on
+                meta, its FLOPs equal to FlopCounterMode over the step on
+                the card and its peak live bytes within PEAK_TOL of
+                max_memory_allocated (the step alone); (k)'s decode step
+                (B=8, max_len 4,096, cur_len 2,064): counted bytes at
+                least the weights read plus the K and V rows below
+                cur_len, its peak within PEAK_TOL; both at
+                head_pad_factor 4 (the config's) and 1, in counts.
+         One {"phase12": ...} line.
+``--phase 9`` (or 10, 11, 12) builds the kernels and runs that phase
+alone (development: no kernels line and no ok line).
 
 Prints a {"kernels": [...]} line, the nvidia-smi line, and as its last
 line {"ok": true, "device": {...}}.  Any failed check raises, so the
@@ -316,6 +340,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -385,16 +410,6 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip()
-
-
-def peaks(name: str):
-    """Published dense rates of the part: (f32 non-tensor FLOP/s, HBM
-    bytes/s).  NVIDIA data sheets; the SXM part unless named otherwise."""
-    if "PCIe" in name:
-        return 51e12, 2.0e12
-    if "NVL" in name:
-        return 60e12, 3.9e12
-    return 67e12, 3.35e12
 
 
 def rel_err(x, ref) -> float:
@@ -507,7 +522,7 @@ def sync_time(fn):
 
 
 def serve_lm(dev, zero_counters, read_counters, decode_attention,
-             decode_attention_ref, hbm_rate) -> dict:
+             decode_attention_ref, hw) -> dict:
     """Phase 5: serve Qwen2-1.5B at full width; returns the decode
     kernel's main-path numbers for the kernels line."""
     import dataclasses
@@ -515,6 +530,7 @@ def serve_lm(dev, zero_counters, read_counters, decode_attention,
     import torch
 
     from repro_torch.configs.base import get_config
+    from repro_torch.launch.roofline import memory_bound_s
     from repro_torch.models import transformer as T
     from repro_torch.models.common import tree_leaves, tree_map
     from repro_torch.serve import engine
@@ -676,18 +692,19 @@ def serve_lm(dev, zero_counters, read_counters, decode_attention,
     step = statistics.median(step_s[1:])
     cur_mid = S + STEPS // 2
     kv_valid = kv_bytes * cur_mid / MAX_LEN
+    w_ms, kv_ms, kv_all_ms = (1e3 * memory_bound_s(x, hw)
+                              for x in (w_bytes, kv_valid, kv_bytes))
     print(f"  decode: {1e3 * step:.3f} ms/token (median of steps 2-{STEPS}; "
           f"first {1e3 * step_s[0]:.3f} ms), {B / step:.1f} tokens/s; "
-          f"bounds per step: weights {1e3 * w_bytes / hbm_rate:.3f} ms, KV "
-          f"rows < cur_len {1e3 * kv_valid / hbm_rate:.3f} ms (the kernel "
-          f"reads only those; all {MAX_LEN} rows: "
-          f"{1e3 * kv_bytes / hbm_rate:.3f} ms)")
+          f"bounds per step: weights {w_ms:.3f} ms, KV rows < cur_len "
+          f"{kv_ms:.3f} ms (the kernel reads only those; all {MAX_LEN} "
+          f"rows: {kv_all_ms:.3f} ms)")
 
     busy = profile_steps(params, cfg, engine, state, tok)
     return {"serve": {
         "prefill_ms": 1e3 * prefill_s, "decode_ms_per_token": 1e3 * step,
-        "tokens_per_s": B / step, "weight_bound_ms": 1e3 * w_bytes / hbm_rate,
-        "kv_bound_ms": 1e3 * kv_valid / hbm_rate, "profile": busy}}
+        "tokens_per_s": B / step, "weight_bound_ms": w_ms,
+        "kv_bound_ms": kv_ms, "profile": busy}}
 
 
 def profile_steps(params, cfg, engine, state, tok, steps=4) -> dict:
@@ -838,7 +855,7 @@ def print_layers(rows):
 
 
 def layer_kinds(dev, card, zero_counters, read_counters, decode_attention,
-                decode_attention_ref, hbm_rate) -> list:
+                decode_attention_ref, hw) -> list:
     """Phase 10: DeepSeek-V3 (MLA, sigmoid MoE, MTP), Jamba (Mamba, GQA,
     softmax MoE) and RWKV-6 at their published widths in bf16, served
     through prefill_step / decode_step; returns one summary per model."""
@@ -847,6 +864,7 @@ def layer_kinds(dev, card, zero_counters, read_counters, decode_attention,
     import torch
 
     from repro_torch.configs.base import get_config
+    from repro_torch.launch.roofline import memory_bound_s
     from repro_torch.models import transformer as T
     from repro_torch.models.common import tree_leaves, tree_map
     from repro_torch.serve import engine
@@ -1011,7 +1029,7 @@ def layer_kinds(dev, card, zero_counters, read_counters, decode_attention,
         print(f"  decode: {1e3 * step:.3f} ms/token (median of steps "
               f"2-{STEPS}; first {1e3 * step_s[0]:.3f} ms), "
               f"{B / step:.1f} tokens/s; weights' bound a step "
-              f"{1e3 * w_bytes / hbm_rate:.3f} ms")
+              f"{1e3 * memory_bound_s(w_bytes, hw):.3f} ms")
 
         if n_attn:
             # the decode kernel against its plain version, token for token
@@ -1040,7 +1058,7 @@ def layer_kinds(dev, card, zero_counters, read_counters, decode_attention,
             "prefill_ms": 1e3 * prefill_s,
             "prompt_tokens_per_s": B * S / prefill_s,
             "decode_ms_per_token": 1e3 * step, "tokens_per_s": B / step,
-            "weight_bound_ms": 1e3 * w_bytes / hbm_rate,
+            "weight_bound_ms": 1e3 * memory_bound_s(w_bytes, hw),
             "check_err": err, "check_noise": err_n, "check_state_lost": err_f,
             "jax_rule_finite": jax_rule_ok,
             "profile": busy})
@@ -1060,9 +1078,10 @@ TRAIN_AB_TF32 = 3              # (ab): steps more with TF32 in the backward
 TRAIN_AC = (2, 1, 512)         # (ac): layers, B, S (f32 against f64)
 TRAIN_AD = (4, 2, 512, 6, 2, 3)  # (ad): layers, B, S, steps, ckpt_every, fail
 TRAIN_AE = (2, 16, 4)          # (ae): B, S, steps at reduced_config
-# NVIDIA's H100 SXM data sheet, dense: bf16 and TF32 tensor-core rates and
-# the f32 rate outside the tensor cores
-TRAIN_PEAKS = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12}
+# PR 24's bound of (ab) a step, from a hand formula (GEMMs at the bf16
+# peak, the attention's causal triangle at TF32 forward and f32 backward),
+# printed once beside the bound the counter gives (launch.roofline)
+AB_BOUND_PR24_MS = 324.8
 # (ac): the port's f32 loss and gradients against float64 autograd of the
 # same function on the card, max |g32 - g64| / max |g64| for each leaf,
 # with weights by the JAX package's rule on each layer's own shape
@@ -1126,21 +1145,60 @@ def f64_reference():
     return ctx()
 
 
-def train_flops(cfg, b, s):
-    """(GEMM flops, attention flops at the forward's rate, attention flops
-    at the backward's rate) of one training step under remat "full":
-    each layer runs forward, its recompute and a backward of twice the
-    forward; the LM head forward and backward.  The attention counts
-    the causal triangle, at the configured (padded) head counts."""
-    from repro_torch.models.attention import effective_heads
+def count_train_step(cfg, b, s):
+    """The cost counter's sums (launch.cost_counter, on the meta device:
+    nothing allocated or launched) for one AdamW step of ``cfg`` on a
+    b x s token batch, one microbatch, as (ab) runs it."""
+    import torch
 
-    d, dh, f = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
-    h, hkv = effective_heads(cfg)
-    per_token = d * h * dh + 2 * d * hkv * dh + h * dh * d + 3 * d * f
-    gemm = 2 * b * s * (4 * cfg.num_layers * per_token
-                        + 3 * d * cfg.vocab_size)
-    attn = 2 * 2 * b * h * dh * s * (s + 1) // 2 * cfg.num_layers
-    return gemm, 2 * attn, 2 * attn
+    from repro_torch.launch.cost_counter import count_costs
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optimizer import OptConfig, make_optimizer
+    from repro_torch.train.train_step import make_train_step
+
+    params = T.model_param_shapes(cfg)
+    opt = make_optimizer(OptConfig())
+    batch = {k: torch.empty((b, s), dtype=torch.int32, device="meta")
+             for k in ("inputs", "labels")}
+    return count_costs(make_train_step(cfg, opt), params, opt.init(params),
+                       batch)[1]
+
+
+def count_decode_step(cfg, b, max_len):
+    """The counter's sums for one decode step of ``cfg`` with a b x
+    max_len cache, on the meta device (decode_attention charged by
+    formula over every cache row: cur_len is unknown there)."""
+    from repro_torch.launch.cost_counter import count_costs
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import engine
+
+    state, tok = engine.serve_input_specs(cfg, batch=b, kv_len=max_len)
+    return count_costs(engine.decode_step, T.model_param_shapes(cfg), state,
+                       tok, cfg)[1]
+
+
+def print_bound(label, costs, hw) -> dict:
+    """The roofline terms of ``costs`` on ``hw`` (launch.roofline), printed
+    by dtype; returns them with the bound in ms."""
+    from repro_torch.launch.roofline import roofline_terms, step_bound_s
+
+    t = roofline_terms(costs, hw)
+    by = ", ".join(f"{k} {costs.flops_by_dtype[k] / 1e12:.2f} TFLOP "
+                   f"({1e3 * v:.1f} ms)"
+                   for k, v in sorted(t["compute_s_by_dtype"].items()))
+    bound = 1e3 * step_bound_s(costs, hw)
+    print(f"  {label}: bound {bound:.1f} ms ({t['dominant']}) on "
+          f"{hw['name']}'s data-sheet peaks: compute "
+          f"{1e3 * t['compute_s']:.1f} ms ({by}), memory "
+          f"{1e3 * t['memory_s']:.1f} ms "
+          f"({costs.hbm_bytes / 1e12:.3f} TB of eager traffic, "
+          f"{costs.n_ops} aten ops); peak live "
+          f"{costs.peak_live_bytes / 1e9:.3f} GB")
+    return {"bound_ms": bound, "compute_ms": 1e3 * t["compute_s"],
+            "memory_ms": 1e3 * t["memory_s"], "dominant": t["dominant"],
+            "flops_by_dtype": dict(costs.flops_by_dtype),
+            "hbm_bytes": costs.hbm_bytes, "peak_live_bytes":
+            costs.peak_live_bytes, "n_ops": costs.n_ops}
 
 
 def profile_train_step(step) -> dict:
@@ -1182,9 +1240,10 @@ def profile_train_step(step) -> dict:
             "top": [[name[:110], us / 1e3] for name, us in top]}
 
 
-def training(dev, card, zero_counters, read_counters) -> dict:
+def training(dev, card, zero_counters, read_counters, hw) -> dict:
     """Phase 11: the train step, the loop, checkpoints and recovery on the
-    card; returns the phase's summary."""
+    card; returns the phase's summary (with (ab)'s count under
+    ``ab_costs``, which phase 12 reuses)."""
     import dataclasses
     import shutil
     import tempfile
@@ -1245,9 +1304,9 @@ def training(dev, card, zero_counters, read_counters) -> dict:
     losses = [h["loss"] for h in res["history"]]
     norms = [r["grad_norm"] for r in seen]
     step_s = statistics.median(h["dt"] for h in res["history"][1:])
-    gemm, attn_fwd, attn_bwd = train_flops(cfg, B, S)
-    bound_parts = (gemm / TRAIN_PEAKS["bf16"], attn_fwd / TRAIN_PEAKS["tf32"],
-                   attn_bwd / TRAIN_PEAKS["f32"])
+    t0 = time.perf_counter()
+    ab_costs = count_train_step(cfg, B, S)
+    count_s = time.perf_counter() - t0
     print(f"  {n_params / 1e9:.3f} B parameters; losses "
           + ", ".join(f"{x:.4f}" for x in losses) + "; grad norms "
           + ", ".join(f"{x:.3g}" for x in norms))
@@ -1255,12 +1314,12 @@ def training(dev, card, zero_counters, read_counters) -> dict:
           f"{1e3 * res['history'][0]['dt']:.1f} ms), {B * S / step_s:.0f} "
           f"tokens/s, peak memory {peak / 1e9:.2f} GB "
           f"(max_memory_allocated)")
-    print(f"  bound {1e3 * sum(bound_parts):.1f} ms a step: GEMMs "
-          f"{gemm / 1e12:.1f} TFLOP at bf16 ({1e3 * bound_parts[0]:.1f} ms), "
-          f"attention {attn_fwd / 1e12:.1f} TFLOP forward and recompute at "
-          f"TF32 ({1e3 * bound_parts[1]:.1f} ms) and {attn_bwd / 1e12:.1f} "
-          f"TFLOP backward at f32 ({1e3 * bound_parts[2]:.1f} ms); the "
-          f"step at {100 * sum(bound_parts) / step_s:.1f} % of it")
+    ab_bound = print_bound(f"the step counted on meta in {count_s:.1f} s",
+                           ab_costs, hw)
+    print(f"  the step at {100 * ab_bound['bound_ms'] / (1e3 * step_s):.1f} "
+          f"% of that bound; the compute term "
+          f"{ab_bound['compute_ms']:.1f} ms beside PR 24's hand formula "
+          f"(compute only) {AB_BOUND_PR24_MS} ms")
     print(f"  hand-written kernels launched a step: "
           f"{[r['launches'] for r in seen[-1:]]} (expected 0: the training "
           f"path reaches none of them)")
@@ -1286,8 +1345,8 @@ def training(dev, card, zero_counters, read_counters) -> dict:
     out["ab"] = {"params_b": n_params / 1e9, "losses": losses,
                  "grad_norms": norms, "step_ms": 1e3 * step_s,
                  "tokens_per_s": B * S / step_s, "peak_gb": peak / 1e9,
-                 "bound_ms": 1e3 * sum(bound_parts),
-                 "bound_parts_ms": [1e3 * x for x in bound_parts],
+                 "bound_ms": ab_bound["bound_ms"], "bound": ab_bound,
+                 "bound_pr24_ms": AB_BOUND_PR24_MS,
                  "step_ms_tf32_backward": 1e3 * tf32_s, "profile": busy,
                  "launches_a_step": seen[-1]["launches"]}
     if not ok:
@@ -1475,6 +1534,260 @@ def training(dev, card, zero_counters, read_counters) -> dict:
     print(json.dumps({"phase11": out}))
     if failed:
         raise AssertionError("phase 11 (ae): " + "; ".join(failed))
+    out["ab_costs"] = ab_costs
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the launch tools
+# ---------------------------------------------------------------------------
+
+# (af): the dry-run grid, calls of the CLI (python -m
+# repro_torch.launch.dryrun --arch A --shape S --mesh M), run at once with
+# DRYRUN_JOBS processes each.  Every architecture's train_4k, decode_32k
+# and long_500k on 1x1 and the production mesh, and two prefill_32k
+# cells, but RWKV-6's train_4k on 1x1: its time mix loops over the 4,096
+# tokens in Python, ~10.6 M aten ops on meta under autograd (~20 min of
+# host time, as long as the rest of the script); the CLI run of the
+# whole grid counts it.
+_ALL_BUT_RWKV = ",".join(a for a in (
+    "deepseek_v3_671b", "qwen3_moe_30b_a3b", "starcoder2_3b", "qwen2_1_5b",
+    "granite_20b", "granite_34b", "musicgen_medium", "jamba_v0_1_52b",
+    "llava_next_mistral_7b"))
+DRYRUN_GRID = (
+    (_ALL_BUT_RWKV, "train_4k,decode_32k,long_500k", "1x1,production"),
+    ("rwkv6_1_6b", "decode_32k,long_500k", "1x1,production"),
+    ("rwkv6_1_6b", "train_4k", "production"),
+    ("qwen2_1_5b,deepseek_v3_671b", "prefill_32k", "1x1"))
+DRYRUN_JOBS = (2, 1, 1, 1)
+DRYRUN_BUDGET_S = 600   # the grid's wall from its start; the full run
+                        # hides it behind phases 1-11 (~850 s)
+PEAK_TOL = 0.10         # (ag): counted peak against max_memory_allocated
+AG_DECODE = (8, 4096, 2064)   # (ag): (k)'s B, max_len and a cur_len
+
+
+def start_dryrun(out_dir) -> list:
+    """(af): start the grid in the background on the host's CPU, niced, with
+    CUDA hidden (the dry-run runs on the meta device and launches
+    nothing); returns [(process, log file, start time)]."""
+    import atexit
+    import signal
+
+    os.makedirs(out_dir, exist_ok=True)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.path.join(REPO, "src"))
+    nice = ["nice", "-n", "10"] if shutil.which("nice") else []
+    procs = []
+    for i, ((arch, shape, mesh), jobs) in enumerate(zip(DRYRUN_GRID,
+                                                        DRYRUN_JOBS)):
+        log = open(os.path.join(out_dir, f"grid{i}.log"), "w")
+        cmd = nice + [sys.executable, "-m", "repro_torch.launch.dryrun",
+                      "--arch", arch, "--shape", shape, "--mesh", mesh,
+                      "--out", out_dir, "--jobs", str(jobs)]
+        procs.append((subprocess.Popen(cmd, env=env, cwd=REPO, stdout=log,
+                                       stderr=subprocess.STDOUT,
+                                       start_new_session=True),
+                      log, time.time()))
+
+    def stop():
+        for p, log, _ in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)   # the CLI and its workers
+                p.wait()
+            log.close()
+
+    atexit.register(stop)
+    return procs
+
+
+def collect_dryrun(procs, out_dir) -> dict:
+    """(af): wait for the grid within its budget and check every cell: ok,
+    or skipped with cell_is_supported's reason."""
+    from repro_torch.configs.base import SHAPES, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.specs import cell_is_supported
+
+    waited = []
+    for p, log, t0 in procs:
+        left = DRYRUN_BUDGET_S - (time.time() - t0)
+        try:
+            rc = p.wait(timeout=max(left, 1))
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"(af) the dry-run grid exceeded its "
+                                 f"{DRYRUN_BUDGET_S} s budget: {p.args}")
+        log.flush()
+        # the wall to the CLI's last line (its summary), not to this wait
+        wall = os.path.getmtime(log.name) - t0
+        if wall > DRYRUN_BUDGET_S:
+            raise AssertionError(f"(af) {p.args} took {wall:.1f} s, over "
+                                 f"its {DRYRUN_BUDGET_S} s budget")
+        waited.append((rc, wall))
+    for i, (rc, wall) in enumerate(waited):
+        with open(os.path.join(out_dir, f"grid{i}.log")) as f:
+            tail = f.read().splitlines()[-1:]
+        print(f"  (af) dryrun --arch {DRYRUN_GRID[i][0]} --shape "
+              f"{DRYRUN_GRID[i][1]} --mesh {DRYRUN_GRID[i][2]}: exit {rc}, "
+              f"{wall:.1f} s from its start; {tail[0] if tail else ''}")
+    want = [cell for grid in DRYRUN_GRID for cell in dryrun.cells(*grid)]
+    recs, bad = [], []
+    for arch, shape, mesh in want:
+        path = os.path.join(out_dir, f"{arch}__{shape}__"
+                                     f"{dryrun.MESHES[mesh]}.json")
+        rec = json.load(open(path)) if os.path.exists(path) else {
+            "arch": arch, "shape": shape, "mesh": dryrun.MESHES[mesh],
+            "status": "FAILED"}
+        recs.append(rec)
+        ok, why = cell_is_supported(get_config(arch), SHAPES[shape])
+        if not (rec["status"] == "ok" and ok or rec["status"] == "skipped"
+                and not ok and rec["why"] == why):
+            bad.append(f"{arch} x {shape} x {mesh}: {rec['status']}")
+    print(dryrun.summary(recs))
+    one = [r for r in recs if r["mesh"] == "1x1" and r["status"] == "ok"]
+    n_ok = sum(r["status"] == "ok" for r in recs)
+    print(f"  (af) {n_ok} ok, {len(recs) - n_ok - len(bad)} skipped, "
+          f"{len(bad)} failed; the 1x1 cells' counts took "
+          f"{sum(r['count_s'] for r in one):.1f} s of host time (slowest "
+          f"{max(one, key=lambda r: r['count_s'])['arch']} "
+          f"{max(r['count_s'] for r in one):.1f} s)")
+    if any(rc != 0 for rc, _ in waited) or bad:
+        raise AssertionError(f"(af) dry-run cells failed: {bad}")
+    return {"cells": [{k: r.get(k) for k in (
+        "arch", "shape", "mesh", "status", "cell_s", "n_microbatches",
+        "useful_flop_ratio", "fits_hbm")} | {
+        "peak_bytes": (r.get("memory") or {}).get("peak_per_device_bytes"),
+        "args_bytes": (r.get("memory") or {}).get("argument_bytes"),
+        "terms_ms": {k: 1e3 * v for k, v in (r.get("roofline") or {}).items()
+                     if k in ("compute_s", "memory_s", "collective_s")},
+        "dominant": (r.get("roofline") or {}).get("dominant")}
+        for r in recs], "grid_wall_s": [w for _, w in waited]}
+
+
+def launch_tools(dev, card, hw, procs, out_dir, ab_costs=None) -> dict:
+    """Phase 12: the dry-run's predictions held against the card ((ag)),
+    head_pad_factor 4 against 1 in counts, and the grid ((af))."""
+    import dataclasses
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.cost_counter import count_costs
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.serve import engine
+    from repro_torch.train.data import make_batch
+    from repro_torch.train.optimizer import OptConfig, make_optimizer
+    from repro_torch.train.train_step import make_train_step
+
+    gen = torch.Generator(device=dev)
+    out = {"card": card, "hw": hw["name"]}
+    failed = []
+
+    def peak_check(label, counted, measured):
+        rel = (counted - measured) / measured
+        print(f"  {label}: peak counted on meta {counted / 1e9:.3f} GB, "
+              f"max_memory_allocated {measured / 1e9:.3f} GB (the step alone: "
+              f"above what was allocated before its arguments), "
+              f"{100 * rel:+.2f} % (tolerance {100 * PEAK_TOL:.0f} %)")
+        if abs(rel) > PEAK_TOL:
+            failed.append(f"{label} peak {100 * rel:+.2f} %")
+        return rel
+
+    # ---- (ag) (ab)'s step: FLOPs exact, peak within PEAK_TOL
+    B, S, _ = TRAIN_AB
+    cfg = get_config("qwen2_1_5b")
+    print(f"phase 12 (ag): (ab)'s step, {cfg.name} bf16, {B} x {S}, remat "
+          f"{cfg.remat!r}, AdamW: the meta count against the card ({card})")
+    if ab_costs is None:
+        ab_costs = count_train_step(cfg, B, S)
+    train = print_bound("counted on meta", ab_costs, hw)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    params = T.model_init(cfg, gen.manual_seed(SEED), device=dev)
+    opt = make_optimizer(OptConfig())
+    state = opt.init(params)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in make_batch(
+        0, global_batch=B, seq_len=S, vocab=cfg.vocab_size).items()}
+    step = make_train_step(cfg, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with FlopCounterMode(display=False) as fc:
+        step(params, state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    card_flops = fc.get_total_flops()
+    print(f"  FLOPs: counted on meta {ab_costs.flops:.6e}, FlopCounterMode "
+          f"over the step on the card {card_flops:.6e}: equal "
+          f"{ab_costs.flops == card_flops}")
+    if ab_costs.flops != card_flops:
+        failed.append("(ab) FLOPs differ")
+    train["peak_rel"] = peak_check("(ab)", ab_costs.peak_live_bytes, peak)
+    train["card_peak_gb"] = peak / 1e9
+    del params, state, batch, step
+    torch.cuda.empty_cache()
+
+    # ---- (ag) (k)'s decode step: bytes >= weights + rows read, peak
+    B, L, CUR = AG_DECODE
+    print(f"phase 12 (ag): (k)'s decode step, {cfg.name} bf16, B={B}, "
+          f"max_len {L}, cur_len {CUR} ({card})")
+    dcosts = count_decode_step(cfg, B, L)
+    decode = print_bound("counted on meta", dcosts, hw)
+    base = torch.cuda.memory_allocated(dev)
+    params = T.model_init(cfg, gen.manual_seed(SEED), device=dev)
+    st = engine.init_serve_state(cfg, B, L, device=dev)
+    st["cur_len"].fill_(CUR)
+    tok = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+    engine.decode_step(params, st, tok, cfg)       # plans and handles
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _, card_costs = count_costs(engine.decode_step, params, st, tok, cfg)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    w_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    embed = params["embed"]
+    w_read = w_bytes - (embed.numel() - B * embed.shape[1]) \
+        * embed.element_size()
+    kv = st["cache"][0][0][0]                      # (layers, B, L, Hkv, Dh)
+    rows = 2 * kv.shape[0] * B * (CUR + 1) * kv[0, 0, 0].numel() \
+        * kv.element_size()
+    print(f"  bytes: counted {dcosts.hbm_bytes / 1e9:.3f} GB >= weights read "
+          f"{w_read / 1e9:.3f} GB (the embedding table but {B} rows) + K and "
+          f"V rows < cur_len + 1 {rows / 1e9:.3f} GB: "
+          f"{dcosts.hbm_bytes >= w_read + rows}; the counter on the card "
+          f"(decode_attention charged at its {CUR + 1} rows, "
+          f"{dict(card_costs.charged)}): {card_costs.hbm_bytes / 1e9:.3f} GB, "
+          f"{card_costs.flops / 1e9:.3f} GFLOP against "
+          f"{dcosts.flops / 1e9:.3f} on meta")
+    if not dcosts.hbm_bytes >= w_read + rows:
+        failed.append("(k) counted bytes below weights + rows")
+    decode.update({"peak_rel": peak_check("(k)", dcosts.peak_live_bytes, peak),
+                   "card_peak_gb": peak / 1e9, "weights_read_gb": w_read / 1e9,
+                   "kv_rows_gb": rows / 1e9,
+                   "card_count_gb": card_costs.hbm_bytes / 1e9})
+    del params, st, tok
+    torch.cuda.empty_cache()
+    out["ag"] = {"train": train, "decode": decode}
+
+    # ---- head_pad_factor 4 (the config's) against 1, in counts
+    pads = {}
+    for pad in (4, 1):
+        c = dataclasses.replace(cfg, head_pad_factor=pad)
+        tc = ab_costs if pad == 4 else count_train_step(c, *TRAIN_AB[:2])
+        dc = dcosts if pad == 4 else count_decode_step(c, B, L)
+        pads[pad] = {k: {"tflop": x.flops / 1e12, "gb": x.hbm_bytes / 1e9,
+                         "peak_gb": x.peak_live_bytes / 1e9}
+                     for k, x in (("train", tc), ("decode", dc))}
+        print(f"  head_pad_factor {pad}: (ab) step {pads[pad]['train']}; (k) "
+              f"decode step {pads[pad]['decode']}")
+    out["head_pad"] = pads
+
+    # ---- (af) the grid
+    print(f"phase 12 (af): the dry-run grid on the meta device ({card}; host "
+          f"times, the CLI niced beside the card's phases)")
+    out["af"] = collect_dryrun(procs, out_dir)
+    print(json.dumps({"phase12": out}, default=str))
+    if failed:
+        raise AssertionError("phase 12: " + "; ".join(failed))
     return out
 
 
@@ -3504,7 +3817,8 @@ def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phase", type=int, choices=[9, 10, 11], default=None,
+    ap.add_argument("--phase", type=int, choices=[9, 10, 11, 12],
+                    default=None,
                     help="development: build the kernels and run this "
                          "phase alone (prints no kernels and no ok line)")
     only = ap.parse_args(argv).phase
@@ -3530,14 +3844,15 @@ def main(argv=None) -> int:
     from repro_torch.kernels.smm.ref import smm_process_stack_ref
     from repro_torch.kernels.tiled_matmul.ops import tiled_matmul
     from repro_torch.kernels.tiled_matmul.ref import tiled_matmul_ref
-    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.mesh import hw_for, make_mesh
     from repro_torch.serve import MultiplyService
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
-    flops_peak, hbm_rate = peaks(name)
+    hw = hw_for(name)
+    flops_peak, hbm_rate = hw["peak_flops"]["float32"], hw["hbm_bw"]
     card = card_line()
     rng = np.random.RandomState(SEED)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -3554,6 +3869,10 @@ def main(argv=None) -> int:
     per_source = ", ".join(f"{k} {v['seconds']:.2f} s" for k, v in built.items())
     print(f"  built {sorted(built)} in {time.perf_counter() - t0:.2f} s "
           f"(one nvcc per source, in parallel: {per_source})")
+    # phase 12 (af): the dry-run grid runs on the host's CPU meanwhile
+    grid_dir = os.path.join(REPO, "artifacts", "dryrun_torch")
+    shutil.rmtree(grid_dir, ignore_errors=True)
+    grid = start_dryrun(grid_dir) if only in (None, 12) else []
     counters = {"smm": smm_process_stack, "tiled_matmul": tiled_matmul,
                 "grouped_gemm": grouped_gemm,
                 "decode_attention": decode_attention}
@@ -3576,9 +3895,11 @@ def main(argv=None) -> int:
             obs_and_tensors(dev, card, zero_counters, read_counters)
         elif only == 10:
             layer_kinds(dev, card, zero_counters, read_counters,
-                        decode_attention, decode_attention_ref, hbm_rate)
+                        decode_attention, decode_attention_ref, hw)
+        elif only == 11:
+            training(dev, card, zero_counters, read_counters, hw)
         else:
-            training(dev, card, zero_counters, read_counters)
+            launch_tools(dev, card, hw, grid, grid_dir)
         print(f"phase {only} alone: done; launches {launches}")
         return 0
 
@@ -4223,7 +4544,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     decode_rows[0].update(serve_lm(dev, zero_counters, read_counters,
                                    decode_attention, decode_attention_ref,
-                                   hbm_rate))
+                                   hw))
 
     # ---------------------------------------------------------- phase 6
     print("phase 6: the distributed schedules on simulated ranks "
@@ -4257,12 +4578,18 @@ def main(argv=None) -> int:
           f"width ({card})")
     torch.cuda.empty_cache()
     layer_kinds(dev, card, zero_counters, read_counters, decode_attention,
-                decode_attention_ref, hbm_rate)
+                decode_attention_ref, hw)
 
     # ---------------------------------------------------------- phase 11
     print(f"phase 11: training ({card})")
     torch.cuda.empty_cache()
-    training(dev, card, zero_counters, read_counters)
+    ab_costs = training(dev, card, zero_counters, read_counters,
+                        hw)["ab_costs"]
+
+    # ---------------------------------------------------------- phase 12
+    print(f"phase 12: the launch tools ({card})")
+    torch.cuda.empty_cache()
+    launch_tools(dev, card, hw, grid, grid_dir, ab_costs)
 
     for key, n in launches.items():
         if n < 1:

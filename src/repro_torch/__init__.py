@@ -28,7 +28,9 @@ and mirrors its layout:
     repro_torch.robustness  error taxonomy, NaN/Inf tripwires, request
                             validation
     repro_torch.obs         the metrics registry
-    repro_torch.launch      the process mesh (make_mesh)
+    repro_torch.launch      the process mesh (make_mesh), partition specs,
+                            the production mesh and the H100's roofline
+                            constants, the cost counter and the dry-run
 
 It imports torch and numpy, never jax and never ``repro``.  Entry points
 run on the CUDA device unless the caller asks for the CPU

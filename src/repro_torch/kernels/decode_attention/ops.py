@@ -15,7 +15,10 @@ rows over a cluster of CTAs.  ``split_tiles`` lists the rows each warp
 of each CTA reads for a given ``cur_len``, as the kernel computes them.
 
 For CPU tensors the wrapper runs the plain version (ref.py).  For CUDA
-tensors it launches the kernel or raises; it never falls back.
+tensors it launches the kernel or raises; it never falls back.  For meta
+tensors (the dry-run) it checks the shapes as the CUDA branch does and
+returns an empty output; under a ``launch.cost_counter`` it charges the
+kernel's FLOPs and bytes by formula (``cost``) on meta and on CUDA.
 """
 from __future__ import annotations
 
@@ -26,10 +29,11 @@ from typing import Callable, List, Optional, Tuple
 
 import torch
 
+from ...launch import cost_counter
 from .. import _build
 from .ref import decode_attention_ref
 
-__all__ = ["DecodePlan", "decode_attention", "device_plan", "plan",
+__all__ = ["DecodePlan", "cost", "decode_attention", "device_plan", "plan",
            "smem_layout", "split_tiles"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -184,6 +188,17 @@ def device_plan(idx: int, b: int, hkv: int, r: int, dh: int, s: int,
         idx, _DTYPES[dtype], dh, pl.kr, pl.dpl, pl.warps))
 
 
+def cost(b: int, h: int, hkv: int, dh: int, rows: int, elem: int) -> dict:
+    """FLOPs and HBM bytes of one call that reads ``rows`` cache rows of
+    each sequence: the q.K and p.V products, 4 B H rows Dh FLOPs in f32
+    (the plain version's two products over its rows); q and the output
+    (B H Dh elements each), the K and V rows (2 B rows Hkv Dh) and
+    cur_len read or written once."""
+    return {"flops": 4.0 * b * h * rows * dh,
+            "hbm_bytes": float((2 * b * h * dh + 2 * b * rows * hkv * dh)
+                               * elem + 4)}
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cur_len: torch.Tensor, *,
                      scale: Optional[float] = None) -> torch.Tensor:
@@ -220,13 +235,21 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if q.device.type == "cpu":
         out = decode_attention_ref(qg, k_cache, v_cache, cur_len, scale)
         return out.reshape(b, 1, h, dh).to(q.dtype)
-    if q.device.type != "cuda":
-        raise ValueError(f"decode_attention runs on cpu or cuda, not {q.device}")
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"decode_attention runs on cpu, cuda or meta, not "
+                         f"{q.device}")
     if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
         raise ValueError("the caches must be contiguous")
     if dh > _MAX_DH:
         raise ValueError(f"Dh={dh} exceeds the kernel's {_MAX_DH}")
     elem = q.element_size()
+    if q.device.type == "meta":
+        # the dry-run: cur_len's value is unknown, so every row counts
+        if b * hkv * plan(b, hkv, r, dh, s, elem).ctas > _MAX_GRID_X:
+            raise ValueError(f"B*Hkv={b * hkv} exceeds the kernel's grid")
+        cost_counter.charge("decode_attention",
+                            **cost(b, h, hkv, dh, s, elem))
+        return torch.empty((b, 1, h, dh), dtype=q.dtype, device="meta")
     idx = q.device.index if q.device.index is not None \
         else torch.cuda.current_device()
     pl = device_plan(idx, b, hkv, r, dh, s, q.dtype)
@@ -243,6 +266,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     _build.check(code, "decode_attention_launch",
                  _build.error_string("decode_attention"))
     decode_attention.launches += 1
+    if cost_counter.active() is not None:   # rows below cur_len, read back
+        n = int(cur_len.reshape(()))
+        cost_counter.charge("decode_attention", **cost(
+            b, h, hkv, dh, min(n, s) if n >= 1 else s, elem))
     return out.reshape(b, 1, h, dh)
 
 

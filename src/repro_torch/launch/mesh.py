@@ -23,7 +23,13 @@ backend (one rank a process) would implement the same methods.
 A partition spec is a tuple with one entry per dimension of the global
 tensor: ``None`` (replicated), an axis name, or a tuple of axis names
 whose flat index (row-major, in the tuple's order) picks the chunk.
-Axes a spec does not name replicate the tensor.
+Axes a spec does not name replicate the tensor.  ``PartitionSpec`` is
+that tuple under a name of its own, so that trees of specs can tell a
+spec from a tuple of specs.
+
+``make_production_mesh`` and ``HW`` are the counterparts of the JAX
+package's production meshes and roofline constants, for a cluster of
+H100s: they hold shapes and names only and allocate nothing.
 """
 from __future__ import annotations
 
@@ -34,7 +40,8 @@ from typing import Sequence, Tuple, Union
 import numpy as np
 import torch
 
-__all__ = ["Mesh", "make_mesh", "resolve_device"]
+__all__ = ["Mesh", "make_mesh", "resolve_device", "PartitionSpec", "P",
+           "is_spec", "make_production_mesh", "HW", "hw_for"]
 
 Axes = Union[str, Sequence[str]]
 
@@ -342,3 +349,102 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str],
     simulated on that one device."""
     return Mesh(tuple(int(s) for s in shape), tuple(axes),
                 resolve_device(device))
+
+
+# ---------------------------------------------------------------------------
+# partition specs, production meshes and the card's roofline constants
+# ---------------------------------------------------------------------------
+
+
+class PartitionSpec(tuple):
+    """A partition spec (see the module's docstring): ``PartitionSpec(None,
+    "model")``, a tuple with one entry a dimension, as
+    ``jax.sharding.PartitionSpec``.  A spec shorter than its tensor's rank
+    replicates the dimensions it leaves out.  As JAX's does, an entry of
+    no axes becomes None and one of a single axis that axis' name."""
+
+    def __new__(cls, *parts):
+        def canon(p):
+            if isinstance(p, (tuple, list)):
+                p = tuple(p)
+                return None if not p else p[0] if len(p) == 1 else p
+            return p
+
+        return super().__new__(cls, tuple(canon(p) for p in parts))
+
+    def __getnewargs__(self):
+        return tuple(self)
+
+    def __repr__(self) -> str:
+        return "P" + (tuple.__repr__(self) if len(self) != 1
+                      else f"({self[0]!r})")
+
+
+P = PartitionSpec
+
+
+def is_spec(x) -> bool:
+    """The leaf test of a tree of specs (a spec is itself a tuple)."""
+    return isinstance(x, PartitionSpec)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device: Union[str, torch.device] = "meta") -> Mesh:
+    """The production mesh: 32 x 8 (``data``, ``model``), or 2 x 32 x 8
+    with ``pod`` outermost, on ``device`` (default ``meta``: a mesh of
+    shape and names, for the sharding helpers and the dry-run).
+
+    The JAX package's pod is 256 TPU v5e chips in a 16 x 16 torus whose
+    links are all alike.  256 H100s are 32 nodes of 8: NVLink joins the 8
+    cards of a node (450 GB/s each way), InfiniBand the nodes, an order of
+    magnitude slower.  So the ``model`` axis, which carries the tensor-
+    and expert-parallel collectives of every layer, is the 8 cards of one
+    node, and ``data`` (gradient reductions once a step) spans the nodes."""
+    shape = (2, 32, 8) if multi_pod else (32, 8)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, device=device)
+
+
+# NVIDIA's H100 SXM data sheet, dense rates (no sparsity), at the full
+# 700 W power limit: tensor-core peaks by compute dtype ("tf32": f32
+# operands with allow_tf32 on), the f32 / f64 rate outside the tensor
+# cores, HBM size and rate, NVLink each way.
+HW = {
+    "name": "h100_sxm",
+    "peak_flops": {"bfloat16": 989e12, "float16": 989e12, "tf32": 495e12,
+                   "float32": 67e12, "float64": 67e12},
+    "peak_flops_bf16": 989e12,
+    "hbm_bw": 3.35e12,
+    "hbm_bytes": 80e9,
+    "nvlink_bw": 450e9,
+}
+
+_H100_PCIE = {
+    "name": "h100_pcie",
+    "peak_flops": {"bfloat16": 756e12, "float16": 756e12, "tf32": 378e12,
+                   "float32": 51e12, "float64": 51e12},
+    "peak_flops_bf16": 756e12,
+    "hbm_bw": 2.0e12,
+    "hbm_bytes": 80e9,
+    "nvlink_bw": 300e9,
+}
+
+_H100_NVL = {
+    "name": "h100_nvl",
+    "peak_flops": {"bfloat16": 835.5e12, "float16": 835.5e12,
+                   "tf32": 417.5e12, "float32": 60e12, "float64": 60e12},
+    "peak_flops_bf16": 835.5e12,
+    "hbm_bw": 3.9e12,
+    "hbm_bytes": 94e9,
+    "nvlink_bw": 300e9,
+}
+
+
+def hw_for(card_name: str) -> dict:
+    """The data-sheet constants of the H100 part ``card_name`` names
+    (``torch.cuda.get_device_name``): PCIe, NVL, else SXM (``HW``)."""
+    if "PCIe" in card_name:
+        return _H100_PCIE
+    if "NVL" in card_name:
+        return _H100_NVL
+    return HW

@@ -12,8 +12,9 @@ restore from the newest one found there at start and after a failed
 step, and a straggler watchdog.  Weights are random, drawn from seed 0.
 
 The reference's sharding options are not carried over: ``--mesh``
-accepts only ``1x1`` (multi-card meshes and the production mesh are
-ROADMAP A3's remainder and A12) and ``--device-count``, the XLA host
+accepts only ``1x1`` (multi-card meshes and the production mesh wait
+for ROADMAP A3's remainder; ``launch.specs`` and ``launch.dryrun`` give
+their specs and per-device sizes) and ``--device-count``, the XLA host
 device override, has no counterpart.
 """
 from __future__ import annotations
@@ -54,8 +55,9 @@ def main(argv=None):
     if args.mesh != "1x1":
         raise ValueError(
             f"--mesh {args.mesh}: the port trains on one device (1x1); "
-            "multi-card meshes and the production mesh are ROADMAP A3's "
-            "remainder and A12")
+            "multi-card meshes and the production mesh wait for ROADMAP "
+            "A3's remainder (the torch.distributed backend); A12 ported "
+            "their specs only")
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)

@@ -15,6 +15,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..kernels.decode_attention import ops as decode_ops
+from ..launch.mesh import P
 from .common import ParamDef, apply_rope, rms_norm
 
 NEG_INF = -1e30
@@ -55,18 +56,18 @@ def attention_defs(cfg) -> Dict[str, ParamDef]:
     dh = cfg.head_dim or d // cfg.num_heads
     h, hkv = effective_heads(cfg)
     defs = {
-        "wq": ParamDef((d, h, dh)),
-        "wk": ParamDef((d, hkv, dh)),
-        "wv": ParamDef((d, hkv, dh)),
-        "wo": ParamDef((h, dh, d)),
+        "wq": ParamDef((d, h, dh), spec=P(None, "model", None)),
+        "wk": ParamDef((d, hkv, dh), spec=P(None, "model", None)),
+        "wv": ParamDef((d, hkv, dh), spec=P(None, "model", None)),
+        "wo": ParamDef((h, dh, d), spec=P("model", None, None)),
     }
     if cfg.qkv_bias:
-        defs["bq"] = ParamDef((h, dh), "zeros")
-        defs["bk"] = ParamDef((hkv, dh), "zeros")
-        defs["bv"] = ParamDef((hkv, dh), "zeros")
+        defs["bq"] = ParamDef((h, dh), "zeros", spec=P("model", None))
+        defs["bk"] = ParamDef((hkv, dh), "zeros", spec=P("model", None))
+        defs["bv"] = ParamDef((hkv, dh), "zeros", spec=P("model", None))
     if cfg.qk_norm:
-        defs["q_norm"] = {"scale": ParamDef((dh,), "ones")}
-        defs["k_norm"] = {"scale": ParamDef((dh,), "ones")}
+        defs["q_norm"] = {"scale": ParamDef((dh,), "ones", spec=P(None))}
+        defs["k_norm"] = {"scale": ParamDef((dh,), "ones", spec=P(None))}
     return defs
 
 

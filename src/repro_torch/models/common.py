@@ -1,10 +1,16 @@
 """Shared model substrate: declarative params, norms, RoPE, activations.
 
 The counterpart of ``repro.models.common``.  Params are declared once
-(shape + init + scale) through ``ParamDef``; the initializer and the
-shape tree derive from the same declaration.  The JAX package's
-PartitionSpecs are dropped: one card needs no sharding (ROADMAP A12
-brings them back with multi-card meshes).
+(shape + init + scale + PartitionSpec) through ``ParamDef``; the
+initializer, the shape tree and the spec tree derive from the same
+declaration.  Mesh axis conventions (see launch/mesh.py):
+
+  batch / sequence  -> ("pod", "data")   (data parallel)
+  heads / ff hidden / experts / vocab -> "model"  (TP / EP)
+
+One card runs every spec as replicated; the specs serve the dry-run's
+per-device sizes (``launch/dryrun.py``) and a multi-rank mesh's
+``Mesh.shard``.
 
 Parameter trees are nested dicts, lists and tuples, as in the JAX
 package, so a tree carried over from it (``convert.py``) has the same
@@ -19,10 +25,11 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..launch.mesh import resolve_device
+from ..launch.mesh import P, PartitionSpec, is_spec, resolve_device
 
 __all__ = ["ParamDef", "tree_map", "tree_leaves", "resolve_device",
-           "init_params", "param_shapes", "stack_defs", "rms_norm",
+           "init_params", "param_shapes", "param_specs", "resolve_spec",
+           "resolve_specs", "stack_defs", "rms_norm",
            "layer_norm", "apply_norm", "norm_defs", "act_fn",
            "rope_frequencies", "apply_rope", "sinusoidal_positions",
            "cross_entropy_logits_sharded"]
@@ -71,6 +78,7 @@ class ParamDef:
     init: str = "normal"      # normal | zeros | ones | scaled
     scale: float = 1.0
     dtype: Any = torch.float32
+    spec: PartitionSpec = P()  # replicated unless a def says otherwise
 
 
 def _is_def(x) -> bool:
@@ -111,10 +119,53 @@ def param_shapes(defs, dtype_override=None):
         defs, is_leaf=_is_def)
 
 
+def param_specs(defs):
+    """PartitionSpec tree with the same structure."""
+    return tree_map(lambda d: d.spec, defs, is_leaf=_is_def)
+
+
+def resolve_spec(spec: PartitionSpec, shape: Tuple[int, ...],
+                 mesh) -> PartitionSpec:
+    """Drop mesh axes from dims they don't evenly divide.
+
+    E.g. KV-head dims of 2/4/12/24 cannot shard over a 16-way 'model'
+    axis: those tensors fall back to replication on that dim.  Reads
+    only ``mesh.shape``.
+    """
+    parts = list(spec) + [None] * (len(shape) - len(spec))
+    out = []
+    for dim, part in zip(shape, parts):
+        if part is None:
+            out.append(None)
+            continue
+        axes = part if isinstance(part, tuple) else (part,)
+        axes = tuple(a for a in axes if a in mesh.shape)  # drop absent axes
+        if not axes:
+            out.append(None)
+            continue
+        extent = 1
+        for a in axes:
+            extent *= mesh.shape[a]
+        if dim % extent != 0:
+            out.append(None)
+        else:
+            out.append(axes if len(axes) > 1 else axes[0])
+    return P(*out)
+
+
+def resolve_specs(spec_tree, shape_tree, mesh):
+    """resolve_spec over a (specs, shapes) tree pair; the shapes are
+    tensors (meta or not)."""
+    return tree_map(lambda sp, sh: resolve_spec(sp, tuple(sh.shape), mesh),
+                    spec_tree, shape_tree, is_leaf=is_spec)
+
+
 def stack_defs(defs, n: int):
-    """Prepend a layer dimension of size n to every ParamDef."""
-    return tree_map(lambda d: dataclasses.replace(d, shape=(n,) + tuple(d.shape)),
-                    defs, is_leaf=_is_def)
+    """Prepend a layer dimension of size n (replicated) to every
+    ParamDef."""
+    return tree_map(lambda d: dataclasses.replace(
+        d, shape=(n,) + tuple(d.shape), spec=P(None, *d.spec)),
+        defs, is_leaf=_is_def)
 
 
 # ---------------------------------------------------------------------------
@@ -146,9 +197,9 @@ def apply_norm(x, params, kind: str):
 
 def norm_defs(d: int, kind: str) -> Dict[str, ParamDef]:
     if kind == "rmsnorm":
-        return {"scale": ParamDef((d,), "ones")}
-    return {"scale": ParamDef((d,), "ones"),
-            "bias": ParamDef((d,), "zeros")}
+        return {"scale": ParamDef((d,), "ones", spec=P(None))}
+    return {"scale": ParamDef((d,), "ones", spec=P(None)),
+            "bias": ParamDef((d,), "zeros", spec=P(None))}
 
 
 def act_fn(name: str):

@@ -6,6 +6,7 @@ from typing import Dict
 
 import torch
 
+from ..launch.mesh import P
 from .common import ParamDef, act_fn
 
 __all__ = ["ffn_defs", "ffn_apply"]
@@ -16,18 +17,18 @@ def ffn_defs(cfg, d_ff: int | None = None) -> Dict[str, ParamDef]:
     f = d_ff or cfg.d_ff
     if cfg.glu:
         defs = {
-            "w_gate": ParamDef((d, f)),
-            "w_up": ParamDef((d, f)),
-            "w_down": ParamDef((f, d)),
+            "w_gate": ParamDef((d, f), spec=P(None, "model")),
+            "w_up": ParamDef((d, f), spec=P(None, "model")),
+            "w_down": ParamDef((f, d), spec=P("model", None)),
         }
     else:
         defs = {
-            "w_up": ParamDef((d, f)),
-            "w_down": ParamDef((f, d)),
+            "w_up": ParamDef((d, f), spec=P(None, "model")),
+            "w_down": ParamDef((f, d), spec=P("model", None)),
         }
     if cfg.mlp_bias:
-        defs["b_up"] = ParamDef((f,), "zeros")
-        defs["b_down"] = ParamDef((d,), "zeros")
+        defs["b_up"] = ParamDef((f,), "zeros", spec=P("model"))
+        defs["b_down"] = ParamDef((d,), "zeros", spec=P(None))
     return defs
 
 

@@ -21,6 +21,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..launch.mesh import P
 from .common import ParamDef
 
 __all__ = ["mamba_defs", "mamba_apply"]
@@ -36,15 +37,15 @@ def mamba_defs(cfg) -> Dict[str, ParamDef]:
     d = cfg.d_model
     d_in, dt_rank, n, k = _dims(cfg)
     return {
-        "in_proj": ParamDef((d, 2 * d_in)),
-        "conv_w": ParamDef((k, d_in)),
-        "conv_b": ParamDef((d_in,), "zeros"),
-        "x_proj": ParamDef((d_in, dt_rank + 2 * n)),
-        "dt_proj": ParamDef((dt_rank, d_in)),
-        "dt_bias": ParamDef((d_in,), "zeros"),
-        "a_log": ParamDef((d_in, n), "ones"),
-        "d_skip": ParamDef((d_in,), "ones"),
-        "out_proj": ParamDef((d_in, d)),
+        "in_proj": ParamDef((d, 2 * d_in), spec=P(None, "model")),
+        "conv_w": ParamDef((k, d_in), spec=P(None, "model")),
+        "conv_b": ParamDef((d_in,), "zeros", spec=P("model")),
+        "x_proj": ParamDef((d_in, dt_rank + 2 * n), spec=P("model", None)),
+        "dt_proj": ParamDef((dt_rank, d_in), spec=P(None, "model")),
+        "dt_bias": ParamDef((d_in,), "zeros", spec=P("model")),
+        "a_log": ParamDef((d_in, n), "ones", spec=P("model", None)),
+        "d_skip": ParamDef((d_in,), "ones", spec=P("model")),
+        "out_proj": ParamDef((d_in, d), spec=P("model", None)),
     }
 
 

@@ -26,6 +26,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..launch.mesh import P
 from .attention import (NEG_INF, _einsum_f32, blockwise_causal_attention,
                         full_causal_attention)
 from .common import ParamDef, apply_rope, rms_norm
@@ -39,14 +40,14 @@ def mla_defs(cfg) -> Dict[str, ParamDef]:
     qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
     dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     return {
-        "wq_a": ParamDef((d, qr)),
-        "q_a_norm": {"scale": ParamDef((qr,), "ones")},
-        "wq_b": ParamDef((qr, h, dn + dr)),
-        "wkv_a": ParamDef((d, kvr + dr)),
-        "kv_a_norm": {"scale": ParamDef((kvr,), "ones")},
-        "wk_b": ParamDef((kvr, h, dn)),
-        "wv_b": ParamDef((kvr, h, dv)),
-        "wo": ParamDef((h, dv, d)),
+        "wq_a": ParamDef((d, qr), spec=P(None, None)),
+        "q_a_norm": {"scale": ParamDef((qr,), "ones", spec=P(None))},
+        "wq_b": ParamDef((qr, h, dn + dr), spec=P(None, "model", None)),
+        "wkv_a": ParamDef((d, kvr + dr), spec=P(None, None)),
+        "kv_a_norm": {"scale": ParamDef((kvr,), "ones", spec=P(None))},
+        "wk_b": ParamDef((kvr, h, dn), spec=P(None, "model", None)),
+        "wv_b": ParamDef((kvr, h, dv), spec=P(None, "model", None)),
+        "wo": ParamDef((h, dv, d), spec=P("model", None, None)),
     }
 
 

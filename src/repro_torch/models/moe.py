@@ -27,6 +27,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from ..launch.mesh import P
 from .common import ParamDef, act_fn
 
 __all__ = ["moe_defs", "moe_apply", "route", "dispatch_slots"]
@@ -35,18 +36,21 @@ __all__ = ["moe_defs", "moe_apply", "route", "dispatch_slots"]
 def moe_defs(cfg) -> Dict[str, ParamDef]:
     d, f = cfg.d_model, cfg.moe_d_ff
     e = cfg.n_experts
+    # moe_fsdp (DeepSeek-671B scale): expert weights additionally shard
+    # dim 1 over the data axes, as in the JAX package
+    fs = ("pod", "data") if cfg.moe_fsdp else None
     defs = {
-        "router": ParamDef((d, e), "normal"),
-        "w_gate": ParamDef((e, d, f)),
-        "w_up": ParamDef((e, d, f)),
-        "w_down": ParamDef((e, f, d)),
+        "router": ParamDef((d, e), "normal", spec=P(None, None)),
+        "w_gate": ParamDef((e, d, f), spec=P("model", fs, None)),
+        "w_up": ParamDef((e, d, f), spec=P("model", fs, None)),
+        "w_down": ParamDef((e, f, d), spec=P("model", fs, None)),
     }
     if cfg.n_shared_experts:
         fs = cfg.moe_d_ff * cfg.n_shared_experts
         defs["shared"] = {
-            "w_gate": ParamDef((d, fs)),
-            "w_up": ParamDef((d, fs)),
-            "w_down": ParamDef((fs, d)),
+            "w_gate": ParamDef((d, fs), spec=P(None, "model")),
+            "w_up": ParamDef((d, fs), spec=P(None, "model")),
+            "w_down": ParamDef((fs, d), spec=P("model", None)),
         }
     return defs
 

@@ -22,6 +22,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..launch.mesh import P
 from .common import ParamDef
 
 __all__ = ["rwkv6_defs", "rwkv6_time_mix", "rwkv6_channel_mix"]
@@ -37,27 +38,30 @@ def rwkv6_defs(cfg) -> Dict[str, ParamDef]:
     return {
         "tm": {
             # base lerp coefficients for the (w, k, v, r, g) shifts
-            "mix_base": ParamDef((5, d), "zeros"),
-            "mix_lora_a": ParamDef((d, 5 * _LORA_R)),
-            "mix_lora_b": ParamDef((5, _LORA_R, d), "zeros"),
-            "w_base": ParamDef((d,), "zeros"),
-            "w_lora_a": ParamDef((d, _DECAY_R)),
-            "w_lora_b": ParamDef((_DECAY_R, d), "zeros"),
-            "u": ParamDef((h, hs), "zeros"),
-            "wr": ParamDef((d, h, hs)),
-            "wk": ParamDef((d, h, hs)),
-            "wv": ParamDef((d, h, hs)),
-            "wg": ParamDef((d, h, hs)),
-            "ln_x": {"scale": ParamDef((h, hs), "ones"),
-                     "bias": ParamDef((h, hs), "zeros")},
-            "wo": ParamDef((h, hs, d)),
+            "mix_base": ParamDef((5, d), "zeros", spec=P(None, None)),
+            "mix_lora_a": ParamDef((d, 5 * _LORA_R), spec=P(None, None)),
+            "mix_lora_b": ParamDef((5, _LORA_R, d), "zeros",
+                                  spec=P(None, None, None)),
+            "w_base": ParamDef((d,), "zeros", spec=P(None)),
+            "w_lora_a": ParamDef((d, _DECAY_R), spec=P(None, None)),
+            "w_lora_b": ParamDef((_DECAY_R, d), "zeros", spec=P(None, None)),
+            "u": ParamDef((h, hs), "zeros", spec=P("model", None)),
+            "wr": ParamDef((d, h, hs), spec=P(None, "model", None)),
+            "wk": ParamDef((d, h, hs), spec=P(None, "model", None)),
+            "wv": ParamDef((d, h, hs), spec=P(None, "model", None)),
+            "wg": ParamDef((d, h, hs), spec=P(None, "model", None)),
+            "ln_x": {"scale": ParamDef((h, hs), "ones",
+                                       spec=P("model", None)),
+                     "bias": ParamDef((h, hs), "zeros",
+                                      spec=P("model", None))},
+            "wo": ParamDef((h, hs, d), spec=P("model", None, None)),
         },
         "cm": {
-            "mix_k": ParamDef((d,), "zeros"),
-            "mix_r": ParamDef((d,), "zeros"),
-            "wk": ParamDef((d, cfg.d_ff)),
-            "wr": ParamDef((d, d)),
-            "wv": ParamDef((cfg.d_ff, d)),
+            "mix_k": ParamDef((d,), "zeros", spec=P(None)),
+            "mix_r": ParamDef((d,), "zeros", spec=P(None)),
+            "wk": ParamDef((d, cfg.d_ff), spec=P(None, "model")),
+            "wr": ParamDef((d, d), spec=P(None, None)),
+            "wv": ParamDef((cfg.d_ff, d), spec=P("model", None)),
         },
     }
 

@@ -17,7 +17,8 @@ Decode writes every cache in place.  Training is ``lm_loss`` (the
 next-token loss, the MoE router loss and DeepSeek's MTP loss) through
 autograd, with ``cfg.remat`` mapped onto ``torch.utils.checkpoint``
 (``_remat_wrap``).  The sharding helpers (``dp_axes``, ``cache_specs``,
-``model_param_specs``) wait for ROADMAP A12.
+``model_param_specs``) give the JAX package's PartitionSpecs, which the
+dry-run (``launch/dryrun.py``) reads for its per-device sizes.
 """
 from __future__ import annotations
 
@@ -28,9 +29,11 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from .attention import attention_apply, attention_defs, effective_heads
+from ..launch.mesh import P
 from .common import (ParamDef, apply_norm, cross_entropy_logits_sharded,
-                     init_params, norm_defs, param_shapes, resolve_device,
-                     sinusoidal_positions, stack_defs, tree_map)
+                     init_params, norm_defs, param_shapes, param_specs,
+                     resolve_device, resolve_specs, sinusoidal_positions,
+                     stack_defs, tree_map)
 from .ffn import ffn_apply, ffn_defs
 from .mamba import _dims as mamba_dims
 from .mamba import mamba_apply, mamba_defs
@@ -39,11 +42,19 @@ from .moe import moe_apply, moe_defs
 from .rwkv6 import rwkv6_channel_mix, rwkv6_defs, rwkv6_time_mix
 
 __all__ = ["segment_plan", "model_defs", "model_param_shapes", "model_init",
-           "cache_shapes", "cache_init", "forward", "lm_head", "lm_loss"]
+           "model_param_specs", "cache_shapes", "cache_specs", "cache_init",
+           "dp_axes", "DP_AXES", "forward", "lm_head", "lm_loss"]
+
+DP_AXES = ("pod", "data")
 
 
 def _dtype(cfg) -> torch.dtype:
     return getattr(torch, cfg.dtype)
+
+
+def dp_axes(mesh) -> tuple:
+    """Data-parallel axes present in this mesh (single-pod has no 'pod')."""
+    return tuple(a for a in DP_AXES if a in mesh.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -115,11 +126,11 @@ def _layer_defs(kind: Tuple[str, str], cfg) -> Dict[str, Any]:
 def model_defs(cfg) -> Dict[str, Any]:
     d, v = cfg.d_model, cfg.vocab_size
     defs: Dict[str, Any] = {
-        "embed": ParamDef((v, d), "normal"),
+        "embed": ParamDef((v, d), "normal", spec=P("model", None)),
         "final_norm": norm_defs(d, cfg.norm),
     }
     if not cfg.tie_embeddings:
-        defs["head"] = ParamDef((d, v))
+        defs["head"] = ParamDef((d, v), spec=P(None, "model"))
     defs["segments"] = [
         [stack_defs(_layer_defs(kind, cfg), n_rep) for kind in period]
         for n_rep, period in segment_plan(cfg)]
@@ -127,13 +138,22 @@ def model_defs(cfg) -> Dict[str, Any]:
         # DeepSeek-V3's multi-token-prediction module (depth 1); serving
         # carries it, only the training loss reads it
         defs["mtp"] = {
-            "proj": ParamDef((2 * d, d)),
+            "proj": ParamDef((2 * d, d), spec=P(None, None)),
             "norm_h": norm_defs(d, cfg.norm),
             "norm_e": norm_defs(d, cfg.norm),
             "block": _layer_defs((("mla" if cfg.mixer == "mla"
                                    else "attention"), "dense"), cfg),
         }
     return defs
+
+
+def model_param_specs(cfg, mesh=None):
+    """PartitionSpec tree of the parameters; with ``mesh``, resolved
+    against its axis sizes (``resolve_spec``)."""
+    specs = param_specs(model_defs(cfg))
+    if mesh is not None:
+        specs = resolve_specs(specs, model_param_shapes(cfg), mesh)
+    return specs
 
 
 def model_param_shapes(cfg, dtype=None):
@@ -190,6 +210,48 @@ def cache_shapes(cfg, batch: int, max_len: int):
                 torch.empty((n_rep,) + tuple(s.shape), dtype=s.dtype,
                             device="meta") for s in shapes))
         out.append(seg)
+    return out
+
+
+def _cache_spec_one(kind: Tuple[str, str], cfg, dp=DP_AXES,
+                    seq_axes=("model",)):
+    mix, _ = kind
+    tp = "model"
+    seq = seq_axes if len(seq_axes) > 1 else seq_axes[0]
+    if mix == "attention":
+        # split-KV: the sequence dim sharded over 'model' (KV heads rarely
+        # divide a 16-way axis).  When the batch cannot cover the data
+        # axes (long_500k: batch 1) the data axes also move onto the
+        # sequence dim (``cache_specs``).
+        s = P(dp, seq, None, None)
+        return (s, s)
+    if mix == "mla":
+        return (P(dp, seq, None), P(dp, seq, None))
+    if mix == "mamba":
+        return (P(dp, None, tp), P(dp, tp, None))
+    if mix == "rwkv6":
+        return (P(dp, None), P(dp, tp, None, None), P(dp, None))
+    raise ValueError(mix)
+
+
+def cache_specs(cfg, mesh=None, batch=None):
+    """PartitionSpec tree of the serve cache (``cache_shapes``' structure),
+    unresolved; a batch the data axes do not divide moves them onto the
+    sequence dim."""
+    dp = dp_axes(mesh) if mesh is not None else DP_AXES
+    seq_axes = ("model",)
+    if batch is not None and mesh is not None:
+        n_dp = 1
+        for a in dp:
+            n_dp *= mesh.shape[a]
+        if batch % max(n_dp, 1) != 0:
+            seq_axes = dp + ("model",)
+            dp = ()
+    out = []
+    for n_rep, period in segment_plan(cfg):
+        out.append([tuple(P(None, *s) for s in
+                          _cache_spec_one(kind, cfg, dp, seq_axes))
+                    for kind in period])
     return out
 
 

@@ -5,18 +5,23 @@ counterpart of ``repro.serve.engine``).
 MLA latents, Mamba conv and SSM states, RWKV shifts and WKV states.
 Every cache is updated in place and ``cur_len`` stays a one-element
 int32 tensor on the device from end to end, so a decode step never waits
-for the host: no ``.item()``, no copy to the CPU.  ``decode_shardings``
-and ``serve_input_specs`` (sharding and the dry-run) wait for ROADMAP
-A12.
+for the host: no ``.item()``, no copy to the CPU.
+``serve_input_specs`` gives the decode step's inputs as meta tensors and
+``decode_shardings`` their partition specs (resolved spec trees: the
+port has no ``NamedSharding``; ``Mesh.shard`` consumes specs), for the
+dry-run.
 """
 from __future__ import annotations
 
 import torch
 
+from ..launch.mesh import P
 from ..models import transformer as T
-from ..models.common import resolve_device, tree_leaves, tree_map
+from ..models.common import (resolve_device, resolve_specs, tree_leaves,
+                             tree_map)
 
-__all__ = ["decode_step", "init_serve_state", "pad_cache"]
+__all__ = ["decode_step", "init_serve_state", "pad_cache",
+           "serve_input_specs", "decode_shardings"]
 
 
 def init_serve_state(cfg, batch: int, max_len: int, *, device=None):
@@ -59,3 +64,37 @@ def decode_step(params, state, tokens_or_embeds, cfg):
     next_tokens = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
     return next_tokens, {"cache": new_cache,
                          "cur_len": state["cur_len"] + 1}
+
+
+def decode_shardings(cfg, mesh, *, batch=None, kv_len=None):
+    """(state specs, token spec) of the decode step on ``mesh``: the cache
+    specs resolved against the cache shapes where batch and kv_len are
+    given; ``cur_len``, a one-element tensor, replicated."""
+    cspecs = T.cache_specs(cfg, mesh, batch=batch)
+    if batch is not None and kv_len is not None:
+        cspecs = resolve_specs(cspecs, T.cache_shapes(cfg, batch, kv_len),
+                               mesh)
+    state = {"cache": cspecs, "cur_len": P(None)}
+    dp = T.dp_axes(mesh)
+    if batch is not None:
+        n_dp = 1
+        for a in dp:
+            n_dp *= mesh.shape[a]
+        if batch % max(n_dp, 1) != 0:
+            dp = ()
+    if cfg.input_mode == "embeddings":
+        return state, P(dp, None, None)
+    return state, P(dp, None)
+
+
+def serve_input_specs(cfg, *, batch: int, kv_len: int):
+    """(state, tokens) of the decode dry-run as meta tensors: one new
+    token with a cache of kv_len."""
+    if cfg.input_mode == "embeddings":
+        tokens = torch.empty((batch, 1, cfg.d_model),
+                             dtype=getattr(torch, cfg.dtype), device="meta")
+    else:
+        tokens = torch.empty((batch, 1), dtype=torch.int32, device="meta")
+    state = {"cache": T.cache_shapes(cfg, batch, kv_len),
+             "cur_len": torch.empty((1,), dtype=torch.int32, device="meta")}
+    return state, tokens

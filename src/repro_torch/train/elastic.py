@@ -12,8 +12,9 @@ restart-from-checkpoint, failure injection and a straggler watchdog.
     collective design a straggler shows up as a slow *step*.
 
 The reference's elastic re-mesh (restore under another mesh's
-shardings) waits for multi-card meshes (ROADMAP A12); on one card a
-restore only chooses the device (``restore_checkpoint(..., device=)``).
+shardings) waits for multi-card meshes (ROADMAP A3's remainder); on one
+card a restore only chooses the device (``restore_checkpoint(...,
+device=)``).
 """
 from __future__ import annotations
 

@@ -13,9 +13,11 @@ the same parameter and state tensors it was given, so it keeps the
 reference's signature ``update(grads, state, params) -> (params, state,
 {"grad_norm"})``.
 
-Not ported: ``zero_shard_specs``, ``Optimizer.state_specs`` and
-``OptConfig.zero`` (ZeRO-1 sharding over the data axes): one card has no
-data axis (ROADMAP A12 and A3's remainder).
+Optimizer state inherits each parameter's PartitionSpec (TP sharding);
+with ``zero=True`` the first unsharded dimension of every state tensor
+is additionally sharded over the data axes (ZeRO-1, ``zero_shard_specs``
+in ``Optimizer.state_specs``).  ZeRO changes the specs and not the
+numbers: on one rank ``zero=True`` trains bitwise as ``zero=False``.
 """
 from __future__ import annotations
 
@@ -24,9 +26,10 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from ..launch.mesh import P, is_spec
 from ..models.common import tree_leaves, tree_map
 
-__all__ = ["OptConfig", "Optimizer", "make_optimizer"]
+__all__ = ["OptConfig", "Optimizer", "make_optimizer", "zero_shard_specs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,21 +167,59 @@ def _adafactor_update(grads, state, params, cfg: OptConfig, scale):
 
 class Optimizer(NamedTuple):
     init: Callable            # (params) -> state
-    update: Callable          # (grads, state, params) -> (params, state, metrics)
+    update: Callable          # (grads, state, params) -> (params, state,
+                              #  metrics)
+    state_specs: Callable     # (param specs, param shapes, mesh) -> specs
     cfg: OptConfig
 
 
+def zero_shard_specs(spec_tree, dp_axes=("pod", "data"), mesh=None):
+    """ZeRO-1: shard the first replicated dim of each state over data axes.
+
+    Returns ``f(spec, leaf)`` for ``tree_map`` over (specs, shapes).  Only
+    applied when the dimension is divisible by the dp extent (the caller
+    passes the mesh); otherwise the spec is left unchanged.
+    """
+    def f(spec, leaf):
+        if mesh is None:
+            return spec
+        n_dp = 1
+        for a in dp_axes:
+            n_dp *= mesh.shape.get(a, 1)
+        parts = list(spec) + [None] * (len(leaf.shape) - len(spec))
+        for i, (sp, dim) in enumerate(zip(parts, leaf.shape)):
+            if sp is None and dim % n_dp == 0 and dim >= n_dp:
+                parts[i] = tuple(a for a in dp_axes if a in mesh.shape)
+                return P(*parts)
+        return spec
+    return f
+
+
 def make_optimizer(cfg: OptConfig = OptConfig()) -> Optimizer:
-    if cfg.zero:
-        raise NotImplementedError(
-            "OptConfig.zero (ZeRO-1 sharding of the optimizer state over "
-            "the data axes) is not ported: one card has no data axis "
-            "(ROADMAP A12 and A3's remainder)")
     if cfg.name == "adamw":
         init, upd = _adamw_init, _adamw_update
+
+        def state_specs(param_specs, params_shapes, mesh=None):
+            sp = param_specs
+            if cfg.zero and mesh is not None:
+                sp = tree_map(zero_shard_specs(sp, mesh=mesh), param_specs,
+                              params_shapes, is_leaf=is_spec)
+            return {"m": sp, "v": sp, "step": P()}
     elif cfg.name == "adafactor":
         init = lambda params: _adafactor_init(params, cfg)
         upd = _adafactor_update
+
+        def state_specs(param_specs, params_shapes, mesh=None):
+            def f(spec, shape):
+                if _factored(shape.shape, cfg.min_dim_factored):
+                    parts = list(spec) + [None] * (len(shape.shape)
+                                                   - len(spec))
+                    return {"vr": P(*parts[:-1]),
+                            "vc": P(*(parts[:-2] + parts[-1:]))}
+                return {"v": spec}
+            return {"v": tree_map(f, param_specs, params_shapes,
+                                  is_leaf=is_spec),
+                    "step": P()}
     else:
         raise ValueError(cfg.name)
 
@@ -187,4 +228,4 @@ def make_optimizer(cfg: OptConfig = OptConfig()) -> Optimizer:
         params, state = upd(grads, state, params, cfg, scale)
         return params, state, {"grad_norm": gnorm}
 
-    return Optimizer(init, update, cfg)
+    return Optimizer(init, update, state_specs, cfg)

@@ -1,9 +1,8 @@
 """Train-step factory, the counterpart of ``repro.train.train_step``:
 loss -> autograd -> clip -> optimizer, with optional microbatch gradient
-accumulation.
-
-Not ported: ``batch_specs`` and ``shardings_for`` (the batch's and the
-state's shardings over a mesh, ROADMAP A12).
+accumulation.  ``batch_specs`` and ``shardings_for`` give the batch's
+and the state's partition specs on a mesh (spec trees: the port has no
+``NamedSharding``), for the dry-run.
 """
 from __future__ import annotations
 
@@ -11,11 +10,30 @@ from typing import Dict
 
 import torch
 
+from ..launch.mesh import P
 from ..models import transformer as T
 from ..models.common import tree_leaves, tree_map
 from .optimizer import Optimizer
 
-__all__ = ["make_train_step"]
+__all__ = ["make_train_step", "batch_specs", "shardings_for"]
+
+
+def batch_specs(cfg, mesh=None):
+    dp = ("pod", "data")
+    if mesh is not None:
+        dp = tuple(a for a in dp if a in mesh.shape)
+    if cfg.input_mode == "embeddings":
+        return {"inputs": P(dp, None, None), "labels": P(dp, None)}
+    return {"inputs": P(dp, None), "labels": P(dp, None)}
+
+
+def shardings_for(cfg, mesh, opt: Optimizer):
+    """(param specs, optimizer-state specs, batch specs) on ``mesh``: the
+    parameters' specs resolved against their shapes."""
+    pspecs = T.model_param_specs(cfg, mesh)
+    pshapes = T.model_param_shapes(cfg)
+    return (pspecs, opt.state_specs(pspecs, pshapes, mesh=mesh),
+            batch_specs(cfg, mesh))
 
 
 def _grads_of(params, batch: Dict, cfg):

@@ -35,7 +35,7 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 82
+    assert n_modules >= 86
 
 
 _IMPORT_PLANNER = r"""
@@ -103,6 +103,41 @@ def test_obs_tensor_and_example_run_with_jax_and_the_reference_blocked():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.split() == ["ok", "(64,", "64)"]
+
+
+_BLOCKED_LAUNCH = r"""
+import importlib.abc, os, sys
+
+
+class _Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        top = name.split(".")[0]
+        if top.startswith("jax") or top == "repro":
+            raise ImportError(f"blocked: {name}")
+        return None
+
+
+sys.meta_path.insert(0, _Refuse())
+env = dict(os.environ)
+from repro_torch.launch import cost_counter, dryrun, roofline, specs
+from repro_torch.configs.base import get_config, reduced_config
+assert dict(os.environ) == env, "importing the launch tools set a variable"
+rec = dryrun.run_cell("rwkv6_1_6b", "decode_32k",
+                      cfg=reduced_config(get_config("rwkv6_1_6b")))
+assert rec["status"] == "ok" and rec["hlo_costs"]["flops"] > 0
+print("ok", rec["roofline"]["dominant"])
+"""
+
+
+def test_launch_tools_run_with_jax_and_the_reference_blocked():
+    """``repro_torch.launch.{roofline,specs,cost_counter,dryrun}`` import
+    (setting no environment variable, unlike the JAX dry-run) and count a
+    cell while any import of jax or of the JAX package raises."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_LAUNCH], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.split() == ["ok", "memory"]
 
 
 def test_calibration_cli_measures_on_the_card_only(tmp_path, monkeypatch):
