@@ -173,8 +173,8 @@ Phase 8  purification and self-verifying multiplies:
            (u) McWeeny purification (sparsity.workloads.mcweeny_purify)
                of banded_hamiltonian(15,840, 22) on a 4x4 mesh of
                simulated ranks (3,960^2 a rank, (p)'s share), filter_eps
-               1e-6, blocked smm, 10 iterations with the union plans and
-               10 rank-exact; one line an iteration (occupancy, blocks,
+               1e-6, blocked smm, 8 iterations with the union plans and
+               8 rank-exact; one line an iteration (occupancy, blocks,
                retained / filtered / busiest-rank triples, ||P^2 - P||,
                tr(P), smm launches and their CUDA-event time, wall, host
                = wall - smm, and the host time of the planning functions,
@@ -313,7 +313,37 @@ Phase 12 the launch tools (ROADMAP A12), on the meta device: nothing
                 cur_len, its peak within PEAK_TOL; both at
                 head_pad_factor 4 (the config's) and 1, in counts.
          One {"phase12": ...} line.
-``--phase 9`` (or 10, 11, 12) builds the kernels and runs that phase
+Phase 13 the process mesh (launch.mesh.make_process_mesh): one rank a
+         process, started by launch.processes.run_ranks (spawn), meeting
+         at a FileStore in a temporary directory; the kernels come from
+         phase 0's build.  One card: 4 processes (2x2) and 8 (2x2x2)
+         share it over gloo, every collective staged through pinned host
+         memory (no NVLink number); NCCL, one card a rank, runs the same
+         cases where the host has a card for every rank.
+           (ah) Cannon 2x2 at 7,920^2 (3,960^2 a rank, block 22): blocked
+                dense; A at 20 % fill on the union plan, rank-exact
+                (bitwise the union), rank-exact at eps 0 (bitwise the
+                union) and at eps PM_EPS; densified pallas (tiled_matmul
+                on a process's one rank); verify="checksum" with one
+                injected fault (repaired bitwise the dense blocked C);
+                SUMMA 2x2 psum and gather, densified pallas; 2.5D
+                Cannon 2x2x2 at 7,920^2, both reduces, blocked
+           (ai) ts_k on 4 ranks at 1,408 x 495,616 x 1,408 (123,904 deep
+                a rank, as (s)), both reduces, densified pallas
+           (aj) batched SUMMA 2x2, 4 x 880^2 at block 22, fused and
+                looped (bitwise each other)
+         Each process makes a warm-up call, then one timed call with its
+         launch counters zeroed before it and read after it (smm for the
+         blocked cases, tiled_matmul for the densified: > 0 on every
+         process) and smm's CUDA-event time; every process's C is the
+         same bit for bit; mesh rank 0 runs the case on an in-process
+         mesh on its card and holds the two bitwise where the collectives
+         only move data, within REL_TOL of max|C| where they add (2.5D,
+         ts_k), and holds C against torch.matmul of the global operands
+         (TS_TOL for ts_k; not at eps > 0); the traffic summed over the
+         processes equals the in-process mesh's count.  One
+         {"phase13": ...} line.
+``--phase 9`` (or 10, 11, 12, 13) builds the kernels and runs that phase
 alone (development: no kernels line and no ok line).
 
 Prints a {"kernels": [...]} line, the nvidia-smi line, and as its last
@@ -337,6 +367,7 @@ error, measured in the same run, where that exceeds REL_TOL.
 """
 from __future__ import annotations
 
+import datetime
 import json
 import math
 import os
@@ -2714,7 +2745,7 @@ def planner_cases(dev, card, zero_counters, read_counters) -> dict:
 # ---------------------------------------------------------------------------
 
 PUR_N = 15840        # (u): (p)'s matrix, 720^2 blocks of 22 on 4x4
-PUR_ITERS = 10
+PUR_ITERS = 8         # ||P^2 - P|| is 2.6e-22 after the 8th, 0 after
 # (u): max |P - exact density| after PUR_ITERS iterations.  The exact
 # density of banded_hamiltonian is the diagonal parity projector; the
 # iteration converges to it quadratically and filter(1e-6) drops any
@@ -3811,13 +3842,320 @@ def obs_and_tensors(dev, card, zero_counters, read_counters) -> dict:
     return summary
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the process mesh
+# ---------------------------------------------------------------------------
+
+PM_NL, PM_BS = 3960, 22            # a rank of (a): Cannon, SUMMA, 2.5D
+PM_TS = (1408, 123904, 1408)       # a rank of (s): ts_k over 4 ranks
+PM_BATCH = (4, 880)                # batched SUMMA 2x2: G products of N^2
+PM_FILL = 0.2                      # A's block fill in the masked cases
+PM_EPS = 484.0                     # ~ the median norm product at block 22
+PM_TIMEOUT_S = 300                 # the group's timeout, a collective
+PM_JOIN_S = 420                    # a spawn's whole run
+
+
+def pm_cases(world: int) -> list:
+    """Phase 13's cases for a process mesh of ``world`` ranks: (label,
+    algorithm / path keywords, what the result is held to)."""
+    if world == 8:
+        return [dict(label=f"(ah) cannon25d 2x2x2 {red} blocked",
+                     op="multiply", kw=dict(algorithm="cannon25d", reduce=red,
+                                            densify=False), adds=True)
+                for red in ("all_reduce", "reduce_scatter")]
+    dense = dict(algorithm="cannon", densify=False)
+    masked = dict(op="multiply", masked=True)
+    return [
+        dict(label="(ah) cannon 2x2 blocked dense", op="multiply", kw=dense),
+        dict(label="(ah) cannon 2x2 blocked 20 % union", kw=dict(
+            dense, rank_exact=False), **masked),
+        dict(label="(ah) cannon 2x2 blocked 20 % rank-exact", kw=dense,
+             same_as="(ah) cannon 2x2 blocked 20 % union", **masked),
+        dict(label="(ah) cannon 2x2 blocked 20 % rank-exact eps 0",
+             kw=dict(dense, filter_eps=0.0),
+             same_as="(ah) cannon 2x2 blocked 20 % union", **masked),
+        dict(label=f"(ah) cannon 2x2 blocked 20 % rank-exact eps {PM_EPS:g}",
+             kw=dict(dense, filter_eps=PM_EPS), filtered=True, **masked),
+        dict(label="(ah) cannon 2x2 densified pallas", op="multiply",
+             kw=dict(algorithm="cannon", densify=True,
+                     local_kernel="pallas")),
+        dict(label="(ah) summa 2x2 psum densified pallas", op="multiply",
+             kw=dict(algorithm="summa", bcast="psum", densify=True,
+                     local_kernel="pallas")),
+        dict(label="(ah) summa 2x2 gather densified pallas", op="multiply",
+             kw=dict(algorithm="summa", bcast="gather", densify=True,
+                     local_kernel="pallas")),
+        dict(label="(ah) cannon 2x2 blocked dense, verify=checksum, one "
+                   "fault", op="multiply", kw=dict(dense, verify="checksum"),
+             fault=True, same_as="(ah) cannon 2x2 blocked dense"),
+        dict(label="(ai) ts_k 4 ranks all_reduce densified pallas", op="ts",
+             kw=dict(algorithm="ts_k", reduce="all_reduce", densify=True,
+                     local_kernel="pallas"), adds=True),
+        dict(label="(ai) ts_k 4 ranks reduce_scatter densified pallas",
+             op="ts", kw=dict(algorithm="ts_k", reduce="reduce_scatter",
+                              densify=True, local_kernel="pallas"),
+             adds=True),
+        dict(label="(aj) batched summa 2x2 fused blocked", op="batched",
+             kw=dict(algorithm="summa", densify=False, fused=True,
+                     pipeline_depth=1)),
+        dict(label="(aj) batched summa 2x2 looped blocked", op="batched",
+             kw=dict(algorithm="summa", densify=False, fused=False,
+                     pipeline_depth=1),
+             same_as="(aj) batched summa 2x2 fused blocked"),
+    ]
+
+
+def pm_rank(rank: int, shape, axes, cases) -> dict:
+    """One process of phase 13's process mesh: every case on the mesh
+    (a warm-up call, then one timed call with the launch counters zeroed
+    before it and read after it, and the smm kernel's CUDA-event time);
+    mesh rank 0 then runs the same case on an in-process mesh of the
+    same shape on its card and holds the two results against each other
+    and against torch.matmul of the global operands.  Returns the
+    process's numbers (no tensors)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import dbcsr
+    from repro_torch.core.blocking import GridSpec
+    from repro_torch.kernels.grouped_gemm.ops import grouped_gemm
+    from repro_torch.kernels.smm.ops import smm_process_stack
+    from repro_torch.kernels.tiled_matmul.ops import tiled_matmul
+    from repro_torch.launch.mesh import make_mesh, make_process_mesh
+    from repro_torch.robustness import chaos
+
+    mesh = make_process_mesh(
+        shape, axes, timeout=datetime.timedelta(seconds=PM_TIMEOUT_S))
+    dev = mesh.device
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lead = rank == 0
+    ref_mesh = make_mesh(shape, axes, device=dev) if lead else None
+    grid = (GridSpec("data", "model", "pod") if len(shape) == 3
+            else GridSpec("data", "model"))
+    counters = {"smm": smm_process_stack, "tiled_matmul": tiled_matmul,
+                "grouped_gemm": grouped_gemm}
+    clock = KernelClock()
+    side = shape[-1] * PM_NL
+
+    def operands(case):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+        if case["op"] == "ts":
+            m, k, n = PM_TS[0], PM_TS[1] * mesh.n_ranks, PM_TS[2]
+            return (torch.randn(m, k, generator=gen, device=dev),
+                    torch.randn(k, n, generator=gen, device=dev))
+        if case["op"] == "batched":
+            g, n = PM_BATCH
+            return [(torch.randn(n, n, generator=gen, device=dev),
+                     torch.randn(n, n, generator=gen, device=dev))
+                    for _ in range(g)]
+        a = torch.randn(side, side, generator=gen, device=dev)
+        b = torch.randn(side, side, generator=gen, device=dev)
+        mask = None
+        if case.get("masked"):
+            nb = side // PM_BS
+            mask = np.random.RandomState(SEED + 13).rand(nb, nb) < PM_FILL
+        return a, b, mask
+
+    def runner(case, ops, on):
+        """``(call, pairs)``: the case's call on mesh ``on`` (a list of
+        result tensors) and its global operand pairs (masked blocks
+        zeroed), the yardstick's."""
+        kw = case["kw"]
+        if case["op"] == "batched":
+            reqs = [(dbcsr.create(a, mesh=on, grid=grid, block_size=PM_BS),
+                     dbcsr.create(b, mesh=on, grid=grid, block_size=PM_BS))
+                    for a, b in ops]
+            return (lambda: [c.data for c in dbcsr.multiply_batched(
+                reqs, mesh=on, **kw)]), [(x.data, y.data) for x, y in reqs]
+        mask = None if case["op"] == "ts" else ops[2]
+        da = dbcsr.create(ops[0], mesh=on, grid=grid, block_size=PM_BS,
+                          block_mask=mask)
+        db = dbcsr.create(ops[1], mesh=on, grid=grid, block_size=PM_BS)
+
+        def call():
+            if not case.get("fault"):
+                return [dbcsr.multiply(da, db, mesh=on, **kw).data]
+            hook = chaos.FaultInjector(seed=13).one_shot_result_hook(
+                1, 2, block_m=PM_BS, block_n=PM_BS, mode="scale")
+            with chaos.result_corruption(hook):
+                c = dbcsr.multiply(da, db, mesh=on, **kw)
+            rep = c.verification["report"]
+            if not (rep.detected and rep.repaired):
+                raise AssertionError(
+                    f"{case['label']}: the fault was not detected and "
+                    f"repaired (detected {rep.detected}, repaired "
+                    f"{rep.repaired}, flagged {rep.flagged_blocks})")
+            return [c.data]
+        return call, [(da.data, db.data)]
+
+    def timed(call, on):
+        """(result, ms, launches, smm ms, traffic) of one call after a
+        warm-up call."""
+        call()
+        torch.cuda.synchronize(dev)
+        on.reset_traffic()
+        for fn in counters.values():
+            fn.launches = 0
+        clock.take()
+        if on is mesh:
+            dist.barrier()
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize(dev)
+        ms = 1e3 * (time.perf_counter() - t0)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        return out, ms, launches, 1e3 * clock.take(), on.traffic_total()
+
+    results, kept = [], {}
+    for case in cases:
+        ops = operands(case)
+        call, pairs = runner(case, ops, mesh)
+        out, ms, launches, smm_ms, traffic = timed(call, mesh)
+        digest = hashlib.sha1()
+        for c in out:
+            digest.update(c.cpu().numpy().tobytes())
+        row = {"case": case["label"], "ms": ms, "launches": launches,
+               "smm_ms": smm_ms, "traffic": traffic,
+               "digest": digest.hexdigest()}
+        if lead:
+            ref, ref_ms, ref_launches, ref_smm, ref_traffic = timed(
+                runner(case, ops, ref_mesh)[0], ref_mesh)
+            bitwise = all(torch.equal(x, y) for x, y in zip(out, ref))
+            err = max(rel_err(x, y) for x, y in zip(out, ref))
+            vs_matmul = max(rel_err(x, torch.matmul(a, b))
+                            for x, (a, b) in zip(out, pairs))
+            same = case.get("same_as")
+            row.update(inproc_ms=ref_ms, inproc_launches=ref_launches,
+                       inproc_smm_ms=ref_smm, inproc_traffic=ref_traffic,
+                       bitwise_inproc=bitwise, err_inproc=err,
+                       err_matmul=vs_matmul,
+                       bitwise_same_as=(None if same is None else all(
+                           torch.equal(x, y)
+                           for x, y in zip(out, kept[same]))))
+            kept[case["label"]] = out
+            del ref
+            print(f"    rank 0: {case['label']}: {ms:.1f} ms, in process "
+                  f"{ref_ms:.1f} ms, bitwise {bitwise}", flush=True)
+        dist.barrier()
+        results.append(row)
+        del ops, out, call, pairs
+    clock.close()
+    return {"rank": rank, "device": str(dev), "transport": mesh.transport,
+            "repr": repr(mesh), "rows": results}
+
+
+def process_mesh(card: str) -> dict:
+    """Phase 13: the process mesh (launch.mesh.make_process_mesh), one rank
+    a process: 4 processes (2x2) and 8 (2x2x2) spawned on the card
+    (launch.processes.run_ranks), a gloo group over a FileStore, the
+    collectives host-staged; NCCL with one card a rank where the host
+    has a card for every rank.  Each case is held bitwise against the
+    in-process mesh where its collectives only move data, else within
+    REL_TOL of max|C|, and against torch.matmul; every process holds the
+    same C and launches the case's kernel; the summed traffic is the
+    in-process count."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch.processes import run_ranks
+
+    out = {"card": card, "runs": []}
+    failed = []
+    cards = torch.cuda.device_count()
+    for shape, axes in (((2, 2), ("data", "model")),
+                        ((2, 2, 2), ("pod", "data", "model"))):
+        world = math.prod(shape)
+        cases = pm_cases(world)
+        backends = ["gloo"] + (["nccl"] if cards >= world else [])
+        if cards < world:
+            print(f"  {world} ranks on {cards} card(s): gloo, host-staged "
+                  "(NCCL takes one card a rank; not run)")
+        for backend in backends:
+            t0 = time.perf_counter()
+            with tempfile.TemporaryDirectory() as store:
+                ranks = run_ranks(pm_rank, world, store_dir=store,
+                                  args=(shape, axes, cases),
+                                  backend=backend, timeout_s=PM_TIMEOUT_S,
+                                  join_timeout_s=PM_JOIN_S)
+            wall = time.perf_counter() - t0
+            print(f"  {ranks[0]['repr']}: {world} processes, "
+                  f"{ranks[0]['transport']}, {wall:.1f} s with the spawn "
+                  f"({card})")
+            for i, case in enumerate(cases):
+                rows = [r["rows"][i] for r in ranks]
+                lead = rows[0]
+                label = lead["case"]
+                want = ("tiled_matmul" if case["kw"].get("densify")
+                        else "smm")
+                problems = []
+                if len({r["digest"] for r in rows}) != 1:
+                    problems.append("the processes' results differ")
+                if not all(r["launches"][want] > 0 for r in rows):
+                    problems.append(f"a process launched no {want}: "
+                                    f"{[r['launches'] for r in rows]}")
+                if lead["traffic"] != lead["inproc_traffic"]:
+                    problems.append(f"traffic {lead['traffic']} != in "
+                                    f"process {lead['inproc_traffic']}")
+                if case.get("adds"):
+                    if not lead["err_inproc"] <= REL_TOL:
+                        problems.append(f"err vs in process "
+                                        f"{lead['err_inproc']:.3e}")
+                elif not lead["bitwise_inproc"]:
+                    problems.append("not bitwise the in-process mesh "
+                                    f"(err {lead['err_inproc']:.3e})")
+                if lead["bitwise_same_as"] is False:
+                    problems.append(f"not bitwise {case['same_as']}")
+                tol = TS_TOL if case["op"] == "ts" else REL_TOL
+                if not case.get("filtered") and not lead["err_matmul"] <= tol:
+                    problems.append(f"err vs torch.matmul "
+                                    f"{lead['err_matmul']:.3e} > {tol:g}")
+                smm = [round(r["smm_ms"], 3) for r in rows]
+                print(f"  {label} [{backend}]: process mesh "
+                      f"{lead['ms']:.1f} ms (ranks "
+                      f"{[round(r['ms'], 1) for r in rows]}), in process "
+                      f"{lead['inproc_ms']:.1f} ms; bitwise in-process "
+                      f"{lead['bitwise_inproc']} (err "
+                      f"{lead['err_inproc']:.2e}), vs torch.matmul "
+                      f"{lead['err_matmul']:.2e}; smm ms a process {smm}; "
+                      f"{want} launches a process "
+                      f"{[r['launches'][want] for r in rows]}; received "
+                      f"{sum(lead['traffic'].values()) / 1e9:.4f} GB over "
+                      f"the ranks: "
+                      + ("OK" if not problems else "; ".join(problems)))
+                if problems:
+                    failed.append(f"{label} [{backend}]: "
+                                  + "; ".join(problems))
+                out["runs"].append({
+                    "case": label, "backend": backend,
+                    "transport": ranks[0]["transport"], "world": world,
+                    "ms": [r["ms"] for r in rows],
+                    "inproc_ms": lead["inproc_ms"],
+                    "smm_ms": [r["smm_ms"] for r in rows],
+                    "inproc_smm_ms": lead["inproc_smm_ms"],
+                    "launches": [r["launches"] for r in rows],
+                    "inproc_launches": lead["inproc_launches"],
+                    "bitwise_inproc": lead["bitwise_inproc"],
+                    "err_inproc": lead["err_inproc"],
+                    "err_matmul": lead["err_matmul"],
+                    "traffic": lead["traffic"], "wall_s": wall})
+    print(json.dumps({"phase13": out}))
+    if failed:
+        raise AssertionError("phase 13: " + "; ".join(failed))
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
     import torch
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phase", type=int, choices=[9, 10, 11, 12],
+    ap.add_argument("--phase", type=int, choices=[9, 10, 11, 12, 13],
                     default=None,
                     help="development: build the kernels and run this "
                          "phase alone (prints no kernels and no ok line)")
@@ -3898,6 +4236,8 @@ def main(argv=None) -> int:
                         decode_attention, decode_attention_ref, hw)
         elif only == 11:
             training(dev, card, zero_counters, read_counters, hw)
+        elif only == 13:
+            process_mesh(card)
         else:
             launch_tools(dev, card, hw, grid, grid_dir)
         print(f"phase {only} alone: done; launches {launches}")
@@ -4590,6 +4930,11 @@ def main(argv=None) -> int:
     print(f"phase 12: the launch tools ({card})")
     torch.cuda.empty_cache()
     launch_tools(dev, card, hw, grid, grid_dir, ab_costs)
+
+    # ---------------------------------------------------------- phase 13
+    print(f"phase 13: the process mesh, one rank a process ({card})")
+    torch.cuda.empty_cache()
+    process_mesh(card)
 
     for key, n in launches.items():
         if n < 1:

@@ -8,8 +8,9 @@ densification pass (densify.py).
 
 Everything in this module is host-side and static: plain ints and
 numpy.  ``morton_order`` must stay byte-equal to the JAX package's, so
-the stack plans of the two packages are identical; ``ceil_div`` and
-``pad_to_multiple`` are the same integer helpers as the JAX package's.
+the stack plans of the two packages are identical; ``ceil_div``,
+``pad_to_multiple`` and ``block_cyclic_owner`` are the same integer
+helpers as the JAX package's.
 """
 from __future__ import annotations
 
@@ -18,8 +19,8 @@ from typing import Tuple
 
 import numpy as np
 
-__all__ = ["BlockLayout", "GridSpec", "ceil_div", "morton_order",
-           "pad_to_multiple"]
+__all__ = ["BlockLayout", "GridSpec", "block_cyclic_owner", "ceil_div",
+           "morton_order", "pad_to_multiple"]
 
 
 def ceil_div(a: int, b: int) -> int:
@@ -95,6 +96,14 @@ class GridSpec:
                 "Use summa/tall_skinny for non-square grids."
             )
         return pr
+
+
+def block_cyclic_owner(
+    block_row: int, block_col: int, grid_rows: int, grid_cols: int
+) -> Tuple[int, int]:
+    """ScaLAPACK-style block-cyclic owner of a block (paper section IV:
+    matrices are 'block-cycling distributed a la Scalapack')."""
+    return block_row % grid_rows, block_col % grid_cols
 
 
 def morton_order(n_rows: int, n_cols: int) -> np.ndarray:

@@ -983,7 +983,11 @@ class RankExecutorPlan:
     block arrays, concatenated without padding.  Every rank's C blocks
     are its own and no run is split or reordered, so ONE smm launch over
     all ranks gives each C element the sums it gets when each rank runs
-    its plan alone.
+    its plan alone.  On a process mesh (launch/mesh.py) the leading
+    rank axis is the process's own rank, ``rank_order`` has that one
+    entry and ``triples`` only its rows; every rank's plan is still
+    built (each process plans the whole step), so the statistics below
+    are the mesh's on every process.
 
     The statistics follow the JAX package: ``n_entries`` is the BUSIEST
     rank's retained triples (the step's wall-time bound),
@@ -1042,8 +1046,9 @@ class RankExecutorPlan:
     @property
     def n_launches(self) -> int:
         """smm kernel launches per execution: one over all ranks, unless
-        no rank has a triple."""
-        return 1 if self.run_starts.size else 0
+        no rank has a triple (the mesh's view, also where ``rank_order``
+        holds only a process's own rank)."""
+        return 1 if any(p.n_entries for p in self.rank_plans) else 0
 
     @property
     def rank_entries(self) -> Tuple[int, ...]:
@@ -1253,7 +1258,7 @@ def execute_rank_plan(
             f"rank plan for {ranks} ranks, got blocks of "
             f"{tuple(a_blocks.shape)}, {tuple(b_blocks.shape)}, "
             f"{tuple(c_blocks.shape)}")
-    if not plan.n_launches:
+    if not plan.run_starts.size:
         return c_blocks
     process = _resolve_process(kernel)
     triples, run_starts = plan.device_triples(c_blocks.device)

@@ -1,31 +1,57 @@
-"""The port's process mesh, with its ranks simulated in one process.
+"""The port's process mesh, with two backends: ranks simulated in one
+process, or one rank a process over ``torch.distributed``.
 
 JAX names its devices with a ``jax.sharding.Mesh`` and runs a schedule
 once per device inside ``shard_map``.  The port carries the same
 information in a small ``Mesh`` (the grid's shape, its axis names and
-the torch device) and runs every rank of the grid in one process on
-that device: a tensor on the mesh carries one leading **rank axis** of
-size R, the product of the axis sizes, with the ranks in row-major
-order over ``axis_names``, as JAX orders the devices of
-``make_mesh(shape, axes)``.  A 1x1 mesh is R = 1.
+the torch device), with the ranks in row-major order over
+``axis_names``, as JAX orders the devices of ``make_mesh(shape,
+axes)``.  A 1x1 mesh is R = 1.  A tensor on the mesh carries one
+leading **rank axis** holding the ranks that live in this process,
+``local_ranks``:
+
+  * ``make_mesh`` (class ``Mesh``): every rank of the grid in one
+    process, on one device; the rank axis is all R ranks and a
+    collective is a device copy between its rows;
+  * ``make_process_mesh`` (class ``ProcessMesh``): one rank a process,
+    over the initialised default ``torch.distributed`` group, whose size
+    is R; the rank axis is this process's one rank (its global rank) and
+    the collectives are the group's: ``ppermute`` ->
+    ``batch_isend_irecv``, ``psum`` -> ``all_reduce``, ``psum_scatter``
+    -> ``reduce_scatter_tensor``, ``all_gather`` ->
+    ``all_gather_into_tensor``, over subgroups (``dist.new_group``,
+    made once a set of axes) where a collective names fewer axes than
+    the mesh has.  The transport follows the group's backend and the
+    mesh's ``repr`` names it: NCCL takes device tensors, one card a
+    rank; gloo takes host tensors, so a CUDA tensor is copied to a
+    pinned host buffer and back around each call ("host-staged"), the
+    one way several processes can share a card.  Nothing switches
+    transport on a failure, and every collective runs under the
+    group's timeout (subgroups take the one the caller passes), so a
+    rank that diverges fails instead of hanging.
 
 ``Mesh`` offers the two halves of ``shard_map`` (``shard`` cuts a
-global tensor into the rank-stacked layout of a partition spec,
-``unshard`` puts a result back) and the collectives of ``jax.lax`` that
-the schedules use, each with the JAX meaning over a subset of named
-axes: ``ppermute``, ``psum``, ``psum_scatter``, ``all_gather`` and
-``axis_index`` (``flat_index`` on the host).  A collective is a device
-copy on one card; ``traffic`` counts the bytes a rank receives from
-other ranks, summed over ranks, as a ring implementation would move
-them.  A ``torch.distributed``
-backend (one rank a process) would implement the same methods.
+global tensor into the rank-stacked layout of a partition spec, with no
+communication: every process holds the global operands, as JAX's
+``distributed_matmul`` takes global arrays; ``unshard`` puts a result
+back, on a process mesh after an all-gather, so every process holds the
+global result) and the collectives of ``jax.lax`` that the schedules
+use, each with the JAX meaning over a subset of named axes:
+``ppermute``, ``psum``, ``psum_scatter``, ``all_gather`` and
+``axis_index`` (``flat_index`` on the host), each for the local ranks.
+The schedules, the engine and the planner run unchanged on either
+backend.  ``traffic`` counts the bytes the local ranks receive from
+other ranks, as a ring implementation would move them; on a process
+mesh it is this rank's share, and ``traffic_total()`` sums it over the
+processes (the in-process mesh's count for the same calls, exactly).
 
 A partition spec is a tuple with one entry per dimension of the global
 tensor: ``None`` (replicated), an axis name, or a tuple of axis names
 whose flat index (row-major, in the tuple's order) picks the chunk.
-Axes a spec does not name replicate the tensor.  ``PartitionSpec`` is
-that tuple under a name of its own, so that trees of specs can tell a
-spec from a tuple of specs.
+Axes a spec does not name replicate the tensor; an axis named in two
+entries is refused (JAX's ``DuplicateSpecError``).  ``PartitionSpec``
+is that tuple under a name of its own, so that trees of specs can tell
+a spec from a tuple of specs.
 
 ``make_production_mesh`` and ``HW`` are the counterparts of the JAX
 package's production meshes and roofline constants, for a cluster of
@@ -34,13 +60,15 @@ H100s: they hold shapes and names only and allocate nothing.
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import math
-from typing import Sequence, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-__all__ = ["Mesh", "make_mesh", "resolve_device", "PartitionSpec", "P",
+__all__ = ["Mesh", "make_mesh", "ProcessMesh", "make_process_mesh",
+           "check_rank_devices", "resolve_device", "PartitionSpec", "P",
            "is_spec", "make_production_mesh", "HW", "hw_for"]
 
 Axes = Union[str, Sequence[str]]
@@ -72,8 +100,8 @@ def _new_traffic() -> dict:
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """A process grid: ``axis_names`` with ``axis_sizes``, all ranks
-    computing on ``device``.  ``shape`` maps axis name -> size, as
-    JAX's does."""
+    computing on ``device`` in this process.  ``shape`` maps axis name
+    -> size, as JAX's does."""
 
     axis_sizes: Tuple[int, ...]
     axis_names: Tuple[str, ...]
@@ -103,9 +131,29 @@ class Mesh:
     def n_ranks(self) -> int:
         return math.prod(self.axis_sizes)
 
+    @property
+    def local_ranks(self) -> np.ndarray:
+        """The ranks that live in this process, in the order of the rank
+        axis: every rank of the grid."""
+        return np.arange(self.n_ranks)
+
+    @property
+    def transport(self) -> str:
+        return "in-process"
+
     def reset_traffic(self) -> None:
         for key in self.traffic:
             self.traffic[key] = 0
+
+    def traffic_total(self) -> dict:
+        """``traffic`` summed over every rank of the mesh."""
+        return dict(self.traffic)
+
+    def agree(self, value):
+        """Mesh rank 0's ``value`` on every process (a host object, for
+        decisions taken from measurements, which differ from process to
+        process): ``value`` itself in process."""
+        return value
 
     # ------------------------------------------------------------ ranks
 
@@ -145,39 +193,10 @@ class Mesh:
         by_key[other_flat, flat] = np.arange(self.n_ranks)
         return by_key[other_flat]
 
-    def _check(self, x: torch.Tensor) -> None:
-        if x.ndim < 1 or x.shape[0] != self.n_ranks:
-            raise ValueError(
-                f"a tensor on this mesh has a leading rank axis of "
-                f"{self.n_ranks}, got shape {tuple(x.shape)}")
-
-    def _count(self, op: str, x: torch.Tensor, rank_shares: float) -> None:
-        """Add ``rank_shares`` of one rank's ``x`` to ``op``'s traffic."""
-        self.traffic[op] += int(round(rank_shares * x[0].numel()
-                                      * x.element_size()))
-
-    # ------------------------------------------------------ collectives
-
-    def flat_index(self, axis: Axes) -> np.ndarray:
-        """Every rank's (flat) index over ``axis``, row-major in the order
-        of ``axis``: ``axis_index`` as a host int64 array of shape (R,)."""
-        return self._flat(self._names(axis))
-
-    def axis_index(self, axis: Axes) -> torch.Tensor:
-        """``jax.lax.axis_index``: every rank's (flat) index over
-        ``axis``, an int64 tensor of shape (R,) on the mesh's device."""
-        return torch.as_tensor(self.flat_index(axis), dtype=torch.long,
-                               device=self.device)
-
-    def ppermute(self, x: torch.Tensor, axes: Axes,
-                 perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
-        """``jax.lax.ppermute``: send each rank's ``x`` along the
-        ``(source, destination)`` pairs over the flat index of ``axes``
-        (in the order of ``axes``), within each group of ranks that
-        agree on the other axes.  A rank that no pair sends to receives
-        zeros.  An identity permutation returns ``x`` itself."""
-        self._check(x)
-        names = self._names(axes)
+    def _sources(self, names: Tuple[str, ...],
+                 perm: Sequence[Tuple[int, int]]) -> np.ndarray:
+        """Every rank's source under ``ppermute``'s ``perm`` over
+        ``names`` (-1 where no pair sends to it)."""
         n = math.prod(self.shape[a] for a in names)
         src_of = np.full(n, -1, dtype=np.int64)
         for src, dst in perm:
@@ -190,9 +209,46 @@ class Mesh:
             raise ValueError(f"a rank sends twice in {list(perm)}")
         flat, table = self._flat(names), self._groups(names)
         src_flat = src_of[flat]
-        recv = src_flat >= 0
+        return np.where(src_flat >= 0,
+                        table[np.arange(self.n_ranks),
+                              np.maximum(src_flat, 0)], -1)
+
+    def _check(self, x: torch.Tensor) -> None:
+        local = len(self.local_ranks)
+        if x.ndim < 1 or x.shape[0] != local:
+            raise ValueError(
+                f"a tensor on this mesh has a leading rank axis of "
+                f"{local}, got shape {tuple(x.shape)}")
+
+    def _count(self, op: str, x: torch.Tensor, rank_shares: float) -> None:
+        """Add ``rank_shares`` of one rank's ``x`` to ``op``'s traffic."""
+        self.traffic[op] += int(round(rank_shares * x[0].numel()
+                                      * x.element_size()))
+
+    # ------------------------------------------------------ collectives
+
+    def flat_index(self, axis: Axes) -> np.ndarray:
+        """Each local rank's (flat) index over ``axis``, row-major in the
+        order of ``axis``: ``axis_index`` as a host int64 array."""
+        return self._flat(self._names(axis))[self.local_ranks]
+
+    def axis_index(self, axis: Axes) -> torch.Tensor:
+        """``jax.lax.axis_index``: each local rank's (flat) index over
+        ``axis``, an int64 tensor on the mesh's device."""
+        return torch.as_tensor(self.flat_index(axis), dtype=torch.long,
+                               device=self.device)
+
+    def ppermute(self, x: torch.Tensor, axes: Axes,
+                 perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
+        """``jax.lax.ppermute``: send each rank's ``x`` along the
+        ``(source, destination)`` pairs over the flat index of ``axes``
+        (in the order of ``axes``), within each group of ranks that
+        agree on the other axes.  A rank that no pair sends to receives
+        zeros.  An identity permutation returns ``x`` itself."""
+        self._check(x)
+        src = self._sources(self._names(axes), perm)
+        recv = src >= 0
         ranks = np.arange(self.n_ranks)
-        src = np.where(recv, table[ranks, np.maximum(src_flat, 0)], -1)
         if recv.all() and (src == ranks).all():
             return x
         self._count("ppermute", x, float(np.count_nonzero(recv & (src != ranks))))
@@ -231,21 +287,28 @@ class Mesh:
         self._count("psum", x, self.n_ranks * 2.0 * (n - 1) / n)
         return sums.index_select(0, _ranks(group_of, x))
 
+    def _scatter_size(self, x: torch.Tensor, names, scatter_dimension: int,
+                      tiled: bool) -> Tuple[int, int]:
+        """``(n, dim)``: the group size of ``names`` and the block
+        dimension ``psum_scatter`` cuts, checked."""
+        if not tiled:
+            raise NotImplementedError("psum_scatter(tiled=False)")
+        self._check(x)
+        dim = 1 + scatter_dimension
+        n = math.prod(self.shape[a] for a in names)
+        if x.shape[dim] % n:
+            raise ValueError(f"dimension {scatter_dimension} of size "
+                             f"{x.shape[dim]} does not split into {n}")
+        return n, dim
+
     def psum_scatter(self, x: torch.Tensor, axes: Axes, *,
                      scatter_dimension: int = 0,
                      tiled: bool = True) -> torch.Tensor:
         """``jax.lax.psum_scatter(..., tiled=True)``: the group sum of
         ``x``, cut into n chunks along ``scatter_dimension`` of a rank's
         block; the rank with flat index j over ``axes`` keeps chunk j."""
-        if not tiled:
-            raise NotImplementedError("psum_scatter(tiled=False)")
-        self._check(x)
         names = self._names(axes)
-        dim = 1 + scatter_dimension
-        n = math.prod(self.shape[a] for a in names)
-        if x.shape[dim] % n:
-            raise ValueError(f"dimension {scatter_dimension} of size "
-                             f"{x.shape[dim]} does not split into {n}")
+        n, dim = self._scatter_size(x, names, scatter_dimension, tiled)
         if n == 1:
             return x
         sums, group_of = self._group_sum(x, names)
@@ -287,13 +350,20 @@ class Mesh:
         if len(spec) != ndim:
             raise ValueError(f"spec {spec} has {len(spec)} entries for a "
                              f"{ndim}-D tensor")
-        return [() if s is None else self._names(s) for s in spec]
+        per_dim = [() if s is None else self._names(s) for s in spec]
+        named = [a for names in per_dim for a in names]
+        if len(set(named)) != len(named):
+            # JAX's NamedSharding raises DuplicateSpecError here
+            raise ValueError(f"spec {tuple(spec)} names a mesh axis in more "
+                             "than one entry")
+        return per_dim
 
     def shard(self, x: torch.Tensor, spec: Sequence) -> torch.Tensor:
         """Cut a global tensor into the rank-stacked layout of ``spec``:
-        (R, *block), rank r holding the chunk its coordinates name.  A
-        tensor ``spec`` replicates entirely comes back as a view (no
-        copy); so does every tensor on a 1x1 mesh."""
+        (local ranks, *block), each local rank holding the chunk its
+        coordinates name (no communication).  A tensor ``spec``
+        replicates entirely comes back as a view (no copy); so does
+        every tensor on a 1x1 mesh."""
         if x.device != self.device:
             raise ValueError(f"tensor on {x.device}, the mesh on {self.device}")
         per_dim = self._spec_names(spec, x.ndim)
@@ -303,28 +373,34 @@ class Mesh:
                 raise ValueError(
                     f"dimension {d} of size {size} does not split over "
                     f"{per_dim[d]} ({n} ranks)")
+        local = self.local_ranks
         if all(n == 1 for n in parts):
-            return x.unsqueeze(0).expand((self.n_ranks,) + tuple(x.shape))
+            return x.unsqueeze(0).expand((len(local),) + tuple(x.shape))
         block = [size // n for size, n in zip(x.shape, parts)]
         flats = [self._flat(names) for names in per_dim]
-        out = torch.empty([self.n_ranks] + block, dtype=x.dtype,
+        out = torch.empty([len(local)] + block, dtype=x.dtype,
                           device=x.device)
-        for r in range(self.n_ranks):
+        for i, r in enumerate(local):
             idx = tuple(slice(int(f[r]) * b, (int(f[r]) + 1) * b)
                         for f, b in zip(flats, block))
-            out[r].copy_(x[idx])
+            out[i].copy_(x[idx])
         return out
+
+    def _all_ranks(self, c: torch.Tensor) -> torch.Tensor:
+        """Every rank's block of a rank-stacked ``c``, (R, *block)."""
+        return c
 
     def unshard(self, c: torch.Tensor, spec: Sequence) -> torch.Tensor:
         """Put a rank-stacked result back into one global tensor laid out
-        by ``spec``.  Ranks that differ only on axes ``spec`` does not
-        name hold replicas; the one at coordinate 0 on those axes is
-        taken (JAX's ``out_specs`` assumes they agree)."""
+        by ``spec``, on every process.  Ranks that differ only on axes
+        ``spec`` does not name hold replicas; the one at coordinate 0 on
+        those axes is taken (JAX's ``out_specs`` assumes they agree)."""
         self._check(c)
         per_dim = self._spec_names(spec, c.ndim - 1)
-        if self.n_ranks == 1:
-            return c[0]
         named = {a for names in per_dim for a in names}
+        if self.n_ranks == 1 or not named:
+            return c[0]
+        c = self._all_ranks(c)
         coords = self._coords()
         keep = np.ones(self.n_ranks, dtype=bool)
         for i, a in enumerate(self.axis_names):
@@ -349,6 +425,277 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str],
     simulated on that one device."""
     return Mesh(tuple(int(s) for s in shape), tuple(axes),
                 resolve_device(device))
+
+
+# ---------------------------------------------------------------------------
+# one rank a process: torch.distributed
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True, repr=False)
+class ProcessMesh(Mesh):
+    """A mesh whose ranks are the processes of the default
+    ``torch.distributed`` group (``make_process_mesh``): this process is
+    mesh rank ``rank`` (its global rank) and holds that one rank of
+    every rank-stacked tensor."""
+
+    rank: int = 0
+    backend: str = "gloo"
+    group: object = dataclasses.field(default=None, compare=False)
+    timeout: Optional[datetime.timedelta] = dataclasses.field(
+        default=None, compare=False)
+    _subgroups: dict = dataclasses.field(default_factory=dict,
+                                         compare=False)
+
+    def __repr__(self) -> str:
+        return (f"ProcessMesh({self.shape}, rank {self.rank} of "
+                f"{self.n_ranks}, device {self.device}, transport "
+                f"{self.transport})")
+
+    @property
+    def local_ranks(self) -> np.ndarray:
+        return np.array([self.rank])
+
+    @property
+    def transport(self) -> str:
+        return "gloo, host-staged" if self._staged else self.backend
+
+    @property
+    def _staged(self) -> bool:
+        return self.backend == "gloo" and self.device.type == "cuda"
+
+    # ---------------------------------------------------- the transport
+
+    def _wire(self, t: torch.Tensor, *, fresh: bool = False) -> torch.Tensor:
+        """``t`` as the transport takes it: in pinned host memory under
+        host-staged gloo, else contiguous on the device (a copy the
+        transport may overwrite when ``fresh``)."""
+        if self._staged:
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t)
+            return host
+        if fresh:
+            return t.clone(memory_format=torch.contiguous_format)
+        return t.contiguous()
+
+    def _wire_empty(self, shape, dtype: torch.dtype) -> torch.Tensor:
+        if self._staged:
+            return torch.empty(shape, dtype=dtype, pin_memory=True)
+        return torch.empty(shape, dtype=dtype, device=self.device)
+
+    def _unwire(self, t: torch.Tensor) -> torch.Tensor:
+        return t.to(self.device) if self._staged else t
+
+    def _subgroup(self, names: Tuple[str, ...]):
+        """``(group, order)``: the process group of the ranks that agree
+        with this one on every axis outside ``names``, and its mesh
+        ranks in group-rank order (ascending).  Every group of a set of
+        axes is made once, on every process, in one order, as
+        ``dist.new_group`` requires."""
+        import torch.distributed as dist
+
+        table = self._groups(names)
+        order = np.sort(table[self.rank])
+        if len(order) == self.n_ranks:
+            return self.group, order
+        key = frozenset(names)
+        pg = self._subgroups.get(key)
+        if pg is None:
+            for row in np.unique(np.sort(table, axis=1), axis=0):
+                made = dist.new_group(row.tolist(), timeout=self.timeout)
+                if self.rank in row:
+                    pg = made
+            self._subgroups[key] = pg
+        return pg, order
+
+    def _count(self, op: str, x: torch.Tensor, rank_shares: float) -> None:
+        """This rank's part of the in-process count: the total split
+        evenly over the ranks (in whole bytes, the remainder to the
+        lowest ranks), so the sum over processes is that count."""
+        total = int(round(rank_shares * x[0].numel() * x.element_size()))
+        q, rem = divmod(total, self.n_ranks)
+        self.traffic[op] += q + (1 if self.rank < rem else 0)
+
+    def traffic_total(self) -> dict:
+        """``traffic`` summed over the processes (one ``all_reduce``)."""
+        import torch.distributed as dist
+
+        keys = sorted(self.traffic)
+        t = torch.tensor([self.traffic[k] for k in keys], dtype=torch.int64,
+                         device=self.device if self.backend == "nccl"
+                         else "cpu")
+        dist.all_reduce(t, group=self.group)
+        return dict(zip(keys, (int(v) for v in t.tolist())))
+
+    def agree(self, value):
+        import torch.distributed as dist
+
+        box = [value]
+        dist.broadcast_object_list(box, src=0, group=self.group)
+        return box[0]
+
+    # ------------------------------------------------------ collectives
+
+    def ppermute(self, x: torch.Tensor, axes: Axes,
+                 perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
+        import torch.distributed as dist
+
+        self._check(x)
+        src = self._sources(self._names(axes), perm)
+        ranks = np.arange(self.n_ranks)
+        if (src == ranks).all():
+            return x
+        me = self.rank
+        ops = []
+        for dst in np.flatnonzero((src == me) & (ranks != me)):
+            ops.append(dist.P2POp(dist.isend, self._wire(x[0]),
+                                  int(dst), group=self.group))
+        buf = None
+        if src[me] >= 0 and src[me] != me:
+            buf = self._wire_empty(x.shape[1:], x.dtype)
+            ops.append(dist.P2POp(dist.irecv, buf, int(src[me]),
+                                  group=self.group))
+            self.traffic["ppermute"] += x[0].numel() * x.element_size()
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        if buf is not None:
+            return self._unwire(buf).unsqueeze(0)
+        return x if src[me] == me else torch.zeros_like(x)
+
+    def psum(self, x: torch.Tensor, axes: Axes) -> torch.Tensor:
+        import torch.distributed as dist
+
+        self._check(x)
+        names = self._names(axes)
+        n = math.prod(self.shape[a] for a in names)
+        if n == 1:
+            return x
+        pg, _ = self._subgroup(names)
+        y = self._wire(x[0], fresh=True)
+        dist.all_reduce(y, group=pg)
+        self._count("psum", x, self.n_ranks * 2.0 * (n - 1) / n)
+        return self._unwire(y).unsqueeze(0)
+
+    def psum_scatter(self, x: torch.Tensor, axes: Axes, *,
+                     scatter_dimension: int = 0,
+                     tiled: bool = True) -> torch.Tensor:
+        import torch.distributed as dist
+
+        names = self._names(axes)
+        n, dim = self._scatter_size(x, names, scatter_dimension, tiled)
+        if n == 1:
+            return x
+        pg, order = self._subgroup(names)
+        flat = self._flat(names)
+        size = x.shape[dim] // n
+        block = x[0]
+        # group rank g keeps the chunk of its rank's flat index
+        chunks = torch.stack([block.narrow(dim - 1, int(flat[r]) * size, size)
+                              for r in order])
+        out = self._wire_empty(chunks[0].numel(), x.dtype)
+        dist.reduce_scatter_tensor(out, self._wire(chunks.reshape(-1)),
+                                   group=pg)
+        self._count("psum_scatter", x, self.n_ranks * (n - 1) / n)
+        return self._unwire(out).view((1,) + tuple(chunks.shape[1:]))
+
+    def all_gather(self, x: torch.Tensor, axes: Axes, *, axis: int = 0,
+                   tiled: bool = True) -> torch.Tensor:
+        import torch.distributed as dist
+
+        if not tiled:
+            raise NotImplementedError("all_gather(tiled=False)")
+        self._check(x)
+        names = self._names(axes)
+        pg, order = self._subgroup(names)
+        n = len(order)
+        if n == 1:
+            return x
+        got = self._gather(x[0], pg, n)
+        # group rank g is mesh rank order[g]; concatenate in flat order
+        at = {int(r): g for g, r in enumerate(order)}
+        members = self._groups(names)[self.rank]
+        out = torch.cat([got[at[int(r)]] for r in members], dim=axis)
+        self._count("all_gather", x, self.n_ranks * (n - 1))
+        return out.unsqueeze(0)
+
+    def _gather(self, block: torch.Tensor, pg, n: int) -> torch.Tensor:
+        """(n, *block): the blocks of ``pg``'s n ranks in group-rank
+        order (the transport takes flat buffers)."""
+        import torch.distributed as dist
+
+        got = self._wire_empty(n * block.numel(), block.dtype)
+        dist.all_gather_into_tensor(got, self._wire(block.reshape(-1)),
+                                    group=pg)
+        return self._unwire(got).view((n,) + tuple(block.shape))
+
+    def _all_ranks(self, c: torch.Tensor) -> torch.Tensor:
+        return self._gather(c[0], self.group, self.n_ranks)
+
+
+def check_rank_devices(backend: str, devices: Sequence[str]) -> None:
+    """The device map of a process mesh, rank by rank: NCCL refuses two
+    ranks on one GPU ("Duplicate GPU detected"), so say so first."""
+    if backend != "nccl":
+        return
+    seen = {}
+    for r, d in enumerate(devices):
+        if d in seen:
+            raise ValueError(
+                f"ranks {seen[d]} and {r} both resolve to {d}: NCCL takes "
+                "one card a rank; give each rank its own card, or share a "
+                "card over gloo (host-staged)")
+        seen[d] = r
+
+
+def make_process_mesh(shape: Sequence[int], axes: Sequence[str], *,
+                      device: Union[str, torch.device, None] = None,
+                      timeout: Optional[datetime.timedelta] = None
+                      ) -> ProcessMesh:
+    """The counterpart of JAX's ``make_mesh`` over the devices of all
+    processes: a mesh of ``shape`` over ``axes`` whose ranks are the
+    processes of the initialised default group, global rank r mesh rank
+    r (row-major over ``axes``).  ``device`` defaults to
+    ``cuda:(rank % torch.cuda.device_count())`` and follows
+    ``resolve_device`` (CUDA where there is none raises; pass
+    ``device="cpu"``).  ``timeout`` is the one the default group was
+    made with (``init_process_group``'s; None for torch's default), so
+    that the subgroups of the collectives over fewer axes fail as soon
+    as it does.  Every process must call it, with the same shape and
+    axes."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(
+            "make_process_mesh needs an initialised torch.distributed "
+            "process group (torch.distributed.init_process_group)")
+    group = dist.group.WORLD
+    shape = tuple(int(s) for s in shape)
+    size = dist.get_world_size(group)
+    if size != math.prod(shape):
+        raise ValueError(f"a mesh of shape {shape} has {math.prod(shape)} "
+                         f"ranks, the process group {size}")
+    backend = str(dist.get_backend(group))
+    if backend not in ("gloo", "nccl"):
+        raise ValueError(f"no transport for the {backend!r} backend "
+                         "(gloo or nccl)")
+    rank = dist.get_rank(group)
+    if device is None and torch.cuda.is_available():
+        device = torch.device("cuda", rank % torch.cuda.device_count())
+    dev = resolve_device(device)
+    if backend == "nccl":
+        if dev.type != "cuda":
+            raise ValueError(f"NCCL carries CUDA tensors, the mesh is on {dev}")
+        torch.cuda.set_device(dev)
+    seen = [None] * size
+    dist.all_gather_object(seen, (shape, tuple(axes), str(dev)), group=group)
+    for r, (s, a, _) in enumerate(seen):
+        if (s, a) != (shape, tuple(axes)):
+            raise ValueError(f"rank {r} asks for a mesh of {s} over {a}, "
+                             f"rank {rank} of {shape} over {tuple(axes)}")
+    check_rank_devices(backend, [d for _, _, d in seen])
+    return ProcessMesh(shape, tuple(axes), dev, rank=rank, backend=backend,
+                       group=group, timeout=timeout)
 
 
 # ---------------------------------------------------------------------------

@@ -18,10 +18,13 @@ recalibration changes the key of every later plan.
     PYTHONPATH=src python -m repro_torch.planner.calibrate [--mesh 4 4]
 
 measures on the card (it raises without one), saves the file and
-prints each constant beside its default.  On a
-mesh whose ranks are simulated on one card (launch/mesh.py),
-``bytes_per_s`` and ``latency_s`` measure device copies between those
-ranks, not NVLink.
+prints each constant beside its default.  ``bytes_per_s`` and
+``latency_s`` are what the mesh's transport gives (launch/mesh.py): on
+a mesh whose ranks are simulated on one card, device copies between
+those ranks; on a process mesh, its group's collectives (host-staged
+gloo where processes share a card).  Neither is NVLink.  On a process
+mesh every process returns mesh rank 0's measurements, so that every
+process plans alike.
 
     PYTHONPATH=src python -m repro_torch.planner.calibrate --check-drift \
         [--drift-log artifacts/obs/plan_outcomes.jsonl] [--strict]
@@ -133,6 +136,8 @@ def micro_calibrate(mesh=None, grid=None, reps: int = 5, *,
     ``PSUM_SIDE``^2 a rank) and the overlap efficiencies from
     ``measure_overlap``.  ``log`` (e.g. ``print``) receives each
     measurement.  Library calls never trigger measurement implicitly.
+    On a process mesh (launch/mesh.py) every process measures and
+    returns mesh rank 0's constants (``Mesh.agree``).
     """
     from ..core.densify import (blocked_local_matmul,
                                 densified_local_matmul, to_blocks)
@@ -205,22 +210,22 @@ def micro_calibrate(mesh=None, grid=None, reps: int = 5, *,
             return run
 
         reps_n = 8
-        tiny = torch.ones((mesh.n_ranks, 1, 1), device=dev)
-        dt = (best_of(f"{reps_n} tiny psums (simulated ranks)",
-                      chain(tiny, reps_n))
-              - best_of("1 tiny psum (simulated ranks)", chain(tiny, 1)))
+        local, how = len(mesh.local_ranks), mesh.transport
+        tiny = torch.ones((local, 1, 1), device=dev)
+        dt = (best_of(f"{reps_n} tiny psums ({how})", chain(tiny, reps_n))
+              - best_of(f"1 tiny psum ({how})", chain(tiny, 1)))
         out["latency_s"] = max(dt / (reps_n - 1), 1e-9)
         side = PSUM_SIDE
-        big = torch.ones((mesh.n_ranks, side, side), device=dev)
-        dt = (best_of(f"{reps_n} psums of {side}^2 a rank (simulated ranks)",
+        big = torch.ones((local, side, side), device=dev)
+        dt = (best_of(f"{reps_n} psums of {side}^2 a rank ({how})",
                       chain(big, reps_n))
-              - best_of(f"1 psum of {side}^2 a rank (simulated ranks)",
+              - best_of(f"1 psum of {side}^2 a rank ({how})",
                         chain(big, 1)))
         per_msg = max(dt / (reps_n - 1) - out["latency_s"], 1e-12)
         out["bytes_per_s"] = 2.0 * side * side * 4 / per_msg
         hw = DEFAULT_HARDWARE.replace(**out)
         out.update(measure_overlap(mesh, grid, reps=reps, hw=hw, log=log))
-    return out
+    return mesh.agree(out) if mesh is not None else out
 
 
 def measure_overlap(mesh=None, grid=None, reps: int = 5, hw=None, *,
@@ -237,7 +242,8 @@ def measure_overlap(mesh=None, grid=None, reps: int = 5, hw=None, *,
         overlap_<algo> = (t_serial - t_pipelined) / comm_s_model
 
     On simulated ranks every copy and GEMM runs on the card's one
-    stream, so nothing overlaps and the honest answer is ~0.  A saving
+    stream, so nothing overlaps and the honest answer is ~0; the
+    process mesh's collectives are synchronous too.  A saving
     under 5 % of the serial time, or a modelled communication under 10
     % of it, calibrates to 0 (timing jitter, not overlap).
     ``overlap_ts`` and ``overlap_cannon25d`` reuse the Cannon value
@@ -297,7 +303,7 @@ def measure_overlap(mesh=None, grid=None, reps: int = 5, hw=None, *,
         ml = side // pr
         comm = (pr // c_stack) * 2 * ml * ml * e
         out["overlap_cannon25d"] = overlap_eff(t1, t2, comm / hw.bytes_per_s)
-    return out
+    return mesh.agree(out)
 
 
 def get_hardware_model(path: Optional[str] = None) -> HardwareModel:
@@ -338,8 +344,12 @@ SIMULATED = ("bytes_per_s", "latency_s", "overlap_cannon",
 def describe(constants: Dict[str, float], mesh=None) -> str:
     """One line per constant: the measured value beside the default, the
     communication constants marked as simulated-rank copies."""
-    sim = (f"device copies between {mesh.n_ranks} ranks simulated on one "
-           "card, not NVLink") if mesh is not None else ""
+    sim = ""
+    if mesh is not None:
+        sim = (f"device copies between {mesh.n_ranks} ranks simulated on "
+               "one card, not NVLink" if mesh.transport == "in-process" else
+               f"{mesh.transport} between {mesh.n_ranks} processes, not "
+               "NVLink")
     lines = []
     for key, default in DEFAULT_HARDWARE.to_dict().items():
         got = constants.get(key)

@@ -234,16 +234,26 @@ class MultiplyService:
         call (results AND error tickets — both are retrievable via
         ``result()``).  Buckets still inside their SLO window keep
         waiting for batch-mates.  ``_dispatch`` never raises: a failed
-        request becomes an error ticket, never a lost one."""
+        request becomes an error ticket, never a lost one.
+
+        On a process mesh every process must dispatch the same buckets
+        (their collectives pair up), so the deadline decision is rank
+        0's (``mesh.agree``): the buckets whose first request after the
+        full batches is past its deadline on rank 0's clock."""
         now = self.clock()
+        due = self.mesh.agree([
+            i for i, q in enumerate(self._queues.values())
+            if len(q) % self.max_batch
+            and q[len(q) - len(q) % self.max_batch].deadline(self.slo_s)
+            <= now])
         done: List[int] = []
-        for key in list(self._queues):
+        for i, key in enumerate(list(self._queues)):
             q = self._queues[key]
             while len(q) >= self.max_batch:
                 batch = q[:self.max_batch]
                 del q[:self.max_batch]
                 done += self._dispatch(key, batch)
-            if q and q[0].deadline(self.slo_s) <= now:
+            if q and i in due:
                 batch = list(q)
                 q.clear()
                 done += self._dispatch(key, batch)

@@ -11,6 +11,7 @@ to bf16, plus 2**-16 of max|ref| for the f32 summation order (the rule of
 chip_smoke.py's ``bf16_worst``).
 """
 import dataclasses
+import datetime
 
 import numpy as np
 import pytest
@@ -646,3 +647,50 @@ def test_layer_kinds_serve_on_the_card(cuda, arch):
         assert decode_attention.launches - before == n_attn
         assert _rel(logits[:, 0], full[:, i]) <= rel
         state["cur_len"] = state["cur_len"] + 1
+
+
+def _process_mesh_on_card(rank, algorithm, densify):
+    """A rank of a 2x2 process mesh on the card (gloo, host-staged when
+    the ranks share it): the product and this process's launches."""
+    from repro_torch.core.multiply import distributed_matmul
+    from repro_torch.launch.mesh import make_process_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_process_mesh((2, 2), ("data", "model"),
+                             timeout=datetime.timedelta(seconds=120))
+    gen = torch.Generator(device=mesh.device).manual_seed(5)
+    a = torch.randn(352, 352, generator=gen, device=mesh.device)
+    b = torch.randn(352, 352, generator=gen, device=mesh.device)
+    kw = dict(algorithm=algorithm, densify=densify, local_kernel="pallas",
+              block_m=22, block_k=22, block_n=22)
+    smm_process_stack.launches = tiled_matmul.launches = 0
+    c = distributed_matmul(a, b, mesh=mesh, **kw)
+    return (c.cpu(), mesh.transport,
+            {"smm": smm_process_stack.launches,
+             "tiled_matmul": tiled_matmul.launches})
+
+
+@pytest.mark.parametrize("algorithm, densify", [("cannon", False),
+                                                ("summa", True)])
+def test_process_mesh_shares_the_card(cuda, tmp_path, algorithm, densify):
+    """Four processes on the card's process mesh: bitwise the in-process
+    mesh (the collectives only move data), each process launching its
+    one rank's kernel."""
+    from repro_torch.core.multiply import distributed_matmul
+    from repro_torch.launch.processes import run_ranks
+
+    ranks = run_ranks(_process_mesh_on_card, 4, store_dir=str(tmp_path),
+                      args=(algorithm, densify), timeout_s=120,
+                      join_timeout_s=300)
+    mesh = make_mesh((2, 2), ("data", "model"), device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    a = torch.randn(352, 352, generator=gen, device=cuda)
+    b = torch.randn(352, 352, generator=gen, device=cuda)
+    want = distributed_matmul(
+        a, b, mesh=mesh, algorithm=algorithm, densify=densify,
+        local_kernel="pallas", block_m=22, block_k=22, block_n=22).cpu()
+    kernel = "tiled_matmul" if densify else "smm"
+    for c, transport, launches in ranks:
+        assert torch.equal(c, want)
+        assert launches[kernel] > 0
+        assert transport in ("gloo, host-staged", "nccl")

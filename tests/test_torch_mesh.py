@@ -7,9 +7,18 @@ The reference runs once, in one subprocess with 8 host devices (the main
 process keeps JAX's one device), on the inputs this module writes; each
 case is then one test.  Collectives only move or add f32 values: the
 results are held equal, except sums (psum, psum_scatter), which the two
-frameworks may add in different orders (rtol 1e-6)."""
+frameworks may add in different orders (rtol 1e-6).
+
+The same cases run on process meshes (``make_process_mesh``: one rank
+a process, gloo over a ``FileStore`` under the test's temporary
+directory, one spawn of 4 or 8 processes a mesh shape, two at a time,
+~10 s), held against the in-process mesh (bitwise for moves,
+rtol 1e-6 for sums) and against the same JAX outputs, which run once
+for both."""
+import datetime
 import json
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -17,7 +26,10 @@ import torch
 
 from conftest import run_subprocess_devices
 
-from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.mesh import make_mesh, make_process_mesh
+from repro_torch.launch.processes import run_ranks
+
+PG_TIMEOUT_S = 60       # a process mesh's collectives
 
 MESHES = {
     "2x2": ((2, 2), ("data", "model")),
@@ -199,29 +211,26 @@ def reference(tmp_path_factory):
     return inputs, ref
 
 
-@pytest.mark.parametrize("m, cid, op, kw", CASES,
-                         ids=[f"{m}-{cid}" for m, cid, _, _ in CASES])
-def test_mesh_matches_jax(reference, m, cid, op, kw):
-    inputs, ref = reference
-    key = f"{m}:{cid}"
-    mesh = make_mesh(*MESHES[m], device="cpu")
-    x = torch.tensor(inputs[key])
+def _run_op(mesh, op, kw, x):
+    """One case's op on ``mesh``: ``x`` is its rank-stacked input (the
+    global tensor for ``shard``)."""
     if op == "shard":
-        got = mesh.shard(x, _spec(kw["spec"]))
-    elif op == "unshard":
-        got = mesh.unshard(x, _spec(kw["spec"]))
-    else:
-        axes = kw["axes"] if isinstance(kw["axes"], str) else tuple(kw["axes"])
-        if op == "ppermute":
-            got = mesh.ppermute(x, axes, [tuple(p) for p in kw["perm"]])
-        elif op == "psum":
-            got = mesh.psum(x, axes)
-        elif op == "psum_scatter":
-            got = mesh.psum_scatter(x, axes, scatter_dimension=0, tiled=True)
-        elif op == "all_gather":
-            got = mesh.all_gather(x, axes, axis=kw["axis"], tiled=True)
-        else:
-            got = mesh.axis_index(axes).reshape(-1, 1)
+        return mesh.shard(x, _spec(kw["spec"]))
+    if op == "unshard":
+        return mesh.unshard(x, _spec(kw["spec"]))
+    axes = kw["axes"] if isinstance(kw["axes"], str) else tuple(kw["axes"])
+    if op == "ppermute":
+        return mesh.ppermute(x, axes, [tuple(p) for p in kw["perm"]])
+    if op == "psum":
+        return mesh.psum(x, axes)
+    if op == "psum_scatter":
+        return mesh.psum_scatter(x, axes, scatter_dimension=0, tiled=True)
+    if op == "all_gather":
+        return mesh.all_gather(x, axes, axis=kw["axis"], tiled=True)
+    return mesh.axis_index(axes).reshape(-1, 1)
+
+
+def _want(ref, key, m, op, kw):
     want = ref[key]
     if op == "ppermute":
         # the pairs index the flat axis_index of ``axes``, in the order
@@ -235,11 +244,89 @@ def test_mesh_matches_jax(reference, m, cid, op, kw):
             want = ref[key + ":by_index"]
         else:
             np.testing.assert_array_equal(ref[key + ":by_index"], want)
+    return want
+
+
+def _assert_op_equal(op, got, want):
     assert tuple(got.shape) == want.shape
     if op in ("psum", "psum_scatter"):
-        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
     else:
-        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("m, cid, op, kw", CASES,
+                         ids=[f"{m}-{cid}" for m, cid, _, _ in CASES])
+def test_mesh_matches_jax(reference, m, cid, op, kw):
+    inputs, ref = reference
+    key = f"{m}:{cid}"
+    mesh = make_mesh(*MESHES[m], device="cpu")
+    got = _run_op(mesh, op, kw, torch.tensor(inputs[key]))
+    _assert_op_equal(op, got.numpy(), _want(ref, key, m, op, kw))
+
+
+def _process_cases(rank, m, work):
+    """One process of a process mesh of shape ``m``: every case of that
+    mesh on this rank's row of the input (the whole global tensor for
+    ``shard``); returns {case key: this rank's output}."""
+    torch.set_num_threads(1)
+    mesh = make_process_mesh(
+        *MESHES[m], device="cpu",
+        timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
+    cases = json.load(open(os.path.join(work, "cases.json")))
+    inputs = np.load(os.path.join(work, "inputs.npz"))
+    out = {}
+    for key, (mm, op, kw) in cases.items():
+        if mm != m:
+            continue
+        x = torch.tensor(inputs[key])
+        if op != "shard":
+            x = x[rank:rank + 1]
+        got = _run_op(mesh, op, kw, x)
+        out[key] = got.numpy() if op == "unshard" else got[0].numpy()
+    return out
+
+
+@pytest.fixture(scope="module")
+def process_outputs(reference, tmp_path_factory):
+    """Every case on process meshes: one gloo group a mesh shape, the
+    two spawned at a time; returns {case key: per-rank outputs}."""
+    inputs, _ = reference
+    work = str(tmp_path_factory.mktemp("process_mesh"))
+    json.dump({f"{m}:{cid}": (m, op, kw) for m, cid, op, kw in CASES},
+              open(os.path.join(work, "cases.json"), "w"))
+    np.savez(os.path.join(work, "inputs.npz"), **inputs)
+    with ThreadPoolExecutor(2) as pool:
+        runs = {m: pool.submit(run_ranks, _process_cases,
+                               int(np.prod(MESHES[m][0])), store_dir=work,
+                               args=(m, work), timeout_s=PG_TIMEOUT_S,
+                               join_timeout_s=240)
+                for m in MESHES}
+        per_mesh = {m: run.result() for m, run in runs.items()}
+    return {key: [ranks[r][key] for r in range(len(ranks))]
+            for ranks in per_mesh.values() for key in ranks[0]}
+
+
+@pytest.mark.parametrize("m, cid, op, kw", CASES,
+                         ids=[f"{m}-{cid}" for m, cid, _, _ in CASES])
+def test_process_mesh_matches_in_process_and_jax(reference, process_outputs,
+                                                 m, cid, op, kw):
+    """A process mesh against the in-process mesh (bitwise for moves,
+    rtol 1e-6 for sums) and the JAX reference; ``unshard`` gives every
+    process the same global tensor."""
+    inputs, ref = reference
+    key = f"{m}:{cid}"
+    ranks = process_outputs[key]
+    if op == "unshard":
+        for r in ranks[1:]:
+            np.testing.assert_array_equal(r, ranks[0])
+        got = ranks[0]
+    else:
+        got = np.stack(ranks)
+    mesh = make_mesh(*MESHES[m], device="cpu")
+    _assert_op_equal(op, got,
+                     _run_op(mesh, op, kw, torch.tensor(inputs[key])).numpy())
+    _assert_op_equal(op, got, _want(ref, key, m, op, kw))
 
 
 def test_mesh_counts_traffic_and_keeps_identity():
