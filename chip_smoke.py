@@ -173,14 +173,14 @@ Phase 8  purification and self-verifying multiplies:
            (u) McWeeny purification (sparsity.workloads.mcweeny_purify)
                of banded_hamiltonian(15,840, 22) on a 4x4 mesh of
                simulated ranks (3,960^2 a rank, (p)'s share), filter_eps
-               1e-6, blocked smm, 8 iterations with the union plans and
+               1e-6, blocked smm, 6 iterations with the union plans and
                8 rank-exact; one line an iteration (occupancy, blocks,
                retained / filtered / busiest-rank triples, ||P^2 - P||,
                tr(P), smm launches and their CUDA-event time, wall, host
                = wall - smm, and the host time of the planning functions,
                exclusive, by name); the example's three properties and
                P within PUR_TOL of the exact density (the diagonal parity
-               projector) for both runs; 3 iterations with
+               projector) for both runs; PUR_VERIFY iterations with
                verify="checksum": no detection, bitwise the unverified
                iterates, overhead against the unverified iterations run
                before and after; smm at the largest rank-exact launch of
@@ -266,14 +266,14 @@ Phase 10 the MLA, MoE, Mamba and RWKV-6 layer kinds at their published
 Phase 11 trains (ROADMAP A11), printing nvidia-smi's name and power
          limit beside its numbers:
            (ab) Qwen2-1.5B whole at its published widths in bf16,
-                remat "full", AdamW: 8 steps of make_train_step through
+                remat "full", AdamW: 4 steps of make_train_step through
                 run_loop on one batch of 4 x 2,048 tokens (data.make_batch);
                 the loss must descend and every loss and grad norm be
-                finite; step ms (median of steps 2-8), tokens/s, peak
+                finite; step ms (median of steps 2-4), tokens/s, peak
                 max_memory_allocated, the bound (GEMM flops at the bf16
                 peak, the attention's products at the TF32 rate of its
                 forward and the f32 rate of its backward), the four
-                kernels' launches a step (0: printed, not gated), 3 steps
+                kernels' launches a step (0: printed, not gated), 2 steps
                 with TF32 allowed in the backward, and a profiler window of
                 one step
            (ac) 2 layers in f32, B=1, S=512: loss and every gradient leaf
@@ -287,7 +287,7 @@ Phase 11 trains (ROADMAP A11), printing nvidia-smi's name and power
                 it); the last checkpoint restores bitwise; its bytes and
                 save and restore seconds, in a temporary directory
            (ae) all ten architectures at reduced_config in f32 and bf16:
-                4 AdamW steps on one batch descend and stay finite (MoE
+                3 AdamW steps on one batch descend and stay finite (MoE
                 aux and MTP losses printed).  One {"phase11": ...} line.
          (ab)'s bound is launch.roofline's over the cost counter's meta
          count of the step (launch.cost_counter) on the card's HW; phases
@@ -296,11 +296,13 @@ Phase 12 the launch tools (ROADMAP A12), on the meta device: nothing
          allocated or launched by the counts:
            (af) the dry-run grid, python -m repro_torch.launch.dryrun in
                 the background on the host's CPU from the end of phase 0
-                (niced, CUDA hidden): every architecture's train_4k,
-                decode_32k and long_500k on 1x1 (counted) and on the
-                production mesh 32 x 8 (per-device argument bytes), and
-                prefill_32k of Qwen2-1.5B and DeepSeek-V3 on 1x1, but
-                RWKV-6's train_4k on 1x1 (its time loop: DRYRUN_GRID); every
+                (niced, CUDA hidden): every architecture's decode_32k
+                and long_500k on 1x1 (counted) and on the production
+                mesh 32 x 8 (per-device argument bytes), every train_4k
+                on the production mesh and Qwen2-1.5B's, DeepSeek-V3's
+                and Jamba's on 1x1 (one model of each layer kind:
+                DRYRUN_GRID), and prefill_32k of Qwen2-1.5B and
+                DeepSeek-V3 on 1x1; every
                 cell ok or skipped by cell_is_supported, within
                 DRYRUN_BUDGET_S of its start; the table and each cell's
                 seconds
@@ -343,8 +345,32 @@ Phase 13 the process mesh (launch.mesh.make_process_mesh): one rank a
          (TS_TOL for ts_k; not at eps > 0); the traffic summed over the
          processes equals the in-process mesh's count.  One
          {"phase13": ...} line.
-``--phase 9`` (or 10, 11, 12, 13) builds the kernels and runs that phase
-alone (development: no kernels line and no ok line).
+Phase 14 the LM on a process mesh (repro_torch.models on make_process_mesh:
+         tensor-, data- and expert-parallel): 2x2 meshes of 4 processes
+         on the card over host-staged gloo (one card holds no two NCCL
+         ranks), each process holding its shards of the weights, the
+         ZeRO optimizer state, the batch and the caches; weights by
+         init_per_layer's rule from SEED, the same draws on one rank
+         (drawn one process at a time: init_params on a shared card)
+           (ak) Qwen2-1.5B in bf16 at its published widths, 8 of its 28
+                layers: AdamW with ZeRO, 3 steps of 4 x 2,048 tokens,
+                the step-3 checkpoint (each leaf gathered, one writer),
+                prefill of 2 x 256 and 8 greedy tokens (decode_attention
+                on every process's own KV heads), then step 4; on one
+                rank in this process the same 3 steps from the same
+                weights, and from the checkpoint the same prefill and
+                tokens (teacher-forced on the mesh's) and step 4
+           (al) DeepSeek-V3 in bf16 at its published widths, 4 of 61
+                layers (3 dense, one MoE, as (y)): prefill of 4 x 1,024
+                and 16 greedy tokens, the MoE on its partial path (the
+                step's tokens gathered, the experts left cut over data);
+                the same on one rank in this process, teacher-forced
+         Step ms and tokens/s, prefill ms, decode ms a token, bytes a
+         rank received, decode_attention launches a process, and each
+         comparison's error against one rank, held to the tolerances
+         at LM_* below.  One {"phase14": ...} line.
+``--phase 9`` (or 10, 11, 12, 13, 14) builds the kernels and runs that
+phase alone (development: no kernels line and no ok line).
 
 Prints a {"kernels": [...]} line, the nvidia-smi line, and as its last
 line {"ok": true, "device": {...}}.  Any failed check raises, so the
@@ -812,11 +838,12 @@ KIND_CHECK = (2, 256)   # prefill + decode against forward: B, S
 KIND_TOL = 3e-4
 
 
-def init_per_layer(cfg, generator, device):
+def init_per_layer(cfg, generator, device, **mesh_kw):
     """Random parameters by the JAX package's rule applied to each
     layer's own shape: std scale / sqrt(n), n the first dim of the leaf
     without its layer axis (the JAX rule reads the layer count there: std
-    1 for a stack of one layer)."""
+    1 for a stack of one layer).  ``mesh_kw`` (mesh, specs) draws a
+    process's shards of the same tensors (``init_params``)."""
     import dataclasses
     import math
 
@@ -837,7 +864,7 @@ def init_per_layer(cfg, generator, device):
     defs["segments"] = tree_map(per_layer, defs["segments"],
                                 is_leaf=lambda x: isinstance(x, ParamDef))
     return init_params(defs, generator, dtype_override=getattr(torch, cfg.dtype),
-                       device=device)
+                       device=device, **mesh_kw)
 
 
 def layer_trace(fn):
@@ -1104,11 +1131,11 @@ def layer_kinds(dev, card, zero_counters, read_counters, decode_attention,
 # phase 11: training
 # ---------------------------------------------------------------------------
 
-TRAIN_AB = (4, 2048, 8)        # (ab): B, S, steps; Qwen2-1.5B whole
-TRAIN_AB_TF32 = 3              # (ab): steps more with TF32 in the backward
+TRAIN_AB = (4, 2048, 4)        # (ab): B, S, steps; Qwen2-1.5B whole
+TRAIN_AB_TF32 = 2              # (ab): steps more with TF32 in the backward
 TRAIN_AC = (2, 1, 512)         # (ac): layers, B, S (f32 against f64)
 TRAIN_AD = (4, 2, 512, 6, 2, 3)  # (ad): layers, B, S, steps, ckpt_every, fail
-TRAIN_AE = (2, 16, 4)          # (ae): B, S, steps at reduced_config
+TRAIN_AE = (2, 16, 3)          # (ae): B, S, steps at reduced_config
 # PR 24's bound of (ab) a step, from a hand formula (GEMMs at the bf16
 # peak, the attention's causal triangle at TF32 forward and f32 backward),
 # printed once beside the bound the counter gives (launch.roofline)
@@ -1575,22 +1602,26 @@ def training(dev, card, zero_counters, read_counters, hw) -> dict:
 
 # (af): the dry-run grid, calls of the CLI (python -m
 # repro_torch.launch.dryrun --arch A --shape S --mesh M), run at once with
-# DRYRUN_JOBS processes each.  Every architecture's train_4k, decode_32k
-# and long_500k on 1x1 and the production mesh, and two prefill_32k
-# cells, but RWKV-6's train_4k on 1x1: its time mix loops over the 4,096
-# tokens in Python, ~10.6 M aten ops on meta under autograd (~20 min of
-# host time, as long as the rest of the script); the CLI run of the
-# whole grid counts it.
+# DRYRUN_JOBS processes each.  Every architecture's decode_32k and
+# long_500k on 1x1 and the production mesh, every train_4k on the
+# production mesh, and two prefill_32k cells; train_4k on 1x1 (20-90 s
+# of host time a cell) for one model of each layer kind: Qwen2 (GQA
+# attention, dense FFN), DeepSeek-V3 (MLA, MoE, MTP) and Jamba (Mamba).
+# RWKV-6's train_4k on 1x1 loops over the 4,096 tokens in Python, ~10.6 M
+# aten ops on meta under autograd (~20 min of host time).  The CLI run of
+# the whole grid counts every cell.
 _ALL_BUT_RWKV = ",".join(a for a in (
     "deepseek_v3_671b", "qwen3_moe_30b_a3b", "starcoder2_3b", "qwen2_1_5b",
     "granite_20b", "granite_34b", "musicgen_medium", "jamba_v0_1_52b",
     "llava_next_mistral_7b"))
 DRYRUN_GRID = (
-    (_ALL_BUT_RWKV, "train_4k,decode_32k,long_500k", "1x1,production"),
+    (_ALL_BUT_RWKV, "decode_32k,long_500k", "1x1,production"),
+    (_ALL_BUT_RWKV, "train_4k", "production"),
+    ("qwen2_1_5b,deepseek_v3_671b,jamba_v0_1_52b", "train_4k", "1x1"),
     ("rwkv6_1_6b", "decode_32k,long_500k", "1x1,production"),
     ("rwkv6_1_6b", "train_4k", "production"),
     ("qwen2_1_5b,deepseek_v3_671b", "prefill_32k", "1x1"))
-DRYRUN_JOBS = (2, 1, 1, 1)
+DRYRUN_JOBS = (1, 1, 2, 1, 1, 1)
 DRYRUN_BUDGET_S = 600   # the grid's wall from its start; the full run
                         # hides it behind phases 1-11 (~850 s)
 PEAK_TOL = 0.10         # (ag): counted peak against max_memory_allocated
@@ -2330,6 +2361,9 @@ def sync_s(fn):
     return out, time.perf_counter() - t
 
 
+PLAN_ROUNDS = 3   # phase 7: interleaved rounds a timing (2 more on a retry)
+
+
 def time_interleaved(fns, reps: int) -> list:
     """Median of ``reps`` synchronized host-clock timings per callable,
     the callables taken round-robin so drift of the host hits each alike
@@ -2444,7 +2478,8 @@ def planner_cases(dev, card, zero_counters, read_counters) -> dict:
     # ------------------------------------------- (2) 1x1 multiplies
     print("phase 7 (2): dbcsr.multiply(a, b, mesh=mesh) with no algorithm= "
           "or densify=, 1x1 mesh; every feasible pinned (algorithm, "
-          "densify) timed beside it (median of 5 interleaved rounds)")
+          f"densify) timed beside it (median of {PLAN_ROUNDS} interleaved "
+          "rounds)")
 
     def auto_case(label, a, b, exact, gate, **kw):
         zero_counters()
@@ -2469,7 +2504,7 @@ def planner_cases(dev, card, zero_counters, read_counters) -> dict:
                for x in cands]
         fns.append(lambda: dbcsr.multiply(a, b, mesh=mesh, **kw))
         for attempt in range(2):
-            times = time_interleaved(fns, 5 + 2 * attempt)
+            times = time_interleaved(fns, PLAN_ROUNDS + 2 * attempt)
             rows = [{"config": x.label, "predicted_ms": 1e3 * x.total_s,
                      "ms": 1e3 * t} for x, t in zip(cands, times)]
             chosen = [t for x, t in zip(cands, times)
@@ -2520,7 +2555,8 @@ def planner_cases(dev, card, zero_counters, read_counters) -> dict:
     print(f"phase 7 (3): {G} requests of {NB}^2 block {BS}, 1x1 mesh, "
           "MultiplyService() and multiply_batched with no fused= and no "
           "algorithm=, beside the pinned fused / looped x blocked / "
-          "densified dispatches (median of 5 interleaved rounds)")
+          f"densified dispatches (median of {PLAN_ROUNDS} interleaved "
+          "rounds)")
     nbb = NB // BS
     dense_reqs = [(dbcsr.create(dense(NB, NB), mesh=mesh, block_size=BS),
                    dbcsr.create(dense(NB, NB), mesh=mesh, block_size=BS))
@@ -2609,7 +2645,7 @@ def planner_cases(dev, card, zero_counters, read_counters) -> dict:
                     and (not svc_pin or regret_gate(times[-2], times[-3])))
 
         for attempt in range(2):
-            times = time_interleaved(fns, 5 + 2 * attempt)
+            times = time_interleaved(fns, PLAN_ROUNDS + 2 * attempt)
             t_auto = min([times[-1]] + [times[i] for i in own])
             i_best = int(np.argmin(times[:len(configs)]))
             if not gate or passes(times, t_auto, i_best) or attempt:
@@ -2745,13 +2781,16 @@ def planner_cases(dev, card, zero_counters, read_counters) -> dict:
 # ---------------------------------------------------------------------------
 
 PUR_N = 15840        # (u): (p)'s matrix, 720^2 blocks of 22 on 4x4
-PUR_ITERS = 8         # ||P^2 - P|| is 2.6e-22 after the 8th, 0 after
+PUR_ITERS = 6         # ||P^2 - P|| is 1.8e-10 after the 6th, 2.6e-22
+                      # after the 8th
 # (u): max |P - exact density| after PUR_ITERS iterations.  The exact
 # density of banded_hamiltonian is the diagonal parity projector; the
 # iteration converges to it quadratically and filter(1e-6) drops any
 # block below 1e-6, so what is left is f32 rounding of entries 0 and 1
 # (observed 0.0 at n 1,760 on the CPU).
 PUR_TOL = 1e-6
+PUR_VERIFY = 2       # (u): iterations with verify="checksum", and the same
+                     # unverified before and after them
 ABFT_GATE = 0.25     # the JAX package's gate on the measured overhead
 ABFT_NL, ABFT_P = 3960, 4        # (v): one rank's side; the 4x4 grid
 ABFT_BATCH = (16, 1980)          # (v): (f)'s batch
@@ -2870,8 +2909,9 @@ def host_targets():
 
 def purification(dev, card, zero_counters, read_counters, report) -> dict:
     """(u): McWeeny purification at (p)'s size on a simulated 4x4 mesh,
-    blocked with the smm kernel, union then rank-exact, then 3 verified
-    iterations; one smm row at a rank-exact step of its peak iterate."""
+    blocked with the smm kernel, union then rank-exact, then PUR_VERIFY
+    verified iterations; one smm row at a rank-exact step of its peak
+    iterate."""
     import numpy as np
     import torch
 
@@ -2961,7 +3001,7 @@ def purification(dev, card, zero_counters, read_counters, report) -> dict:
         occs = [e["occupancy"] for e in union]
         peak = occs.index(max(occs))
         P_r, exact_tr, kept = trajectory("rank-exact", PUR_ITERS,
-                                         keep=(2, peak))
+                                         keep=(PUR_VERIFY - 1, peak))
         for name, tr in (("union", union), ("rank-exact", exact_tr)):
             ok = purification_checks(tr, union if name == "rank-exact"
                                      else tr, N)
@@ -2992,7 +3032,7 @@ def purification(dev, card, zero_counters, read_counters, report) -> dict:
                   + ", ".join(f"{k} {v:.1f}" for k, v in sorted(
                       split_tot.items(), key=lambda kv: -kv[1])))
 
-        # 3 iterations with verify="checksum": no detection, bitwise the
+        # PUR_VERIFY iterations with verify="checksum": no detection, bitwise the
         # unverified rank-exact iterates
         real = dbcsr.multiply
         reports = []
@@ -3003,28 +3043,32 @@ def purification(dev, card, zero_counters, read_counters, report) -> dict:
             reports.append(c.verification)
             return res
 
-        # the same 3 iterations unverified before and after, their plans
+        # the same iterations unverified before and after, their plans
         # memoized as the verified run's are
-        _, warm0, _ = trajectory("rank-exact again", 3, converged=False)
+        _, warm0, _ = trajectory("rank-exact again", PUR_VERIFY,
+                                 converged=False)
         dbcsr.multiply = spy
         try:
-            P_v, ver_tr, _ = trajectory("rank-exact verify=checksum", 3,
+            P_v, ver_tr, _ = trajectory("rank-exact verify=checksum",
+                                        PUR_VERIFY,
                                         converged=False, verify="checksum")
         finally:
             dbcsr.multiply = real
-        _, warm1, _ = trajectory("rank-exact again", 3, converged=False)
+        _, warm1, _ = trajectory("rank-exact again", PUR_VERIFY,
+                                 converged=False)
         bad = [r for r in reports
                if not r["enabled"] or r["report"].detected]
-        if bad or len(reports) != 6:
+        if bad or len(reports) != 2 * PUR_VERIFY:
             raise AssertionError(f"(u) verified iterations: {len(reports)} "
                                  f"multiplies, {len(bad)} not clean")
-        if not torch.equal(P_v.data, kept[2].data):
+        if not torch.equal(P_v.data, kept[PUR_VERIFY - 1].data):
             raise AssertionError("(u) verified iterates differ from the "
                                  "unverified ones")
         over = [2.0 * v["wall_ms"] / (u0["wall_ms"] + u1["wall_ms"]) - 1.0
                 for v, u0, u1 in zip(ver_tr, warm0, warm1)]
         fracs = [r["overhead_frac"] for r in reports]
-        print(f"  (u) verify=checksum: 6 multiplies, no detection, bitwise "
+        print(f"  (u) verify=checksum: {2 * PUR_VERIFY} multiplies, no "
+              f"detection, bitwise "
               f"the unverified iterates; iteration wall overhead against "
               f"the mean of the unverified runs before and after "
               + ", ".join(f"{100 * x:.1f} %" for x in over)
@@ -3281,7 +3325,7 @@ def abft(dev, card, zero_counters, read_counters) -> dict:
     N = P * NL
     A = dbcsr.create(dense(N), mesh=mesh44, grid=grid, block_size=BS)
     B = dbcsr.create(dense(N), mesh=mesh44, grid=grid, block_size=BS)
-    point(f"(o) {N}^2 4x4 densified pallas (grouped_gemm)", mesh44, A, B, 3,
+    point(f"(o) {N}^2 4x4 densified pallas (grouped_gemm)", mesh44, A, B, 2,
           densify=True, local_kernel="pallas")
     am = rng.rand(N // BS, N // BS) < 0.2
     Am = dbcsr.create(A.data, mesh=mesh44, grid=grid, block_size=BS,
@@ -3289,7 +3333,7 @@ def abft(dev, card, zero_counters, read_counters) -> dict:
     del A
     eps = gap_eps(Am, am, B)
     point(f"(p) {N}^2 4x4 blocked rank-exact, A 20 % fill, eps {eps:.4g}",
-          mesh44, Am, B, 3, densify=False, filter_eps=eps)
+          mesh44, Am, B, 2, densify=False, filter_eps=eps)
     del Am, B
     torch.cuda.empty_cache()
 
@@ -3350,15 +3394,15 @@ def robustness(dev, card, zero_counters, read_counters, report) -> list:
 STEP_SUM_TOL = 0.05   # step spans against their dispatch: the JAX
 #                       package's STEP_SUM_TOL (benchmarks/bench_obs.py:48)
 OBS_GATE = 0.05       # its traced-over-untraced overhead gate (printed)
-OBS_ROUNDS = 5
-P_ROUNDS = 3          # (p): ~0.7 s a call
+OBS_ROUNDS = 3
+P_ROUNDS = 2          # (p): ~0.7 s a call
 OBS_A = (3960, 22)                # (a): side, block
 OBS_F = (16, 1980)                # (f): requests, side
 OBS_P = (4, 3960)                 # (p): grid side, side a rank
 TEN_DIMS = (128, 1024, 2048)      # N_I, N_A, N_P = N_Q (x)
 TEN_BLOCKS = (8, 16, 16)          # the tensor example's blocks
 TEN_EPS = 1e-8                    # the tensor example's filter_eps
-TEN_ROUNDS = 3
+TEN_ROUNDS = 2
 
 
 def traced(fn):
@@ -4148,6 +4192,365 @@ def process_mesh(card: str) -> dict:
         raise AssertionError("phase 13: " + "; ".join(failed))
     return out
 
+# ---------------------------------------------------------------------------
+# phase 14: the LM on a process mesh
+# ---------------------------------------------------------------------------
+
+LM_MESH = ((2, 2), ("data", "model"))
+# (cell, arch, layers, train (batch, seq, steps) or None, prompts (B, S),
+# greedy tokens)
+LM_CELLS = (("(ak)", "qwen2_1_5b", 8, (4, 2048, 3), (2, 256), 8),
+            ("(al)", "deepseek_v3_671b", 4, None, (4, 1024), 16))
+# Tolerances against one rank, bf16 (one bf16 step is 2^-8 = 3.9e-3 of a
+# value; the mesh sums its partial products in bf16 through gloo where
+# one rank sums inside one GEMM):
+#   LM_LOSS_TOL: a step's loss, relative (steps 1-3 from the same weights
+#     drift apart by a rounding a step; step 4 from the same checkpoint);
+#   LM_GNORM_TOL: the gradient norm, relative;
+#   LM_LOGIT_TOL: a (prompt, step) row of logits, max |mesh - one rank|
+#     over max |one rank's|, teacher-forced on the mesh's tokens; a
+#     greedy token of the mesh must be within it of the row's largest;
+#   LM_ROW_SHARE: DeepSeek's MoE routes a token to the top 8 of 256
+#     sigmoid scores, whose gaps are ~0.05 in router-logit units, and a
+#     bf16 difference in the MoE's input moves a router logit by ~4e-3:
+#     a row where one expert swapped misses LM_LOGIT_TOL; at least this
+#     share of (al)'s rows must not, and every row of (ak) (no MoE).
+LM_LOSS_TOL = 1e-2
+LM_GNORM_TOL = 5e-2
+LM_LOGIT_TOL = 3e-2
+LM_ROW_SHARE = 0.75
+LM_TIMEOUT_S = 600
+LM_JOIN_S = 900
+
+
+def lm_config(arch, layers):
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+
+    return dataclasses.replace(get_config(arch), num_layers=layers)
+
+
+def lm_batch(cfg, b, s, i, dev):
+    """A global batch of random tokens from SEED + i (inputs and labels)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(SEED + 100 + i)
+    tok = rng.randint(0, cfg.vocab_size, (2, b, s)).astype(np.int32)
+    return {"inputs": torch.from_numpy(tok[0]).to(dev),
+            "labels": torch.from_numpy(tok[1]).to(dev)}
+
+
+def lm_serve(params, cfg, mesh, prompts, n, teacher=None):
+    """Prefill, then n greedy tokens (or, with ``teacher``, the teacher's
+    tokens fed): (tokens (B, n+1), per-row logits [(B, V) of each step],
+    prefill s, decode s a token).  On a mesh the tokens and logits stay
+    this process's shards."""
+    import torch
+
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import pad_cache
+    from repro_torch.serve.prefill import greedy
+
+    b, s = prompts.shape
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hidden, _, cache = T.backbone(params, prompts, cfg, collect_cache=True,
+                                      mesh=mesh)
+        logits = [T.lm_head(params, hidden[:, -1:], cfg, mesh)[:, -1]]
+        tok = greedy(logits[-1][:, None], cfg, mesh)
+        del hidden
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        cache = pad_cache(cache, cfg, b, s + n)
+        cur = torch.full((1,), s, dtype=torch.int32, device=prompts.device)
+        toks = [tok]
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        for i in range(n):
+            feed = toks[-1] if teacher is None else teacher[:, i:i + 1]
+            lg = T.forward(params, feed, cfg, cache=cache, cur_len=cur,
+                           mesh=mesh)[0][:, -1]
+            logits.append(lg)
+            toks.append(greedy(lg[:, None], cfg, mesh))
+            cur = cur + 1
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+    return torch.cat(toks, dim=1), logits, t1 - t0, (t3 - t2) / n
+
+
+def lm_rank(rank: int, store: str) -> dict:
+    """One process of phase 14's 2x2 mesh, every cell in turn: returns
+    {cell: its numbers and, on mesh rank 0, the gathered tokens and
+    logits}."""
+    import torch
+
+    mesh = make_lm_mesh()
+    torch.cuda.set_device(mesh.device)
+    out = {}
+    for cell in LM_CELLS:
+        out[cell[0]] = lm_cell_on_mesh(mesh, cell, store)
+        torch.cuda.empty_cache()
+    return out
+
+
+def make_lm_mesh():
+    from repro_torch.launch.mesh import make_process_mesh
+
+    return make_process_mesh(
+        *LM_MESH, timeout=datetime.timedelta(seconds=LM_TIMEOUT_S))
+
+
+def lm_cell_on_mesh(mesh, cell, store) -> dict:
+    import torch
+
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.launch.mesh import P
+    from repro_torch.models import transformer as T
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optimizer import OptConfig, make_optimizer
+    from repro_torch.train.train_step import (init_opt_state,
+                                              make_train_step, shard_batch,
+                                              state_specs)
+
+    dev = mesh.device
+    _, arch, layers, train, (pb, ps), n_new = cell
+    cfg = lm_config(arch, layers)
+    dp = T.dp_axes(mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = init_per_layer(cfg, torch.Generator(dev).manual_seed(SEED), dev,
+                            mesh=mesh, specs=T.model_param_specs(cfg, mesh))
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0, "steps": [],
+           "transport": mesh.transport, "repr": repr(mesh)}
+    if train is not None:
+        b, s, n_steps = train
+        opt = make_optimizer(OptConfig(zero=True))
+        st = init_opt_state(opt, params, cfg, mesh)
+        step = make_train_step(cfg, opt, mesh=mesh)
+
+        def one_step(i):
+            mesh.reset_traffic()
+            batch = shard_batch(lm_batch(cfg, b, s, i, dev), mesh)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, _, met = step(params, st, batch)
+            loss, gnorm = float(met["loss"]), float(met["grad_norm"])
+            torch.cuda.synchronize()
+            out["steps"].append({"loss": loss, "grad_norm": gnorm,
+                                 "ms": (time.perf_counter() - t) * 1e3,
+                                 "received": sum(mesh.traffic.values())})
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        for i in range(n_steps):
+            one_step(i)
+        out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        t = time.perf_counter()
+        ckpt.save_checkpoint(os.path.join(store, "ckpt"), n_steps,
+                             {"params": params, "opt": st}, mesh=mesh,
+                             specs=state_specs(cfg, opt, mesh))
+        out["save_s"] = time.perf_counter() - t
+    prompts = lm_batch(cfg, pb, ps, 50, dev)["inputs"]
+    local = shard_batch({"x": prompts}, mesh)["x"]
+    mesh.reset_traffic()
+    decode_attention.launches = 0
+    toks, logits, pre_s, dec_s = lm_serve(params, cfg, mesh, local, n_new)
+    out["decode_attention_launches"] = decode_attention.launches
+    out["serve_received"] = sum(mesh.traffic.values())
+    out["prefill_ms"], out["decode_ms"] = pre_s * 1e3, dec_s * 1e3
+    toks = mesh.unshard(toks.unsqueeze(0), P(dp, None))
+    rows = [mesh.unshard(lg.unsqueeze(0), P(dp, "model")).float().cpu()
+            for lg in logits]
+    if train is not None:
+        one_step(n_steps)
+    if mesh.rank == 0:
+        out["tokens"] = toks.cpu()
+        out["logits"] = torch.stack(rows)
+    return out
+
+
+def lm_compare(label, mesh_logits, want_logits, toks, share) -> dict:
+    """Row errors of the mesh's logits against one rank's (teacher-forced
+    on the mesh's tokens) and its greedy tokens' standing there."""
+    import torch
+
+    rows, tok_ok = [], 0
+    for i in range(mesh_logits.shape[0]):
+        want = want_logits[i]
+        err = ((mesh_logits[i] - want).abs().amax(-1)
+               / want.abs().amax(-1))
+        rows += err.tolist()
+        # the mesh's choice is within the tolerance of the row's largest
+        chosen = want.gather(-1, toks[:, i:i + 1].long())[:, 0]
+        tok_ok += int((want.amax(-1) - chosen
+                       <= LM_LOGIT_TOL * want.abs().amax(-1)).sum())
+    rows = torch.tensor(rows)
+    within = float((rows <= LM_LOGIT_TOL).float().mean())
+    n = rows.numel()
+    ok = within >= share and tok_ok >= share * n
+    print(f"  {label} against one rank: logit rows within {LM_LOGIT_TOL:g} "
+          f"{within:.3f} of {n} (needed {share:g}), worst "
+          f"{float(rows.max()):.3e}, median {float(rows.median()):.3e}; "
+          f"greedy tokens within the tolerance {tok_ok} of {n} (needed "
+          f"{math.ceil(share * n)}): "
+          + ("OK" if ok else "FAILED"))
+    return {"ok": ok, "rows_within": within, "worst": float(rows.max()),
+            "median": float(rows.median()), "tokens_ok": tok_ok, "rows": n}
+
+
+def lm_on_mesh(dev, card: str) -> dict:
+    """Phase 14: (ak) and (al) on a 2x2 process mesh of 4 processes on
+    the card (host-staged gloo; one spawn runs both), each against one
+    rank in this process: (ak)'s steps from the same weights before the
+    spawn, the rest after it."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch.processes import run_ranks
+    from repro_torch.models import transformer as T
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optimizer import OptConfig, make_optimizer
+    from repro_torch.train.train_step import make_train_step
+
+    out, failed = {"card": card, "cells": []}, []
+    opt = make_optimizer(OptConfig(zero=True))
+
+    def one_rank_step(cfg, params, st, b, s, i):
+        step = make_train_step(cfg, opt)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, _, met = step(params, st, lm_batch(cfg, b, s, i, dev))
+        return {"loss": float(met["loss"]),
+                "grad_norm": float(met["grad_norm"]),
+                "ms": (time.perf_counter() - t) * 1e3}
+
+    # ---- one rank: the training cells' steps from the same weights
+    mine = {}
+    for cell, arch, layers, train, _, _ in LM_CELLS:
+        if train is None:
+            continue
+        cfg = lm_config(arch, layers)
+        b, s, n_steps = train
+        params = init_per_layer(cfg, torch.Generator(dev).manual_seed(SEED),
+                                dev)
+        st = opt.init(params)
+        mine[cell] = [one_rank_step(cfg, params, st, b, s, i)
+                      for i in range(n_steps)]
+        del params, st
+        torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as store:
+        t0 = time.perf_counter()
+        ranks = run_ranks(lm_rank, 4, store_dir=store, args=(store,),
+                          timeout_s=LM_TIMEOUT_S, join_timeout_s=LM_JOIN_S)
+        wall = time.perf_counter() - t0
+        print(f"  {ranks[0][LM_CELLS[0][0]]['repr']}: {wall:.1f} s with the "
+              f"spawn, every cell ({card})")
+        for cell, arch, layers, train, (pb, ps), n_new in LM_CELLS:
+            cfg = lm_config(arch, layers)
+            got = [r[cell] for r in ranks]
+            lead = got[0]
+            print(f"phase 14 {cell}: {cfg.name} in {cfg.dtype} at its "
+                  f"published widths, num_layers {get_layers(arch)} -> "
+                  f"{layers}, on a 2x2 process mesh (4 processes, "
+                  f"host-staged gloo); init "
+                  f"{[round(r['init_s'], 1) for r in got]} s ({card})")
+            rec = {"cell": cell, "arch": arch, "layers": layers,
+                   "wall_s": wall, "init_s": [r["init_s"] for r in got],
+                   "prefill_ms": lead["prefill_ms"],
+                   "decode_ms": lead["decode_ms"],
+                   "serve_received": [r["serve_received"] for r in got],
+                   "decode_attention_launches":
+                       [r["decode_attention_launches"] for r in got],
+                   "transport": lead["transport"]}
+            torch.cuda.empty_cache()
+            prompts = lm_batch(cfg, pb, ps, 50, dev)["inputs"]
+            teacher = lead["tokens"].to(dev)
+            if train is not None:
+                # the mesh's checkpoint on one rank: serving, then a step
+                b, s, n_steps = train
+                shapes = T.model_param_shapes(cfg)
+                t = time.perf_counter()
+                state = ckpt.restore_checkpoint(
+                    os.path.join(store, "ckpt"), n_steps,
+                    {"params": shapes, "opt": opt.init(shapes)}, device=dev)
+                rec["restore_s"] = time.perf_counter() - t
+                _, want, pre1, dec1 = lm_serve(state["params"], cfg, None,
+                                               prompts, n_new, teacher=teacher)
+                mine[cell].append(one_rank_step(cfg, state["params"],
+                                                state["opt"], b, s, n_steps))
+                del state
+                for i, (step_got, ref) in enumerate(zip(lead["steps"],
+                                                        mine[cell])):
+                    dl = (abs(step_got["loss"] - ref["loss"])
+                          / abs(ref["loss"]))
+                    dg = (abs(step_got["grad_norm"] - ref["grad_norm"])
+                          / ref["grad_norm"])
+                    good = dl <= LM_LOSS_TOL and dg <= LM_GNORM_TOL
+                    print(f"  {cell} step {i + 1}"
+                          + (" (from the step-3 checkpoint)"
+                             if i == n_steps else "")
+                          + f": mesh {step_got['ms']:.1f} ms "
+                          f"({b * s / step_got['ms'] * 1e3:.1f} tokens/s), "
+                          f"loss {step_got['loss']:.5f}, grad norm "
+                          f"{step_got['grad_norm']:.4f}, a rank received "
+                          f"{[r['steps'][i]['received'] / 1e9 for r in got]}"
+                          f" GB; one rank {ref['ms']:.1f} ms, loss "
+                          f"{ref['loss']:.5f}, grad norm {ref['grad_norm']:.4f}"
+                          f"; rel err {dl:.2e} / {dg:.2e}: "
+                          + ("OK" if good else "FAILED"))
+                    if not good:
+                        failed.append(f"{cell} step {i + 1}")
+                print(f"  {cell} checkpoint: save {lead['save_s']:.1f} s on "
+                      f"the mesh, restore {rec['restore_s']:.1f} s on one "
+                      f"rank; peak {[round(r['peak_gb'], 2) for r in got]} "
+                      "GB a process")
+                rec.update(steps=[r["steps"] for r in got],
+                           one_rank=mine[cell], save_s=lead["save_s"],
+                           peak_gb=[r["peak_gb"] for r in got])
+            else:
+                params = init_per_layer(
+                    cfg, torch.Generator(dev).manual_seed(SEED), dev)
+                _, want, pre1, dec1 = lm_serve(params, cfg, None, prompts,
+                                               n_new, teacher=teacher)
+                del params
+            torch.cuda.empty_cache()
+            want = torch.stack([w.float().cpu() for w in want])
+            cmp = lm_compare(cell, lead["logits"], want, lead["tokens"],
+                             1.0 if train is not None else LM_ROW_SHARE)
+            if not cmp["ok"]:
+                failed.append(f"{cell} serving")
+            launches = rec["decode_attention_launches"]
+            want_launches = (n_new * cfg.num_layers
+                             if cfg.layer_kind(0)[0] == "attention" else 0)
+            if launches != [want_launches] * 4:
+                failed.append(f"{cell} decode_attention launches {launches}")
+            print(f"  {cell} serving {pb} x {ps} + {n_new}: prefill "
+                  f"{lead['prefill_ms']:.1f} ms on the mesh ({pre1 * 1e3:.1f} "
+                  f"on one rank), decode {lead['decode_ms']:.2f} ms a token "
+                  f"({dec1 * 1e3:.2f}); a rank received "
+                  f"{[r / 1e9 for r in rec['serve_received']]} GB; "
+                  f"decode_attention launches a process {launches} (want "
+                  f"{want_launches})")
+            rec.update(compare=cmp, one_rank_prefill_ms=pre1 * 1e3,
+                       one_rank_decode_ms=dec1 * 1e3)
+            out["cells"].append(rec)
+    print(json.dumps({"phase14": out}))
+    if failed:
+        raise AssertionError("phase 14: " + "; ".join(failed))
+    return out
+
+
+def get_layers(arch):
+    from repro_torch.configs.base import get_config
+
+    return get_config(arch).num_layers
+
+
 
 def main(argv=None) -> int:
     import argparse
@@ -4155,7 +4558,7 @@ def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phase", type=int, choices=[9, 10, 11, 12, 13],
+    ap.add_argument("--phase", type=int, choices=[9, 10, 11, 12, 13, 14],
                     default=None,
                     help="development: build the kernels and run this "
                          "phase alone (prints no kernels and no ok line)")
@@ -4199,6 +4602,12 @@ def main(argv=None) -> int:
     err_bf16_out = 0.0   # decode_attention's bf16 outputs (rounded)
 
     # ---------------------------------------------------------- phase 0
+    t_script = time.perf_counter()
+
+    def mark(n):   # each phase's start, for the wall's breakdown
+        print(f"  [phase {n} starts {time.perf_counter() - t_script:.1f} s "
+              "into the script]")
+
     print("phase 0: card and build")
     print(f"  nvidia-smi: {card}")
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, {name}")
@@ -4238,12 +4647,15 @@ def main(argv=None) -> int:
             training(dev, card, zero_counters, read_counters, hw)
         elif only == 13:
             process_mesh(card)
+        elif only == 14:
+            lm_on_mesh(dev, card)
         else:
             launch_tools(dev, card, hw, grid, grid_dir)
         print(f"phase {only} alone: done; launches {launches}")
         return 0
 
     # ---------------------------------------------------------- phase 1
+    mark(1)
     print("phase 1: kernels against their plain versions")
 
     def smm_case(label, plan, dtype, invalidate=0.0):
@@ -4410,6 +4822,7 @@ def main(argv=None) -> int:
             decode_case(*case, dtype)
 
     # ---------------------------------------------------------- phase 2
+    mark(2)
     print("phase 2: dbcsr.create -> dbcsr.multiply on a 1x1 mesh")
     mesh = make_mesh((1, 1), ("data", "model"))
 
@@ -4568,6 +4981,7 @@ def main(argv=None) -> int:
         raise AssertionError(f"(f) plan launches {plan_f.n_launches}")
 
     # ---------------------------------------------------------- phase 3
+    mark(3)
     print(f"phase 3: times (median of CUDA events; {card})")
 
     def smm_times(label, plan, a, b):
@@ -4741,6 +5155,7 @@ def main(argv=None) -> int:
                                 "cur_len=2064", 8, 4096, 2064, r=4)]
 
     # ---------------------------------------------------------- phase 4
+    mark(4)
     print("phase 4: MultiplyService -> dbcsr.multiply_batched, "
           f"{G} requests of {NB}^2, block {BS}, 1x1 mesh")
     exec_kw = dict(algorithm="cannon", pipeline_depth=1)
@@ -4887,6 +5302,7 @@ def main(argv=None) -> int:
                                    hw))
 
     # ---------------------------------------------------------- phase 6
+    mark(6)
     print("phase 6: the distributed schedules on simulated ranks "
           f"(dbcsr.multiply; {card})")
     torch.cuda.empty_cache()
@@ -4898,10 +5314,12 @@ def main(argv=None) -> int:
             err_abs[key] = max(err_abs[key], row.pop("max_abs_err"))
 
     # ---------------------------------------------------------- phase 7
+    mark(7)
     print(f"phase 7: the multiply planner ({card})")
     planner(dev, card, zero_counters, read_counters)
 
     # ---------------------------------------------------------- phase 8
+    mark(8)
     print(f"phase 8: purification and self-verifying multiplies ({card})")
     torch.cuda.empty_cache()
     for row in robustness(dev, card, zero_counters, read_counters, report):
@@ -4909,11 +5327,13 @@ def main(argv=None) -> int:
         smm_rows.append(row)
 
     # ---------------------------------------------------------- phase 9
+    mark(9)
     print(f"phase 9 (w): telemetry on the card ({card})")
     torch.cuda.empty_cache()
     obs_and_tensors(dev, card, zero_counters, read_counters)
 
     # ---------------------------------------------------------- phase 10
+    mark(10)
     print(f"phase 10: the MLA, MoE, Mamba and RWKV-6 layer kinds at full "
           f"width ({card})")
     torch.cuda.empty_cache()
@@ -4921,21 +5341,33 @@ def main(argv=None) -> int:
                 decode_attention_ref, hw)
 
     # ---------------------------------------------------------- phase 11
+    mark(11)
     print(f"phase 11: training ({card})")
     torch.cuda.empty_cache()
     ab_costs = training(dev, card, zero_counters, read_counters,
                         hw)["ab_costs"]
 
     # ---------------------------------------------------------- phase 12
+    mark(12)
     print(f"phase 12: the launch tools ({card})")
     torch.cuda.empty_cache()
     launch_tools(dev, card, hw, grid, grid_dir, ab_costs)
 
     # ---------------------------------------------------------- phase 13
+    mark(13)
     print(f"phase 13: the process mesh, one rank a process ({card})")
     torch.cuda.empty_cache()
     process_mesh(card)
 
+    # ---------------------------------------------------------- phase 14
+    mark(14)
+    print(f"phase 14: the LM on a process mesh ({card})")
+    torch.cuda.empty_cache()
+    for cell in lm_on_mesh(dev, card)["cells"]:
+        # every process's own launches of the sharded decode
+        launches["decode_attention"] += sum(cell["decode_attention_launches"])
+
+    mark("end")
     for key, n in launches.items():
         if n < 1:
             raise AssertionError(f"the main path never launched {key}")

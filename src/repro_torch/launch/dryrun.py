@@ -19,9 +19,10 @@ whether the peak fits the card's HBM.  A train cell counts its first
 microbatch and repeats that count for the others (``replaying``), as
 the reference's analysis scales the microbatch loop by its trip count.
 
-On a production mesh the port runs no sharded LM (ROADMAP A3's
-remainder), so a cell gives the per-device argument bytes from the
-resolved specs -- parameters, optimizer state, cache and batch, each
+On a production mesh the dry-run does not yet count a sharded LM step
+(the step itself runs on a process mesh of that many processes; its
+count on meta is ROADMAP A3d), so a cell gives the per-device argument
+bytes from the resolved specs -- parameters, optimizer state, cache and batch, each
 leaf divided by its shard extent -- and no compute: ``hlo_costs`` and
 ``roofline`` are null, with the reason.  No collective term is made up.
 
@@ -57,7 +58,7 @@ __all__ = ["MESHES", "mesh_for", "cells", "run_cell", "per_device_bytes",
 MESHES = {"1x1": "1x1", "production": "pod32x8",
           "production-multipod": "pod2x32x8"}
 
-NO_COMPUTE = ("the port runs no sharded LM step (ROADMAP A3's remainder): "
+NO_COMPUTE = ("the dry-run counts no sharded LM step yet (ROADMAP A3d): "
               "per-device argument bytes from the resolved specs only")
 
 

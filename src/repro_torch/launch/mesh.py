@@ -38,9 +38,13 @@ back, on a process mesh after an all-gather, so every process holds the
 global result) and the collectives of ``jax.lax`` that the schedules
 use, each with the JAX meaning over a subset of named axes:
 ``ppermute``, ``psum``, ``psum_scatter``, ``all_gather`` and
-``axis_index`` (``flat_index`` on the host), each for the local ranks.
+``axis_index`` (``flat_index`` on the host, ``index`` as an integer
+where a process holds one rank), each for the local ranks.
 The schedules, the engine and the planner run unchanged on either
-backend.  ``traffic`` counts the bytes the local ranks receive from
+backend.  The LM runs on a process mesh (or 1x1) with plain local
+tensors, through the collectives at the end of this module that
+autograd passes through (``psum_ad``, ``psum_rep``, ``enter_rep``,
+``all_gather_ad``, ``psum_scatter_ad``, and ``pmax``).  ``traffic`` counts the bytes the local ranks receive from
 other ranks, as a ring implementation would move them; on a process
 mesh it is this rank's share, and ``traffic_total()`` sums it over the
 processes (the in-process mesh's count for the same calls, exactly).
@@ -69,7 +73,9 @@ import torch
 
 __all__ = ["Mesh", "make_mesh", "ProcessMesh", "make_process_mesh",
            "check_rank_devices", "resolve_device", "PartitionSpec", "P",
-           "is_spec", "make_production_mesh", "HW", "hw_for"]
+           "is_spec", "make_production_mesh", "HW", "hw_for", "axis_size",
+           "psum_ad", "psum_rep", "enter_rep", "all_gather_ad",
+           "psum_scatter_ad", "pmax"]
 
 Axes = Union[str, Sequence[str]]
 
@@ -232,6 +238,16 @@ class Mesh:
         order of ``axis``: ``axis_index`` as a host int64 array."""
         return self._flat(self._names(axis))[self.local_ranks]
 
+    def index(self, axis: Axes) -> int:
+        """This process's flat index over ``axis`` as a host integer
+        (``axis_index`` of its one rank); refused where a process holds
+        several ranks."""
+        flat = self.flat_index(axis)
+        if len(flat) != 1:
+            raise ValueError(f"{len(flat)} ranks live in this process: "
+                             "index() needs one (a process mesh or 1x1)")
+        return int(flat[0])
+
     def axis_index(self, axis: Axes) -> torch.Tensor:
         """``jax.lax.axis_index``: each local rank's (flat) index over
         ``axis``, an int64 tensor on the mesh's device."""
@@ -286,6 +302,21 @@ class Mesh:
         sums, group_of = self._group_sum(x, names)
         self._count("psum", x, self.n_ranks * 2.0 * (n - 1) / n)
         return sums.index_select(0, _ranks(group_of, x))
+
+    def pmax(self, x: torch.Tensor, axes: Axes) -> torch.Tensor:
+        """``jax.lax.pmax`` over ``axes``: the elementwise maximum of each
+        group's ``x`` on every rank of the group."""
+        self._check(x)
+        names = self._names(axes)
+        table = self._groups(names)
+        if table.shape[1] == 1:
+            return x
+        acc = x.index_select(0, _ranks(table[:, 0], x))
+        for j in range(1, table.shape[1]):
+            acc = torch.maximum(acc, x.index_select(0, _ranks(table[:, j], x)))
+        self._count("psum", x, self.n_ranks * 2.0 * (table.shape[1] - 1)
+                    / table.shape[1])
+        return acc
 
     def _scatter_size(self, x: torch.Tensor, names, scatter_dimension: int,
                       tiled: bool) -> Tuple[int, int]:
@@ -386,21 +417,27 @@ class Mesh:
             out[i].copy_(x[idx])
         return out
 
-    def _all_ranks(self, c: torch.Tensor) -> torch.Tensor:
-        """Every rank's block of a rank-stacked ``c``, (R, *block)."""
+    def _all_ranks(self, c: torch.Tensor, dst=None) -> torch.Tensor:
+        """Every rank's block of a rank-stacked ``c``, (R, *block) (on
+        mesh rank ``dst`` alone where it is given; None elsewhere)."""
         return c
 
-    def unshard(self, c: torch.Tensor, spec: Sequence) -> torch.Tensor:
+    def unshard(self, c: torch.Tensor, spec: Sequence,
+                dst: Optional[int] = None) -> torch.Tensor:
         """Put a rank-stacked result back into one global tensor laid out
-        by ``spec``, on every process.  Ranks that differ only on axes
-        ``spec`` does not name hold replicas; the one at coordinate 0 on
-        those axes is taken (JAX's ``out_specs`` assumes they agree)."""
+        by ``spec``, on every process (on the process of mesh rank
+        ``dst`` alone where it is given: the others get None).  Ranks
+        that differ only on axes ``spec`` does not name hold replicas;
+        the one at coordinate 0 on those axes is taken (JAX's
+        ``out_specs`` assumes they agree)."""
         self._check(c)
         per_dim = self._spec_names(spec, c.ndim - 1)
         named = {a for names in per_dim for a in names}
         if self.n_ranks == 1 or not named:
             return c[0]
-        c = self._all_ranks(c)
+        c = self._all_ranks(c, dst)
+        if c is None:
+            return None
         coords = self._coords()
         keep = np.ones(self.n_ranks, dtype=bool)
         for i, a in enumerate(self.axis_names):
@@ -577,6 +614,20 @@ class ProcessMesh(Mesh):
         self._count("psum", x, self.n_ranks * 2.0 * (n - 1) / n)
         return self._unwire(y).unsqueeze(0)
 
+    def pmax(self, x: torch.Tensor, axes: Axes) -> torch.Tensor:
+        import torch.distributed as dist
+
+        self._check(x)
+        names = self._names(axes)
+        n = math.prod(self.shape[a] for a in names)
+        if n == 1:
+            return x
+        pg, _ = self._subgroup(names)
+        y = self._wire(x[0], fresh=True)
+        dist.all_reduce(y, op=dist.ReduceOp.MAX, group=pg)
+        self._count("psum", x, self.n_ranks * 2.0 * (n - 1) / n)
+        return self._unwire(y).unsqueeze(0)
+
     def psum_scatter(self, x: torch.Tensor, axes: Axes, *,
                      scatter_dimension: int = 0,
                      tiled: bool = True) -> torch.Tensor:
@@ -629,8 +680,18 @@ class ProcessMesh(Mesh):
                                     group=pg)
         return self._unwire(got).view((n,) + tuple(block.shape))
 
-    def _all_ranks(self, c: torch.Tensor) -> torch.Tensor:
-        return self._gather(c[0], self.group, self.n_ranks)
+    def _all_ranks(self, c: torch.Tensor, dst=None) -> torch.Tensor:
+        if dst is None:
+            return self._gather(c[0], self.group, self.n_ranks)
+        import torch.distributed as dist
+
+        block = c[0]
+        got = ([self._wire_empty(block.shape, block.dtype)
+                for _ in range(self.n_ranks)] if self.rank == dst else None)
+        dist.gather(self._wire(block), got, dst=dst, group=self.group)
+        if got is None:
+            return None
+        return self._unwire(torch.stack(got))
 
 
 def check_rank_devices(backend: str, devices: Sequence[str]) -> None:
@@ -696,6 +757,161 @@ def make_process_mesh(shape: Sequence[int], axes: Sequence[str], *,
     check_rank_devices(backend, [d for _, _, d in seen])
     return ProcessMesh(shape, tuple(axes), dev, rank=rank, backend=backend,
                        group=group, timeout=timeout)
+
+
+# ---------------------------------------------------------------------------
+# collectives on local tensors that autograd passes through
+# ---------------------------------------------------------------------------
+#
+# The LM holds one rank's shard of every tensor as a plain tensor (no
+# rank axis).  Each function below is the identity where ``mesh`` is
+# None or the axes have one rank, so a 1x1 mesh runs the very operations
+# of no mesh.  The backward of each runs the same process-group
+# operations as a forward, so the processes pair up in it too.  Their
+# transposes are JAX's, for the two ways a rank can hold a cotangent:
+#
+#   * ``psum_ad``: forward psum, backward psum.  Each rank holds the
+#     cotangent of its own use of the sum (it goes on to compute
+#     something of its own with it), so the sum's cotangent is theirs
+#     summed.
+#   * ``psum_rep`` and ``enter_rep``: Megatron's pair for a block whose
+#     input every rank of ``axes`` holds alike and whose output every
+#     rank uses alike.  ``psum_rep`` (psum forward, identity backward)
+#     ends the block: every rank computes the same cotangent of the sum
+#     downstream, and that is the cotangent of each summand.
+#     ``enter_rep`` (identity forward, psum backward) starts it: each
+#     rank's cotangent of the shared input covers its own part of the
+#     block only.
+#   * ``all_gather_ad`` (tiled; backward ``psum_scatter``) and
+#     ``psum_scatter_ad`` (backward ``all_gather``).
+
+
+def axis_size(mesh, axes: Axes) -> int:
+    """The number of ranks over ``axes`` (1 where ``mesh`` is None)."""
+    if mesh is None:
+        return 1
+    names = (axes,) if isinstance(axes, str) else tuple(axes)
+    return math.prod(mesh.shape[a] for a in names)
+
+
+def _on(mesh, axes: Axes) -> bool:
+    return axis_size(mesh, axes) > 1
+
+
+def _local(op, x: torch.Tensor, *args, **kw) -> torch.Tensor:
+    return op(x.unsqueeze(0), *args, **kw)[0]
+
+
+class _PsumBoth(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return _local(mesh.psum, x, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _local(ctx.mesh.psum, g.contiguous(), ctx.axes), None, None
+
+
+class _PsumRep(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return _local(mesh.psum, x, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _EnterRep(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _local(ctx.mesh.psum, g.contiguous(), ctx.axes), None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, axis):
+        ctx.mesh, ctx.axes, ctx.axis = mesh, axes, axis
+        return _local(mesh.all_gather, x, axes, axis=axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_local(ctx.mesh.psum_scatter, g.contiguous(), ctx.axes,
+                       scatter_dimension=ctx.axis), None, None, None)
+
+
+class _PsumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, axis):
+        ctx.mesh, ctx.axes, ctx.axis = mesh, axes, axis
+        return _local(mesh.psum_scatter, x, axes, scatter_dimension=axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_local(ctx.mesh.all_gather, g.contiguous(), ctx.axes,
+                       axis=ctx.axis), None, None, None)
+
+
+def _tracked(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def psum_ad(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
+    """psum over ``axes``; backward psum (see above)."""
+    if not _on(mesh, axes):
+        return x
+    if _tracked(x):
+        return _PsumBoth.apply(x, mesh, axes)
+    return _local(mesh.psum, x, axes)
+
+
+def psum_rep(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
+    """psum over ``axes``; backward the identity (see above)."""
+    if not _on(mesh, axes):
+        return x
+    if _tracked(x):
+        return _PsumRep.apply(x, mesh, axes)
+    return _local(mesh.psum, x, axes)
+
+
+def enter_rep(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
+    """The identity; backward psum over ``axes`` (see above)."""
+    if not _on(mesh, axes) or not _tracked(x):
+        return x
+    return _EnterRep.apply(x, mesh, axes)
+
+
+def all_gather_ad(x: torch.Tensor, mesh, axes: Axes, *,
+                  axis: int = 0) -> torch.Tensor:
+    """Tiled all_gather over ``axes`` along ``axis``; backward psum_scatter."""
+    if not _on(mesh, axes):
+        return x
+    if _tracked(x):
+        return _AllGather.apply(x, mesh, axes, axis)
+    return _local(mesh.all_gather, x, axes, axis=axis)
+
+
+def psum_scatter_ad(x: torch.Tensor, mesh, axes: Axes, *,
+                    axis: int = 0) -> torch.Tensor:
+    """Tiled psum_scatter over ``axes`` along ``axis``; backward all_gather."""
+    if not _on(mesh, axes):
+        return x
+    if _tracked(x):
+        return _PsumScatter.apply(x, mesh, axes, axis)
+    return _local(mesh.psum_scatter, x, axes, scatter_dimension=axis)
+
+
+def pmax(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
+    """The elementwise maximum over ``axes`` (no gradient)."""
+    if not _on(mesh, axes):
+        return x
+    return _local(mesh.pmax, x.detach(), axes)
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,9 @@ group that meets at a ``FileStore`` in a fresh directory under
 runs ``fn(rank, *args)`` and leaves the group.  ``fn`` is pickled by
 import path (a module-level function) and typically builds its mesh
 with ``launch.mesh.make_process_mesh``.  The group's ``timeout_s``
-bounds every collective, and ``join_timeout_s`` the whole run: a rank
+bounds the rendezvous and every collective, and ``join_timeout_s`` the
+run from the moment every rank has joined the group (so how long the
+processes take to start and import counts against neither): a rank
 that fails or hangs fails the call, and no process outlives it.
 
 Under ``torchrun`` there is no need for this: every process already
@@ -40,6 +42,7 @@ def _rank_main(rank: int, world_size: int, backend: str, store_path: str,
     dist.init_process_group(
         backend, store=dist.FileStore(store_path, world_size), rank=rank,
         world_size=world_size, timeout=datetime.timedelta(seconds=timeout_s))
+    results.put((rank, None))   # joined; the deadline starts once all have
     try:
         out = fn(rank, *args)
     finally:
@@ -58,7 +61,8 @@ def run_ranks(fn: Callable, world_size: int, *, store_dir: str,
     return their results (pickled by value, so tensors too) in rank
     order.  Raises ``RuntimeError`` with the first failing rank's
     traceback, or ``TimeoutError`` when the ranks have not all finished
-    within ``join_timeout_s``; the processes are stopped either way."""
+    within ``join_timeout_s`` of the last one joining the group; the
+    processes are stopped either way."""
     import torch.multiprocessing as tmp
 
     store = os.path.join(tempfile.mkdtemp(prefix="ranks-", dir=store_dir),
@@ -68,21 +72,27 @@ def run_ranks(fn: Callable, world_size: int, *, store_dir: str,
         _rank_main, args=(world_size, backend, store, timeout_s, fn,
                           tuple(args), results),
         nprocs=world_size, join=False, start_method="spawn")
-    done = {}
+    done, joined = {}, set()
+    deadline = None
 
     def drain():   # a rank leaves only once its result is read
+        nonlocal deadline
         while True:
             try:
                 rank, payload = results.get_nowait()
             except queue_mod.Empty:
                 return
-            done[rank] = pickle.loads(payload)
+            if payload is None:
+                joined.add(rank)
+                if len(joined) == world_size:
+                    deadline = time.monotonic() + join_timeout_s
+            else:
+                done[rank] = pickle.loads(payload)
 
-    deadline = time.monotonic() + join_timeout_s
     try:
         while not ctx.join(timeout=1.0, grace_period=_GRACE_S):
             drain()
-            if time.monotonic() >= deadline:
+            if deadline is not None and time.monotonic() >= deadline:
                 raise TimeoutError(
                     f"ranks {sorted(set(range(world_size)) - set(done))} "
                     f"of {world_size} did not finish within "

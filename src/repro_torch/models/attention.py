@@ -6,6 +6,15 @@ The counterpart of ``repro.models.attention``.  The decode path calls
 the hand-written CUDA kernel (``kernels/decode_attention``), reading the
 cache in place; the cache write is an in-place ``index_copy_`` at the
 device-resident ``cur_len``, so a decode step never waits for the host.
+
+On a mesh the query heads are local to their ``model`` shard, and so
+are the KV heads where ``model`` divides them; where it does not (MQA)
+the KV projection is replicated and each rank keeps the KV heads its
+query heads read.  The caches hold a rank's own KV heads for the whole
+sequence, so the decode kernel runs unchanged on each process (the JAX
+package's cache specs cut the sequence over ``model`` instead and leave
+the combine to GSPMD: a named departure of the layout, not of the
+values).  ``wo`` is row-parallel: one psum over ``model``.
 """
 from __future__ import annotations
 
@@ -15,8 +24,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..kernels.decode_attention import ops as decode_ops
-from ..launch.mesh import P
-from .common import ParamDef, apply_rope, rms_norm
+from ..launch.mesh import P, enter_rep, psum_rep
+from .common import ParamDef, apply_rope, model_shard, rms_norm
 
 NEG_INF = -1e30
 
@@ -192,6 +201,7 @@ def attention_apply(
     block_q: int = 512,
     block_kv: int = 512,
     long_seq_threshold: int = 8192,
+    mesh=None,
 ):
     """Returns (out (B, S, d), new_cache).
 
@@ -203,22 +213,42 @@ def attention_apply(
     dh = cfg.head_dim or d // cfg.num_heads
     h, hkv = effective_heads(cfg)
     scale = dh ** -0.5
+    h_loc = params["wq"].shape[1]
+    n_tp, r = model_shard(mesh, h, h_loc)
+    kv_rep = n_tp > 1 and params["wk"].shape[1] == hkv
+    p = params
+    if n_tp > 1:
+        x = enter_rep(x, mesh, "model")
+        # parameters every rank holds alike but uses on its own heads
+        shared = ["wk", "wv", "bk", "bv"] if kv_rep else []
+        p = dict(params, **{n: enter_rep(params[n], mesh, "model")
+                            for n in shared if n in params})
+        for n in ("q_norm", "k_norm"):
+            if n in params:
+                p[n] = {"scale": enter_rep(params[n]["scale"], mesh, "model")}
 
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(x.dtype))
-    k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(x.dtype))
-    v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(x.dtype))
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
     if cfg.qkv_bias:
-        q = q + params["bq"].to(x.dtype)
-        k = k + params["bk"].to(x.dtype)
-        v = v + params["bv"].to(x.dtype)
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    if kv_rep:   # the KV heads this rank's query heads read
+        group = h // hkv
+        lo, hi = r * h_loc // group, ((r + 1) * h_loc - 1) // group + 1
+        if h_loc % group and group % h_loc:
+            raise ValueError(f"{h_loc} query heads a rank straddle the "
+                             f"groups of {group} of a KV head")
+        k, v = k[:, :, lo:hi], v[:, :, lo:hi]
     if cfg.qk_norm:
-        q = rms_norm(q, params["q_norm"]["scale"])
-        k = rms_norm(k, params["k_norm"]["scale"])
+        q = rms_norm(q, p["q_norm"]["scale"])
+        k = rms_norm(k, p["k_norm"]["scale"])
     if cfg.rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
 
-    n_rep = h // hkv
+    n_rep = q.shape[2] // k.shape[2]
     if cache is None:
         k_full = _repeat_kv(k, n_rep)
         v_full = _repeat_kv(v, n_rep)
@@ -241,7 +271,10 @@ def attention_apply(
 
     if cfg.head_pad_factor > 1:
         # hard-mask padded heads: keeps the padded model exactly the original
-        head_mask = (torch.arange(h, device=x.device) < cfg.num_heads).to(out.dtype)
+        head_mask = (torch.arange(r * h_loc, (r + 1) * h_loc, device=x.device)
+                     < cfg.num_heads).to(out.dtype)
         out = out * head_mask[None, None, :, None]
     out = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
+    if n_tp > 1:
+        out = psum_rep(out, mesh, "model")
     return out, new_cache

@@ -9,8 +9,11 @@ declaration.  Mesh axis conventions (see launch/mesh.py):
   heads / ff hidden / experts / vocab -> "model"  (TP / EP)
 
 One card runs every spec as replicated; the specs serve the dry-run's
-per-device sizes (``launch/dryrun.py``) and a multi-rank mesh's
-``Mesh.shard``.
+per-device sizes (``launch/dryrun.py``) and the process mesh: there each
+process holds the shard of every leaf that the resolved spec gives its
+rank (``shard_tree`` / ``gather_tree``, ``init_params(..., mesh=)``),
+and the layers compute on those shards with the collectives of
+``launch.mesh`` (``lm_mesh`` says which meshes the LM takes).
 
 Parameter trees are nested dicts, lists and tuples, as in the JAX
 package, so a tree carried over from it (``convert.py``) has the same
@@ -25,14 +28,16 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..launch.mesh import P, PartitionSpec, is_spec, resolve_device
+from ..launch.mesh import (P, PartitionSpec, axis_size, is_spec, pmax,
+                           psum_rep, resolve_device)
 
 __all__ = ["ParamDef", "tree_map", "tree_leaves", "resolve_device",
            "init_params", "param_shapes", "param_specs", "resolve_spec",
            "resolve_specs", "stack_defs", "rms_norm",
            "layer_norm", "apply_norm", "norm_defs", "act_fn",
            "rope_frequencies", "apply_rope", "sinusoidal_positions",
-           "cross_entropy_logits_sharded"]
+           "cross_entropy_logits_sharded", "embed_lookup", "lm_mesh",
+           "shard_tree", "gather_tree", "model_shard"]
 
 
 # ---------------------------------------------------------------------------
@@ -86,29 +91,60 @@ def _is_def(x) -> bool:
 
 
 def init_params(defs, generator: torch.Generator, dtype_override=None,
-                device=None):
+                device=None, *, mesh=None, specs=None):
     """Materialise a tree of ParamDef into tensors on ``device`` (default
     CUDA), drawing from ``generator``, which must live on that device.
 
     The init rule is the JAX package's: std = scale / sqrt(shape[0]) for
     every tensor of two or more dims.  For a layer stack (``stack_defs``)
     ``shape[0]`` is the layer count, not the fan-in; it is copied as it
-    is, so activations have the JAX package's scale."""
-    dev = resolve_device(device)
+    is, so activations have the JAX package's scale.
 
-    def one(d: ParamDef):
+    With ``mesh`` (and the resolved ``specs``), every process draws each
+    whole leaf, as one card does, and keeps its rank's shard: leaf for
+    leaf the shards of the one-card init.  Where the processes share a
+    card (host-staged transport) they draw a leaf one at a time (a
+    barrier between turns, the card's cache emptied after each), so the
+    card never holds two whole leaves at once."""
+    dev = resolve_device(device)
+    if mesh is not None and specs is None:
+        raise ValueError("init_params on a mesh needs the resolved specs")
+    turns = (mesh is not None and mesh.n_ranks > 1
+             and mesh.transport.endswith("host-staged"))
+
+    def draw(d: ParamDef, spec):
         dt = dtype_override or d.dtype
-        if d.init == "zeros":
-            return torch.zeros(d.shape, dtype=dt, device=dev)
-        if d.init == "ones":
-            return torch.ones(d.shape, dtype=dt, device=dev)
+        if d.init in ("zeros", "ones"):
+            shape = d.shape if mesh is None else _shard_shape(d.shape, spec,
+                                                              mesh)
+            fill = torch.zeros if d.init == "zeros" else torch.ones
+            return fill(shape, dtype=dt, device=dev)
         fan_in = d.shape[0] if len(d.shape) > 1 else max(d.shape[-1], 1)
         std = d.scale / math.sqrt(fan_in)
         x = torch.randn(d.shape, generator=generator, dtype=torch.float32,
                         device=dev)
+        if mesh is not None:    # cut first: scaling is elementwise
+            x = mesh.shard(x, spec)[0].clone()
         return x.mul_(std).to(dt)
 
-    return tree_map(one, defs, is_leaf=_is_def)
+    def one(d: ParamDef, spec=None):
+        if not turns:
+            return draw(d, spec)
+        import torch.distributed as dist
+
+        out = None
+        for r in range(mesh.n_ranks):
+            if r == mesh.rank:
+                out = draw(d, spec)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                    torch.cuda.empty_cache()
+            dist.barrier(group=mesh.group)
+        return out
+
+    if mesh is None:
+        return tree_map(one, defs, is_leaf=_is_def)
+    return tree_map(one, defs, specs, is_leaf=_is_def)
 
 
 def param_shapes(defs, dtype_override=None):
@@ -158,6 +194,50 @@ def resolve_specs(spec_tree, shape_tree, mesh):
     tensors (meta or not)."""
     return tree_map(lambda sp, sh: resolve_spec(sp, tuple(sh.shape), mesh),
                     spec_tree, shape_tree, is_leaf=is_spec)
+
+
+def _shard_shape(shape, spec, mesh) -> Tuple[int, ...]:
+    parts = list(spec) + [None] * (len(shape) - len(spec))
+    return tuple(dim // axis_size(mesh, () if p is None else p)
+                 for dim, p in zip(shape, parts))
+
+
+def lm_mesh(mesh):
+    """The mesh the LM runs on: None (one card), a 1x1 mesh, or a process
+    mesh (one rank a process).  An in-process mesh of several ranks is
+    refused: its rank-axis simulation is the DBCSR schedules'."""
+    if mesh is None or mesh.n_ranks == 1 or len(mesh.local_ranks) == 1:
+        return mesh
+    raise ValueError(
+        f"the LM runs on a process mesh (one rank a process) or 1x1; this "
+        f"mesh holds {len(mesh.local_ranks)} ranks in one process "
+        "(launch.mesh.make_process_mesh)")
+
+
+def shard_tree(tree, specs, mesh):
+    """This process's shard of every leaf of a tree of whole tensors, by
+    the resolved ``specs`` (a tree of the same structure)."""
+    return tree_map(lambda x, sp: mesh.shard(x, sp)[0], tree, specs)
+
+
+def gather_tree(tree, specs, mesh):
+    """The whole value of every leaf of a tree of shards, on every
+    process (``shard_tree``'s inverse)."""
+    return tree_map(lambda x, sp: mesh.unshard(x.unsqueeze(0), sp), tree,
+                    specs)
+
+
+def model_shard(mesh, full: int, local: int) -> Tuple[int, int]:
+    """(n, index) of a dimension of ``full`` entries this process holds
+    ``local`` of: cut over the mesh's ``model`` axis (n > 1), or whole
+    (1, 0) where its spec was resolved away."""
+    if local == full:
+        return 1, 0
+    n = axis_size(mesh, "model")
+    if full != local * n:
+        raise ValueError(f"a dimension of {full} held as {local} is no cut "
+                         f"over 'model' ({n})")
+    return n, mesh.index("model")
 
 
 def stack_defs(defs, n: int):
@@ -252,11 +332,37 @@ def sinusoidal_positions(positions: torch.Tensor, d: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def cross_entropy_logits_sharded(logits, labels, *, valid_mask=None):
+def embed_lookup(tokens, embedding, mesh=None, vocab=None):
+    """tokens (B, S) int; embedding (V, d), on a mesh this process's rows
+    of it (``P("model", None)``; ``vocab``, the whole V, says whether it
+    is cut) -> (B, S, d).  With the vocabulary cut over ``model``, each
+    rank gathers its own rows, sends the other ranks' tokens to 0, and
+    the partials are summed over ``model`` (what the JAX package's GSPMD
+    emits for its ``take``)."""
+    b, s = tokens.shape
+    v_loc = embedding.shape[0]
+    if mesh is None or vocab is None or v_loc == vocab:
+        return embedding.index_select(0, tokens.reshape(-1)).reshape(b, s, -1)
+    local = tokens.reshape(-1).long() - mesh.index("model") * v_loc
+    mine = (local >= 0) & (local < v_loc)
+    rows = embedding.index_select(0, torch.where(mine, local, 0))
+    rows = rows * mine[:, None].to(rows.dtype)
+    return psum_rep(rows, mesh, "model").reshape(b, s, -1)
+
+
+def cross_entropy_logits_sharded(logits, labels, *, valid_mask=None,
+                                 mesh=None, vocab=None, dp=()):
     """logits (B, S, V), labels (B, S) -> the mean nll over the valid
-    tokens, computed in f32 as logsumexp minus the label's logit.  The
-    name is the JAX package's, whose V may be sharded; one card holds it
-    whole."""
+    tokens, computed in f32 as logsumexp minus the label's logit.
+
+    On a mesh, ``logits`` are this process's (B_loc, S, V / model) block
+    of the vocabulary (``vocab``, the whole V, says whether it is cut):
+    the max, the sum of exponentials and the label's logit are each
+    reduced over ``model``.  The mean is over the tokens of every data
+    shard: the local sum of the nll is summed over the data axes ``dp``
+    and divided by the global count."""
+    if mesh is not None:
+        return _ce_on_mesh(logits, labels, valid_mask, mesh, vocab, dp)
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     label_logit = logits.gather(-1, labels.long()[..., None])[..., 0]
@@ -265,3 +371,30 @@ def cross_entropy_logits_sharded(logits, labels, *, valid_mask=None):
         return nll.mean()
     valid = valid_mask.float()
     return (nll * valid).sum() / torch.clamp_min(valid.sum(), 1.0)
+
+
+def _ce_on_mesh(logits, labels, valid_mask, mesh, vocab, dp):
+    logits = logits.float()
+    v_loc = logits.shape[-1]
+    if vocab is None or v_loc == vocab:
+        lse = torch.logsumexp(logits, dim=-1)
+        label_logit = logits.gather(-1, labels.long()[..., None])[..., 0]
+    else:
+        m = pmax(logits.detach().amax(dim=-1), mesh, "model")
+        se = (logits - m[..., None]).exp().sum(dim=-1)
+        lse = psum_rep(se, mesh, "model").log() + m
+        local = labels.long() - mesh.index("model") * v_loc
+        mine = (local >= 0) & (local < v_loc)
+        got = logits.gather(-1, torch.where(mine, local, 0)[..., None])[..., 0]
+        label_logit = psum_rep(got * mine, mesh, "model")
+    nll = lse - label_logit
+    if axis_size(mesh, dp) == 1:
+        if valid_mask is None:
+            return nll.mean()
+        valid = valid_mask.float()
+        return (nll * valid).sum() / torch.clamp_min(valid.sum(), 1.0)
+    valid = (torch.ones_like(nll) if valid_mask is None
+             else valid_mask.float())
+    count = psum_rep(valid.sum(), mesh, dp)
+    return psum_rep((nll * valid).sum(), mesh, dp) / torch.clamp_min(count,
+                                                                     1.0)

@@ -8,15 +8,17 @@ numpy arrays in the same nested dicts, lists and tuples
 tensors.  The two packages declare the same tree, so the
 carry-over is leaf for leaf; every shape is checked against the port's
 declaration.  Tests use it so that both packages compute with the same
-weights.
+weights.  With a process ``mesh`` each process keeps its shard of every
+leaf (by ``model_param_specs(cfg, mesh)``).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .common import resolve_device
-from .transformer import cache_shapes, model_param_shapes, segment_plan
+from .common import lm_mesh, resolve_device, shard_tree
+from .transformer import (cache_shapes, model_param_shapes, model_param_specs,
+                          segment_plan)
 
 __all__ = ["params_from_numpy", "opt_state_from_numpy", "cache_from_numpy"]
 
@@ -42,11 +44,17 @@ def _carry(tree, expected, dev, path="tree"):
     return torch.tensor(a).to(device=dev, dtype=expected.dtype)
 
 
-def params_from_numpy(tree, cfg, *, dtype=None, device=None):
+def params_from_numpy(tree, cfg, *, dtype=None, device=None, mesh=None):
     """The JAX package's parameter tree of ``cfg`` (numpy leaves) as the
     port's, in ``dtype`` (default ``cfg.dtype``) on ``device`` (default
-    CUDA)."""
-    return _carry(tree, model_param_shapes(cfg, dtype), resolve_device(device))
+    CUDA; a mesh's device where ``mesh`` is given), on a process ``mesh``
+    this process's shards."""
+    mesh = lm_mesh(mesh)
+    dev = resolve_device(device) if mesh is None else mesh.device
+    params = _carry(tree, model_param_shapes(cfg, dtype), dev)
+    if mesh is None:
+        return params
+    return shard_tree(params, model_param_specs(cfg, mesh), mesh)
 
 
 def opt_state_from_numpy(tree, cfg, opt, *, dtype=None, device=None):

@@ -1,12 +1,15 @@
 """Dense feed-forward blocks (GLU and plain), the counterpart of
-``repro.models.ffn`` (one card: no tensor-parallel specs)."""
+``repro.models.ffn``: tensor-parallel over ``model`` on a mesh, gate and
+up column-parallel, down row-parallel with one psum over ``model``
+(``b_up`` is cut with the columns; ``b_down`` is added once, after the
+psum)."""
 from __future__ import annotations
 
 from typing import Dict
 
 import torch
 
-from ..launch.mesh import P
+from ..launch.mesh import P, enter_rep, psum_rep
 from .common import ParamDef, act_fn
 
 __all__ = ["ffn_defs", "ffn_apply"]
@@ -32,7 +35,13 @@ def ffn_defs(cfg, d_ff: int | None = None) -> Dict[str, ParamDef]:
     return defs
 
 
-def ffn_apply(params: Dict, x: torch.Tensor, cfg) -> torch.Tensor:
+def ffn_apply(params: Dict, x: torch.Tensor, cfg, mesh=None) -> torch.Tensor:
+    """x (B, S, d) -> (B, S, d).  On a mesh whose ``model`` axis cuts the
+    hidden width ``cfg.d_ff``, x enters the block as Megatron's f and the
+    row-parallel product leaves it as g."""
+    tp = mesh is not None and params["w_up"].shape[1] != cfg.d_ff
+    if tp:
+        x = enter_rep(x, mesh, "model")
     act = act_fn(cfg.act)
     u = x @ params["w_up"].to(x.dtype)
     if cfg.mlp_bias:
@@ -43,6 +52,8 @@ def ffn_apply(params: Dict, x: torch.Tensor, cfg) -> torch.Tensor:
     else:
         h = act(u)
     out = h @ params["w_down"].to(x.dtype)
+    if tp:
+        out = psum_rep(out, mesh, "model")
     if cfg.mlp_bias:
         out = out + params["b_down"].to(x.dtype)
     return out

@@ -18,6 +18,11 @@ Two paths, as in the JAX package:
     ``cur_len`` (``index_copy_``), so a decode step never waits for the
     host.  MLA does not use the decode_attention kernel, in the JAX
     package or here.
+
+On a mesh the heads are local to their ``model`` shard (``wq_b``,
+``wk_b``, ``wv_b`` and ``wo`` cut on the head dim); the latent
+projections, their norms and the latent caches are every rank's alike,
+and ``wo``'s product is summed over ``model``.
 """
 from __future__ import annotations
 
@@ -26,10 +31,10 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..launch.mesh import P
+from ..launch.mesh import P, enter_rep, psum_rep
 from .attention import (NEG_INF, _einsum_f32, blockwise_causal_attention,
                         full_causal_attention)
-from .common import ParamDef, apply_rope, rms_norm
+from .common import ParamDef, apply_rope, model_shard, rms_norm
 
 __all__ = ["mla_defs", "mla_apply"]
 
@@ -51,10 +56,11 @@ def mla_defs(cfg) -> Dict[str, ParamDef]:
     }
 
 
-def _project_q(params, x, positions, cfg):
+def _project_q(params, x, positions, cfg, mesh=None):
     dn = cfg.qk_nope_dim
     q_lat = x @ params["wq_a"].to(x.dtype)
-    q_lat = rms_norm(q_lat, params["q_a_norm"]["scale"])
+    q_lat = enter_rep(rms_norm(q_lat, params["q_a_norm"]["scale"]), mesh,
+                      "model")
     q = torch.einsum("bsr,rhk->bshk", q_lat, params["wq_b"].to(x.dtype))
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
@@ -80,16 +86,21 @@ def mla_apply(
     block_q: int = 512,
     block_kv: int = 512,
     long_seq_threshold: int = 8192,
+    mesh=None,
 ):
     """Returns (out (B, S, d), new_cache).  Prefill returns the latents it
     would cache, (c_kv (B, S, kvr), k_rope (B, S, dr)); decode writes them
     into the caches in place and returns those same tensors."""
-    h = cfg.num_heads
     dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     scale = (dn + dr) ** -0.5
+    n_tp, _ = model_shard(mesh, cfg.num_heads, params["wq_b"].shape[1])
+    tp = mesh if n_tp > 1 else None   # the latents enter the head-local part
 
-    q_nope, q_rope = _project_q(params, x, positions, cfg)
+    q_nope, q_rope = _project_q(params, x, positions, cfg, tp)
     c_kv, k_rope = _project_kv_latent(params, x, positions, cfg)
+    # the caches keep the latents as every rank computes them
+    cache_kv, cache_rope = c_kv, k_rope
+    c_kv, k_rope = enter_rep(c_kv, tp, "model"), enter_rep(k_rope, tp, "model")
 
     if cache is None:
         # expanded path
@@ -107,7 +118,7 @@ def mla_apply(
         else:
             out = full_causal_attention(q, k, v, scale=scale)
         out = out[..., :dv]
-        new_cache = (c_kv, k_rope)
+        new_cache = (cache_kv, cache_rope)
     else:
         # absorbed decode: scores and reads stay in latent space
         c_cache, r_cache, cur_len = cache
@@ -131,4 +142,6 @@ def mla_apply(
         new_cache = (c_cache, r_cache)
 
     out = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
+    if n_tp > 1:
+        out = psum_rep(out, mesh, "model")
     return out, new_cache

@@ -19,6 +19,19 @@ autograd, with ``cfg.remat`` mapped onto ``torch.utils.checkpoint``
 (``_remat_wrap``).  The sharding helpers (``dp_axes``, ``cache_specs``,
 ``model_param_specs``) give the JAX package's PartitionSpecs, which the
 dry-run (``launch/dryrun.py``) reads for its per-device sizes.
+
+``forward``, ``lm_head``, ``lm_loss`` and their callers take ``mesh``:
+None (one card), a 1x1 mesh (the very same operations) or a process
+mesh, where each process holds its shard of every parameter (by
+``model_param_specs(cfg, mesh)``: ``model_init(..., mesh=)`` or
+``common.shard_tree``) and of the batch (cut over the data axes ``dp``;
+``dp=()`` where every rank holds the whole batch, as the JAX package
+replicates a batch its data axes do not divide).  The layers are tensor-
+and expert-parallel over ``model``; the vocabulary of the embedding and
+of the logits is cut over ``model`` and the loss is the mean over every
+data shard's tokens.  Mamba and RWKV-6 layers have no tensor-parallel
+form yet (ROADMAP A3d): on ``model > 1`` they are refused; on a data-only
+mesh every architecture runs.
 """
 from __future__ import annotations
 
@@ -29,11 +42,12 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from .attention import attention_apply, attention_defs, effective_heads
-from ..launch.mesh import P
+from ..launch.mesh import P, axis_size, enter_rep
 from .common import (ParamDef, apply_norm, cross_entropy_logits_sharded,
-                     init_params, norm_defs, param_shapes, param_specs,
-                     resolve_device, resolve_specs, sinusoidal_positions,
-                     stack_defs, tree_map)
+                     embed_lookup, init_params, lm_mesh, norm_defs,
+                     param_shapes, param_specs, resolve_device,
+                     resolve_specs, sinusoidal_positions, stack_defs,
+                     tree_map)
 from .ffn import ffn_apply, ffn_defs
 from .mamba import _dims as mamba_dims
 from .mamba import mamba_apply, mamba_defs
@@ -43,7 +57,8 @@ from .rwkv6 import rwkv6_channel_mix, rwkv6_defs, rwkv6_time_mix
 
 __all__ = ["segment_plan", "model_defs", "model_param_shapes", "model_init",
            "model_param_specs", "cache_shapes", "cache_specs", "cache_init",
-           "dp_axes", "DP_AXES", "forward", "lm_head", "lm_loss"]
+           "dp_axes", "DP_AXES", "forward", "lm_head", "lm_loss",
+           "backbone"]
 
 DP_AXES = ("pod", "data")
 
@@ -161,11 +176,17 @@ def model_param_shapes(cfg, dtype=None):
     return param_shapes(model_defs(cfg), dtype_override=dtype or _dtype(cfg))
 
 
-def model_init(cfg, generator: torch.Generator, dtype=None, *, device=None):
+def model_init(cfg, generator: torch.Generator, dtype=None, *, device=None,
+               mesh=None):
     """Random parameters drawn from ``generator`` (which lives on
-    ``device``; default CUDA) by the JAX package's init rule."""
+    ``device``; default CUDA) by the JAX package's init rule.  With a
+    process ``mesh``, this process's shards of the same draws."""
+    mesh = lm_mesh(mesh)
     return init_params(model_defs(cfg), generator,
-                       dtype_override=dtype or _dtype(cfg), device=device)
+                       dtype_override=dtype or _dtype(cfg), device=device,
+                       mesh=mesh,
+                       specs=None if mesh is None
+                       else model_param_specs(cfg, mesh))
 
 
 # ---------------------------------------------------------------------------
@@ -267,7 +288,8 @@ def cache_init(cfg, batch: int, max_len: int, *, device=None):
 # ---------------------------------------------------------------------------
 
 
-def _apply_layer(kind, lp, x, positions, cfg, cache, cur_len, collect=False):
+def _apply_layer(kind, lp, x, positions, cfg, cache, cur_len, collect=False,
+                 mesh=None, dp=()):
     """One layer.  cache is None (prefill) or this layer's cache slice
     (decode), which is updated in place.  With collect=True (prefill) the
     cache the layer *would have written* is returned even when none was
@@ -282,7 +304,7 @@ def _apply_layer(kind, lp, x, positions, cfg, cache, cur_len, collect=False):
         out, new_c = apply(
             lp["mixer"], h, positions, cfg, cache=c,
             block_q=cfg.attn_block_q, block_kv=cfg.attn_block_kv,
-            long_seq_threshold=cfg.long_seq_threshold)
+            long_seq_threshold=cfg.long_seq_threshold, mesh=mesh)
     elif mix == "mamba":
         c = None if cache is None else (cache[0], cache[1])
         out, new_c = mamba_apply(lp["mixer"], h, cfg, cache=c)
@@ -295,9 +317,9 @@ def _apply_layer(kind, lp, x, positions, cfg, cache, cur_len, collect=False):
 
     h = apply_norm(x, lp["norm2"], cfg.norm)
     if ff == "dense":
-        x = x + ffn_apply(lp["ffn"], h, cfg)
+        x = x + ffn_apply(lp["ffn"], h, cfg, mesh)
     elif ff == "moe":
-        out, aux = moe_apply(lp["ffn"], h, cfg)
+        out, aux = moe_apply(lp["ffn"], h, cfg, mesh=mesh, dp=dp)
         if cfg.remat == "save_moe" and torch.is_grad_enabled():
             out = _moe_out(out)
         x = x + out
@@ -385,7 +407,7 @@ def _unstack(tree, n: int) -> list:
     return [tree_map(lambda j, i=i: parts[j][i], where) for i in range(n)]
 
 
-def _train_period(period, positions, cfg):
+def _train_period(period, positions, cfg, mesh=None, dp=()):
     """One repeat of a period without caches: (x, aux, [layer params]) ->
     (x, aux).  A period of several layers (Jamba's 8) checkpoints each
     layer as well when remat is on, as the JAX package nests them, so
@@ -396,7 +418,7 @@ def _train_period(period, positions, cfg):
         for kind, lp in zip(period, lps):
             def layer(lp, x, kind=kind):
                 x, aux, _ = _apply_layer(kind, lp, x, positions, cfg, None,
-                                         None)
+                                         None, mesh=mesh, dp=dp)
                 return x, aux
 
             if nested:
@@ -410,20 +432,37 @@ def _train_period(period, positions, cfg):
     return _remat_wrap(run, cfg)
 
 
+def _check_mesh(cfg, mesh):
+    mesh = lm_mesh(mesh)
+    if axis_size(mesh, "model") > 1:
+        kinds = {mix for _, period in segment_plan(cfg) for mix, _ in period}
+        if kinds & {"mamba", "rwkv6"}:
+            raise ValueError(
+                f"{cfg.name}: Mamba and RWKV-6 layers have no tensor-"
+                "parallel form yet (ROADMAP A3d); run them on a data-only "
+                "mesh (model = 1)")
+    return mesh
+
+
+def _dp(mesh, dp):
+    return (dp_axes(mesh) if mesh is not None else ()) if dp is None else dp
+
+
 def backbone(params: Dict, inputs: torch.Tensor, cfg, *,
              positions: Optional[torch.Tensor] = None, cache=None,
              cur_len: Optional[torch.Tensor] = None,
-             collect_cache: bool = False):
+             collect_cache: bool = False, mesh=None, dp=None):
     """Embeddings, every layer and the final norm.  Returns (hidden,
     aux, new_cache); see ``forward``.  With autograd on and no cache
     (training), each repeat of a period runs under ``cfg.remat``."""
+    mesh = _check_mesh(cfg, mesh)
+    dp = _dp(mesh, dp)
     dt = _dtype(cfg)
     if cfg.input_mode == "embeddings" or inputs.ndim == 3:
         x = inputs.to(dt)
     else:
-        b, s = inputs.shape
-        x = params["embed"].index_select(0, inputs.reshape(-1)).reshape(
-            b, s, -1).to(dt)
+        x = embed_lookup(inputs, params["embed"], mesh,
+                         cfg.vocab_size).to(dt)
     b, s = x.shape[:2]
     if positions is None:
         if cur_len is not None:
@@ -440,7 +479,7 @@ def backbone(params: Dict, inputs: torch.Tensor, cfg, *,
     for si, (n_rep, period) in enumerate(segment_plan(cfg)):
         per_layer = [_unstack(p, n_rep) for p in params["segments"][si]]
         if train:
-            run = _train_period(period, positions, cfg)
+            run = _train_period(period, positions, cfg, mesh, dp)
             for i in range(n_rep):
                 x, aux_total = run(x, aux_total, [lp[i] for lp in per_layer])
             continue
@@ -452,7 +491,8 @@ def backbone(params: Dict, inputs: torch.Tensor, cfg, *,
                           else tuple(c[i] for c in seg_cache[pi]))
                 x, aux, nc = _apply_layer(kind, per_layer[pi][i], x, positions,
                                           cfg, cslice, cur_len,
-                                          collect=collect_cache)
+                                          collect=collect_cache, mesh=mesh,
+                                          dp=dp)
                 if aux is not None:
                     aux_total = aux_total + aux
                 if nc is not None and seg_cache is None:
@@ -466,11 +506,17 @@ def backbone(params: Dict, inputs: torch.Tensor, cfg, *,
     return apply_norm(x, params["final_norm"], cfg.norm), aux_total, new_cache
 
 
-def lm_head(params: Dict, hidden: torch.Tensor, cfg) -> torch.Tensor:
-    """(B, S, d) -> (B, S, V) logits in the hidden dtype."""
+def lm_head(params: Dict, hidden: torch.Tensor, cfg,
+            mesh=None) -> torch.Tensor:
+    """(B, S, d) -> (B, S, V) logits in the hidden dtype; on a mesh this
+    rank's (B, S, V / model) block of the vocabulary (the tied head reads
+    the cut embedding)."""
+    w = params["embed"] if cfg.tie_embeddings else params["head"]
+    if (w.shape[0] if cfg.tie_embeddings else w.shape[1]) != cfg.vocab_size:
+        hidden = enter_rep(hidden, mesh, "model")
     if cfg.tie_embeddings:
-        return hidden @ params["embed"].to(hidden.dtype).T
-    return hidden @ params["head"].to(hidden.dtype)
+        return hidden @ w.to(hidden.dtype).T
+    return hidden @ w.to(hidden.dtype)
 
 
 def forward(
@@ -482,18 +528,22 @@ def forward(
     cache=None,                     # segment-structured cache or None
     cur_len: Optional[torch.Tensor] = None,  # one-element int32 (decode)
     collect_cache: bool = False,    # prefill: return would-be caches
+    mesh=None,                      # None, 1x1 or a process mesh
+    dp=None,                        # data axes that cut the batch
 ):
     """Returns (logits, hidden, aux_loss, new_cache).
 
     With ``cache`` (decode), every layer writes its new K and V (or
     latents, or states) into the cache in place and ``new_cache`` holds
     the same tensors.  aux_loss is the MoE router loss summed over the
-    layers (f32; 0 for a model without MoE layers)."""
+    layers (f32; 0 for a model without MoE layers).  On a mesh the logits
+    are this rank's block of the vocabulary."""
     hidden, aux, new_cache = backbone(params, inputs, cfg,
                                       positions=positions, cache=cache,
                                       cur_len=cur_len,
-                                      collect_cache=collect_cache)
-    return lm_head(params, hidden, cfg), hidden, aux, new_cache
+                                      collect_cache=collect_cache,
+                                      mesh=mesh, dp=dp)
+    return lm_head(params, hidden, cfg, mesh), hidden, aux, new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -501,24 +551,38 @@ def forward(
 # ---------------------------------------------------------------------------
 
 
-def lm_loss(params, batch, cfg):
+def lm_loss(params, batch, cfg, mesh=None):
     """batch: {"inputs": (B, S) tokens or (B, S, d) embeddings, "labels":
     (B, S)} -> (loss, {"nll", "aux"[, "mtp"]}), every value an f32
     scalar: the next-token nll, plus 0.01 x the MoE router loss and
-    ``cfg.mtp_weight`` x the MTP loss where the model has them."""
-    logits, hidden, aux, _ = forward(params, batch["inputs"], cfg)
-    loss = cross_entropy_logits_sharded(logits, batch["labels"])
+    ``cfg.mtp_weight`` x the MTP loss where the model has them.  On a
+    mesh, batch is this rank's data shard and every value is the global
+    one, on every rank."""
+    mesh = lm_mesh(mesh)
+    dp = _dp(mesh, None)
+    logits, hidden, aux, _ = forward(params, batch["inputs"], cfg,
+                                     mesh=mesh, dp=dp)
+    loss = _ce(logits, batch["labels"], cfg, mesh, dp)
     metrics = {"nll": loss, "aux": aux}
     if cfg.moe:
         loss = loss + 0.01 * aux
     if cfg.mtp:
-        mtp_loss = _mtp_loss(params, hidden, batch, cfg)
+        mtp_loss = _mtp_loss(params, hidden, batch, cfg, mesh, dp)
         metrics["mtp"] = mtp_loss
         loss = loss + cfg.mtp_weight * mtp_loss
     return loss, metrics
 
 
-def _mtp_loss(params, hidden, batch, cfg):
+def _ce(logits, labels, cfg, mesh, dp, valid_mask=None):
+    if mesh is None:
+        return cross_entropy_logits_sharded(logits, labels,
+                                            valid_mask=valid_mask)
+    return cross_entropy_logits_sharded(logits, labels, valid_mask=valid_mask,
+                                        mesh=mesh, vocab=cfg.vocab_size,
+                                        dp=dp)
+
+
+def _mtp_loss(params, hidden, batch, cfg, mesh=None, dp=()):
     """DeepSeek-V3 multi-token prediction (depth 1, a dense-FFN block):
     from the final hidden state and the embedding of the next token,
     predict the token after it (the last position has none)."""
@@ -526,19 +590,20 @@ def _mtp_loss(params, hidden, batch, cfg):
     tokens = batch["labels"]            # next tokens (t+1) at each position
     dt = hidden.dtype
     b, s = tokens.shape
-    emb_next = params["embed"].index_select(0, tokens.reshape(-1)).reshape(
-        b, s, -1).to(dt)
+    emb_next = embed_lookup(tokens, params["embed"], mesh,
+                            cfg.vocab_size).to(dt)
     h = torch.cat([apply_norm(hidden, mp["norm_h"], cfg.norm),
                    apply_norm(emb_next, mp["norm_e"], cfg.norm)], dim=-1)
     h = h @ mp["proj"].to(dt)
     positions = torch.arange(s, dtype=torch.int32,
                              device=h.device).expand(b, s)
     kind = ("mla" if cfg.mixer == "mla" else "attention", "dense")
-    h, _, _ = _apply_layer(kind, mp["block"], h, positions, cfg, None, None)
+    h, _, _ = _apply_layer(kind, mp["block"], h, positions, cfg, None, None,
+                           mesh=mesh, dp=dp)
     logits = lm_head(params, apply_norm(h, params["final_norm"], cfg.norm),
-                     cfg)
+                     cfg, mesh)
     # predict t+2: labels shifted one more step
     labels2 = torch.cat([tokens[:, 1:], tokens[:, -1:]], dim=1)
     valid = torch.ones((b, s), dtype=torch.bool, device=h.device)
     valid[:, -1] = False
-    return cross_entropy_logits_sharded(logits, labels2, valid_mask=valid)
+    return _ce(logits, labels2, cfg, mesh, dp, valid_mask=valid)

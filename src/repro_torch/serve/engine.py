@@ -17,8 +17,8 @@ import torch
 
 from ..launch.mesh import P
 from ..models import transformer as T
-from ..models.common import (resolve_device, resolve_specs, tree_leaves,
-                             tree_map)
+from ..models.common import resolve_device, resolve_specs, tree_map
+from .prefill import greedy
 
 __all__ = ["decode_step", "init_serve_state", "pad_cache",
            "serve_input_specs", "decode_shardings"]
@@ -35,33 +35,45 @@ def pad_cache(prefill_cache, cfg, batch: int, max_len: int):
     """A ``max_len`` decode cache, on the prefill cache's device, that
     holds the prefill cache (``prefill_step`` returns one of the prompt's
     length).  Attention and MLA caches keep the prompt's rows, and the
-    rows after them are zero; Mamba and RWKV states are copied whole."""
-    dev = tree_leaves(prefill_cache)[0].device
-    full = T.cache_init(cfg, batch, max_len, device=dev)
-    for (_, period), seg, pseg in zip(T.segment_plan(cfg), full,
-                                      prefill_cache):
-        for (mix, _), layer, player in zip(period, seg, pseg):
-            if mix in ("attention", "mla"):      # (layers, B, length, ...)
-                tree_map(lambda f, p: f[:, :, :p.shape[2]].copy_(p), layer,
-                         player)
-            else:
-                tree_map(lambda f, p: f.copy_(p), layer, player)
+    rows after them are zero; Mamba and RWKV states are copied whole.
+    Each leaf takes the prefill leaf's shape (on a mesh, a process's
+    shard) with ``max_len`` rows."""
+    full = []
+    dtypes = T.cache_shapes(cfg, 1, 1)
+    for (_, period), pseg, dseg in zip(T.segment_plan(cfg), prefill_cache,
+                                       dtypes):
+        seg = []
+        for (mix, _), player, dlayer in zip(period, pseg, dseg):
+            grow = mix in ("attention", "mla")   # (layers, B, length, ...)
+
+            def one(p, meta, grow=grow):
+                shape = ((p.shape[0], batch, max_len) + tuple(p.shape[3:])
+                         if grow else p.shape)
+                f = torch.zeros(shape, dtype=meta.dtype, device=p.device)
+                (f[:, :, :p.shape[2]] if grow else f).copy_(p)
+                return f
+
+            seg.append(tree_map(one, player, dlayer))
+        full.append(seg)
     return full
 
 
 @torch.no_grad()
-def decode_step(params, state, tokens_or_embeds, cfg):
+def decode_step(params, state, tokens_or_embeds, cfg, mesh=None, dp=None):
     """One decode step.
 
     tokens_or_embeds: (B, 1) int32 (or (B, 1, d) for stub-frontend
     archs).  Returns (next_tokens (B, 1) int32, new_state).  The caches
     of ``state`` are written in place and shared with ``new_state``;
-    ``state["cur_len"]`` is left as it was.
+    ``state["cur_len"]`` is left as it was.  On a process ``mesh`` the
+    tokens and caches are this process's shards (``prefill_step``), the
+    batch cut over the data axes ``dp`` (default all of them; () where
+    each rank holds it whole).
     """
     logits, _hidden, _aux, new_cache = T.forward(
         params, tokens_or_embeds, cfg,
-        cache=state["cache"], cur_len=state["cur_len"])
-    next_tokens = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        cache=state["cache"], cur_len=state["cur_len"], mesh=mesh, dp=dp)
+    next_tokens = greedy(logits[:, -1:], cfg, mesh)
     return next_tokens, {"cache": new_cache,
                          "cur_len": state["cur_len"] + 1}
 

@@ -9,6 +9,13 @@ values (``<V2`` in the ``.npy`` header, ``"dtype": "bfloat16"`` in the
 manifest), read back through ``view(torch.bfloat16)``.  numpy has no
 bfloat16, and none is needed.  (The JAX package writes such a leaf but
 cannot restore it: its restore casts a ``V2`` array.)
+
+On a process mesh (``mesh=`` with the tree's resolved ``specs``, e.g.
+``train_step.state_specs``), a save gathers each leaf to its whole
+value on rank 0, one leaf at a time, and rank 0 alone writes; a restore reads the
+whole leaves and cuts each by the specs of the mesh it is given, any
+mesh (the JAX package's elastic re-mesh).  The files are the same as one
+card's.
 """
 from __future__ import annotations
 
@@ -22,8 +29,8 @@ from typing import Any, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-from ..launch.mesh import resolve_device
-from ..models.common import tree_map
+from ..launch.mesh import is_spec, resolve_device
+from ..models.common import tree_leaves, tree_map
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step",
            "all_steps", "CheckpointManager"]
@@ -69,15 +76,39 @@ def _load_leaf(path: str, dtype: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
+def _multi(mesh) -> bool:
+    return mesh is not None and mesh.n_ranks > 1
+
+
+def _barrier(mesh) -> None:
+    if _multi(mesh):
+        import torch.distributed as dist
+
+        dist.barrier(group=mesh.group)
+
+
 def save_checkpoint(directory: str, step: int, state: Any,
-                    *, keep_last: int = 3) -> str:
+                    *, keep_last: int = 3, mesh=None, specs=None) -> str:
     """Write the tree ``state`` (tensors on any device) at
-    ``<directory>/step_<step>``.  Atomic via rename."""
+    ``<directory>/step_<step>``.  Atomic via rename.  On a process mesh,
+    ``state`` holds this process's shards and ``specs`` their resolved
+    specs; every process calls it, rank 0 writes."""
+    multi = _multi(mesh)
+    writer = not multi or mesh.rank == 0
+    spec_of = (dict(zip((p for p, _ in _flatten_with_path(state)),
+                        tree_leaves(specs, is_leaf=is_spec)))
+               if multi else {})
     tmp = os.path.join(directory, f".tmp_step_{step}")
     final = os.path.join(directory, f"step_{step}")
-    os.makedirs(tmp, exist_ok=True)
+    if writer:
+        os.makedirs(tmp, exist_ok=True)
     manifest = {"step": step, "leaves": []}
     for path, leaf in _flatten_with_path(state):
+        if multi:      # the whole leaf, on the writer
+            leaf = mesh.unshard(leaf.detach().unsqueeze(0), spec_of[path],
+                                dst=0)
+        if not writer:
+            continue
         key = _leaf_key(path)
         fname = key.replace("/", "__") + ".npy"
         dtype = _save_leaf(os.path.join(tmp, fname), leaf)
@@ -85,12 +116,14 @@ def save_checkpoint(directory: str, step: int, state: Any,
             "key": key, "file": fname,
             "shape": list(leaf.shape), "dtype": dtype,
         })
-    with open(os.path.join(tmp, "manifest.json"), "w") as f:
-        json.dump(manifest, f, indent=1)
-    if os.path.exists(final):
-        shutil.rmtree(final)
-    os.rename(tmp, final)
-    _rotate(directory, keep_last)
+    if writer:
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f, indent=1)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)
+        _rotate(directory, keep_last)
+    _barrier(mesh)
     return final
 
 
@@ -117,11 +150,17 @@ def latest_step(directory: str) -> Optional[int]:
 
 
 def restore_checkpoint(directory: str, step: int, target: Any, *,
-                       device=None) -> Any:
+                       device=None, mesh=None, specs=None) -> Any:
     """Restore into the structure of ``target`` (a tree of tensors, meta
     tensors allowed), each leaf in its target's dtype, on ``device``, or
     where ``device`` is None on its target's device (CUDA for a meta
-    target)."""
+    target).  On a process mesh, ``target`` holds this process's shards
+    and each whole leaf read is cut by ``specs``, whatever mesh wrote
+    it."""
+    multi = _multi(mesh)
+    spec_of = (dict(zip((p for p, _ in _flatten_with_path(target)),
+                        tree_leaves(specs, is_leaf=is_spec)))
+               if multi else {})
     d = os.path.join(directory, f"step_{step}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
@@ -133,11 +172,13 @@ def restore_checkpoint(directory: str, step: int, target: Any, *,
             raise KeyError(f"checkpoint missing leaf {key!r}")
         t = _load_leaf(os.path.join(d, by_key[key]["file"]),
                        by_key[key]["dtype"])
+        dev = device if device is not None else (
+            None if leaf.device.type == "meta" else leaf.device)
+        if multi:
+            t = mesh.shard(t.to(mesh.device), spec_of[path])[0]
         if tuple(t.shape) != tuple(leaf.shape):
             raise ValueError(f"{key}: checkpoint shape {tuple(t.shape)} != "
                              f"target {tuple(leaf.shape)}")
-        dev = device if device is not None else (
-            None if leaf.device.type == "meta" else leaf.device)
         out.append(t.to(device=resolve_device(dev), dtype=leaf.dtype))
     it = iter(out)
     return tree_map(lambda _: next(it), target)

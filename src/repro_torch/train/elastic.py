@@ -11,10 +11,13 @@ restart-from-checkpoint, failure injection and a straggler watchdog.
   * ``StragglerWatchdog`` -- EMA step-time monitor: in a synchronous-
     collective design a straggler shows up as a slow *step*.
 
-The reference's elastic re-mesh (restore under another mesh's
-shardings) waits for multi-card meshes (ROADMAP A3's remainder); on one
-card a restore only chooses the device (``restore_checkpoint(...,
-device=)``).
+On a process mesh (``mesh=`` with the state's ``specs``,
+``train_step.state_specs``) every process runs the loop on its shards:
+checkpoints are written whole by one writer, and a restore, at start or
+after a failure, cuts them for the mesh at hand, which need not be the
+one that wrote them (the reference's elastic re-mesh).  The step to
+restart from is rank 0's (``mesh.agree``), so every process restarts
+from the same step.
 """
 from __future__ import annotations
 
@@ -69,6 +72,8 @@ def run_loop(
     failure_injector: Optional[FailureInjector] = None,
     watchdog: Optional[StragglerWatchdog] = None,
     max_restarts: int = 10,
+    mesh=None,
+    specs=None,
 ) -> Dict:
     """Supervised training loop with checkpoint/restart recovery.  A
     step's ``dt`` is host time up to ``float(loss)``, which waits for the
@@ -76,9 +81,15 @@ def run_loop(
     state = {"params": params, "opt": opt_state}
     step = 0
     restarts = 0
-    last = ckpt.latest_step(ckpt_dir)
+    where = {"mesh": mesh, "specs": specs}
+
+    def latest():
+        last = ckpt.latest_step(ckpt_dir)
+        return last if mesh is None else mesh.agree(last)
+
+    last = latest()
     if last is not None:
-        state = ckpt.restore_checkpoint(ckpt_dir, last, state)
+        state = ckpt.restore_checkpoint(ckpt_dir, last, state, **where)
         step = last
 
     history = []
@@ -97,16 +108,16 @@ def run_loop(
             history.append({"step": step, "loss": loss, "dt": dt})
             step += 1
             if step % ckpt_every == 0:
-                ckpt.save_checkpoint(ckpt_dir, step, state)
+                ckpt.save_checkpoint(ckpt_dir, step, state, **where)
         except RuntimeError:
             restarts += 1
             if restarts > max_restarts:
                 raise
-            last = ckpt.latest_step(ckpt_dir)
+            last = latest()
             if last is None:
                 step = 0  # restart from scratch, keeping the current state
                 continue
-            state = ckpt.restore_checkpoint(ckpt_dir, last, state)
+            state = ckpt.restore_checkpoint(ckpt_dir, last, state, **where)
             step = last
     return {"history": history, "restarts": restarts,
             "final_state": state,

@@ -18,18 +18,39 @@ with ``zero=True`` the first unsharded dimension of every state tensor
 is additionally sharded over the data axes (ZeRO-1, ``zero_shard_specs``
 in ``Optimizer.state_specs``).  ZeRO changes the specs and not the
 numbers: on one rank ``zero=True`` trains bitwise as ``zero=False``.
+
+On a process mesh, ``update(..., mesh=, layout=)`` takes each process's
+gradient shards as autograd left them (``mesh_layout`` gives every
+leaf's spec and ZeRO dim): a leaf whose spec names a data axis (the
+``moe_fsdp`` experts) was summed over the data axes by its gather's
+backward; every other leaf is summed here, by a reduce-scatter over the
+data axes onto its ZeRO chunk, or an all-reduce where it has none.  The
+global norm sums each leaf's squares over the axes its gradient is cut
+on, and never over those it is replicated on.  A ZeRO leaf is updated
+on its chunk (a view of the parameter) and all-gathered back.
+
+One departure, in the layout only: ``zero_shard_specs`` (the JAX
+package's rule, copied) adds the data axes to a state leaf whose
+parameter spec already names them, so AdamW with ``zero=True`` gives
+DeepSeek-V3's ``moe_fsdp`` experts ``P(None, "model", "data", "data")``,
+which JAX's ``NamedSharding`` refuses (``DuplicateSpecError``) and so
+does ``train_step.shardings_for`` (``ValueError``).  ``mesh_layout``
+leaves such a leaf without a ZeRO dim: its state is already cut over
+the data axes with the parameter.  Adafactor runs on a mesh whose
+leaves are all whole (its factored means would span a cut).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from ..launch.mesh import P, is_spec
+from ..launch.mesh import P, axis_size, is_spec
 from ..models.common import tree_leaves, tree_map
 
-__all__ = ["OptConfig", "Optimizer", "make_optimizer", "zero_shard_specs"]
+__all__ = ["OptConfig", "Optimizer", "make_optimizer", "zero_shard_specs",
+           "LeafLayout", "mesh_layout", "spec_axes"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,9 +78,26 @@ def _up_to(tree, like) -> list:
     return [tree]
 
 
-def _clip_by_global_norm(grads, max_norm):
+def _clip_by_global_norm(grads, max_norm, mesh=None, layout=None):
     """(scale, global norm), f32 scalars: the clipped gradient of a leaf
-    is ``g.float() * scale``, which the update forms a leaf at a time."""
+    is ``g.float() * scale``, which the update forms a leaf at a time.
+    On a mesh each leaf's squares are summed over the axes ``layout``
+    says its gradient is cut on (one psum a set of axes)."""
+    if mesh is not None:
+        by_axes = {}
+        for g, lay in zip(tree_leaves(grads), tree_leaves(layout)):
+            sq = g.float().square().sum()
+            key = lay.grad_axes
+            by_axes[key] = sq if key not in by_axes else by_axes[key] + sq
+        gnorm = None
+        for axes in sorted(by_axes):
+            sq = by_axes[axes]
+            if axis_size(mesh, axes) > 1:
+                sq = mesh.psum(sq.reshape(1, 1), axes)[0, 0]
+            gnorm = sq if gnorm is None else gnorm + sq
+        gnorm = torch.sqrt(gnorm)
+        scale = torch.clamp_max(max_norm / torch.clamp_min(gnorm, 1e-9), 1.0)
+        return scale, gnorm
     gnorm = None
     for g in tree_leaves(grads):
         sq = g.float().square().sum()
@@ -195,6 +233,86 @@ def zero_shard_specs(spec_tree, dp_axes=("pod", "data"), mesh=None):
     return f
 
 
+def spec_axes(spec) -> tuple:
+    """The mesh axes a spec names, in order."""
+    return tuple(a for part in spec if part is not None
+                 for a in ((part,) if isinstance(part, str) else part))
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafLayout:
+    """One parameter on a process mesh: its resolved ``spec``, the data
+    axes ``dp``, whether the spec names one of them (``dp_cut``: its
+    gradient arrives summed), and ``zero_dim``, the dim its optimizer
+    state (and its gradient, for the update) is cut on over ``dp``."""
+    spec: tuple
+    dp: tuple
+    dp_cut: bool
+    zero_dim: Optional[int]
+
+    @property
+    def grad_axes(self) -> tuple:
+        """The axes the gradient the update sees is cut on, sorted."""
+        extra = self.dp if self.zero_dim is not None else ()
+        return tuple(sorted(set(spec_axes(self.spec)) | set(extra)))
+
+    @property
+    def state_spec(self) -> P:
+        if self.zero_dim is None:
+            return P(*self.spec)
+        parts = list(self.spec)
+        parts[self.zero_dim] = self.dp
+        return P(*parts)
+
+
+def mesh_layout(cfg: OptConfig, param_specs, param_shapes, mesh,
+                dp_axes=("pod", "data")):
+    """A tree of ``LeafLayout``: the resolved ``param_specs`` with the
+    dim ``zero_shard_specs`` cuts over the data axes where ``cfg.zero``
+    (none for a leaf whose spec names a data axis: the departure in the
+    module's docstring)."""
+    dp = tuple(a for a in dp_axes if a in mesh.shape)
+    zero = zero_shard_specs(param_specs, dp_axes, mesh)
+
+    def one(spec, leaf):
+        pad = (None,) * (len(leaf.shape) - len(spec))
+        parts = tuple(spec) + pad
+        dp_cut = bool(set(spec_axes(parts)) & set(dp))
+        zero_dim = None
+        if cfg.zero and axis_size(mesh, dp) > 1 and not dp_cut:
+            cut = tuple(zero(spec, leaf))
+            cut += (None,) * (len(parts) - len(cut))
+            zero_dim = next((i for i, (a, b) in enumerate(zip(parts, cut))
+                             if a != b), None)
+        return LeafLayout(parts, dp, dp_cut, zero_dim)
+
+    return tree_map(one, param_specs, param_shapes, is_leaf=is_spec)
+
+
+def _reduce_grads(grads, layout, mesh):
+    """Each gradient summed over the data axes once (see the module's
+    docstring): onto its ZeRO chunk, or whole."""
+    def one(g, lay):
+        if lay.dp_cut or axis_size(mesh, lay.dp) == 1:
+            return g
+        if lay.zero_dim is not None:
+            return mesh.psum_scatter(g.unsqueeze(0), lay.dp,
+                                     scatter_dimension=lay.zero_dim)[0]
+        return mesh.psum(g.unsqueeze(0), lay.dp)[0]
+
+    return tree_map(one, grads, layout)
+
+
+def zero_chunk(p: torch.Tensor, lay: LeafLayout, mesh) -> torch.Tensor:
+    """This process's ZeRO chunk of a parameter shard (a view), or the
+    shard itself where it has none."""
+    if lay.zero_dim is None:
+        return p
+    n = axis_size(mesh, lay.dp)
+    size = p.shape[lay.zero_dim] // n
+    return p.narrow(lay.zero_dim, mesh.index(lay.dp) * size, size)
+
+
 def make_optimizer(cfg: OptConfig = OptConfig()) -> Optimizer:
     if cfg.name == "adamw":
         init, upd = _adamw_init, _adamw_update
@@ -223,9 +341,29 @@ def make_optimizer(cfg: OptConfig = OptConfig()) -> Optimizer:
     else:
         raise ValueError(cfg.name)
 
-    def update(grads, state, params):
-        scale, gnorm = _clip_by_global_norm(grads, cfg.grad_clip)
-        params, state = upd(grads, state, params, cfg, scale)
+    def update(grads, state, params, *, mesh=None, layout=None):
+        if mesh is None or mesh.n_ranks == 1:
+            scale, gnorm = _clip_by_global_norm(grads, cfg.grad_clip)
+            params, state = upd(grads, state, params, cfg, scale)
+            return params, state, {"grad_norm": gnorm}
+        if cfg.name != "adamw" and any(
+                axis_size(mesh, spec_axes(l.spec)) > 1
+                for l in tree_leaves(layout)):
+            raise ValueError(
+                f"{cfg.name} on a mesh that cuts a parameter: its factored "
+                "means and update clipping span the cut (use AdamW, or a "
+                "mesh that cuts none)")
+        grads = _reduce_grads(grads, layout, mesh)
+        scale, gnorm = _clip_by_global_norm(grads, cfg.grad_clip, mesh,
+                                            layout)
+        chunks = tree_map(lambda p, l: zero_chunk(p, l, mesh), params, layout)
+        upd(grads, state, chunks, cfg, scale)
+        with torch.no_grad():
+            for p, c, lay in zip(tree_leaves(params), tree_leaves(chunks),
+                                 tree_leaves(layout)):
+                if lay.zero_dim is not None:
+                    p.copy_(mesh.all_gather(c.unsqueeze(0), lay.dp,
+                                            axis=lay.zero_dim)[0])
         return params, state, {"grad_norm": gnorm}
 
     return Optimizer(init, update, state_specs, cfg)

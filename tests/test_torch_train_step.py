@@ -216,5 +216,11 @@ def test_entry_points_refuse_the_cpu_unless_asked(tmp_path):
 
 
 def test_launch_train_refuses_other_meshes():
-    with pytest.raises(ValueError, match="A12"):
+    """A mesh beyond 1x1 trains one process a rank: started alone, the
+    launcher refuses it and names torch.distributed.run (the 2x2 run
+    itself is ``test_torch_lm_mesh.py``'s)."""
+    with pytest.raises(ValueError, match="torch.distributed.run"):
         launch_train.main(["--mesh", "2x2", "--device", "cpu", "--reduced"])
+    with pytest.raises(ValueError, match="AxB"):
+        launch_train.main(["--mesh", "2x2x2x2", "--device", "cpu",
+                           "--reduced"])
