@@ -297,12 +297,13 @@ Phase 12 the launch tools (ROADMAP A12), on the meta device: nothing
            (af) the dry-run grid, python -m repro_torch.launch.dryrun in
                 the background on the host's CPU from the end of phase 0
                 (niced, CUDA hidden): every architecture's decode_32k
-                and long_500k on 1x1 (counted) and on the production
-                mesh 32 x 8 (per-device argument bytes), every train_4k
-                on the production mesh and Qwen2-1.5B's, DeepSeek-V3's
-                and Jamba's on 1x1 (one model of each layer kind:
-                DRYRUN_GRID), and prefill_32k of Qwen2-1.5B and
-                DeepSeek-V3 on 1x1; every
+                and long_500k on 1x1 and on the production mesh 32 x 8
+                (rank 0's step on a meta rank mesh, its collectives
+                counted), Qwen2-1.5B's, DeepSeek-V3's and Jamba's
+                train_4k on 1x1 (one model of each layer kind:
+                DRYRUN_GRID) and Qwen2-1.5B's and DeepSeek-V3's
+                (Adafactor on cut leaves) on the production mesh, and
+                prefill_32k of Qwen2-1.5B and DeepSeek-V3 on 1x1; every
                 cell ok or skipped by cell_is_supported, within
                 DRYRUN_BUDGET_S of its start; the table and each cell's
                 seconds
@@ -345,32 +346,60 @@ Phase 13 the process mesh (launch.mesh.make_process_mesh): one rank a
          (TS_TOL for ts_k; not at eps > 0); the traffic summed over the
          processes equals the in-process mesh's count.  One
          {"phase13": ...} line.
-Phase 14 the LM on a process mesh (repro_torch.models on make_process_mesh:
-         tensor-, data- and expert-parallel): 2x2 meshes of 4 processes
-         on the card over host-staged gloo (one card holds no two NCCL
-         ranks), each process holding its shards of the weights, the
-         ZeRO optimizer state, the batch and the caches; weights by
-         init_per_layer's rule from SEED, the same draws on one rank
-         (drawn one process at a time: init_params on a shared card)
+Phases 14-15 the LM on a process mesh (repro_torch.models on
+         make_process_mesh: tensor-, data- and expert-parallel): one
+         spawn of 4 processes on the card over host-staged gloo (one
+         card holds no two NCCL ranks), a 2x2 and a 1x4 mesh over the
+         same processes (LM_CELLS), each process holding its shards of
+         the weights, the optimizer state, the batch and the caches;
+         weights by init_per_layer's rule from SEED, the same draws on
+         one rank in this process (drawn one process at a time:
+         init_params on a shared card).  Phase 14:
            (ak) Qwen2-1.5B in bf16 at its published widths, 8 of its 28
-                layers: AdamW with ZeRO, 3 steps of 4 x 2,048 tokens,
-                the step-3 checkpoint (each leaf gathered, one writer),
+                layers: AdamW with ZeRO, 2 steps of 4 x 2,048 tokens,
+                the step-2 checkpoint (each leaf gathered, one writer),
                 prefill of 2 x 256 and 8 greedy tokens (decode_attention
-                on every process's own KV heads), then step 4; on one
-                rank in this process the same 3 steps from the same
-                weights, and from the checkpoint the same prefill and
-                tokens (teacher-forced on the mesh's) and step 4
+                on every process's own KV heads), then step 3; on one
+                rank the same 3 steps from the same weights, and from
+                the checkpoint the same prefill and tokens
+                (teacher-forced on the mesh's) and step 3
            (al) DeepSeek-V3 in bf16 at its published widths, 4 of 61
                 layers (3 dense, one MoE, as (y)): prefill of 4 x 1,024
                 and 16 greedy tokens, the MoE on its partial path (the
                 step's tokens gathered, the experts left cut over data);
-                the same on one rank in this process, teacher-forced
+                the same on one rank, teacher-forced
+         Phase 15, Mamba and RWKV-6 cut over model, Adafactor on a cut
+         and the dry-run's count of one rank:
+           (am) Jamba-v0.1 in bf16 at its published widths, one whole
+                period (32 -> 8 layers) on 1x4: prefill of 4 x 1,024 and
+                16 greedy tokens, Mamba cut on its inner width, the MoE
+                expert-parallel, decode_attention on each process's two
+                KV heads; its median row error against one rank held to
+                one rank's own bf16 distance from f32 at the same
+                prompts and tokens; in f32 prefill of 2 x 256 and 4
+                tokens held at F32_ROW_TOL
+           (an) RWKV-6 in bf16 at its published widths, 24 -> 6 layers,
+                on 2x2 (time mix cut by heads, channel mix on d_ff):
+                prefill of 4 x 512 and 16 greedy tokens, held as (am);
+                in f32 the same prompts and tokens at F32_ROW_TOL, then
+                one ZeRO AdamW step of 4 x 512 and the loss after it at
+                F32_* (rank 0 under FlopCounterMode)
+           (ao) Qwen2-1.5B in bf16, 8 of 28 layers, on 2x2: one
+                Adafactor step of 4 x 1,024 (its factored means and
+                update clipping over leaves cut by model) and the loss
+                after it against one rank's
+           (ap) rank 0 of (an)'s f32 step counted on a meta rank mesh
+                (launch.mesh.make_meta_rank_mesh, as the dry-run counts
+                a production cell), in a thread during the spawn: its
+                FLOPs equal to FlopCounterMode over rank 0's step on the
+                card and its collective bytes by kind equal to rank 0's
+                traffic; its roofline terms beside the step's time.
          Step ms and tokens/s, prefill ms, decode ms a token, bytes a
          rank received, decode_attention launches a process, and each
          comparison's error against one rank, held to the tolerances
-         at LM_* below.  One {"phase14": ...} line.
+         at LM_* and F32_* below.  One {"phase14": ...} line.
 ``--phase 9`` (or 10, 11, 12, 13, 14) builds the kernels and runs that
-phase alone (development: no kernels line and no ok line).
+phase alone (development: no kernels line and no ok line); 15 runs 14.
 
 Prints a {"kernels": [...]} line, the nvidia-smi line, and as its last
 line {"ok": true, "device": {...}}.  Any failed check raises, so the
@@ -1603,25 +1632,26 @@ def training(dev, card, zero_counters, read_counters, hw) -> dict:
 # (af): the dry-run grid, calls of the CLI (python -m
 # repro_torch.launch.dryrun --arch A --shape S --mesh M), run at once with
 # DRYRUN_JOBS processes each.  Every architecture's decode_32k and
-# long_500k on 1x1 and the production mesh, every train_4k on the
-# production mesh, and two prefill_32k cells; train_4k on 1x1 (20-90 s
-# of host time a cell) for one model of each layer kind: Qwen2 (GQA
-# attention, dense FFN), DeepSeek-V3 (MLA, MoE, MTP) and Jamba (Mamba).
-# RWKV-6's train_4k on 1x1 loops over the 4,096 tokens in Python, ~10.6 M
-# aten ops on meta under autograd (~20 min of host time).  The CLI run of
-# the whole grid counts every cell.
+# long_500k on 1x1 and on the production mesh (rank 0 of 32 x 8, counted
+# on a meta rank mesh: ~1 s a decode cell), and two prefill_32k cells;
+# train_4k (20-90 s of host time a cell) on 1x1 for one model of each
+# layer kind: Qwen2 (GQA attention, dense FFN), DeepSeek-V3 (MLA, MoE,
+# MTP) and Jamba (Mamba), and on the production mesh for Qwen2 and for
+# DeepSeek-V3, whose Adafactor runs on leaves cut over model and data.
+# RWKV-6's train_4k and prefill_32k loop over the sequence in Python,
+# ~10.6 M aten ops on meta under autograd (~20 min of host time a cell).
+# The CLI run of the whole grid counts every cell.
 _ALL_BUT_RWKV = ",".join(a for a in (
     "deepseek_v3_671b", "qwen3_moe_30b_a3b", "starcoder2_3b", "qwen2_1_5b",
     "granite_20b", "granite_34b", "musicgen_medium", "jamba_v0_1_52b",
     "llava_next_mistral_7b"))
 DRYRUN_GRID = (
     (_ALL_BUT_RWKV, "decode_32k,long_500k", "1x1,production"),
-    (_ALL_BUT_RWKV, "train_4k", "production"),
+    ("qwen2_1_5b,deepseek_v3_671b", "train_4k", "production"),
     ("qwen2_1_5b,deepseek_v3_671b,jamba_v0_1_52b", "train_4k", "1x1"),
     ("rwkv6_1_6b", "decode_32k,long_500k", "1x1,production"),
-    ("rwkv6_1_6b", "train_4k", "production"),
     ("qwen2_1_5b,deepseek_v3_671b", "prefill_32k", "1x1"))
-DRYRUN_JOBS = (1, 1, 2, 1, 1, 1)
+DRYRUN_JOBS = (1, 2, 2, 1, 1)
 DRYRUN_BUDGET_S = 600   # the grid's wall from its start; the full run
                         # hides it behind phases 1-11 (~850 s)
 PEAK_TOL = 0.10         # (ag): counted peak against max_memory_allocated
@@ -2789,7 +2819,7 @@ PUR_ITERS = 6         # ||P^2 - P|| is 1.8e-10 after the 6th, 2.6e-22
 # block below 1e-6, so what is left is f32 rounding of entries 0 and 1
 # (observed 0.0 at n 1,760 on the CPU).
 PUR_TOL = 1e-6
-PUR_VERIFY = 2       # (u): iterations with verify="checksum", and the same
+PUR_VERIFY = 1       # (u): iterations with verify="checksum", and the same
                      # unverified before and after them
 ABFT_GATE = 0.25     # the JAX package's gate on the measured overhead
 ABFT_NL, ABFT_P = 3960, 4        # (v): one rank's side; the 4x4 grid
@@ -2907,101 +2937,192 @@ def host_targets():
     ]
 
 
+def pur_setup(dev):
+    """(u)'s operands: P0 of banded_hamiltonian(PUR_N, 22) on a simulated
+    4x4 mesh, and the exact density's diagonal; (P0, mesh, exact, set-up
+    seconds)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import dbcsr
+    from repro_torch.core.blocking import GridSpec
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sparsity.workloads import (banded_hamiltonian,
+                                                initial_density)
+
+    t = time.perf_counter()
+    H, mask = banded_hamiltonian(PUR_N, 22)
+    P0h = initial_density(H)
+    del H
+    mesh = make_mesh((4, 4), ("data", "model"), device=dev)
+    P0 = dbcsr.create(P0h.astype(np.float32), mesh=mesh,
+                      grid=GridSpec("data", "model"), block_size=22,
+                      block_mask=mask)
+    exact = torch.zeros(PUR_N, device=dev)
+    exact[0::2] = 1.0
+    return P0, mesh, exact, time.perf_counter() - t
+
+
+def pur_trajectory(P0, mesh, exact, name, iters, split, clock,
+                   zero_counters, read_counters, keep=(), converged=True,
+                   **extra):
+    """(u): ``iters`` McWeeny iterations from P0, each timed (wall, smm by
+    CUDA events, the host split); with ``converged``, P held within
+    PUR_TOL of the exact density.  Returns (P, trace, the iterates of
+    ``keep``, the error or None, the lines to print)."""
+    import torch
+
+    from repro_torch.examples.purification import FILTER_EPS
+    from repro_torch.sparsity.workloads import mcweeny_purify
+
+    P, trace, kept = P0, [], {}
+    lines = [f"  (u) {name}: iter occupancy blocks retained filtered "
+             f"busiest idempotency tr(P) smm_launches smm_ms wall_ms "
+             f"host_ms | host split ms"]
+    for it in range(iters):
+        split.take()
+        clock.take()
+        zero_counters()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        P, (e,) = mcweeny_purify(
+            P, mesh=mesh, n_iter=1, filter_eps=FILTER_EPS,
+            multiply_kw=dict(densify=False, local_kernel="smm", **extra))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        kernel = clock.take()
+        got = read_counters()
+        host = split.take()
+        e.update(iteration=it, smm_launches=got["smm"],
+                 smm_ms=1e3 * kernel, wall_ms=1e3 * wall,
+                 host_ms=1e3 * (wall - kernel),
+                 host_split_ms={k: 1e3 * v for k, v in host.items()
+                                if v > 0})
+        trace.append(e)
+        if it in keep:
+            kept[it] = P
+        top = sorted(e["host_split_ms"].items(), key=lambda kv: -kv[1])
+        lines.append(
+            f"    {it:2d} {e['occupancy']:.5f} {e['n_blocks']:6d} "
+            f"{e.get('n_retained_triples', 0):9d} "
+            f"{e.get('n_norm_filtered_triples', 0):9d} "
+            f"{e.get('max_rank_entries', 0):9d} "
+            f"{e['idempotency']:.3e} {e['trace_P']:.2f} "
+            f"{got['smm']:3d} {1e3 * kernel:8.2f} "
+            f"{1e3 * wall:9.1f} {1e3 * (wall - kernel):9.1f} | "
+            + ", ".join(f"{k} {v:.1f}" for k, v in top))
+    err = None
+    if converged:
+        err = float((P.data - torch.diag(exact)).abs().max())
+        lines.append(f"  (u) {name}: max |P - exact density| {err:.3e} "
+                     f"(tolerance {PUR_TOL:g})")
+        if not err <= PUR_TOL:
+            raise AssertionError("\n".join(lines) + f"\n(u) {name}: P is "
+                                 f"{err:.3e} from the exact density")
+    return P, trace, kept, err, lines
+
+
+def pur_union() -> dict:
+    """(u)'s union trajectory (``rank_exact=False``), in a process of its
+    own beside the rank-exact one: both are host-bound planning on a core
+    each.  Returns its trace, error, lines and set-up seconds."""
+    import torch
+
+    from repro_torch.kernels.smm.ops import smm_process_stack
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+
+    def zero():
+        smm_process_stack.launches = 0
+
+    def read():
+        return {"smm": smm_process_stack.launches}
+
+    P0, mesh, exact, setup_s = pur_setup(dev)
+    split = HostSplit(host_targets())
+    clock = KernelClock()
+    try:
+        _, trace, _, err, lines = pur_trajectory(
+            P0, mesh, exact, "union", PUR_ITERS, split, clock, zero, read,
+            rank_exact=False)
+    finally:
+        split.close()
+        clock.close()
+    return {"trace": trace, "err": err, "lines": lines, "setup_s": setup_s}
+
+
 def purification(dev, card, zero_counters, read_counters, report) -> dict:
     """(u): McWeeny purification at (p)'s size on a simulated 4x4 mesh,
-    blocked with the smm kernel, union then rank-exact, then PUR_VERIFY
-    verified iterations; one smm row at a rank-exact step of its peak
-    iterate."""
+    blocked with the smm kernel, union (in a second process, beside) and
+    rank-exact, then PUR_VERIFY verified iterations; one smm row at a
+    rank-exact step of its peak iterate.  Returns (its record, the smm
+    row, the union process's smm launches)."""
+    import concurrent.futures
+    import multiprocessing
+
     import numpy as np
     import torch
 
     from repro_torch.core import dbcsr, engine
-    from repro_torch.core.blocking import GridSpec
     from repro_torch.examples.purification import (FILTER_EPS,
                                                    purification_checks)
     from repro_torch.kernels.smm.ref import smm_process_stack_ref
-    from repro_torch.launch.mesh import make_mesh
-    from repro_torch.sparsity.workloads import (banded_hamiltonian,
-                                                initial_density,
-                                                mcweeny_purify)
 
     N, BS = PUR_N, 22
-    t = time.perf_counter()
-    H, mask = banded_hamiltonian(N, BS)
-    P0h = initial_density(H)
-    del H
-    mesh = make_mesh((4, 4), ("data", "model"))
-    P0 = dbcsr.create(P0h.astype(np.float32), mesh=mesh,
-                      grid=GridSpec("data", "model"), block_size=BS,
-                      block_mask=mask)
-    del P0h
+    pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    # the union process starts with 2 host threads (its planning is
+    # serial numpy): the host's cores stay this process's
+    threads = {k: os.environ.get(k) for k in (
+        "OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")}
+    os.environ.update(dict.fromkeys(threads, "2"))
+    try:
+        union_run = pool.submit(pur_union)    # starts the process
+    finally:
+        for k, v in threads.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    P0, mesh, exact, setup_s = pur_setup(dev)
     nb = N // BS
     print(f"phase 8 (u): McWeeny purification, {N}^2 in {nb}^2 blocks of "
           f"{BS} on a 4x4 mesh of simulated ranks ({N // 4}^2 a rank), "
           f"filter_eps {FILTER_EPS:g}, blocked smm, {PUR_ITERS} iterations; "
-          f"set-up {time.perf_counter() - t:.1f} s (host numpy H and P0, "
-          f"float64); P0 occupancy {P0.occupancy:.4f}, tr(P0) "
-          f"{float(P0.trace()):.2f}, electrons {N // 2}")
+          f"set-up {setup_s:.1f} s (host numpy H and P0, float64); P0 "
+          f"occupancy {P0.occupancy:.4f}, tr(P0) {float(P0.trace()):.2f}, "
+          f"electrons {N // 2}; the union trajectory in a second process "
+          f"beside the rank-exact one")
     base_kw = dict(densify=False, local_kernel="smm")
-    exact = torch.zeros(N, device=dev)
-    exact[0::2] = 1.0
     split = HostSplit(host_targets())
     clock = KernelClock()
     out = {"n": N, "block": BS, "eps": FILTER_EPS, "runs": {}}
     try:
-        def trajectory(name, iters, keep=(), converged=True, **extra):
-            P, trace, kept = P0, [], {}
-            print(f"  (u) {name}: iter occupancy blocks retained filtered "
-                  f"busiest idempotency tr(P) smm_launches smm_ms wall_ms "
-                  f"host_ms | host split ms")
-            for it in range(iters):
-                split.take()
-                clock.take()
-                zero_counters()
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                P, (e,) = mcweeny_purify(
-                    P, mesh=mesh, n_iter=1, filter_eps=FILTER_EPS,
-                    multiply_kw=dict(base_kw, **extra))
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t
-                kernel = clock.take()
-                got = read_counters()
-                host = split.take()
-                e.update(iteration=it, smm_launches=got["smm"],
-                         smm_ms=1e3 * kernel, wall_ms=1e3 * wall,
-                         host_ms=1e3 * (wall - kernel),
-                         host_split_ms={k: 1e3 * v for k, v in host.items()
-                                        if v > 0})
-                trace.append(e)
-                if it in keep:
-                    kept[it] = P
-                top = sorted(e["host_split_ms"].items(),
-                             key=lambda kv: -kv[1])
-                print(f"    {it:2d} {e['occupancy']:.5f} {e['n_blocks']:6d} "
-                      f"{e.get('n_retained_triples', 0):9d} "
-                      f"{e.get('n_norm_filtered_triples', 0):9d} "
-                      f"{e.get('max_rank_entries', 0):9d} "
-                      f"{e['idempotency']:.3e} {e['trace_P']:.2f} "
-                      f"{got['smm']:3d} {1e3 * kernel:8.2f} "
-                      f"{1e3 * wall:9.1f} {1e3 * (wall - kernel):9.1f} | "
-                      + ", ".join(f"{k} {v:.1f}" for k, v in top))
+        def trajectory(name, iters, **kw):
+            P, trace, kept, err, lines = pur_trajectory(
+                P0, mesh, exact, name, iters, split, clock, zero_counters,
+                read_counters, **kw)
+            print("\n".join(lines))
             out["runs"][name] = {"trace": trace}
-            if converged:
-                err = float((P.data - torch.diag(exact)).abs().max())
-                print(f"  (u) {name}: max |P - exact density| {err:.3e} "
-                      f"(tolerance {PUR_TOL:g})")
-                if not err <= PUR_TOL:
-                    raise AssertionError(f"(u) {name}: P is {err:.3e} from "
-                                         "the exact density")
+            if err is not None:
                 out["runs"][name]["max_err_exact"] = err
             return P, trace, kept
 
-        _, union, _ = trajectory("union", PUR_ITERS, rank_exact=False)
+        # every iterate kept: the union's peak is known once it returns
+        P_r, exact_tr, kept = trajectory("rank-exact", PUR_ITERS,
+                                         keep=range(PUR_ITERS))
+        with pool:
+            got = union_run.result()
+        print("\n".join(got["lines"]))
+        union = got["trace"]
+        out["runs"]["union"] = {"trace": union, "max_err_exact": got["err"]}
+        union_launches = sum(e["smm_launches"] for e in union)
         occs = [e["occupancy"] for e in union]
         peak = occs.index(max(occs))
-        P_r, exact_tr, kept = trajectory("rank-exact", PUR_ITERS,
-                                         keep=(PUR_VERIFY - 1, peak))
+        kept = {k: kept[k] for k in (PUR_VERIFY - 1, peak)}
         for name, tr in (("union", union), ("rank-exact", exact_tr)):
             ok = purification_checks(tr, union if name == "rank-exact"
                                      else tr, N)
@@ -3140,7 +3261,7 @@ def purification(dev, card, zero_counters, read_counters, report) -> dict:
                                           "library_ms")}
     del a_r, b_r, flat, c, c0, out_k, seen, kept, P_pk, P0
     torch.cuda.empty_cache()
-    return out, row
+    return out, row, union_launches
 
 
 def abft(dev, card, zero_counters, read_counters) -> dict:
@@ -3333,7 +3454,7 @@ def abft(dev, card, zero_counters, read_counters) -> dict:
     del A
     eps = gap_eps(Am, am, B)
     point(f"(p) {N}^2 4x4 blocked rank-exact, A 20 % fill, eps {eps:.4g}",
-          mesh44, Am, B, 2, densify=False, filter_eps=eps)
+          mesh44, Am, B, 1, densify=False, filter_eps=eps)
     del Am, B
     torch.cuda.empty_cache()
 
@@ -3379,13 +3500,15 @@ def abft(dev, card, zero_counters, read_counters) -> dict:
     return {"points": rows, "matrix_rows": matrix}
 
 
-def robustness(dev, card, zero_counters, read_counters, report) -> list:
-    """Phase 8; returns the smm row of (u) for the kernels line."""
-    pur, row = purification(dev, card, zero_counters, read_counters, report)
+def robustness(dev, card, zero_counters, read_counters, report):
+    """Phase 8; returns the smm row of (u) for the kernels line and the
+    smm launches of (u)'s union process."""
+    pur, row, union_launches = purification(dev, card, zero_counters,
+                                            read_counters, report)
     ver = abft(dev, card, zero_counters, read_counters)
     print(json.dumps({"phase8": {"card": card, "purification": pur,
                                  "abft": ver}}))
-    return [row]
+    return [row], union_launches
 
 
 # ---------------------------------------------------------------------------
@@ -4193,19 +4316,49 @@ def process_mesh(card: str) -> dict:
     return out
 
 # ---------------------------------------------------------------------------
-# phase 14: the LM on a process mesh
+# phases 14-15: the LM on a process mesh (one spawn of 4 processes)
 # ---------------------------------------------------------------------------
 
-LM_MESH = ((2, 2), ("data", "model"))
-# (cell, arch, layers, train (batch, seq, steps) or None, prompts (B, S),
-# greedy tokens)
-LM_CELLS = (("(ak)", "qwen2_1_5b", 8, (4, 2048, 3), (2, 256), 8),
-            ("(al)", "deepseek_v3_671b", 4, None, (4, 1024), 16))
+
+def lm_cell(label, phase, arch, layers, mesh=(2, 2), dtype=None, opt=None,
+            train=None, serve=None, step=None, count=False, twin=None):
+    """A cell of phases 14-15: ``arch`` cut to ``layers`` on a process mesh
+    of ``mesh`` (data, model), in ``dtype`` (None: the config's), with
+    ``opt`` ("adafactor", or None: ``launch.specs.opt_for``'s choice);
+    ``train`` (batch, seq, steps): that many steps, the last one's
+    checkpoint, then one more step after serving; ``serve`` ((B, S),
+    greedy tokens): prefill and greedy decode; ``step`` (batch, seq): one
+    step and the loss after it (with ``count``, rank 0's under
+    FlopCounterMode: (ap)); ``twin``: the bf16 cell whose serving this
+    f32 cell's one-rank weights measure bf16's own distance for."""
+    return {"cell": label, "phase": phase, "arch": arch, "layers": layers,
+            "mesh": mesh, "dtype": dtype, "opt": opt, "train": train,
+            "serve": serve, "step": step, "count": count, "twin": twin}
+
+
+LM_CELLS = (
+    lm_cell("(ak)", 14, "qwen2_1_5b", 8, train=(4, 2048, 2),
+            serve=((2, 256), 8)),
+    lm_cell("(al)", 14, "deepseek_v3_671b", 4, serve=((4, 1024), 16)),
+    # one whole period of Jamba (32 -> 8 layers) is ~27 GB in bf16, most of
+    # it the 4 MoE layers' 16 experts: 1x4 puts ~7 GB on each of the 4
+    # processes of the one card (2x2 would put ~13.5)
+    lm_cell("(am)", 15, "jamba_v0_1_52b", 8, mesh=(1, 4),
+            serve=((4, 1024), 16)),
+    lm_cell("(am) f32", 15, "jamba_v0_1_52b", 8, mesh=(1, 4),
+            dtype="float32", serve=((2, 256), 4), twin="(am)"),
+    lm_cell("(an)", 15, "rwkv6_1_6b", 6, serve=((4, 512), 16)),
+    lm_cell("(an) f32", 15, "rwkv6_1_6b", 6, dtype="float32",
+            serve=((4, 512), 16), step=(4, 512), count=True, twin="(an)"),
+    lm_cell("(ao)", 15, "qwen2_1_5b", 8, opt="adafactor", step=(4, 1024)),
+)
+LM_MESHES = ((2, 2), (1, 4))
 # Tolerances against one rank, bf16 (one bf16 step is 2^-8 = 3.9e-3 of a
 # value; the mesh sums its partial products in bf16 through gloo where
 # one rank sums inside one GEMM):
-#   LM_LOSS_TOL: a step's loss, relative (steps 1-3 from the same weights
-#     drift apart by a rounding a step; step 4 from the same checkpoint);
+#   LM_LOSS_TOL: a step's loss, and the loss after a single step,
+#     relative (steps 1-2 from the same weights drift apart by a rounding
+#     a step; the last from the same checkpoint);
 #   LM_GNORM_TOL: the gradient norm, relative;
 #   LM_LOGIT_TOL: a (prompt, step) row of logits, max |mesh - one rank|
 #     over max |one rank's|, teacher-forced on the mesh's tokens; a
@@ -4215,20 +4368,60 @@ LM_CELLS = (("(ak)", "qwen2_1_5b", 8, (4, 2048, 3), (2, 256), 8),
 #     bf16 difference in the MoE's input moves a router logit by ~4e-3:
 #     a row where one expert swapped misses LM_LOGIT_TOL; at least this
 #     share of (al)'s rows must not, and every row of (ak) (no MoE).
+# (am) and (an) at full width: bf16 rounding alone puts one rank's own
+# logits further from its f32 logits than LM_LOGIT_TOL (a median 6.2e-2
+# for Jamba and 1.5e-1 for RWKV-6 at their cells' prompts on an H100),
+# so their bf16 serving is held to that distance, measured in the same
+# run at the same prompts and teacher tokens: the median row error of
+# the mesh against one rank must not exceed the median row error of one
+# rank's bf16 against its f32.  The sharding is held in f32, where the
+# mesh and one rank differ only in the order of f32 sums:
+#   F32_ROW_TOL: a logit row, max |mesh - one rank| / max |one rank|;
+#   F32_LOSS_TOL: the loss, relative;
+#   F32_GNORM_TOL: each parameter's gradient norm (read from AdamW's
+#     second moment), relative, plus twice one rank's own distance from
+#     the same step in f64 for that parameter.  RWKV-6's gradient at
+#     these weights is ill-conditioned (its norm, nearly all the WKV
+#     bonus u's, moves by per cent between f32 and f64 on one rank), and
+#     its bf16 norm no more stable (17,820 on one rank on an H100, its
+#     f32 norm 87,435, the same batch), so the step runs in f32 and is
+#     held leaf by leaf: a wrong gradient of any other leaf, which the
+#     global norm cannot see, fails;
+#   F32_AFTER_TOL: the loss after the step, relative.  AdamW's first
+#     update is lr * sign(g) wherever |g| >> eps, so elements whose
+#     gradient is f32 rounding move opposite ways on the mesh and on one
+#     rank (observed 1.4e-5 at 4 x 512 and 2.0e-4 at 2 x 128 on an
+#     H100, where the step moves the loss by 1.6-2.7 %).
 LM_LOSS_TOL = 1e-2
 LM_GNORM_TOL = 5e-2
 LM_LOGIT_TOL = 3e-2
 LM_ROW_SHARE = 0.75
+F32_ROW_TOL = 1e-3
+F32_LOSS_TOL = 1e-4
+F32_GNORM_TOL = 4e-3
+F32_AFTER_TOL = 1e-3
 LM_TIMEOUT_S = 600
 LM_JOIN_S = 900
+LM_PROMPT_SEED, LM_STEP_SEED = 50, 62
 
 
-def lm_config(arch, layers):
+def lm_config(cell):
     import dataclasses
 
     from repro_torch.configs.base import get_config
 
-    return dataclasses.replace(get_config(arch), num_layers=layers)
+    cfg = dataclasses.replace(get_config(cell["arch"]),
+                              num_layers=cell["layers"])
+    return dataclasses.replace(cfg, dtype=cell["dtype"]) if cell["dtype"] \
+        else cfg
+
+
+def lm_opt(cfg, cell):
+    from repro_torch.launch.specs import opt_for
+    from repro_torch.train.optimizer import OptConfig, make_optimizer
+
+    return make_optimizer(OptConfig(name="adafactor") if cell["opt"]
+                          == "adafactor" else opt_for(cfg))
 
 
 def lm_batch(cfg, b, s, i, dev):
@@ -4281,26 +4474,93 @@ def lm_serve(params, cfg, mesh, prompts, n, teacher=None):
     return torch.cat(toks, dim=1), logits, t1 - t0, (t3 - t2) / n
 
 
-def lm_rank(rank: int, store: str) -> dict:
-    """One process of phase 14's 2x2 mesh, every cell in turn: returns
-    {cell: its numbers and, on mesh rank 0, the gathered tokens and
-    logits}."""
+def lm_step(cfg, opt, mesh, params, st, batch, count=False):
+    """One train step on ``mesh`` (None: one rank), timed; with ``count``,
+    under FlopCounterMode.  Returns (params, state, its record)."""
+    import contextlib
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.train.train_step import make_train_step
+
+    fn = make_train_step(cfg, opt, mesh=mesh)
+    fc = FlopCounterMode(display=False) if count else contextlib.nullcontext()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with fc:
+        params, st, met = fn(params, st, batch)
+    rec = {"loss": float(met["loss"]), "grad_norm": float(met["grad_norm"])}
+    torch.cuda.synchronize()
+    rec["ms"] = (time.perf_counter() - t) * 1e3
+    if count:
+        rec["flops"] = fc.get_total_flops()
+    return params, st, rec
+
+
+def post_loss(params, batch, cfg, mesh):
+    """The loss on ``batch`` after a step (the update's effect)."""
     import torch
 
-    mesh = make_lm_mesh()
-    torch.cuda.set_device(mesh.device)
-    out = {}
-    for cell in LM_CELLS:
-        out[cell[0]] = lm_cell_on_mesh(mesh, cell, store)
-        torch.cuda.empty_cache()
-    return out
+    from repro_torch.models import transformer as T
+
+    with torch.no_grad():
+        return float(T.lm_loss(params, batch, cfg, mesh)[0])
 
 
-def make_lm_mesh():
+def leaf_norms(st, opt, cfg, mesh, gnorm) -> list:
+    """Each parameter's gradient norm at a first AdamW step, read from the
+    second moment the step left, v = (1 - b2) (scale g)^2 (scale: the
+    global clip of a gradient of norm ``gnorm``); on a ``mesh`` each
+    leaf's sum over its state's chunks, psummed over the axes they are
+    cut on (mesh None: one rank)."""
+    import torch
+
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.train.train_step import train_layout
+
+    sums = [v.double().sum() for v in tree_leaves(st["v"])]
+    if mesh is not None:
+        axes = [lay.grad_axes
+                for lay in tree_leaves(train_layout(cfg, opt, mesh))]
+        for ax in sorted(set(a for a in axes if a)):
+            idx = [i for i, a in enumerate(axes) if a == ax]
+            got = mesh.psum(torch.stack([sums[i] for i in idx])[None], ax)[0]
+            for j, i in enumerate(idx):
+                sums[i] = got[j]
+    scale = min(1.0, opt.cfg.grad_clip / max(gnorm, 1e-9))
+    return [math.sqrt(float(x) / (1 - opt.cfg.b2)) / scale for x in sums]
+
+
+def leaf_names(tree, prefix="") -> list:
+    """The paths of ``tree``'s leaves in ``tree_leaves``' order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in leaf_names(tree[k],
+                                                             f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, t in enumerate(tree)
+                for n in leaf_names(t, f"{prefix}/{i}")]
+    return [prefix]
+
+
+def lm_rank(rank: int, store: str) -> dict:
+    """One process of phases 14-15: a 2x2 and a 1x4 mesh over the same 4
+    processes, every cell in turn; returns {cell: its numbers and, on
+    mesh rank 0, the gathered tokens and logits}."""
+    import torch
+
     from repro_torch.launch.mesh import make_process_mesh
 
-    return make_process_mesh(
-        *LM_MESH, timeout=datetime.timedelta(seconds=LM_TIMEOUT_S))
+    meshes = {shape: make_process_mesh(
+        shape, ("data", "model"),
+        timeout=datetime.timedelta(seconds=LM_TIMEOUT_S))
+        for shape in LM_MESHES}
+    torch.cuda.set_device(meshes[LM_MESHES[0]].device)
+    out = {}
+    for cell in LM_CELLS:
+        out[cell["cell"]] = lm_cell_on_mesh(meshes[cell["mesh"]], cell, store)
+        torch.cuda.empty_cache()
+    return out
 
 
 def lm_cell_on_mesh(mesh, cell, store) -> dict:
@@ -4310,14 +4570,12 @@ def lm_cell_on_mesh(mesh, cell, store) -> dict:
     from repro_torch.launch.mesh import P
     from repro_torch.models import transformer as T
     from repro_torch.train import checkpoint as ckpt
-    from repro_torch.train.optimizer import OptConfig, make_optimizer
-    from repro_torch.train.train_step import (init_opt_state,
-                                              make_train_step, shard_batch,
+    from repro_torch.train.train_step import (init_opt_state, shard_batch,
                                               state_specs)
 
     dev = mesh.device
-    _, arch, layers, train, (pb, ps), n_new = cell
-    cfg = lm_config(arch, layers)
+    cfg = lm_config(cell)
+    opt = lm_opt(cfg, cell)
     dp = T.dp_axes(mesh)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -4326,55 +4584,65 @@ def lm_cell_on_mesh(mesh, cell, store) -> dict:
     torch.cuda.synchronize()
     out = {"init_s": time.perf_counter() - t0, "steps": [],
            "transport": mesh.transport, "repr": repr(mesh)}
-    if train is not None:
-        b, s, n_steps = train
-        opt = make_optimizer(OptConfig(zero=True))
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def one_step(b, s, seed, count=False):
+        nonlocal params, st
+        batch = shard_batch(lm_batch(cfg, b, s, seed, dev), mesh)
+        mesh.reset_traffic()
+        params, st, rec = lm_step(cfg, opt, mesh, params, st, batch, count)
+        rec["received"] = sum(mesh.traffic.values())
+        rec["traffic"] = {k: v for k, v in mesh.traffic.items() if v}
+        out["steps"].append(rec)
+        return batch
+
+    if cell["train"] is not None:
+        b, s, n_steps = cell["train"]
         st = init_opt_state(opt, params, cfg, mesh)
-        step = make_train_step(cfg, opt, mesh=mesh)
-
-        def one_step(i):
-            mesh.reset_traffic()
-            batch = shard_batch(lm_batch(cfg, b, s, i, dev), mesh)
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            _, _, met = step(params, st, batch)
-            loss, gnorm = float(met["loss"]), float(met["grad_norm"])
-            torch.cuda.synchronize()
-            out["steps"].append({"loss": loss, "grad_norm": gnorm,
-                                 "ms": (time.perf_counter() - t) * 1e3,
-                                 "received": sum(mesh.traffic.values())})
-
-        torch.cuda.reset_peak_memory_stats(dev)
         for i in range(n_steps):
-            one_step(i)
-        out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+            one_step(b, s, i)
         t = time.perf_counter()
         ckpt.save_checkpoint(os.path.join(store, "ckpt"), n_steps,
                              {"params": params, "opt": st}, mesh=mesh,
                              specs=state_specs(cfg, opt, mesh))
         out["save_s"] = time.perf_counter() - t
-    prompts = lm_batch(cfg, pb, ps, 50, dev)["inputs"]
-    local = shard_batch({"x": prompts}, mesh)["x"]
-    mesh.reset_traffic()
-    decode_attention.launches = 0
-    toks, logits, pre_s, dec_s = lm_serve(params, cfg, mesh, local, n_new)
-    out["decode_attention_launches"] = decode_attention.launches
-    out["serve_received"] = sum(mesh.traffic.values())
-    out["prefill_ms"], out["decode_ms"] = pre_s * 1e3, dec_s * 1e3
-    toks = mesh.unshard(toks.unsqueeze(0), P(dp, None))
-    rows = [mesh.unshard(lg.unsqueeze(0), P(dp, "model")).float().cpu()
-            for lg in logits]
-    if train is not None:
-        one_step(n_steps)
-    if mesh.rank == 0:
-        out["tokens"] = toks.cpu()
-        out["logits"] = torch.stack(rows)
+    if cell["serve"] is not None:
+        (pb, ps), n_new = cell["serve"]
+        prompts = lm_batch(cfg, pb, ps, LM_PROMPT_SEED, dev)["inputs"]
+        local = shard_batch({"x": prompts}, mesh)["x"]
+        mesh.reset_traffic()
+        decode_attention.launches = 0
+        toks, logits, pre_s, dec_s = lm_serve(params, cfg, mesh, local, n_new)
+        out["decode_attention_launches"] = decode_attention.launches
+        out["serve_received"] = sum(mesh.traffic.values())
+        out["prefill_ms"], out["decode_ms"] = pre_s * 1e3, dec_s * 1e3
+        toks = mesh.unshard(toks.unsqueeze(0), P(dp, None))
+        rows = [mesh.unshard(lg.unsqueeze(0), P(dp, "model")).float().cpu()
+                for lg in logits]
+        if mesh.rank == 0:
+            out["tokens"] = toks.cpu()
+            out["logits"] = torch.stack(rows)
+    if cell["train"] is not None:
+        one_step(b, s, n_steps)
+    if cell["step"] is not None:
+        b, s = cell["step"]
+        st = init_opt_state(opt, params, cfg, mesh)
+        batch = one_step(b, s, LM_STEP_SEED,
+                         count=cell["count"] and mesh.rank == 0)
+        if opt.cfg.name == "adamw":
+            out["steps"][-1]["leaf_norms"] = leaf_norms(
+                st, opt, cfg, mesh, out["steps"][-1]["grad_norm"])
+        out["post_loss"] = post_loss(params, batch, cfg, mesh)
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     return out
 
 
-def lm_compare(label, mesh_logits, want_logits, toks, share) -> dict:
+def lm_compare(label, mesh_logits, want_logits, toks, share,
+               tol=LM_LOGIT_TOL, gate=True, what="against one rank") -> dict:
     """Row errors of the mesh's logits against one rank's (teacher-forced
-    on the mesh's tokens) and its greedy tokens' standing there."""
+    on the mesh's tokens) and its greedy tokens' standing there; ``ok``
+    where a ``share`` of rows and of tokens lie within ``tol`` (printed
+    as a statistic, without OK / FAILED, where not ``gate``)."""
     import torch
 
     rows, tok_ok = [], 0
@@ -4386,163 +4654,361 @@ def lm_compare(label, mesh_logits, want_logits, toks, share) -> dict:
         # the mesh's choice is within the tolerance of the row's largest
         chosen = want.gather(-1, toks[:, i:i + 1].long())[:, 0]
         tok_ok += int((want.amax(-1) - chosen
-                       <= LM_LOGIT_TOL * want.abs().amax(-1)).sum())
+                       <= tol * want.abs().amax(-1)).sum())
     rows = torch.tensor(rows)
-    within = float((rows <= LM_LOGIT_TOL).float().mean())
+    within = float((rows <= tol).float().mean())
     n = rows.numel()
     ok = within >= share and tok_ok >= share * n
-    print(f"  {label} against one rank: logit rows within {LM_LOGIT_TOL:g} "
-          f"{within:.3f} of {n} (needed {share:g}), worst "
-          f"{float(rows.max()):.3e}, median {float(rows.median()):.3e}; "
-          f"greedy tokens within the tolerance {tok_ok} of {n} (needed "
-          f"{math.ceil(share * n)}): "
-          + ("OK" if ok else "FAILED"))
+    print(f"  {label} {what}: logit rows within {tol:g} "
+          f"{within:.3f} of {n}" + (f" (needed {share:g})" if gate else "")
+          + f", worst {float(rows.max()):.3e}, median "
+          f"{float(rows.median()):.3e}; greedy tokens within the tolerance "
+          f"{tok_ok} of {n}"
+          + (f" (needed {math.ceil(share * n)}): "
+             + ("OK" if ok else "FAILED") if gate else ""))
     return {"ok": ok, "rows_within": within, "worst": float(rows.max()),
             "median": float(rows.median()), "tokens_ok": tok_ok, "rows": n}
 
 
-def lm_on_mesh(dev, card: str) -> dict:
-    """Phase 14: (ak) and (al) on a 2x2 process mesh of 4 processes on
-    the card (host-staged gloo; one spawn runs both), each against one
-    rank in this process: (ak)'s steps from the same weights before the
-    spawn, the rest after it."""
+def lm_count(cell):
+    """(ap): rank 0 of ``cell``'s 2x2 train step counted on a meta rank
+    mesh, as the dry-run counts a production cell; returns (costs,
+    seconds)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.cost_counter import count_costs
+    from repro_torch.launch.mesh import make_meta_rank_mesh
+    from repro_torch.launch.specs import build_cell
+    from repro_torch.train import train_step as TS
+
+    t = time.perf_counter()
+    mesh = make_meta_rank_mesh(cell["mesh"], ("data", "model"))
+    b, s = cell["step"]
+    step, args, _, _, _ = build_cell(cell["arch"],
+                                     ShapeConfig("ap", s, b, "train"), mesh,
+                                     cfg=lm_config(cell))
+    _, costs = count_costs(step, *args, mesh=mesh,
+                           replay=((TS, "_grads_of"),))
+    return costs, time.perf_counter() - t
+
+
+def lm_on_mesh(dev, card: str, hw, mark=None) -> dict:
+    """Phases 14-15: LM_CELLS on process meshes of 4 processes on the card
+    (host-staged gloo; one spawn runs them all), each against one rank in
+    this process from the same weights: (ak)'s steps before the spawn,
+    the rest after it; (ap), the meta count of (an)'s f32 step, runs in a
+    thread of this process during the spawn.  ``mark(15)`` is called
+    before the first phase-15 cell's comparisons."""
+    import dataclasses
     import tempfile
+    import threading
 
     import torch
 
     from repro_torch.launch.processes import run_ranks
     from repro_torch.models import transformer as T
+    from repro_torch.models.common import tree_map
     from repro_torch.train import checkpoint as ckpt
-    from repro_torch.train.optimizer import OptConfig, make_optimizer
-    from repro_torch.train.train_step import make_train_step
 
     out, failed = {"card": card, "cells": []}, []
-    opt = make_optimizer(OptConfig(zero=True))
 
-    def one_rank_step(cfg, params, st, b, s, i):
-        step = make_train_step(cfg, opt)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        _, _, met = step(params, st, lm_batch(cfg, b, s, i, dev))
-        return {"loss": float(met["loss"]),
-                "grad_norm": float(met["grad_norm"]),
-                "ms": (time.perf_counter() - t) * 1e3}
+    def one_rank(cfg):
+        return init_per_layer(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+
+    def one_rank_step(cfg, opt, params, st, b, s, i):
+        return lm_step(cfg, opt, None, params, st, lm_batch(cfg, b, s, i,
+                                                            dev))
 
     # ---- one rank: the training cells' steps from the same weights
     mine = {}
-    for cell, arch, layers, train, _, _ in LM_CELLS:
-        if train is None:
+    for cell in LM_CELLS:
+        if cell["train"] is None:
             continue
-        cfg = lm_config(arch, layers)
-        b, s, n_steps = train
-        params = init_per_layer(cfg, torch.Generator(dev).manual_seed(SEED),
-                                dev)
+        cfg = lm_config(cell)
+        opt = lm_opt(cfg, cell)
+        b, s, n_steps = cell["train"]
+        params = one_rank(cfg)
         st = opt.init(params)
-        mine[cell] = [one_rank_step(cfg, params, st, b, s, i)
-                      for i in range(n_steps)]
+        mine[cell["cell"]] = []
+        for i in range(n_steps):
+            params, st, rec = one_rank_step(cfg, opt, params, st, b, s, i)
+            mine[cell["cell"]].append(rec)
         del params, st
         torch.cuda.empty_cache()
 
+    counted = {}
+    (counted_cell,) = [c for c in LM_CELLS if c["count"]]
+    counter = threading.Thread(target=lambda: counted.update(
+        zip(("costs", "s"), lm_count(counted_cell))), daemon=True)
+    counter.start()
     with tempfile.TemporaryDirectory() as store:
         t0 = time.perf_counter()
         ranks = run_ranks(lm_rank, 4, store_dir=store, args=(store,),
                           timeout_s=LM_TIMEOUT_S, join_timeout_s=LM_JOIN_S)
         wall = time.perf_counter() - t0
-        print(f"  {ranks[0][LM_CELLS[0][0]]['repr']}: {wall:.1f} s with the "
-              f"spawn, every cell ({card})")
-        for cell, arch, layers, train, (pb, ps), n_new in LM_CELLS:
-            cfg = lm_config(arch, layers)
-            got = [r[cell] for r in ranks]
+        out["wall_s"] = wall
+        print(f"  4 processes, one spawn for {[c['cell'] for c in LM_CELLS]}"
+              f": {wall:.1f} s ({card})")
+        twins = {}
+        for cell in LM_CELLS:
+            label, arch = cell["cell"], cell["arch"]
+            if cell["phase"] == 15 and mark is not None:
+                mark(15)
+                mark = None
+            cfg = lm_config(cell)
+            opt = lm_opt(cfg, cell)
+            got = [r[label] for r in ranks]
             lead = got[0]
-            print(f"phase 14 {cell}: {cfg.name} in {cfg.dtype} at its "
-                  f"published widths, num_layers {get_layers(arch)} -> "
-                  f"{layers}, on a 2x2 process mesh (4 processes, "
-                  f"host-staged gloo); init "
-                  f"{[round(r['init_s'], 1) for r in got]} s ({card})")
-            rec = {"cell": cell, "arch": arch, "layers": layers,
-                   "wall_s": wall, "init_s": [r["init_s"] for r in got],
-                   "prefill_ms": lead["prefill_ms"],
-                   "decode_ms": lead["decode_ms"],
-                   "serve_received": [r["serve_received"] for r in got],
-                   "decode_attention_launches":
-                       [r["decode_attention_launches"] for r in got],
-                   "transport": lead["transport"]}
+            f32 = cfg.dtype == "float32"
+            mesh_name = f"{cell['mesh'][0]}x{cell['mesh'][1]}"
+            print(f"phase {cell['phase']} {label}: {cfg.name} in {cfg.dtype}"
+                  f" at its published widths, num_layers "
+                  f"{get_layers(arch)} -> {cfg.num_layers}, on a "
+                  f"{mesh_name} process mesh ({lead['repr']}); "
+                  + (f"{opt.cfg.name}" + (" with ZeRO" if opt.cfg.zero
+                                          else "") + "; "
+                     if cell["train"] or cell["step"] else "") + "init "
+                  f"{[round(r['init_s'], 1) for r in got]} s, peak "
+                  f"{[round(r['peak_gb'], 2) for r in got]} GB a process "
+                  f"({card})")
+            rec = {"cell": label, "arch": arch, "layers": cell["layers"],
+                   "mesh": cell["mesh"], "dtype": cfg.dtype, "wall_s": wall,
+                   "init_s": [r["init_s"] for r in got],
+                   "peak_gb": [r["peak_gb"] for r in got],
+                   "transport": lead["transport"],
+                   "decode_attention_launches": [0] * 4}
             torch.cuda.empty_cache()
-            prompts = lm_batch(cfg, pb, ps, 50, dev)["inputs"]
-            teacher = lead["tokens"].to(dev)
-            if train is not None:
+            if cell["train"] is not None:
                 # the mesh's checkpoint on one rank: serving, then a step
-                b, s, n_steps = train
+                b, s, n_steps = cell["train"]
                 shapes = T.model_param_shapes(cfg)
                 t = time.perf_counter()
                 state = ckpt.restore_checkpoint(
                     os.path.join(store, "ckpt"), n_steps,
                     {"params": shapes, "opt": opt.init(shapes)}, device=dev)
                 rec["restore_s"] = time.perf_counter() - t
-                _, want, pre1, dec1 = lm_serve(state["params"], cfg, None,
-                                               prompts, n_new, teacher=teacher)
-                mine[cell].append(one_rank_step(cfg, state["params"],
-                                                state["opt"], b, s, n_steps))
+                params, st = state["params"], state["opt"]
                 del state
-                for i, (step_got, ref) in enumerate(zip(lead["steps"],
-                                                        mine[cell])):
-                    dl = (abs(step_got["loss"] - ref["loss"])
-                          / abs(ref["loss"]))
-                    dg = (abs(step_got["grad_norm"] - ref["grad_norm"])
-                          / ref["grad_norm"])
-                    good = dl <= LM_LOSS_TOL and dg <= LM_GNORM_TOL
-                    print(f"  {cell} step {i + 1}"
-                          + (" (from the step-3 checkpoint)"
-                             if i == n_steps else "")
-                          + f": mesh {step_got['ms']:.1f} ms "
-                          f"({b * s / step_got['ms'] * 1e3:.1f} tokens/s), "
-                          f"loss {step_got['loss']:.5f}, grad norm "
-                          f"{step_got['grad_norm']:.4f}, a rank received "
-                          f"{[r['steps'][i]['received'] / 1e9 for r in got]}"
-                          f" GB; one rank {ref['ms']:.1f} ms, loss "
-                          f"{ref['loss']:.5f}, grad norm {ref['grad_norm']:.4f}"
-                          f"; rel err {dl:.2e} / {dg:.2e}: "
-                          + ("OK" if good else "FAILED"))
-                    if not good:
-                        failed.append(f"{cell} step {i + 1}")
-                print(f"  {cell} checkpoint: save {lead['save_s']:.1f} s on "
-                      f"the mesh, restore {rec['restore_s']:.1f} s on one "
-                      f"rank; peak {[round(r['peak_gb'], 2) for r in got]} "
-                      "GB a process")
-                rec.update(steps=[r["steps"] for r in got],
-                           one_rank=mine[cell], save_s=lead["save_s"],
-                           peak_gb=[r["peak_gb"] for r in got])
             else:
-                params = init_per_layer(
-                    cfg, torch.Generator(dev).manual_seed(SEED), dev)
+                params, st = one_rank(cfg), None
+
+            if cell["serve"] is not None:
+                (pb, ps), n_new = cell["serve"]
+                prompts = lm_batch(cfg, pb, ps, LM_PROMPT_SEED, dev)["inputs"]
                 _, want, pre1, dec1 = lm_serve(params, cfg, None, prompts,
-                                               n_new, teacher=teacher)
-                del params
+                                               n_new,
+                                               teacher=lead["tokens"].to(dev))
+                want = torch.stack([w.float().cpu() for w in want])
+                if f32:
+                    cmp = lm_compare(label, lead["logits"], want,
+                                     lead["tokens"], 1.0, tol=F32_ROW_TOL)
+                elif label in ("(am)", "(an)"):
+                    # gated below, against bf16's own distance from f32
+                    cmp = lm_compare(label, lead["logits"], want,
+                                     lead["tokens"], 1.0, gate=False)
+                    twins[label] = {"want": want, "tokens": lead["tokens"],
+                                    "prompts": prompts, "n_new": n_new,
+                                    "cmp": cmp}
+                else:
+                    cmp = lm_compare(label, lead["logits"], want,
+                                     lead["tokens"], 1.0 if cell["train"]
+                                     else LM_ROW_SHARE)
+                if not cmp["ok"] and label not in twins:
+                    failed.append(f"{label} serving")
+                same = float((want.argmax(-1).T == lead["tokens"].long())
+                             .float().mean())
+                launches = [r["decode_attention_launches"] for r in got]
+                n_att = sum(cfg.layer_kind(i)[0] == "attention"
+                            for i in range(cfg.num_layers))
+                if launches != [n_new * n_att] * 4:
+                    failed.append(f"{label} decode_attention launches "
+                                  f"{launches}")
+                print(f"  {label} serving {pb} x {ps} + {n_new}: prefill "
+                      f"{lead['prefill_ms']:.1f} ms on the mesh "
+                      f"({pre1 * 1e3:.1f} on one rank), decode "
+                      f"{lead['decode_ms']:.2f} ms a token "
+                      f"({dec1 * 1e3:.2f}); greedy tokens equal to one "
+                      f"rank's argmax (teacher-forced on the mesh's) "
+                      f"{same:.3f}; a rank received "
+                      f"{[r['serve_received'] / 1e9 for r in got]} GB; "
+                      f"decode_attention launches a process {launches} "
+                      f"(want {n_new * n_att})")
+                rec.update(compare=cmp, tokens_equal=same,
+                           prefill_ms=lead["prefill_ms"],
+                           decode_ms=lead["decode_ms"],
+                           one_rank_prefill_ms=pre1 * 1e3,
+                           one_rank_decode_ms=dec1 * 1e3,
+                           serve_received=[r["serve_received"] for r in got],
+                           decode_attention_launches=launches)
+
+            if cell["twin"] is not None:
+                # bf16's own distance: one rank's bf16 logits of the twin
+                # against this f32 cell's weights, teacher-forced alike
+                tw = twins.pop(cell["twin"])
+                _, want32, _, _ = lm_serve(params, cfg, None, tw["prompts"],
+                                           tw["n_new"],
+                                           teacher=tw["tokens"].to(dev))
+                want32 = torch.stack([w.float().cpu() for w in want32])
+                noise = lm_compare(f"{cell['twin']} bf16 on one rank",
+                                   tw["want"], want32, tw["tokens"], 1.0,
+                                   gate=False, what="against its f32")
+                good = tw["cmp"]["median"] <= noise["median"]
+                print(f"  {cell['twin']} bf16 serving: the mesh's median row "
+                      f"error against one rank {tw['cmp']['median']:.3e}, "
+                      f"bf16's own on one rank {noise['median']:.3e}: "
+                      + ("OK" if good else "FAILED"))
+                if not good:
+                    failed.append(f"{cell['twin']} bf16 serving")
+                rec["bf16_vs_f32_one_rank"] = noise
+                rec["bf16_mesh_compare"] = tw["cmp"]
+
+            steps = []
+            if cell["train"] is not None:
+                params, st, r1 = one_rank_step(cfg, opt, params, st, b, s,
+                                               n_steps)
+                mine[label].append(r1)
+                steps = list(enumerate(zip(lead["steps"], mine[label])))
+                rec.update(save_s=lead["save_s"], one_rank=mine[label])
+            if cell["step"] is not None:
+                b, s = cell["step"]
+                batch = lm_batch(cfg, b, s, LM_STEP_SEED, dev)
+                if f32:    # the same weights in f64: f32's own distance
+                    cfg64 = dataclasses.replace(cfg, dtype="float64")
+                    p64 = tree_map(lambda p: p.double(), params)
+                params, st, r1 = lm_step(cfg, opt, None, params,
+                                         opt.init(params), batch)
+                r1["post_loss"] = post_loss(params, batch, cfg, None)
+                if "leaf_norms" in lead["steps"][0]:
+                    r1["leaf_norms"] = leaf_norms(st, opt, cfg, None,
+                                                  r1["grad_norm"])
+                if f32:
+                    del params, st
+                    params, st, r64 = lm_step(cfg64, opt, None, p64,
+                                              opt.init(p64), batch)
+                    del p64
+                    r64["leaf_norms"] = leaf_norms(st, opt, cfg64, None,
+                                                   r64["grad_norm"])
+                    r1["f64"] = r64
+                steps = [(0, (dict(lead["steps"][0],
+                                   post_loss=lead["post_loss"]), r1))]
+                rec["one_rank"] = [r1]
+            del params, st
             torch.cuda.empty_cache()
-            want = torch.stack([w.float().cpu() for w in want])
-            cmp = lm_compare(cell, lead["logits"], want, lead["tokens"],
-                             1.0 if train is not None else LM_ROW_SHARE)
-            if not cmp["ok"]:
-                failed.append(f"{cell} serving")
-            launches = rec["decode_attention_launches"]
-            want_launches = (n_new * cfg.num_layers
-                             if cfg.layer_kind(0)[0] == "attention" else 0)
-            if launches != [want_launches] * 4:
-                failed.append(f"{cell} decode_attention launches {launches}")
-            print(f"  {cell} serving {pb} x {ps} + {n_new}: prefill "
-                  f"{lead['prefill_ms']:.1f} ms on the mesh ({pre1 * 1e3:.1f} "
-                  f"on one rank), decode {lead['decode_ms']:.2f} ms a token "
-                  f"({dec1 * 1e3:.2f}); a rank received "
-                  f"{[r / 1e9 for r in rec['serve_received']]} GB; "
-                  f"decode_attention launches a process {launches} (want "
-                  f"{want_launches})")
-            rec.update(compare=cmp, one_rank_prefill_ms=pre1 * 1e3,
-                       one_rank_decode_ms=dec1 * 1e3)
+            tol_l, tol_g, tol_a = ((F32_LOSS_TOL, F32_GNORM_TOL,
+                                    F32_AFTER_TOL) if f32 else
+                                   (LM_LOSS_TOL, LM_GNORM_TOL, LM_LOSS_TOL))
+            for i, (mesh_r, ref) in steps:
+                b, s = (cell["train"] or cell["step"])[:2]
+                dl = abs(mesh_r["loss"] - ref["loss"]) / abs(ref["loss"])
+                dg = (abs(mesh_r["grad_norm"] - ref["grad_norm"])
+                      / ref["grad_norm"])
+                da = (abs(mesh_r["post_loss"] - ref["post_loss"])
+                      / abs(ref["post_loss"]) if "post_loss" in ref else 0.0)
+                good = dl <= tol_l and da <= tol_a
+                if "f64" in ref:
+                    # each leaf's gradient norm within tol_g of one rank's
+                    # plus twice one rank's own f32 distance from f64
+                    worst = max(zip(mesh_r["leaf_norms"], ref["leaf_norms"],
+                                    ref["f64"]["leaf_norms"]),
+                                key=lambda t: abs(t[0] - t[1]) / (
+                                    tol_g * t[1] + 2 * abs(t[1] - t[2])
+                                    + 1e-30))
+                    ratio = abs(worst[0] - worst[1]) / (
+                        tol_g * worst[1] + 2 * abs(worst[1] - worst[2])
+                        + 1e-30)
+                    good = good and ratio <= 1.0
+                    g64 = ref["f64"]["grad_norm"]
+                    n64 = ref["f64"]["leaf_norms"]
+                    top = max(range(len(n64)), key=n64.__getitem__)
+                    top_name = leaf_names(T.model_param_shapes(cfg))[top]
+                    print(f"  {label} gradient norms, leaf by leaf (from "
+                          f"AdamW's second moment): the mesh against one "
+                          f"rank within {tol_g:g} plus twice one rank's f32 "
+                          f"distance from f64; worst leaf at {ratio:.3f} of "
+                          f"its allowance (mesh {worst[0]:.6g}, one rank "
+                          f"{worst[1]:.6g}, f64 {worst[2]:.6g}); the global "
+                          f"norm in f64 {g64:.6g} ({ref['f64']['ms']:.1f} "
+                          f"ms), one rank's f32 "
+                          f"{abs(ref['grad_norm'] - g64) / g64:.2e} from it;"
+                          f" its largest leaf {top_name} holds "
+                          f"{n64[top] ** 2 / sum(x * x for x in n64):.6f} of "
+                          f"its square")
+                    rec["leaf_ratio"] = ratio
+                else:
+                    good = good and dg <= tol_g
+                print(f"  {label} step {i + 1} of {b} x {s}"
+                      + (" (from the checkpoint)" if cell["train"]
+                         and i == cell["train"][2] else "")
+                      + f": mesh {mesh_r['ms']:.1f} ms "
+                      f"({b * s / mesh_r['ms'] * 1e3:.1f} tokens/s), loss "
+                      f"{mesh_r['loss']:.5f}, grad norm "
+                      f"{mesh_r['grad_norm']:.4f}"
+                      + (f", loss after {mesh_r['post_loss']:.5f}"
+                         if "post_loss" in ref else "")
+                      + f", a rank received "
+                      f"{[r['steps'][i]['received'] / 1e9 for r in got]} GB;"
+                      f" one rank {ref['ms']:.1f} ms, loss {ref['loss']:.5f},"
+                      f" grad norm {ref['grad_norm']:.4f}"
+                      + (f", loss after {ref['post_loss']:.5f}"
+                         if "post_loss" in ref else "")
+                      + f"; rel err {dl:.2e} / {dg:.2e}"
+                      + (f" / {da:.2e}" if "post_loss" in ref else "")
+                      + f" (tolerances {tol_l:g} / {tol_g:g}"
+                      + (f" / {tol_a:g}" if "post_loss" in ref else "")
+                      + "): " + ("OK" if good else "FAILED"))
+                if not good:
+                    failed.append(f"{label} step {i + 1}")
+            if steps:
+                rec["steps"] = [r["steps"] for r in got]
+            if cell["train"] is not None:
+                print(f"  {label} checkpoint: save {lead['save_s']:.1f} s on "
+                      f"the mesh, restore {rec['restore_s']:.1f} s on one "
+                      "rank")
+
+            if cell["count"]:
+                counter.join()
+                rec["count"] = lm_count_check(cell, counted, lead, hw, card,
+                                              failed)
             out["cells"].append(rec)
-    print(json.dumps({"phase14": out}))
+    print(json.dumps({"phase14": out}, default=str))
     if failed:
-        raise AssertionError("phase 14: " + "; ".join(failed))
+        raise AssertionError("phases 14-15: " + "; ".join(failed))
     return out
+
+
+def lm_count_check(cell, counted, lead, hw, card, failed) -> dict:
+    """(ap): the meta count of rank 0 of ``cell``'s step against rank 0 of
+    the step on the card (FlopCounterMode and its traffic)."""
+    costs, step = counted["costs"], lead["steps"][0]
+    b, s = cell["step"]
+    print(f"phase 15 (ap): rank 0 of {cell['cell']}'s 2x2 step ({b} x {s}) "
+          f"counted on a meta rank mesh (launch.mesh.make_meta_rank_mesh, "
+          f"{counted['s']:.1f} s of host time, in a thread during the spawn) "
+          f"against rank 0 of the step on the card ({card})")
+    bound = print_bound("counted on meta", costs, hw)
+    coll_ms = 1e3 * costs.total_collective_bytes / hw["nvlink_bw"]
+    bound["collective_ms"] = coll_ms
+    print(f"  collective term {coll_ms:.2f} ms "
+          f"({costs.total_collective_bytes / 1e9:.3f} GB received by rank 0 "
+          f"over {hw['name']}'s NVLink rate; this run's transport is "
+          "host-staged gloo)")
+    got_bytes = {k: float(v) for k, v in costs.collective_bytes.items()}
+    want_bytes = {k: float(v) for k, v in step["traffic"].items()}
+    f_ok = costs.flops == step["flops"]
+    b_ok = got_bytes == want_bytes
+    print(f"  FLOPs: counted {costs.flops:.6e}, FlopCounterMode over rank 0's "
+          f"step on the card {step['flops']:.6e}: equal {f_ok}; collective "
+          f"bytes by kind: counted {got_bytes} ({dict(costs.collective_count)}"
+          f" calls), rank 0's traffic {want_bytes}: equal {b_ok}; the step "
+          f"took {step['ms']:.1f} ms on the mesh (under FlopCounterMode, "
+          f"host-staged gloo) against a bound of {bound['bound_ms']:.1f} ms: "
+          + ("OK" if f_ok and b_ok else "FAILED"))
+    if not (f_ok and b_ok):
+        failed.append("(ap) the count differs from the card")
+    return {"flops": costs.flops, "card_flops": step["flops"],
+            "collective_bytes": got_bytes, "traffic": want_bytes,
+            "collective_count": dict(costs.collective_count),
+            "count_s": counted["s"], "bound": bound,
+            "peak_counted_gb": costs.peak_live_bytes / 1e9}
 
 
 def get_layers(arch):
@@ -4551,14 +5017,14 @@ def get_layers(arch):
     return get_config(arch).num_layers
 
 
-
 def main(argv=None) -> int:
     import argparse
 
     import torch
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phase", type=int, choices=[9, 10, 11, 12, 13, 14],
+    ap.add_argument("--phase", type=int,
+                    choices=[9, 10, 11, 12, 13, 14, 15],
                     default=None,
                     help="development: build the kernels and run this "
                          "phase alone (prints no kernels and no ok line)")
@@ -4647,8 +5113,8 @@ def main(argv=None) -> int:
             training(dev, card, zero_counters, read_counters, hw)
         elif only == 13:
             process_mesh(card)
-        elif only == 14:
-            lm_on_mesh(dev, card)
+        elif only in (14, 15):
+            lm_on_mesh(dev, card, hw)
         else:
             launch_tools(dev, card, hw, grid, grid_dir)
         print(f"phase {only} alone: done; launches {launches}")
@@ -5322,7 +5788,10 @@ def main(argv=None) -> int:
     mark(8)
     print(f"phase 8: purification and self-verifying multiplies ({card})")
     torch.cuda.empty_cache()
-    for row in robustness(dev, card, zero_counters, read_counters, report):
+    rows, union_launches = robustness(dev, card, zero_counters,
+                                      read_counters, report)
+    launches["smm"] += union_launches    # (u)'s union process's own
+    for row in rows:
         err_abs["smm"] = max(err_abs["smm"], row.pop("max_abs_err"))
         smm_rows.append(row)
 
@@ -5359,11 +5828,12 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     process_mesh(card)
 
-    # ---------------------------------------------------------- phase 14
+    # ------------------------------------------------------ phases 14-15
     mark(14)
-    print(f"phase 14: the LM on a process mesh ({card})")
+    print(f"phases 14-15: the LM on a process mesh; Mamba and RWKV-6 cut "
+          f"over model, Adafactor on a cut, the count of one rank ({card})")
     torch.cuda.empty_cache()
-    for cell in lm_on_mesh(dev, card)["cells"]:
+    for cell in lm_on_mesh(dev, card, hw, mark)["cells"]:
         # every process's own launches of the sharded decode
         launches["decode_attention"] += sum(cell["decode_attention_launches"])
 

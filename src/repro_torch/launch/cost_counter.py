@@ -19,8 +19,9 @@ allocated or launched -- and sums over the aten ops it sees:
     Views and allocations move nothing; a gather reads what it writes,
     an indexed write moves its source, ``copy_`` its source and target;
   * collective bytes by kind, from ``Mesh.traffic`` of the mesh passed
-    in (a one-rank path moves none); ``collective_count`` stays empty,
-    as ``Mesh.traffic`` keeps bytes and not calls;
+    in (a one-rank path moves none): on a ``MetaRankMesh``, the bytes
+    that rank of the process mesh receives; ``collective_count`` from
+    the mesh's ``calls`` where it keeps them (the meta rank mesh does);
   * ``peak_live_bytes``: the argument storages plus every storage an op
     returns, from its creation until it dies (``weakref.finalize`` on
     the storage), the counterpart of the caching allocator's
@@ -234,6 +235,7 @@ class CostCounter(TorchDispatchMode):
         self._quiet = 0
         self._open = True
         self._traffic0 = dict(mesh.traffic) if mesh is not None else {}
+        self._calls0 = dict(getattr(mesh, "calls", {}))
 
     # ----------------------------------------------------------- storage
 
@@ -308,6 +310,10 @@ class CostCounter(TorchDispatchMode):
                 moved = n - self._traffic0.get(kind, 0)
                 if moved:
                     self.costs.collective_bytes[kind] += moved
+            for kind, n in getattr(self.mesh, "calls", {}).items():
+                made = n - self._calls0.get(kind, 0)
+                if made:
+                    self.costs.collective_count[kind] += made
         return self.costs
 
     # ------------------------------------------------------------ replay

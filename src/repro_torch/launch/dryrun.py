@@ -9,22 +9,22 @@ step, print its roofline terms on one H100 and persist them.
 meshes are ``1x1``, ``production`` (32 x 8) and ``production-multipod``
 (2 x 32 x 8, ``launch.mesh.make_production_mesh``).
 
-On the 1x1 mesh a cell runs ``specs.build_cell``'s step on meta tensors
-under ``launch.cost_counter`` (nothing is allocated or launched: the
-JAX dry-run's contract on host devices) and its JSON carries the
-reference's keys: ``memory`` (argument and peak bytes), ``hlo_costs``
-(the counter's sums, under the reference's name), ``roofline`` on the
-card's ``HW``, ``model_flops_global`` and ``useful_flop_ratio``, and
-whether the peak fits the card's HBM.  A train cell counts its first
-microbatch and repeats that count for the others (``replaying``), as
-the reference's analysis scales the microbatch loop by its trip count.
+A cell runs ``specs.build_cell``'s step on meta tensors under
+``launch.cost_counter`` (nothing is allocated or launched: the JAX
+dry-run's contract on host devices) and its JSON carries the
+reference's keys, per device: ``memory`` (argument and peak bytes),
+``hlo_costs`` (the counter's sums, under the reference's name),
+``roofline`` on the card's ``HW``, ``model_flops_global`` and
+``useful_flop_ratio``, and whether the peak fits the card's HBM.  A
+train cell counts its first microbatch and repeats that count for the
+others (``replaying``), as the reference's analysis scales the
+microbatch loop by its trip count.
 
-On a production mesh the dry-run does not yet count a sharded LM step
-(the step itself runs on a process mesh of that many processes; its
-count on meta is ROADMAP A3d), so a cell gives the per-device argument
-bytes from the resolved specs -- parameters, optimizer state, cache and batch, each
-leaf divided by its shard extent -- and no compute: ``hlo_costs`` and
-``roofline`` are null, with the reason.  No collective term is made up.
+On a production mesh the step is rank 0's of a process mesh of that
+shape (``launch.mesh.make_meta_rank_mesh``): its arguments are that
+rank's shards, it runs the mesh's collectives, and the bytes that rank
+receives (``ProcessMesh``'s own count) are ``collective_bytes`` by kind
+and the roofline's collective term.
 
 Unlike the reference, importing this module sets no environment
 variable.  A cell is ``ok``, ``skipped`` (``cell_is_supported``'s
@@ -45,51 +45,33 @@ from typing import List, Optional
 import torch
 
 from ..configs.base import ARCHS, SHAPES, ShapeConfig, get_config
-from ..models.common import tree_map
+from ..models.common import tree_leaves
 from ..train import train_step as TS
 from .cost_counter import count_costs
-from .mesh import HW, make_mesh, make_production_mesh
+from .mesh import HW, make_meta_rank_mesh, make_mesh, make_production_mesh
 from .roofline import model_flops, roofline_terms
 from .specs import build_cell, cell_is_supported
 
-__all__ = ["MESHES", "mesh_for", "cells", "run_cell", "per_device_bytes",
+__all__ = ["MESHES", "mesh_for", "cells", "run_cell",
            "summary", "main"]
 
 MESHES = {"1x1": "1x1", "production": "pod32x8",
           "production-multipod": "pod2x32x8"}
 
-NO_COMPUTE = ("the dry-run counts no sharded LM step yet (ROADMAP A3d): "
-              "per-device argument bytes from the resolved specs only")
-
-
 def mesh_for(name: str):
-    """The meta mesh ``name`` (a key of MESHES) stands for."""
+    """The meta mesh ``name`` (a key of MESHES) stands for: 1x1, or rank 0
+    of a production mesh."""
     if name == "1x1":
         return make_mesh((1, 1), ("data", "model"), device="meta")
     if name in ("production", "production-multipod"):
-        return make_production_mesh(multi_pod=name == "production-multipod")
+        m = make_production_mesh(multi_pod=name == "production-multipod")
+        return make_meta_rank_mesh(m.axis_sizes, m.axis_names)
     raise ValueError(f"unknown mesh {name!r}: one of {sorted(MESHES)}")
 
 
-def per_device_bytes(tree, spec_tree, mesh) -> int:
-    """Bytes a device holds of ``tree`` laid out by ``spec_tree``: each
-    leaf's bytes over the product of the axes its spec names."""
-    sizes = []
-
-    def one(t, spec):
-        extent = 1
-        for part in spec:
-            for a in ((part,) if isinstance(part, str) else part or ()):
-                extent *= mesh.shape[a]
-        sizes.append(t.numel() * t.element_size() // extent)
-
-    tree_map(one, tree, spec_tree)
-    return sum(sizes)
-
-
-def _count(step, args, kind):
+def _count(step, args, kind, mesh):
     replay = ((TS, "_grads_of"),) if kind == "train" else ()
-    return count_costs(step, *args, replay=replay)
+    return count_costs(step, *args, mesh=mesh, replay=replay)
 
 
 def run_cell(arch: str, shape_name, *, mesh: str = "1x1",
@@ -106,8 +88,7 @@ def run_cell(arch: str, shape_name, *, mesh: str = "1x1",
     if ok:
         t0 = time.perf_counter()
         m = mesh_for(mesh)
-        step, args, (in_specs, _), _, meta = build_cell(arch, shape, m,
-                                                        cfg=cfg)
+        step, args, _, _, meta = build_cell(arch, shape, m, cfg=cfg)
         n_chips = m.n_ranks
         mf = model_flops(cfg, shape)
         rec.update({"status": "ok", "n_chips": n_chips, "hw": HW["name"],
@@ -115,33 +96,24 @@ def run_cell(arch: str, shape_name, *, mesh: str = "1x1",
                     "n_microbatches": meta.get("n_microbatches", 1),
                     "model_flops_global": mf,
                     "model_flops_per_device": mf / n_chips})
-        if mesh == "1x1":
-            t1 = time.perf_counter()
-            _, costs = _count(step, args, meta["kind"])
-            peak = costs.peak_live_bytes
-            rec.update({
-                "count_s": time.perf_counter() - t1,
-                "memory": {"argument_bytes": costs.argument_bytes,
-                           "peak_per_device_bytes": peak},
-                "hlo_costs": costs.to_dict(),
-                "roofline": roofline_terms(costs, HW),
-                "useful_flop_ratio": (mf / n_chips) / max(costs.flops, 1.0),
-                "fits_hbm": peak <= HW["hbm_bytes"],
-            })
-        else:
-            parts = [per_device_bytes(a, s, m) for a, s in zip(args, in_specs)]
-            names = {"train": ("params", "opt_state", "batch"),
-                     "prefill": ("params", "inputs"),
-                     "decode": ("params", "state", "tokens")}[meta["kind"]]
-            total = sum(parts)
-            rec.update({
-                "memory": {"argument_bytes": total,
-                           "argument_bytes_by_part": dict(zip(names, parts)),
-                           "peak_per_device_bytes": None},
-                "hlo_costs": None, "roofline": None,
-                "useful_flop_ratio": None, "why_no_compute": NO_COMPUTE,
-                "fits_hbm": total <= HW["hbm_bytes"],
-            })
+        t1 = time.perf_counter()
+        _, costs = _count(step, args, meta["kind"], m)
+        peak = costs.peak_live_bytes
+        names = {"train": ("params", "opt_state", "batch"),
+                 "prefill": ("params", "inputs"),
+                 "decode": ("params", "state", "tokens")}[meta["kind"]]
+        parts = [sum(t.numel() * t.element_size()
+                     for t in tree_leaves(a)) for a in args]
+        rec.update({
+            "count_s": time.perf_counter() - t1,
+            "memory": {"argument_bytes": costs.argument_bytes,
+                       "argument_bytes_by_part": dict(zip(names, parts)),
+                       "peak_per_device_bytes": peak},
+            "hlo_costs": costs.to_dict(),
+            "roofline": roofline_terms(costs, HW),
+            "useful_flop_ratio": (mf / n_chips) / max(costs.flops, 1.0),
+            "fits_hbm": peak <= HW["hbm_bytes"],
+        })
         rec["cell_s"] = time.perf_counter() - t0
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
@@ -173,8 +145,8 @@ def _ms(x) -> str:
 
 def summary(records: List[dict]) -> str:
     """The table of ``benchmarks/bench_roofline.py`` (C / M / X ms,
-    dominant, useful ratio, GiB a device) plus fits-HBM and seconds; on
-    a production mesh GiB a device is the arguments'."""
+    dominant, useful ratio, peak GiB a device) plus fits-HBM and
+    seconds."""
     lines = [f"{'arch':26s} {'shape':12s} {'mesh':10s} {'C(ms)':>10s} "
              f"{'M(ms)':>10s} {'X(ms)':>8s} {'dom':>8s} {'useful':>7s} "
              f"{'GiB/dev':>9s} {'fits':>5s} {'s':>6s}"]
@@ -189,9 +161,7 @@ def summary(records: List[dict]) -> str:
         t = r["roofline"] or {}
         useful = r["useful_flop_ratio"]
         mem = r["memory"]
-        gib = (_gib(mem["peak_per_device_bytes"])
-               if mem["peak_per_device_bytes"] is not None
-               else _gib(mem["argument_bytes"]) + "a")
+        gib = _gib(mem["peak_per_device_bytes"])
         lines.append(
             head + f"{_ms(t.get('compute_s')):>10s} "
             f"{_ms(t.get('memory_s')):>10s} {_ms(t.get('collective_s')):>8s} "

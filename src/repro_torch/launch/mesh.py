@@ -28,7 +28,11 @@ leading **rank axis** holding the ranks that live in this process,
     one way several processes can share a card.  Nothing switches
     transport on a failure, and every collective runs under the
     group's timeout (subgroups take the one the caller passes), so a
-    rank that diverges fails instead of hanging.
+    rank that diverges fails instead of hanging;
+  * ``make_meta_rank_mesh`` (class ``MetaRankMesh``): one rank of a
+    process mesh on the meta device with no process group, whose
+    collectives return meta tensors and count what that rank would
+    receive (the dry-run's count of one rank of a production mesh).
 
 ``Mesh`` offers the two halves of ``shard_map`` (``shard`` cuts a
 global tensor into the rank-stacked layout of a partition spec, with no
@@ -72,6 +76,7 @@ import numpy as np
 import torch
 
 __all__ = ["Mesh", "make_mesh", "ProcessMesh", "make_process_mesh",
+           "MetaRankMesh", "make_meta_rank_mesh",
            "check_rank_devices", "resolve_device", "PartitionSpec", "P",
            "is_spec", "make_production_mesh", "HW", "hw_for", "axis_size",
            "psum_ad", "psum_rep", "enter_rep", "all_gather_ad",
@@ -575,34 +580,42 @@ class ProcessMesh(Mesh):
 
     def ppermute(self, x: torch.Tensor, axes: Axes,
                  perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
-        import torch.distributed as dist
-
         self._check(x)
         src = self._sources(self._names(axes), perm)
         ranks = np.arange(self.n_ranks)
         if (src == ranks).all():
             return x
         me = self.rank
-        ops = []
-        for dst in np.flatnonzero((src == me) & (ranks != me)):
-            ops.append(dist.P2POp(dist.isend, self._wire(x[0]),
-                                  int(dst), group=self.group))
+        dsts = [int(d) for d in np.flatnonzero((src == me) & (ranks != me))]
         buf = None
         if src[me] >= 0 and src[me] != me:
             buf = self._wire_empty(x.shape[1:], x.dtype)
-            ops.append(dist.P2POp(dist.irecv, buf, int(src[me]),
-                                  group=self.group))
             self.traffic["ppermute"] += x[0].numel() * x.element_size()
-        if ops:
-            for req in dist.batch_isend_irecv(ops):
-                req.wait()
+        if dsts or buf is not None:
+            self._exchange(x[0], dsts, buf, int(src[me]))
         if buf is not None:
             return self._unwire(buf).unsqueeze(0)
         return x if src[me] == me else torch.zeros_like(x)
 
-    def psum(self, x: torch.Tensor, axes: Axes) -> torch.Tensor:
+    def _exchange(self, block: torch.Tensor, dsts, buf, src: int) -> None:
+        """``ppermute``'s transfer: ``block`` to each rank of ``dsts``, and
+        ``buf`` (where it is not None) from rank ``src``."""
         import torch.distributed as dist
 
+        ops = [dist.P2POp(dist.isend, self._wire(block), d, group=self.group)
+               for d in dsts]
+        if buf is not None:
+            ops.append(dist.P2POp(dist.irecv, buf, src, group=self.group))
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+
+    def _all_reduce(self, y: torch.Tensor, pg, op: str = "sum") -> None:
+        import torch.distributed as dist
+
+        dist.all_reduce(y, op=dist.ReduceOp.MAX if op == "max"
+                        else dist.ReduceOp.SUM, group=pg)
+
+    def psum(self, x: torch.Tensor, axes: Axes) -> torch.Tensor:
         self._check(x)
         names = self._names(axes)
         n = math.prod(self.shape[a] for a in names)
@@ -610,13 +623,11 @@ class ProcessMesh(Mesh):
             return x
         pg, _ = self._subgroup(names)
         y = self._wire(x[0], fresh=True)
-        dist.all_reduce(y, group=pg)
+        self._all_reduce(y, pg)
         self._count("psum", x, self.n_ranks * 2.0 * (n - 1) / n)
         return self._unwire(y).unsqueeze(0)
 
     def pmax(self, x: torch.Tensor, axes: Axes) -> torch.Tensor:
-        import torch.distributed as dist
-
         self._check(x)
         names = self._names(axes)
         n = math.prod(self.shape[a] for a in names)
@@ -624,15 +635,19 @@ class ProcessMesh(Mesh):
             return x
         pg, _ = self._subgroup(names)
         y = self._wire(x[0], fresh=True)
-        dist.all_reduce(y, op=dist.ReduceOp.MAX, group=pg)
+        self._all_reduce(y, pg, "max")
         self._count("psum", x, self.n_ranks * 2.0 * (n - 1) / n)
         return self._unwire(y).unsqueeze(0)
+
+    def _reduce_scatter(self, out: torch.Tensor, inp: torch.Tensor,
+                        pg) -> None:
+        import torch.distributed as dist
+
+        dist.reduce_scatter_tensor(out, inp, group=pg)
 
     def psum_scatter(self, x: torch.Tensor, axes: Axes, *,
                      scatter_dimension: int = 0,
                      tiled: bool = True) -> torch.Tensor:
-        import torch.distributed as dist
-
         names = self._names(axes)
         n, dim = self._scatter_size(x, names, scatter_dimension, tiled)
         if n == 1:
@@ -645,15 +660,12 @@ class ProcessMesh(Mesh):
         chunks = torch.stack([block.narrow(dim - 1, int(flat[r]) * size, size)
                               for r in order])
         out = self._wire_empty(chunks[0].numel(), x.dtype)
-        dist.reduce_scatter_tensor(out, self._wire(chunks.reshape(-1)),
-                                   group=pg)
+        self._reduce_scatter(out, self._wire(chunks.reshape(-1)), pg)
         self._count("psum_scatter", x, self.n_ranks * (n - 1) / n)
         return self._unwire(out).view((1,) + tuple(chunks.shape[1:]))
 
     def all_gather(self, x: torch.Tensor, axes: Axes, *, axis: int = 0,
                    tiled: bool = True) -> torch.Tensor:
-        import torch.distributed as dist
-
         if not tiled:
             raise NotImplementedError("all_gather(tiled=False)")
         self._check(x)
@@ -692,6 +704,77 @@ class ProcessMesh(Mesh):
         if got is None:
             return None
         return self._unwire(torch.stack(got))
+
+
+@dataclasses.dataclass(frozen=True, repr=False)
+class MetaRankMesh(ProcessMesh):
+    """One rank of a process mesh on the meta device, with no process
+    group (``make_meta_rank_mesh``): every collective runs
+    ``ProcessMesh``'s own steps, so it checks its arguments, adds to
+    ``traffic`` what that rank's call adds, and returns a meta tensor of
+    the result's shape; no byte moves.  ``calls`` counts the calls that
+    move data to this rank, by ``traffic``'s kinds.  The dry-run counts
+    one rank's step of a production mesh on it."""
+
+    calls: dict = dataclasses.field(default_factory=_new_traffic,
+                                    compare=False)
+
+    def __repr__(self) -> str:
+        return (f"MetaRankMesh({self.shape}, rank {self.rank} of "
+                f"{self.n_ranks})")
+
+    @property
+    def transport(self) -> str:
+        return "meta"
+
+    def reset_traffic(self) -> None:
+        super().reset_traffic()
+        for key in self.calls:
+            self.calls[key] = 0
+
+    def _count(self, op: str, x: torch.Tensor, rank_shares: float) -> None:
+        super()._count(op, x, rank_shares)
+        self.calls[op] += 1
+
+    def _subgroup(self, names: Tuple[str, ...]):
+        return None, np.sort(self._groups(names)[self.rank])
+
+    def _exchange(self, block, dsts, buf, src) -> None:
+        if buf is not None:
+            self.calls["ppermute"] += 1
+
+    def _all_reduce(self, y, pg, op="sum") -> None:
+        pass
+
+    def _reduce_scatter(self, out, inp, pg) -> None:
+        pass
+
+    def _gather(self, block: torch.Tensor, pg, n: int) -> torch.Tensor:
+        return block.new_empty((n,) + tuple(block.shape))
+
+    def _all_ranks(self, c: torch.Tensor, dst=None) -> torch.Tensor:
+        if dst is not None and dst != self.rank:
+            return None
+        return self._gather(c[0], None, self.n_ranks)
+
+    def traffic_total(self) -> dict:
+        raise NotImplementedError("a meta rank mesh holds one rank's count")
+
+    def agree(self, value):
+        return value
+
+
+def make_meta_rank_mesh(shape: Sequence[int], axes: Sequence[str], *,
+                        rank: int = 0) -> MetaRankMesh:
+    """Rank ``rank`` of a process mesh of ``shape`` over ``axes``, on the
+    meta device and with no process group (``MetaRankMesh``): the LM's
+    entry points run on its shard shapes and count that rank's
+    collectives, for the dry-run of a mesh no machine here holds."""
+    shape = tuple(int(x) for x in shape)
+    if not 0 <= rank < math.prod(shape):
+        raise ValueError(f"rank {rank} outside a mesh of {shape}")
+    return MetaRankMesh(shape, tuple(axes), torch.device("meta"), rank=rank,
+                        backend="meta")
 
 
 def check_rank_devices(backend: str, devices: Sequence[str]) -> None:

@@ -5,7 +5,11 @@ and dtypes only, nothing allocated on a device.
 Where the JAX package returns ``ShapeDtypeStruct``s and
 ``NamedSharding``s for ``jax.jit(...).lower``, the port returns meta
 tensors and trees of resolved ``PartitionSpec``s; the dry-run runs the
-step on the meta tensors under the cost counter.
+step on the meta tensors under the cost counter.  The arguments are one
+rank's shards -- parameters, optimizer state, cache and batch -- and
+the step runs on the mesh, collectives included: on 1x1 they are whole,
+on the dry-run's ``MetaRankMesh`` (one rank of a production mesh) they
+are that rank's.
 """
 from __future__ import annotations
 
@@ -15,11 +19,12 @@ import torch
 
 from ..configs.base import SHAPES, ModelConfig, ShapeConfig, get_config
 from ..models import transformer as T
+from ..models.common import shard_tree, tree_map
 from ..serve import engine
 from ..serve.prefill import prefill_step
 from ..train import train_step as TS
 from ..train.optimizer import OptConfig, make_optimizer
-from .mesh import P
+from .mesh import P, axis_size
 
 __all__ = ["cell_is_supported", "opt_for", "input_specs",
            "default_microbatches", "build_cell"]
@@ -88,9 +93,11 @@ def build_cell(arch: str, shape_name, mesh, *, n_microbatches: int = 0,
                cfg=None):
     """Returns (step_fn, args, (in_specs, out_specs), donate, meta): the
     step through the port's ``make_train_step``, ``prefill_step`` or
-    ``decode_step``, its arguments as meta tensors, and the spec trees
-    of its arguments and results on ``mesh``.  ``shape_name`` may be a
-    ``ShapeConfig``."""
+    ``decode_step`` on ``mesh``, its arguments as meta tensors -- this
+    rank's shards of the parameters, optimizer state, cache and batch --
+    and the spec trees of its arguments and results.  ``mesh`` is 1x1
+    (whole arguments) or one rank of a process mesh (the dry-run's
+    ``MetaRankMesh``).  ``shape_name`` may be a ``ShapeConfig``."""
     if cfg is None:
         cfg = get_config(arch)
     shape = (shape_name if isinstance(shape_name, ShapeConfig)
@@ -99,44 +106,77 @@ def build_cell(arch: str, shape_name, mesh, *, n_microbatches: int = 0,
     if not ok:
         raise ValueError(f"{arch} x {shape.name} unsupported: {why}")
     params = T.model_param_shapes(cfg)
+    dp = T.dp_axes(mesh)
+    if shape.global_batch % axis_size(mesh, dp) != 0:
+        dp = ()                      # the batch stays whole on every rank
 
     if shape.kind == "train":
         if n_microbatches == 0:
             n_microbatches = default_microbatches(cfg, shape, mesh)
         opt = make_optimizer(opt_for(cfg))
         p_sp, o_sp, b_sp = TS.shardings_for(cfg, mesh, opt)
-        step = TS.make_train_step(cfg, opt, n_microbatches=n_microbatches)
-        args = (params, opt.init(params), input_specs(cfg, shape))
+        step = TS.make_train_step(cfg, opt, n_microbatches=n_microbatches,
+                                  mesh=mesh)
+        params = shard_tree(params, p_sp, mesh)
+        args = (params, TS.init_opt_state(opt, params, cfg, mesh),
+                TS.shard_batch(input_specs(cfg, shape), mesh))
         meta = {"kind": "train", "cfg": cfg, "shape": shape,
                 "n_microbatches": n_microbatches}
         specs = ((p_sp, o_sp, b_sp), (p_sp, o_sp, None))
         return step, args, specs, (0, 1), meta
 
     p_sp = T.model_param_specs(cfg, mesh)
-    dp = T.dp_axes(mesh)
+    params = shard_tree(params, p_sp, mesh)
     if shape.kind == "prefill":
         def step(params, inputs):
-            return prefill_step(params, inputs, cfg)
+            return prefill_step(params, inputs, cfg, mesh, dp)
 
         in_spec = (P(dp, None, None) if cfg.input_mode == "embeddings"
                    else P(dp, None))
-        args = (params, input_specs(cfg, shape)["inputs"])
+        args = (params, mesh.shard(input_specs(cfg, shape)["inputs"],
+                                   in_spec)[0])
         meta = {"kind": "prefill", "cfg": cfg, "shape": shape}
         return step, args, ((p_sp, in_spec), None), (), meta
 
     def step(params, state, tokens):
-        return engine.decode_step(params, state, tokens, cfg)
+        return engine.decode_step(params, state, tokens, cfg, mesh, dp)
 
-    sp = input_specs(cfg, shape)
-    state_sp, tok_sp = engine.decode_shardings(
-        cfg, mesh, batch=shape.global_batch, kv_len=shape.seq_len)
-    # next_tokens is always (B, 1) int32 (even for embedding-stub archs)
-    n_dp = 1
-    for a in dp:
-        n_dp *= mesh.shape[a]
-    if shape.global_batch % max(n_dp, 1) != 0:
-        dp = ()
-    args = (params, sp["state"], sp["tokens"])
+    b, s = shape.global_batch, shape.seq_len
+    cache = T.cache_shapes(cfg, b, s, mesh)
+    state_sp = {"cache": _cache_specs(cfg, b, s, cache, mesh),
+                "cur_len": P(None)}
+    tokens = input_specs(cfg, shape)["tokens"]
+    tok_sp = P(dp, *([None] * (tokens.ndim - 1)))
+    args = (params, {"cache": cache,
+                     "cur_len": torch.empty((1,), dtype=torch.int32,
+                                            device="meta")},
+            mesh.shard(tokens, tok_sp)[0])
     meta = {"kind": "decode", "cfg": cfg, "shape": shape}
+    # next_tokens is always (B, 1) int32 (even for embedding-stub archs)
     return (step, args, ((p_sp, state_sp, tok_sp), (P(dp, None), state_sp)),
             (1,), meta)
+
+
+def _cache_specs(cfg, batch: int, max_len: int, cache, mesh):
+    """The spec tree of ``cache``, this rank's serve cache
+    (``transformer.cache_shapes``' layout): the batch dim over the data
+    axes where they cut it, a dim ``model`` cuts over ``model``; None
+    for a leaf no spec names (a rank's own KV heads where ``model`` does
+    not divide them)."""
+    dp = T.dp_axes(mesh)
+    n_dp, n_tp = axis_size(mesh, dp), axis_size(mesh, "model")
+
+    def one(whole, local):
+        parts = [None] * whole.ndim
+        for i, (w, n) in enumerate(zip(whole.shape, local.shape)):
+            if w == n:
+                continue
+            if i == 1 and w == n * n_dp:      # (repeats, batch, ...)
+                parts[i] = dp
+            elif w == n * n_tp:
+                parts[i] = "model"
+            else:
+                return None
+        return P(*parts)
+
+    return tree_map(one, T.cache_shapes(cfg, batch, max_len), cache)

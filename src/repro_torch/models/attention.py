@@ -80,6 +80,17 @@ def attention_defs(cfg) -> Dict[str, ParamDef]:
     return defs
 
 
+def kv_heads_read(h: int, hkv: int, h_loc: int, r: int):
+    """(lo, hi): the KV heads that query heads [r h_loc, (r+1) h_loc) of
+    ``h`` read, grouped over ``hkv`` KV heads (a rank's share where
+    ``model`` cuts the query heads and not the KV heads)."""
+    group = h // hkv
+    if h_loc % group and group % h_loc:
+        raise ValueError(f"{h_loc} query heads a rank straddle the groups "
+                         f"of {group} of a KV head")
+    return r * h_loc // group, ((r + 1) * h_loc - 1) // group + 1
+
+
 # ---------------------------------------------------------------------------
 # core attention math
 # ---------------------------------------------------------------------------
@@ -235,11 +246,7 @@ def attention_apply(
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
     if kv_rep:   # the KV heads this rank's query heads read
-        group = h // hkv
-        lo, hi = r * h_loc // group, ((r + 1) * h_loc - 1) // group + 1
-        if h_loc % group and group % h_loc:
-            raise ValueError(f"{h_loc} query heads a rank straddle the "
-                             f"groups of {group} of a KV head")
+        lo, hi = kv_heads_read(h, hkv, h_loc, r)
         k, v = k[:, :, lo:hi], v[:, :, lo:hi]
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"]["scale"])

@@ -13,6 +13,20 @@ input 0, which leave the state as it is.
 Decode is the O(1) recurrent step.  Its state is the cache pair
 (conv_state (B, k-1, D) in the model dtype, ssm_state (B, D, N) in f32),
 both written in place.
+
+On a mesh the inner width D is cut over ``model`` by the JAX package's
+specs: the depthwise conv, ``dt_proj``, ``dt_bias``, ``a_log``,
+``d_skip``, the scan and both cache states are local to a rank's share
+of D.  ``x_proj`` is cut on the D it contracts, so its output (dt's low
+rank, B and C) is a partial sum, summed over ``model`` (``psum_ad``:
+each rank uses the sum on its own channels); ``out_proj`` is cut on its
+rows and ends the block with one ``psum_rep``.  ``in_proj`` keeps the
+JAX package's layout, ``(d, 2 D)`` cut on its columns as one leaf, so a
+rank's columns are not its share of u and z (on 2 ranks one holds all
+of u, the other all of z, where GSPMD reshards after the split): each
+rank projects onto its columns and the projection is all-gathered over
+``model`` (``all_gather_ad``, whose backward is a reduce-scatter), from
+which a rank takes its share of u and of z.
 """
 from __future__ import annotations
 
@@ -21,8 +35,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..launch.mesh import P
-from .common import ParamDef
+from ..launch.mesh import P, all_gather_ad, enter_rep, psum_ad, psum_rep
+from .common import ParamDef, model_shard
 
 __all__ = ["mamba_defs", "mamba_apply"]
 
@@ -97,16 +111,30 @@ def mamba_apply(
     *,
     cache: Optional[Tuple] = None,   # (conv_state (B,k-1,D), ssm_state (B,D,N))
     chunk: int = 128,
+    mesh=None,
 ):
     """Returns (out (B, S, d), new_cache).  Prefill returns the states it
     would cache; decode writes them into ``cache`` in place and returns
-    those same tensors."""
+    those same tensors.  On a mesh, D is this rank's share (see the
+    module's docstring)."""
     bsz, s, d = x.shape
     d_in, dt_rank, n, k = _dims(cfg)
     compute_dtype = x.dtype
+    n_tp, r = model_shard(mesh, d_in, params["d_skip"].shape[0])
+    cut_in = params["in_proj"].shape[1] != 2 * d_in
+    if cut_in and n_tp == 1:
+        raise ValueError(f"in_proj's {2 * d_in} columns are cut over 'model' "
+                         f"and d_inner {d_in} is not")
+    if n_tp > 1:
+        x = enter_rep(x, mesh, "model")
 
     xz = x @ params["in_proj"].to(x.dtype)
+    if cut_in:     # every rank's columns, then this rank's u and z
+        xz = all_gather_ad(xz, mesh, "model", axis=xz.ndim - 1)
     u, z = xz.chunk(2, dim=-1)                 # (B, S, D) each
+    if n_tp > 1:
+        loc = d_in // n_tp
+        u, z = u[..., r * loc:(r + 1) * loc], z[..., r * loc:(r + 1) * loc]
 
     conv_w = params["conv_w"].to(x.dtype)      # (k, D)
     if cache is None:
@@ -123,6 +151,8 @@ def mamba_apply(
     u = F.silu(conv_out)
 
     proj = u @ params["x_proj"].to(x.dtype)
+    if n_tp > 1:   # x_proj contracts this rank's share of D
+        proj = psum_ad(proj, mesh, "model")
     dt_lr, b_t, c_t = torch.split(proj, [dt_rank, n, n], dim=-1)
     dt = dt_lr @ params["dt_proj"].to(x.dtype)
     dt = F.softplus(dt.float() + params["dt_bias"].float())
@@ -143,4 +173,7 @@ def mamba_apply(
     y = y.to(compute_dtype)
     y = y + u * params["d_skip"].to(compute_dtype)
     y = y * F.silu(z)
-    return y @ params["out_proj"].to(x.dtype), new_cache
+    out = y @ params["out_proj"].to(x.dtype)
+    if n_tp > 1:
+        out = psum_rep(out, mesh, "model")
+    return out, new_cache

@@ -14,6 +14,19 @@ Channel mix: squared-ReLU MLP with token shift and a receptance gate.
 Decode carries (time-mix shift, WKV state) and the channel-mix shift in
 the serve cache; each function writes its part in place when given a
 cache.
+
+On a mesh the time mix is cut by heads over ``model``, by the JAX
+package's specs: every rank computes the token shift, the five-stream
+LoRA lerp and the decay (whose ``w_lora_b`` is replicated) alike and
+keeps its own heads' channels of the decay; ``wr``, ``wk``, ``wv``,
+``wg``, ``u`` and ``ln_x`` are its heads', the recurrence and the group
+norm run on them, and ``wo``, cut on its rows, ends the block with one
+``psum_rep``.  The input and the replicated parameters enter the block
+through ``enter_rep`` (each rank's use of them covers its own heads).
+The WKV state is cut on heads, the shift state whole.  The channel mix
+is cut on ``d_ff``: ``wk``'s columns and ``wv``'s rows, one
+``psum_rep``; the receptance (``wr``, replicated) and the shift state
+stay whole.
 """
 from __future__ import annotations
 
@@ -22,8 +35,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..launch.mesh import P
-from .common import ParamDef
+from ..launch.mesh import P, enter_rep, psum_rep
+from .common import ParamDef, model_shard
 
 __all__ = ["rwkv6_defs", "rwkv6_time_mix", "rwkv6_channel_mix"]
 
@@ -78,13 +91,21 @@ def rwkv6_time_mix(
     cfg,
     *,
     cache: Optional[Tuple] = None,     # (shift_state (B,d), wkv_state (B,H,hs,hs))
+    mesh=None,
 ):
     """Returns (out (B, S, d), (shift, wkv_state)): the cache's tensors,
-    written in place, when one is given."""
+    written in place, when one is given.  On a mesh H is this rank's
+    heads (see the module's docstring)."""
     p = params["tm"]
     bsz, s, d = x.shape
     hs = cfg.rwkv_head_size
-    h = d // hs
+    h_loc = p["wr"].shape[1]
+    n_tp, rank = model_shard(mesh, d // hs, h_loc)
+    if n_tp > 1:
+        x = enter_rep(x, mesh, "model")
+        p = dict(p, **{n: enter_rep(p[n], mesh, "model") for n in (
+            "mix_base", "mix_lora_a", "mix_lora_b", "w_base", "w_lora_a",
+            "w_lora_b")})
 
     shift_state = (cache[0] if cache is not None
                    else torch.zeros((bsz, d), dtype=x.dtype, device=x.device))
@@ -104,18 +125,20 @@ def rwkv6_time_mix(
         torch.tanh(xw @ p["w_lora_a"].to(x.dtype)).float()
         @ p["w_lora_b"].float())
     w = torch.exp(-torch.exp(w))                            # (B, S, d) in (0, 1)
+    if n_tp > 1:   # this rank's heads' channels
+        w = w[..., rank * h_loc * hs:(rank + 1) * h_loc * hs]
 
     def heads(xs, wt):
         return torch.einsum("bsd,dhk->bshk", xs, wt.to(x.dtype))
 
     r, k, v = heads(xr, p["wr"]), heads(xk, p["wk"]), heads(xv, p["wv"])
     g = F.silu(heads(xg, p["wg"]))
-    w = w.reshape(bsz, s, h, hs)
+    w = w.reshape(bsz, s, h_loc, hs)
     u = p["u"].float()
 
     rf, kf, vf, wf = (t.float() for t in (r, k, v, w))
     state = (cache[1].float() if cache is not None
-             else torch.zeros((bsz, h, hs, hs), dtype=torch.float32,
+             else torch.zeros((bsz, h_loc, hs, hs), dtype=torch.float32,
                               device=x.device))
     ys = []
     for t in range(s):
@@ -132,6 +155,8 @@ def rwkv6_time_mix(
     y = y * p["ln_x"]["scale"].float() + p["ln_x"]["bias"].float()
     y = y.to(x.dtype) * g
     out = torch.einsum("bshk,hkd->bsd", y, p["wo"].to(x.dtype))
+    if n_tp > 1:
+        out = psum_rep(out, mesh, "model")
     if cache is None:
         return out, (x[:, -1], state)
     cache[0].copy_(x[:, -1])
@@ -145,9 +170,10 @@ def rwkv6_channel_mix(
     cfg,
     *,
     cache: Optional[torch.Tensor] = None,   # shift state (B, d)
+    mesh=None,
 ):
     """Returns (out (B, S, d), shift): the cache, written in place, when
-    one is given."""
+    one is given.  On a mesh ``d_ff`` is this rank's share."""
     p = params["cm"]
     bsz, s, d = x.shape
     shift_state = (cache if cache is not None
@@ -156,8 +182,13 @@ def rwkv6_channel_mix(
     dx = prev - x
     xk = x + dx * p["mix_k"].to(x.dtype)
     xr = x + dx * p["mix_r"].to(x.dtype)
+    tp = p["wk"].shape[1] != cfg.d_ff
+    if tp:
+        xk = enter_rep(xk, mesh, "model")
     k = torch.square(F.relu(xk @ p["wk"].to(x.dtype)))
     kv = k @ p["wv"].to(x.dtype)
+    if tp:
+        kv = psum_rep(kv, mesh, "model")
     r = torch.sigmoid(xr @ p["wr"].to(x.dtype))
     if cache is None:
         return r * kv, x[:, -1]

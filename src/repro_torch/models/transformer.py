@@ -29,9 +29,11 @@ mesh, where each process holds its shard of every parameter (by
 replicates a batch its data axes do not divide).  The layers are tensor-
 and expert-parallel over ``model``; the vocabulary of the embedding and
 of the logits is cut over ``model`` and the loss is the mean over every
-data shard's tokens.  Mamba and RWKV-6 layers have no tensor-parallel
-form yet (ROADMAP A3d): on ``model > 1`` they are refused; on a data-only
-mesh every architecture runs.
+data shard's tokens.  Every layer kind runs on any such mesh: Mamba is
+cut on its inner width and RWKV-6's time mix by heads, its channel mix
+on ``d_ff`` (``mamba.py``, ``rwkv6.py``).  ``cache_shapes`` and
+``cache_init`` with ``mesh`` give a process's shard of every cache, as
+prefill leaves them.
 """
 from __future__ import annotations
 
@@ -41,7 +43,8 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from .attention import attention_apply, attention_defs, effective_heads
+from .attention import (attention_apply, attention_defs, effective_heads,
+                        kv_heads_read)
 from ..launch.mesh import P, axis_size, enter_rep
 from .common import (ParamDef, apply_norm, cross_entropy_logits_sharded,
                      embed_lookup, init_params, lm_mesh, norm_defs,
@@ -194,8 +197,32 @@ def model_init(cfg, generator: torch.Generator, dtype=None, *, device=None,
 # ---------------------------------------------------------------------------
 
 
-def _layer_cache_shape(kind: Tuple[str, str], cfg, batch: int, max_len: int):
-    """Meta tensors of one layer's serve cache."""
+def _model_cut(mesh, full: int) -> int:
+    """How many parts ``model`` cuts a dimension of ``full`` into: its
+    size where it divides ``full`` (as ``resolve_spec`` keeps the cut),
+    else 1."""
+    n = axis_size(mesh, "model")
+    return n if full % n == 0 else 1
+
+
+def _kv_heads_held(cfg, mesh) -> int:
+    """The KV heads a rank's attention cache holds (``attention_apply``):
+    its share where ``model`` cuts them, else those its query heads read."""
+    h, hkv = effective_heads(cfg)
+    n = _model_cut(mesh, h)
+    if n == 1:
+        return hkv
+    if hkv % n == 0:
+        return hkv // n
+    r = mesh.index("model") if len(mesh.local_ranks) == 1 else 0
+    lo, hi = kv_heads_read(h, hkv, h // n, r)
+    return hi - lo
+
+
+def _layer_cache_shape(kind: Tuple[str, str], cfg, batch: int, max_len: int,
+                       mesh=None):
+    """Meta tensors of one layer's serve cache (on ``mesh``, a rank's
+    shard of it; ``batch`` is then the rank's)."""
     mix, _ = kind
     dt = _dtype(cfg)
 
@@ -203,30 +230,41 @@ def _layer_cache_shape(kind: Tuple[str, str], cfg, batch: int, max_len: int):
         return torch.empty(shape, dtype=dtype, device="meta")
 
     if mix == "attention":
-        _, hkv_eff = effective_heads(cfg)
-        kv = (batch, max_len, hkv_eff, cfg.resolved_head_dim)
+        kv = (batch, max_len, _kv_heads_held(cfg, mesh),
+              cfg.resolved_head_dim)
         return (meta(kv), meta(kv))
     if mix == "mla":
         return (meta((batch, max_len, cfg.kv_lora_rank)),
                 meta((batch, max_len, cfg.qk_rope_dim)))
     if mix == "mamba":
         d_in, _, n, k = mamba_dims(cfg)
+        d_in //= _model_cut(mesh, d_in)
         return (meta((batch, k - 1, d_in)),
                 meta((batch, d_in, n), torch.float32))
     if mix == "rwkv6":
         d, hs = cfg.d_model, cfg.rwkv_head_size
+        h = d // hs
         return (meta((batch, d)),
-                meta((batch, d // hs, hs, hs), torch.float32),
+                meta((batch, h // _model_cut(mesh, h), hs, hs),
+                     torch.float32),
                 meta((batch, d)))             # the channel-mix shift
     raise ValueError(mix)
 
 
-def cache_shapes(cfg, batch: int, max_len: int):
+def cache_shapes(cfg, batch: int, max_len: int, mesh=None):
+    """Meta tensors of the serve cache for ``batch`` sequences of
+    ``max_len``; with a process ``mesh``, this rank's shard (the batch cut
+    over the data axes where they divide it, every rank's own KV heads,
+    Mamba's inner width and RWKV-6's WKV heads cut over ``model``)."""
+    if mesh is not None:
+        n_dp = axis_size(mesh, dp_axes(mesh))
+        if batch % n_dp == 0:
+            batch //= n_dp
     out = []
     for n_rep, period in segment_plan(cfg):
         seg = []
         for kind in period:
-            shapes = _layer_cache_shape(kind, cfg, batch, max_len)
+            shapes = _layer_cache_shape(kind, cfg, batch, max_len, mesh)
             seg.append(tuple(
                 torch.empty((n_rep,) + tuple(s.shape), dtype=s.dtype,
                             device="meta") for s in shapes))
@@ -276,11 +314,12 @@ def cache_specs(cfg, mesh=None, batch=None):
     return out
 
 
-def cache_init(cfg, batch: int, max_len: int, *, device=None):
-    """Zero caches on ``device`` (default CUDA)."""
+def cache_init(cfg, batch: int, max_len: int, *, device=None, mesh=None):
+    """Zero caches on ``device`` (default CUDA); on a process ``mesh``
+    this rank's shards (``cache_shapes``)."""
     dev = resolve_device(device)
     return tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype, device=dev),
-                    cache_shapes(cfg, batch, max_len))
+                    cache_shapes(cfg, batch, max_len, lm_mesh(mesh)))
 
 
 # ---------------------------------------------------------------------------
@@ -307,10 +346,10 @@ def _apply_layer(kind, lp, x, positions, cfg, cache, cur_len, collect=False,
             long_seq_threshold=cfg.long_seq_threshold, mesh=mesh)
     elif mix == "mamba":
         c = None if cache is None else (cache[0], cache[1])
-        out, new_c = mamba_apply(lp["mixer"], h, cfg, cache=c)
+        out, new_c = mamba_apply(lp["mixer"], h, cfg, cache=c, mesh=mesh)
     elif mix == "rwkv6":
         c = None if cache is None else (cache[0], cache[1])
-        out, new_c = rwkv6_time_mix(lp["mixer"], h, cfg, cache=c)
+        out, new_c = rwkv6_time_mix(lp["mixer"], h, cfg, cache=c, mesh=mesh)
     else:
         raise ValueError(mix)
     x = x + out
@@ -325,7 +364,8 @@ def _apply_layer(kind, lp, x, positions, cfg, cache, cur_len, collect=False,
         x = x + out
     elif ff == "rwkv_cm":
         cm_cache = None if cache is None else cache[2]
-        out, cm_state = rwkv6_channel_mix(lp["mixer"], h, cfg, cache=cm_cache)
+        out, cm_state = rwkv6_channel_mix(lp["mixer"], h, cfg, cache=cm_cache,
+                                          mesh=mesh)
         x = x + out
         new_c = new_c + (cm_state,)
     else:
@@ -432,18 +472,6 @@ def _train_period(period, positions, cfg, mesh=None, dp=()):
     return _remat_wrap(run, cfg)
 
 
-def _check_mesh(cfg, mesh):
-    mesh = lm_mesh(mesh)
-    if axis_size(mesh, "model") > 1:
-        kinds = {mix for _, period in segment_plan(cfg) for mix, _ in period}
-        if kinds & {"mamba", "rwkv6"}:
-            raise ValueError(
-                f"{cfg.name}: Mamba and RWKV-6 layers have no tensor-"
-                "parallel form yet (ROADMAP A3d); run them on a data-only "
-                "mesh (model = 1)")
-    return mesh
-
-
 def _dp(mesh, dp):
     return (dp_axes(mesh) if mesh is not None else ()) if dp is None else dp
 
@@ -455,7 +483,7 @@ def backbone(params: Dict, inputs: torch.Tensor, cfg, *,
     """Embeddings, every layer and the final norm.  Returns (hidden,
     aux, new_cache); see ``forward``.  With autograd on and no cache
     (training), each repeat of a period runs under ``cfg.remat``."""
-    mesh = _check_mesh(cfg, mesh)
+    mesh = lm_mesh(mesh)
     dp = _dp(mesh, dp)
     dt = _dtype(cfg)
     if cfg.input_mode == "embeddings" or inputs.ndim == 3:

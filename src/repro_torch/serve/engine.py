@@ -24,10 +24,14 @@ __all__ = ["decode_step", "init_serve_state", "pad_cache",
            "serve_input_specs", "decode_shardings"]
 
 
-def init_serve_state(cfg, batch: int, max_len: int, *, device=None):
-    """Zero caches + cur_len = 0, on ``device`` (default CUDA)."""
+def init_serve_state(cfg, batch: int, max_len: int, *, device=None,
+                     mesh=None):
+    """Zero caches + cur_len = 0, on ``device`` (default CUDA); on a
+    process ``mesh`` this rank's shards of the caches of ``batch``
+    sequences (``transformer.cache_shapes``)."""
     dev = resolve_device(device)
-    return {"cache": T.cache_init(cfg, batch, max_len, device=dev),
+    return {"cache": T.cache_init(cfg, batch, max_len, device=dev,
+                                  mesh=mesh),
             "cur_len": torch.zeros((1,), dtype=torch.int32, device=dev)}
 
 

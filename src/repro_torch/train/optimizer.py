@@ -36,8 +36,18 @@ DeepSeek-V3's ``moe_fsdp`` experts ``P(None, "model", "data", "data")``,
 which JAX's ``NamedSharding`` refuses (``DuplicateSpecError``) and so
 does ``train_step.shardings_for`` (``ValueError``).  ``mesh_layout``
 leaves such a leaf without a ZeRO dim: its state is already cut over
-the data axes with the parameter.  Adafactor runs on a mesh whose
-leaves are all whole (its factored means would span a cut).
+the data axes with the parameter.
+
+Adafactor runs on any mesh, as the JAX package's does under GSPMD: its
+means are over whole leaves.  A mean over a dimension a leaf is cut on
+(``vr``'s over the last, ``vc``'s over the one before, the normalising
+mean of ``vr``) is the local sum summed over the dimension's axes,
+over the global length; the update-clipping RMS sums the local squares
+over every axis the leaf is cut on, over the global count.  ``vr`` and
+``vc`` take the parameter's spec less the reduced dimension (the JAX
+package's ``state_specs``).  Adafactor has no ZeRO (the JAX package's
+``state_specs`` ignores ``zero`` for it): its state lies as its
+parameter does.
 """
 from __future__ import annotations
 
@@ -173,27 +183,52 @@ def _adafactor_init(params, cfg: OptConfig):
     }
 
 
+def _dim_axes(lay, dim: int) -> tuple:
+    """The mesh axes a leaf's dimension ``dim`` is cut on (none without a
+    layout)."""
+    if lay is None:
+        return ()
+    return spec_axes((lay.spec[dim],))
+
+
+def _mean(x: torch.Tensor, dim: int, axes: tuple, mesh,
+          keepdim: bool = False) -> torch.Tensor:
+    """The mean over ``dim`` of the whole tensor whose shard ``x`` is, cut
+    on ``dim`` over ``axes``: ``x.mean`` where it is not cut."""
+    n = axis_size(mesh, axes)
+    if n == 1:
+        return x.mean(dim, keepdim=keepdim)
+    total = x.sum(dim, keepdim=keepdim)
+    return mesh.psum(total.unsqueeze(0), axes)[0] / (x.shape[dim] * n)
+
+
 @torch.no_grad()
-def _adafactor_update(grads, state, params, cfg: OptConfig, scale):
+def _adafactor_update(grads, state, params, cfg: OptConfig, scale,
+                      mesh=None, layout=None):
     step = state["step"].add_(1)
     beta2 = 1.0 - step.float() ** (-cfg.decay)
-    for g, v, p in zip(tree_leaves(grads), _up_to(state["v"], params),
-                       tree_leaves(params)):
+    lays = (tree_leaves(layout) if layout is not None
+            else [None] * len(tree_leaves(params)))
+    for g, v, p, lay in zip(tree_leaves(grads), _up_to(state["v"], params),
+                            tree_leaves(params), lays):
         g = g.float() * scale
         g2 = g.square() + 1e-30
         if _factored(p.shape, cfg.min_dim_factored):
             vr, vc = v["vr"], v["vc"]
-            vr.mul_(beta2).add_((1 - beta2) * g2.mean(-1))
-            vc.mul_(beta2).add_((1 - beta2) * g2.mean(-2))
-            denom = ((vr / vr.mean(-1, keepdim=True))[..., None]
+            rows, cols = _dim_axes(lay, -2), _dim_axes(lay, -1)
+            vr.mul_(beta2).add_((1 - beta2) * _mean(g2, -1, cols, mesh))
+            vc.mul_(beta2).add_((1 - beta2) * _mean(g2, -2, rows, mesh))
+            denom = ((vr / _mean(vr, -1, rows, mesh, keepdim=True))[..., None]
                      * vc[..., None, :])
         else:
             denom = v["v"].mul_(beta2).add_((1 - beta2) * g2)
         del g2
         pre = g * torch.rsqrt(denom + 1e-30)
         del g, denom
-        # update clipping (Adafactor's d=1.0 RMS rule)
-        rms = torch.sqrt(pre.square().mean() + 1e-30)
+        # update clipping (Adafactor's d=1.0 RMS rule), over the whole leaf
+        cut = spec_axes(lay.spec) if lay is not None else ()
+        rms = torch.sqrt(_mean(pre.square().reshape(-1), 0, cut, mesh)
+                         + 1e-30)
         _step(p, pre / torch.clamp_min(rms, 1.0), cfg)
     return params, state
 
@@ -279,7 +314,8 @@ def mesh_layout(cfg: OptConfig, param_specs, param_shapes, mesh,
         parts = tuple(spec) + pad
         dp_cut = bool(set(spec_axes(parts)) & set(dp))
         zero_dim = None
-        if cfg.zero and axis_size(mesh, dp) > 1 and not dp_cut:
+        if (cfg.zero and cfg.name == "adamw" and axis_size(mesh, dp) > 1
+                and not dp_cut):
             cut = tuple(zero(spec, leaf))
             cut += (None,) * (len(parts) - len(cut))
             zero_dim = next((i for i, (a, b) in enumerate(zip(parts, cut))
@@ -346,16 +382,12 @@ def make_optimizer(cfg: OptConfig = OptConfig()) -> Optimizer:
             scale, gnorm = _clip_by_global_norm(grads, cfg.grad_clip)
             params, state = upd(grads, state, params, cfg, scale)
             return params, state, {"grad_norm": gnorm}
-        if cfg.name != "adamw" and any(
-                axis_size(mesh, spec_axes(l.spec)) > 1
-                for l in tree_leaves(layout)):
-            raise ValueError(
-                f"{cfg.name} on a mesh that cuts a parameter: its factored "
-                "means and update clipping span the cut (use AdamW, or a "
-                "mesh that cuts none)")
         grads = _reduce_grads(grads, layout, mesh)
         scale, gnorm = _clip_by_global_norm(grads, cfg.grad_clip, mesh,
                                             layout)
+        if cfg.name == "adafactor":
+            upd(grads, state, params, cfg, scale, mesh, layout)
+            return params, state, {"grad_norm": gnorm}
         chunks = tree_map(lambda p, l: zero_chunk(p, l, mesh), params, layout)
         upd(grads, state, chunks, cfg, scale)
         with torch.no_grad():

@@ -214,10 +214,11 @@ def test_param_count(cfgs):
 
 
 def test_build_cell_specs_match_the_jax_cell():
-    """``build_cell`` on a production mesh: the spec trees are the JAX
-    cell's NamedShardings' specs, for a train, prefill and decode cell."""
+    """``build_cell`` on rank 0 of a production mesh: the spec trees are
+    the JAX cell's NamedShardings' specs, for a train, prefill and decode
+    cell (RWKV-6's caches lie as the JAX package's)."""
     jm = AbstractMesh((32, 8), ("data", "model"))
-    tm = TM.make_production_mesh()
+    tm = TM.make_meta_rank_mesh((32, 8), ("data", "model"))
     for arch, shape in (("qwen2_1_5b", "train_4k"), ("jamba_v0_1_52b",
                                                       "prefill_32k"),
                         ("rwkv6_1_6b", "long_500k")):

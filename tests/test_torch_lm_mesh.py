@@ -115,13 +115,14 @@ def _np(tree):
 # ---------------------------------------------------------------------------
 
 
-def _run_lm(cfg, mesh, b, s, seed, *, decode=True, step=True):
+def _run_lm(cfg, mesh, b, s, seed, *, decode=True, step=True, params=None):
     """forward, one ZeRO step and prefill + 2 decode tokens on ``mesh``
-    (None, or this process's rank); every output gathered whole."""
+    (None, or this process's rank) from ``params`` (default ``_init``'s);
+    every output gathered whole."""
     full = _batch(cfg, b, s, seed)
     batch = shard_batch(full, mesh)
     dp = T.dp_axes(mesh) if mesh is not None else ()
-    params = _init(cfg, mesh)
+    params = _init(cfg, mesh) if params is None else params
     out = {}
     with torch.no_grad():
         logits, _, _, _ = T.forward(params, batch["inputs"], cfg, mesh=mesh)
@@ -603,19 +604,6 @@ def test_an_in_process_mesh_of_several_ranks_is_refused():
     with pytest.raises(ValueError, match="process mesh"):
         T.forward(_init(cfg), torch.zeros((2, 4), dtype=torch.int32), cfg,
                   mesh=mesh)
-
-
-def test_mamba_and_rwkv_refuse_a_model_axis(tmp_path):
-    for arch in ("jamba_v0_1_52b", "rwkv6_1_6b"):
-        with pytest.raises(ValueError, match="A3d"):
-            T.backbone(None, None, _cfg(arch), mesh=_FakeMesh())
-
-
-class _FakeMesh:
-    """Shape alone: the refusal comes before any shard is touched."""
-    n_ranks = 2
-    shape = {"data": 1, "model": 2}
-    local_ranks = np.array([0])
 
 
 def test_embed_lookup_and_cut_cross_entropy(runs):
