@@ -394,12 +394,38 @@ Phases 14-15 the LM on a process mesh (repro_torch.models on
                 FLOPs equal to FlopCounterMode over rank 0's step on the
                 card and its collective bytes by kind equal to rank 0's
                 traffic; its roofline terms beside the step's time.
+         Then, in the same spawn, (ak)'s model on 2x2 with the sequence-
+         parallel residual (cfg.sequence_parallel: each rank keeps its
+         half of the sequence's rows between layers) against without:
+         one ZeRO AdamW step of 4 x 2,048 each from the same weights and
+         batch, the loss and gradient norm held at SP_LOSS_TOL /
+         SP_GNORM_TOL, the step ms, each process's peak
+         max_memory_allocated and the bytes a rank received.
          Step ms and tokens/s, prefill ms, decode ms a token, bytes a
          rank received, decode_attention launches a process, and each
          comparison's error against one rank, held to the tolerances
          at LM_* and F32_* below.  One {"phase14": ...} line.
-``--phase 9`` (or 10, 11, 12, 13, 14) builds the kernels and runs that
-phase alone (development: no kernels line and no ok line); 15 runs 14.
+Phase 16 the smm sweep and the H100 winners table on the main path (the
+         table, artifacts/smm_autotune_h100.json, is the repository's
+         whatever the working directory: use_repo_table):
+           the sweep, autotune.tune_block at block 22 on 180^2 blocks
+           (3,960^2, the main path's grid) at fills 1.0 and 0.2 on the
+           card: each tile's time and rate, each row's stacks and
+           triples held to its plan's;
+           (a), (b) and (c) (A at ~20 % block fill) through
+           dbcsr.multiply with no stack size: the tile and source the
+           table gives (winners[...]), the multiply's plan ran them, its
+           product bitwise the same product at stack_size=30000 (a stack
+           never splits a C block's run, so the kernel adds in the same
+           order; where it is not, the first differing block is printed
+           and the product held to REL_TOL of max|C|), and the smm
+           kernel's CUDA-event ms at both tiles in turns beside PERF.md
+           section 6's.  One {"phase16": ...} line.
+         Phases 2, 3 and 6 build the plans they hold launches and times
+         to at the tile the table gives (table_tile).
+``--phase 9`` (or 10, 11, 12, 13, 14, 16) builds the kernels and runs
+that phase alone (development: no kernels line and no ok line); 15 runs
+14.
 
 Prints a {"kernels": [...]} line, the nvidia-smi line, and as its last
 line {"ok": true, "device": {...}}.  Any failed check raises, so the
@@ -496,6 +522,30 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip()
+
+
+def use_repo_table():
+    """Point the smm winners-table lookup at the repository's
+    ``artifacts/smm_autotune_h100.json`` whatever the working directory
+    (the executor and the planner read it when no stack size is pinned)."""
+    from repro_torch.kernels.smm import autotune
+
+    autotune.DEFAULT_CACHE = os.path.join(REPO, "artifacts",
+                                          "smm_autotune_h100.json")
+
+
+def table_tile(block: int, nb: int, pair_mask=None, rank_masks=None) -> int:
+    """The stack tile the executor resolves, without a pinned stack size,
+    for an (nb x nb x nb)-block product at ``block`` with these masks:
+    the winners table's entry for its occupancy bin (a rank-exact step's
+    busiest rank's), or the heuristic."""
+    from repro_torch.core.engine import _mask_fill
+    from repro_torch.kernels.smm.autotune import best_params_for
+
+    fills = [_mask_fill(nb, nb, nb, rm.get("a_mask"), rm.get("b_mask"),
+                        rm.get("pair_mask"))
+             for rm in (rank_masks or [{"pair_mask": pair_mask}])]
+    return best_params_for(block, block, block, fill=max(fills))[1]
 
 
 def rel_err(x, ref) -> float:
@@ -2080,7 +2130,8 @@ def distributed(dev, counters, zero_counters, read_counters, report) -> dict:
         densify=True, local_kernel="pallas")
 
     # (p) blocked, block 22: the per-rank plan is phase 2's (a)
-    plan = build_executor_plan(NL, NL, NL, BS, BS, BS, 30000)
+    plan = build_executor_plan(NL, NL, NL, BS, BS, BS,
+                               table_tile(BS, NL // BS))
     a_blk = to_blocks_batched(a16[:1], BS, BS)[0]
     b_blk = to_blocks_batched(b16[:1], BS, BS)[0]
     cbuf = torch.zeros((plan.n_c_blocks + 1, BS, BS), device=dev)
@@ -2103,7 +2154,9 @@ def distributed(dev, counters, zero_counters, read_counters, report) -> dict:
                        block_mask=am)
     exact_m = torch.matmul(dAm.data, B)
     steps = cannon_step_masks(am, np.ones((nb, nb), bool), P)
-    plans = [build_executor_plan(NL, NL, NL, BS, BS, BS, 30000, pair_mask=pm)
+    plans = [build_executor_plan(NL, NL, NL, BS, BS, BS,
+                                 table_tile(BS, NL // BS, pair_mask=pm),
+                                 pair_mask=pm)
              for pm in steps]
     fill = [p.n_entries / p.n_dense_triples for p in plans]
     print(f"  (p) A at 20 % block fill: union plans over 16 ranks hold "
@@ -2167,7 +2220,8 @@ def distributed(dev, counters, zero_counters, read_counters, report) -> dict:
             # the plans the multiply built (memoized), one a step
             rplans = [build_rank_executor_plan(
                 NL, NL, NL, block_m=BS, block_k=BS, block_n=BS,
-                rank_masks=rm, stack_size=30000,
+                rank_masks=rm, stack_size=table_tile(BS, NL // BS,
+                                                     rank_masks=rm),
                 rank_order=mesh44.flat_index(("data", "model")))
                 for rm in cannon_rank_steps(am, np.ones((nb, nb), bool), P)]
             print("  (p) rank-exact plans: the busiest rank holds "
@@ -3030,6 +3084,7 @@ def pur_union() -> dict:
 
     from repro_torch.kernels.smm.ops import smm_process_stack
 
+    use_repo_table()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -4094,6 +4149,7 @@ def pm_rank(rank: int, shape, axes, cases) -> dict:
     from repro_torch.launch.mesh import make_mesh, make_process_mesh
     from repro_torch.robustness import chaos
 
+    use_repo_table()
     mesh = make_process_mesh(
         shape, axes, timeout=datetime.timedelta(seconds=PM_TIMEOUT_S))
     dev = mesh.device
@@ -4400,6 +4456,16 @@ F32_ROW_TOL = 1e-3
 F32_LOSS_TOL = 1e-4
 F32_GNORM_TOL = 4e-3
 F32_AFTER_TOL = 1e-3
+# (ak) with the sequence-parallel residual against without, one step each
+# from the same weights and batch in bf16: the two run the same products on
+# the same rows (every block gathers the whole sequence first); they differ
+# in the order of the sums that give the norms' and biases' gradients (a
+# rank's half of the rows, then the psum) and in a reduce-scatter where an
+# all-reduce was.  The CPU test holds every gradient in f32 within 1e-4.
+SP_CELL = "(ak)"
+SP_KEY = "(ak) sequence_parallel"      # its record in a process's results
+SP_LOSS_TOL = 1e-3
+SP_GNORM_TOL = 1e-2
 LM_TIMEOUT_S = 600
 LM_JOIN_S = 900
 LM_PROMPT_SEED, LM_STEP_SEED = 50, 62
@@ -4559,6 +4625,43 @@ def lm_rank(rank: int, store: str) -> dict:
     out = {}
     for cell in LM_CELLS:
         out[cell["cell"]] = lm_cell_on_mesh(meshes[cell["mesh"]], cell, store)
+        torch.cuda.empty_cache()
+    out[SP_KEY] = lm_sp_steps(meshes[(2, 2)])
+    return out
+
+
+def lm_sp_steps(mesh) -> dict:
+    """(ak)'s model on 2x2: one ZeRO AdamW step of (ak)'s batch shape
+    without and with ``sequence_parallel``, each from the same weights and
+    batch, the peak memory reset before each; returns {flag: its step}."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import transformer as T
+    from repro_torch.train.train_step import init_opt_state, shard_batch
+
+    (cell,) = [c for c in LM_CELLS if c["cell"] == SP_CELL]
+    dev = mesh.device
+    cfg = lm_config(cell)
+    opt = lm_opt(cfg, cell)
+    b, s, _ = cell["train"]
+    batch = shard_batch(lm_batch(cfg, b, s, LM_STEP_SEED, dev), mesh)
+    out = {}
+    for sp in (False, True):
+        c = dataclasses.replace(cfg, sequence_parallel=sp)
+        params = init_per_layer(c, torch.Generator(dev).manual_seed(SEED),
+                                dev, mesh=mesh,
+                                specs=T.model_param_specs(c, mesh))
+        st = init_opt_state(opt, params, c, mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        mesh.reset_traffic()
+        params, st, rec = lm_step(c, opt, mesh, params, st, batch)
+        rec["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        rec["received"] = sum(mesh.traffic.values())
+        out[sp] = rec
+        del params, st
         torch.cuda.empty_cache()
     return out
 
@@ -4969,10 +5072,39 @@ def lm_on_mesh(dev, card: str, hw, mark=None) -> dict:
                 rec["count"] = lm_count_check(cell, counted, lead, hw, card,
                                               failed)
             out["cells"].append(rec)
+        out["sp"] = lm_sp_check([r[SP_KEY] for r in ranks], card, failed)
     print(json.dumps({"phase14": out}, default=str))
     if failed:
         raise AssertionError("phases 14-15: " + "; ".join(failed))
     return out
+
+
+def lm_sp_check(got, card, failed) -> dict:
+    """(ak)'s step with ``sequence_parallel`` against without on 2x2 (every
+    process's record of ``lm_sp_steps``)."""
+    off, on = got[0][False], got[0][True]
+    dl = abs(on["loss"] - off["loss"]) / abs(off["loss"])
+    dg = abs(on["grad_norm"] - off["grad_norm"]) / off["grad_norm"]
+    good = dl <= SP_LOSS_TOL and dg <= SP_GNORM_TOL
+    (cell,) = [c for c in LM_CELLS if c["cell"] == SP_CELL]
+    b, s, _ = cell["train"]
+    print(f"phase 14 {SP_CELL} sequence_parallel: one ZeRO AdamW step of "
+          f"{b} x {s} on 2x2 from the same weights, with the residual cut "
+          f"over model between layers against without: loss "
+          f"{on['loss']:.6f} / {off['loss']:.6f}, grad norm "
+          f"{on['grad_norm']:.5f} / {off['grad_norm']:.5f} (rel err "
+          f"{dl:.2e} / {dg:.2e}; tolerances {SP_LOSS_TOL:g} / "
+          f"{SP_GNORM_TOL:g}): " + ("OK" if good else "FAILED"))
+    print(f"  step {on['ms']:.1f} / {off['ms']:.1f} ms; peak "
+          f"max_memory_allocated a process "
+          f"{[round(r[True]['peak_gb'], 3) for r in got]} / "
+          f"{[round(r[False]['peak_gb'], 3) for r in got]} GB; a rank "
+          f"received {[r[True]['received'] / 1e9 for r in got]} / "
+          f"{[r[False]['received'] / 1e9 for r in got]} GB ({card})")
+    if not good:
+        failed.append(f"{SP_CELL} sequence_parallel step")
+    return {"on": [r[True] for r in got], "off": [r[False] for r in got],
+            "loss_rel_err": dl, "grad_norm_rel_err": dg, "ok": good}
 
 
 def lm_count_check(cell, counted, lead, hw, card, failed) -> dict:
@@ -5011,6 +5143,156 @@ def lm_count_check(cell, counted, lead, hw, card, failed) -> dict:
             "peak_counted_gb": costs.peak_live_bytes / 1e9}
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the smm sweep and the H100 winners table on the main path
+# ---------------------------------------------------------------------------
+
+SWEEP_NB = 180            # blocks a side of the sweep at block 22 (3,960^2)
+SWEEP_FILLS = (1.0, 0.2)
+SWEEP_SIZES = {"(a)": (3960, 22), "(b)": (4096, 64)}   # (n, block)
+# PERF.md section 6's smm CUDA-event ms of (a), (b) and (c) at default
+# stacks before the table (stack tile 30,000; this script's phase 3 on an
+# H100 80GB HBM3 at 700 W)
+SMM_MS_BEFORE = {"(a)": 5.263, "(b)": 4.819, "(c)": 1.171}
+
+
+def sweep_phase(dev, card, zero_counters, read_counters) -> dict:
+    """Phase 16: ``autotune.tune_block`` at block 22 on the main path's
+    grid on the card, each row's stacks and triples held to the plan's;
+    then (a), (b) and (c) through ``dbcsr.multiply`` with the stack tile
+    the committed table gives them, bitwise the same product at
+    ``stack_size=30000`` (stacks never split a C block's run, so the
+    kernel's order of sums is the same), and the smm kernel's CUDA-event
+    ms at both tiles in turns (30,000, table, table, 30,000)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import dbcsr, engine
+    from repro_torch.core.cannon import cannon_step_masks
+    from repro_torch.core.densify import to_blocks
+    from repro_torch.kernels.smm import autotune
+    from repro_torch.kernels.smm.ops import smm_process_stack
+    from repro_torch.launch.mesh import make_mesh
+
+    out = {"card": card, "table": os.path.relpath(autotune.DEFAULT_CACHE,
+                                                  REPO),
+           "sweep": [], "cases": []}
+    n = 22 * SWEEP_NB
+    for fill in SWEEP_FILLS:
+        t = time.perf_counter()
+        res = autotune.tune_block(22, n_blocks=SWEEP_NB, fill=fill)
+        mask = autotune.sweep_mask(SWEEP_NB, fill)
+        for row in res["rows"]:
+            plan = engine.build_executor_plan(n, n, n, 22, 22, 22,
+                                              row["stack_tile"], a_mask=mask)
+            if (row["n_stacks"], row["n_entries"]) != (plan.n_stacks,
+                                                       plan.n_entries):
+                raise AssertionError(f"sweep fill {fill:g} tile "
+                                     f"{row['stack_tile']}: row {row} "
+                                     f"against the plan's {plan.n_stacks} "
+                                     f"stacks, {plan.n_entries} triples")
+        print(f"  sweep, block 22, {SWEEP_NB}^2 blocks, fill {fill:g} "
+              f"({time.perf_counter() - t:.1f} s, {res['device']}): "
+              + "; ".join(f"tile {r['stack_tile']} {1e3 * r['time_s']:.4f} "
+                          f"ms {r['gflops']:.0f} GF/s, {r['n_stacks']} "
+                          f"stacks" for r in res["rows"])
+              + f"; best {res['best']['stack_tile']}; each row's stacks "
+              "and triples equal its plan's")
+        out["sweep"].append(res)
+
+    mesh = make_mesh((1, 1), ("data", "model"))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    rng = np.random.RandomState(SEED + 16)
+
+    def dense(m):
+        return torch.randn((m, m), generator=gen, device=dev)
+
+    (na, ba), (nb64, bb) = SWEEP_SIZES["(a)"], SWEEP_SIZES["(b)"]
+    a22, b22 = dense(na), dense(na)
+    cases = (("(a)", ba, a22, b22, None),
+             ("(b)", bb, dense(nb64), dense(nb64), None),
+             ("(c)", ba, a22, b22, rng.rand(na // ba, na // ba) < 0.2))
+    for label, bs, a, b, am in cases:
+        nb = a.shape[0] // bs
+        x = dbcsr.create(a, mesh=mesh, block_size=bs, block_mask=am)
+        y = dbcsr.create(b, mesh=mesh, block_size=bs)
+        pm = (None if am is None else
+              cannon_step_masks(am, np.ones((nb, nb), bool), 1)[0])
+        fill = engine._mask_fill(nb, nb, nb, None, None, pm)
+        meta = autotune.best_params_meta(bs, bs, bs, fill=fill)
+        if not meta["source"].startswith("winners["):
+            raise AssertionError(f"{label}: no winners entry ({meta})")
+        zero_counters()
+        c_tab = dbcsr.multiply(x, y, mesh=mesh, algorithm="cannon",
+                               densify=False)
+        torch.cuda.synchronize()
+        got = read_counters()
+        ran = c_tab.last_plan
+        if (ran.stack_tile, ran.params_source) != (meta["stack_tile"],
+                                                   meta["source"]):
+            raise AssertionError(f"{label}: the multiply ran tile "
+                                 f"{ran.stack_tile} from {ran.params_source}"
+                                 f", the table gives {meta}")
+        c_30 = dbcsr.multiply(x, y, mesh=mesh, algorithm="cannon",
+                              densify=False, stack_size=30000)
+        torch.cuda.synchronize()
+        if c_30.last_plan.stack_tile != 30000:
+            raise AssertionError(f"{label}: stack_size=30000 ran tile "
+                                 f"{c_30.last_plan.stack_tile}")
+        check_close(f"{label} table tile vs torch.matmul", c_tab.data,
+                    torch.matmul(x.data, y.data))
+        same = torch.equal(c_tab.data, c_30.data)
+        where = None
+        if not same:
+            # report the first differing C block, and hold the product to
+            # REL_TOL of max|C| instead
+            diff = (c_tab.data != c_30.data).nonzero()[0].tolist()
+            where = [diff[0] // bs, diff[1] // bs]
+            check_close(f"{label} table tile vs tile 30000", c_tab.data,
+                        c_30.data)
+        # the kernel alone at both tiles, in turns
+        a_blk, b_blk = to_blocks(x.data, bs, bs), to_blocks(y.data, bs, bs)
+        cbuf = torch.zeros((nb * nb + 1, bs, bs), device=dev)
+        plans = {tile: engine.build_executor_plan(
+            a.shape[0], a.shape[0], a.shape[0], bs, bs, bs, tile,
+            pair_mask=pm) for tile in (30000, meta["stack_tile"])}
+
+        def kernel(plan):
+            def go():
+                for t, r in plan.device_bins(dev):
+                    smm_process_stack(a_blk, b_blk, cbuf, t, r)
+            return go
+
+        times = {tile: [] for tile in plans}
+        for tile in (30000, meta["stack_tile"], meta["stack_tile"], 30000):
+            times[tile].append(time_ms(kernel(plans[tile]), 5,
+                                       setup=cbuf.zero_))
+        ms = {tile: statistics.median(v) for tile, v in times.items()}
+        rec = {"case": label, "block": bs, "fill": fill,
+               "source": meta["source"], "tile": meta["stack_tile"],
+               "gflops_table": meta["gflops"], "launches": got,
+               "bitwise_30000": same, "first_diff_block": where,
+               "smm_ms": ms[meta["stack_tile"]], "smm_ms_30000": ms[30000],
+               "smm_ms_before": SMM_MS_BEFORE[label],
+               "n_stacks": plans[meta["stack_tile"]].n_stacks,
+               "n_stacks_30000": plans[30000].n_stacks}
+        print(f"  {label} {a.shape[0]}^2 block {bs}, fill {fill:.3f}: "
+              f"{meta['source']} gives tile {meta['stack_tile']} "
+              f"({meta['gflops']:.0f} GF/s swept); the multiply ran it "
+              f"(launches {got}); its product "
+              + ("bitwise" if same else f"NOT bitwise (first at C block "
+                 f"{where}; within {REL_TOL:g} of max|C|)")
+              + f" the product at stack_size=30000; smm "
+              f"{rec['smm_ms']:.3f} ms at tile {meta['stack_tile']} "
+              f"({rec['n_stacks']} stacks), {rec['smm_ms_30000']:.3f} at "
+              f"30000 ({rec['n_stacks_30000']} stacks; PERF.md section 6: "
+              f"{SMM_MS_BEFORE[label]})")
+        out["cases"].append(rec)
+        del c_tab, c_30, cbuf, plans
+    print(json.dumps({"phase16": out}, default=str))
+    return out
+
+
 def get_layers(arch):
     from repro_torch.configs.base import get_config
 
@@ -5024,7 +5306,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", type=int,
-                    choices=[9, 10, 11, 12, 13, 14, 15],
+                    choices=[9, 10, 11, 12, 13, 14, 15, 16],
                     default=None,
                     help="development: build the kernels and run this "
                          "phase alone (prints no kernels and no ok line)")
@@ -5034,6 +5316,7 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.join(REPO, "src"))
+    use_repo_table()
     import numpy as np
 
     from repro_torch.core import dbcsr
@@ -5115,6 +5398,8 @@ def main(argv=None) -> int:
             process_mesh(card)
         elif only in (14, 15):
             lm_on_mesh(dev, card, hw)
+        elif only == 16:
+            sweep_phase(dev, card, zero_counters, read_counters)
         else:
             launch_tools(dev, card, hw, grid, grid_dir)
         print(f"phase {only} alone: done; launches {launches}")
@@ -5326,7 +5611,8 @@ def main(argv=None) -> int:
     exact = torch.matmul(A.data, B.data)
     c, got = run("(a) 3960^2 block 22 blocked", A, B, densify=False)
     check_close("(a) vs torch.matmul", c.data, exact)
-    plan_a = build_executor_plan(3960, 3960, 3960, 22, 22, 22, 30000)
+    plan_a = build_executor_plan(3960, 3960, 3960, 22, 22, 22,
+                                 table_tile(22, 180))
     expect_launches(got, "smm", plan_a.n_bins)
     if c.block_mask is not None:
         raise AssertionError("(a) dense product carries a mask")
@@ -5356,9 +5642,10 @@ def main(argv=None) -> int:
     c_def, got = run("(c) 3960^2 block 22 blocked, 20% A mask, default "
                      "stacks", Am, B, densify=False)
     check_close("(c) default stacks vs torch.matmul", c_def.data, exact)
-    plan_c_def = build_executor_plan(
-        3960, 3960, 3960, 22, 22, 22, 30000,
-        pair_mask=cannon_step_masks(am, bm, 1)[0])
+    pm_c = cannon_step_masks(am, bm, 1)[0]
+    plan_c_def = build_executor_plan(3960, 3960, 3960, 22, 22, 22,
+                                     table_tile(22, nb, pair_mask=pm_c),
+                                     pair_mask=pm_c)
     expect_launches(got, "smm", plan_c_def.n_bins)
     del c_def
     c_none, got = run("(c) 3960^2 block 22 blocked, 20% A mask, stacks "
@@ -5421,7 +5708,8 @@ def main(argv=None) -> int:
     B64 = dbcsr.create(dense(4096), mesh=mesh, block_size=64)
     c, got = run("(b) 4096^2 block 64 blocked", A64, B64, densify=False)
     check_close("(b) vs torch.matmul", c.data, torch.matmul(A64.data, B64.data))
-    plan_b = build_executor_plan(4096, 4096, 4096, 64, 64, 64, 30000)
+    plan_b = build_executor_plan(4096, 4096, 4096, 64, 64, 64,
+                                 table_tile(64, 64))
     expect_launches(got, "smm", plan_b.n_bins)
     del c
 
@@ -5435,8 +5723,8 @@ def main(argv=None) -> int:
     a_stack = torch.stack([a.data for a, _ in dense_reqs])
     b_stack = torch.stack([b.data for _, b in dense_reqs])
     t = time.perf_counter()
-    plan_f = build_batched_executor_plan(NB, NB, NB, BS, BS, BS,
-                                         [{}] * G, stack_size=30000)
+    plan_f = build_batched_executor_plan(NB, NB, NB, BS, BS, BS, [{}] * G,
+                                         stack_size=table_tile(BS, nbb))
     build_s = time.perf_counter() - t
     t = time.perf_counter()
     plan_f.device_triples(dev)
@@ -5836,6 +6124,13 @@ def main(argv=None) -> int:
     for cell in lm_on_mesh(dev, card, hw, mark)["cells"]:
         # every process's own launches of the sharded decode
         launches["decode_attention"] += sum(cell["decode_attention_launches"])
+
+    # ---------------------------------------------------------- phase 16
+    mark(16)
+    print(f"phase 16: the smm sweep and the H100 winners table on the main "
+          f"path ({card})")
+    torch.cuda.empty_cache()
+    sweep_phase(dev, card, zero_counters, read_counters)
 
     mark("end")
     for key, n in launches.items():

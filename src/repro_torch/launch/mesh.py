@@ -48,7 +48,8 @@ The schedules, the engine and the planner run unchanged on either
 backend.  The LM runs on a process mesh (or 1x1) with plain local
 tensors, through the collectives at the end of this module that
 autograd passes through (``psum_ad``, ``psum_rep``, ``enter_rep``,
-``all_gather_ad``, ``psum_scatter_ad``, and ``pmax``).  ``traffic`` counts the bytes the local ranks receive from
+``all_gather_ad``, ``psum_scatter_ad``, ``cut_rep``, ``gather_rep``
+and ``pmax``).  ``traffic`` counts the bytes the local ranks receive from
 other ranks, as a ring implementation would move them; on a process
 mesh it is this rank's share, and ``traffic_total()`` sums it over the
 processes (the in-process mesh's count for the same calls, exactly).
@@ -80,7 +81,7 @@ __all__ = ["Mesh", "make_mesh", "ProcessMesh", "make_process_mesh",
            "check_rank_devices", "resolve_device", "PartitionSpec", "P",
            "is_spec", "make_production_mesh", "HW", "hw_for", "axis_size",
            "psum_ad", "psum_rep", "enter_rep", "all_gather_ad",
-           "psum_scatter_ad", "pmax"]
+           "psum_scatter_ad", "cut_rep", "gather_rep", "pmax"]
 
 Axes = Union[str, Sequence[str]]
 
@@ -867,6 +868,13 @@ def make_process_mesh(shape: Sequence[int], axes: Sequence[str], *,
 #     block only.
 #   * ``all_gather_ad`` (tiled; backward ``psum_scatter``) and
 #     ``psum_scatter_ad`` (backward ``all_gather``).
+#   * ``cut_rep`` and ``gather_rep``: the pair of the sequence-parallel
+#     residual around a block every rank runs alike.  ``cut_rep`` keeps
+#     this rank's chunk of a tensor every rank holds alike (backward
+#     ``all_gather``: each rank's cotangent covers its chunk only);
+#     ``gather_rep`` all-gathers the chunks into a tensor every rank then
+#     uses alike (backward: this rank's chunk of the cotangent, which
+#     every rank computes the same).
 
 
 def axis_size(mesh, axes: Axes) -> int:
@@ -941,6 +949,37 @@ class _PsumScatter(torch.autograd.Function):
                        axis=ctx.axis), None, None, None)
 
 
+def _chunk(x: torch.Tensor, mesh, axes: Axes, axis: int) -> torch.Tensor:
+    """This process's chunk of ``x`` along ``axis``, cut in
+    ``axis_size(mesh, axes)`` in the flat order of ``axes``."""
+    size = x.shape[axis] // axis_size(mesh, axes)
+    return x.narrow(axis, mesh.index(axes) * size, size)
+
+
+class _CutRep(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, axis):
+        ctx.mesh, ctx.axes, ctx.axis = mesh, axes, axis
+        return _chunk(x, mesh, axes, axis).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_local(ctx.mesh.all_gather, g.contiguous(), ctx.axes,
+                       axis=ctx.axis), None, None, None)
+
+
+class _GatherRep(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, axis):
+        ctx.mesh, ctx.axes, ctx.axis = mesh, axes, axis
+        return _local(mesh.all_gather, x, axes, axis=axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_chunk(g, ctx.mesh, ctx.axes, ctx.axis).contiguous(), None,
+                None, None)
+
+
 def _tracked(x: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and x.requires_grad
 
@@ -988,6 +1027,28 @@ def psum_scatter_ad(x: torch.Tensor, mesh, axes: Axes, *,
     if _tracked(x):
         return _PsumScatter.apply(x, mesh, axes, axis)
     return _local(mesh.psum_scatter, x, axes, scatter_dimension=axis)
+
+
+def cut_rep(x: torch.Tensor, mesh, axes: Axes, *,
+            axis: int = 0) -> torch.Tensor:
+    """This rank's chunk along ``axis`` of a tensor every rank of ``axes``
+    holds alike; backward all_gather (see above)."""
+    if not _on(mesh, axes):
+        return x
+    if _tracked(x):
+        return _CutRep.apply(x, mesh, axes, axis)
+    return _chunk(x, mesh, axes, axis).contiguous()
+
+
+def gather_rep(x: torch.Tensor, mesh, axes: Axes, *,
+               axis: int = 0) -> torch.Tensor:
+    """Tiled all_gather over ``axes`` along ``axis`` into a tensor every
+    rank uses alike; backward this rank's chunk (see above)."""
+    if not _on(mesh, axes):
+        return x
+    if _tracked(x):
+        return _GatherRep.apply(x, mesh, axes, axis)
+    return _local(mesh.all_gather, x, axes, axis=axis)
 
 
 def pmax(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:

@@ -24,8 +24,9 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..kernels.decode_attention import ops as decode_ops
-from ..launch.mesh import P, enter_rep, psum_rep
-from .common import ParamDef, apply_rope, model_shard, rms_norm
+from ..launch.mesh import P, enter_rep
+from .common import (ParamDef, apply_rope, block_enter, block_exit,
+                     model_shard, rms_norm)
 
 NEG_INF = -1e30
 
@@ -213,13 +214,15 @@ def attention_apply(
     block_kv: int = 512,
     long_seq_threshold: int = 8192,
     mesh=None,
+    sp: bool = False,
 ):
     """Returns (out (B, S, d), new_cache).
 
     With a cache, the new token's K and V are written into ``k_cache``
     and ``v_cache`` in place (at ``cur_len``, clamped so the write fits,
     as ``dynamic_update_slice`` clamps), and those same tensors are
-    returned as the new cache."""
+    returned as the new cache.  With ``sp`` x and out are this rank's
+    rows of the sequence (``common.block_enter``)."""
     d = cfg.d_model
     dh = cfg.head_dim or d // cfg.num_heads
     h, hkv = effective_heads(cfg)
@@ -228,8 +231,8 @@ def attention_apply(
     n_tp, r = model_shard(mesh, h, h_loc)
     kv_rep = n_tp > 1 and params["wk"].shape[1] == hkv
     p = params
+    x = block_enter(x, mesh, sp, n_tp > 1)
     if n_tp > 1:
-        x = enter_rep(x, mesh, "model")
         # parameters every rank holds alike but uses on its own heads
         shared = ["wk", "wv", "bk", "bv"] if kv_rep else []
         p = dict(params, **{n: enter_rep(params[n], mesh, "model")
@@ -282,6 +285,4 @@ def attention_apply(
                      < cfg.num_heads).to(out.dtype)
         out = out * head_mask[None, None, :, None]
     out = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
-    if n_tp > 1:
-        out = psum_rep(out, mesh, "model")
-    return out, new_cache
+    return block_exit(out, mesh, sp, n_tp > 1), new_cache

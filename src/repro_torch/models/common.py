@@ -28,8 +28,9 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..launch.mesh import (P, PartitionSpec, axis_size, is_spec, pmax,
-                           psum_rep, resolve_device)
+from ..launch.mesh import (P, PartitionSpec, all_gather_ad, axis_size,
+                           cut_rep, enter_rep, gather_rep, is_spec, pmax,
+                           psum_rep, psum_scatter_ad, resolve_device)
 
 __all__ = ["ParamDef", "tree_map", "tree_leaves", "resolve_device",
            "init_params", "param_shapes", "param_specs", "resolve_spec",
@@ -37,7 +38,8 @@ __all__ = ["ParamDef", "tree_map", "tree_leaves", "resolve_device",
            "layer_norm", "apply_norm", "norm_defs", "act_fn",
            "rope_frequencies", "apply_rope", "sinusoidal_positions",
            "cross_entropy_logits_sharded", "embed_lookup", "lm_mesh",
-           "shard_tree", "gather_tree", "model_shard"]
+           "shard_tree", "gather_tree", "model_shard", "sp_active",
+           "block_enter", "block_exit", "sp_rep"]
 
 
 # ---------------------------------------------------------------------------
@@ -238,6 +240,64 @@ def model_shard(mesh, full: int, local: int) -> Tuple[int, int]:
         raise ValueError(f"a dimension of {full} held as {local} is no cut "
                          f"over 'model' ({n})")
     return n, mesh.index("model")
+
+
+# ---------------------------------------------------------------------------
+# the sequence-parallel residual
+# ---------------------------------------------------------------------------
+#
+# With ``cfg.sequence_parallel`` the JAX package constrains the residual
+# stream to ``P(dp, "model", None)`` between layers and GSPMD turns each
+# block's all-reduce over ``model`` into an all-gather and a
+# reduce-scatter.  Here each rank holds its S / model rows of x between
+# layers (``cut_rep`` after the embedding, ``gather_rep`` after the final
+# norm), and every block goes through the pair below: a block whose
+# width ``model`` cuts (``tp``) enters by all-gathering the rows (its
+# backward reduce-scatters the cotangents that each rank computed for its
+# own heads) and leaves by reduce-scattering its partial sums; a block
+# every rank runs alike enters by ``gather_rep`` and leaves by
+# ``cut_rep``.  Without the flag the pair is Megatron's ``enter_rep`` /
+# ``psum_rep`` (or nothing, for a block every rank runs alike).
+# Parameters every rank holds alike and uses on its own rows (the norms,
+# a bias added after a block) pass ``sp_rep``: each rank's cotangent
+# then covers its rows only, and their sum over ``model`` is the whole.
+
+
+def sp_active(cfg, mesh, s: int, cache=None, collect: bool = False) -> bool:
+    """The JAX package's condition for the cut residual
+    (``cfg.sequence_parallel``, no cache, ``model`` > 1 dividing the
+    sequence ``s``), and not a prefill that collects caches: a cache
+    holds every row, so prefill and decode run as without the flag."""
+    n = axis_size(mesh, "model")
+    return bool(cfg.sequence_parallel and cache is None and not collect
+                and n > 1 and s % n == 0)
+
+
+def block_enter(x: torch.Tensor, mesh, sp: bool, tp: bool = True):
+    """x (B, S or S / model, d) as a block takes it: whole on every rank
+    (see above)."""
+    if sp:
+        return (all_gather_ad if tp else gather_rep)(x, mesh, "model",
+                                                     axis=1)
+    return enter_rep(x, mesh, "model") if tp else x
+
+
+def block_exit(out: torch.Tensor, mesh, sp: bool, tp: bool = True):
+    """A block's (B, S, d) output as the residual holds it: summed over
+    ``model`` where the block is cut (``tp``), and this rank's rows
+    under ``sp`` (see above)."""
+    if sp:
+        return (psum_scatter_ad if tp else cut_rep)(out, mesh, "model",
+                                                    axis=1)
+    return psum_rep(out, mesh, "model") if tp else out
+
+
+def sp_rep(tree, mesh, sp: bool):
+    """Parameters used on this rank's rows alone: under ``sp`` their
+    cotangents are summed over ``model`` (``enter_rep``)."""
+    if not sp:
+        return tree
+    return tree_map(lambda t: enter_rep(t, mesh, "model"), tree)
 
 
 def stack_defs(defs, n: int):

@@ -9,8 +9,8 @@ from typing import Dict
 
 import torch
 
-from ..launch.mesh import P, enter_rep, psum_rep
-from .common import ParamDef, act_fn
+from ..launch.mesh import P
+from .common import ParamDef, act_fn, block_enter, block_exit, sp_rep
 
 __all__ = ["ffn_defs", "ffn_apply"]
 
@@ -35,13 +35,14 @@ def ffn_defs(cfg, d_ff: int | None = None) -> Dict[str, ParamDef]:
     return defs
 
 
-def ffn_apply(params: Dict, x: torch.Tensor, cfg, mesh=None) -> torch.Tensor:
+def ffn_apply(params: Dict, x: torch.Tensor, cfg, mesh=None,
+              sp: bool = False) -> torch.Tensor:
     """x (B, S, d) -> (B, S, d).  On a mesh whose ``model`` axis cuts the
     hidden width ``cfg.d_ff``, x enters the block as Megatron's f and the
-    row-parallel product leaves it as g."""
+    row-parallel product leaves it as g; with ``sp`` x and the output are
+    this rank's rows of the sequence (``common.block_enter``)."""
     tp = mesh is not None and params["w_up"].shape[1] != cfg.d_ff
-    if tp:
-        x = enter_rep(x, mesh, "model")
+    x = block_enter(x, mesh, sp, tp)
     act = act_fn(cfg.act)
     u = x @ params["w_up"].to(x.dtype)
     if cfg.mlp_bias:
@@ -51,9 +52,7 @@ def ffn_apply(params: Dict, x: torch.Tensor, cfg, mesh=None) -> torch.Tensor:
         h = act(g) * u
     else:
         h = act(u)
-    out = h @ params["w_down"].to(x.dtype)
-    if tp:
-        out = psum_rep(out, mesh, "model")
+    out = block_exit(h @ params["w_down"].to(x.dtype), mesh, sp, tp)
     if cfg.mlp_bias:
-        out = out + params["b_down"].to(x.dtype)
+        out = out + sp_rep(params["b_down"], mesh, sp).to(x.dtype)
     return out

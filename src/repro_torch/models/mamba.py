@@ -26,7 +26,10 @@ rank's columns are not its share of u and z (on 2 ranks one holds all
 of u, the other all of z, where GSPMD reshards after the split): each
 rank projects onto its columns and the projection is all-gathered over
 ``model`` (``all_gather_ad``, whose backward is a reduce-scatter), from
-which a rank takes its share of u and of z.
+which a rank takes its share of u and of z.  With the sequence-parallel
+residual the block takes and returns this rank's rows of the sequence
+(``common.block_enter`` / ``block_exit``): the conv and the scan run on
+the whole sequence after the gather.
 """
 from __future__ import annotations
 
@@ -35,8 +38,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..launch.mesh import P, all_gather_ad, enter_rep, psum_ad, psum_rep
-from .common import ParamDef, model_shard
+from ..launch.mesh import P, all_gather_ad, psum_ad
+from .common import ParamDef, block_enter, block_exit, model_shard
 
 __all__ = ["mamba_defs", "mamba_apply"]
 
@@ -112,12 +115,12 @@ def mamba_apply(
     cache: Optional[Tuple] = None,   # (conv_state (B,k-1,D), ssm_state (B,D,N))
     chunk: int = 128,
     mesh=None,
+    sp: bool = False,
 ):
     """Returns (out (B, S, d), new_cache).  Prefill returns the states it
     would cache; decode writes them into ``cache`` in place and returns
     those same tensors.  On a mesh, D is this rank's share (see the
-    module's docstring)."""
-    bsz, s, d = x.shape
+    module's docstring); with ``sp`` x and out are this rank's rows."""
     d_in, dt_rank, n, k = _dims(cfg)
     compute_dtype = x.dtype
     n_tp, r = model_shard(mesh, d_in, params["d_skip"].shape[0])
@@ -125,8 +128,8 @@ def mamba_apply(
     if cut_in and n_tp == 1:
         raise ValueError(f"in_proj's {2 * d_in} columns are cut over 'model' "
                          f"and d_inner {d_in} is not")
-    if n_tp > 1:
-        x = enter_rep(x, mesh, "model")
+    x = block_enter(x, mesh, sp, n_tp > 1)
+    bsz, s, d = x.shape
 
     xz = x @ params["in_proj"].to(x.dtype)
     if cut_in:     # every rank's columns, then this rank's u and z
@@ -174,6 +177,4 @@ def mamba_apply(
     y = y + u * params["d_skip"].to(compute_dtype)
     y = y * F.silu(z)
     out = y @ params["out_proj"].to(x.dtype)
-    if n_tp > 1:
-        out = psum_rep(out, mesh, "model")
-    return out, new_cache
+    return block_exit(out, mesh, sp, n_tp > 1), new_cache

@@ -22,7 +22,9 @@ Two paths, as in the JAX package:
 On a mesh the heads are local to their ``model`` shard (``wq_b``,
 ``wk_b``, ``wv_b`` and ``wo`` cut on the head dim); the latent
 projections, their norms and the latent caches are every rank's alike,
-and ``wo``'s product is summed over ``model``.
+and ``wo``'s product is summed over ``model``.  With the sequence-
+parallel residual the latent projections run on this rank's rows, and
+the latents enter the head-local part (``common.block_enter``).
 """
 from __future__ import annotations
 
@@ -31,10 +33,11 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..launch.mesh import P, enter_rep, psum_rep
+from ..launch.mesh import P, cut_rep
 from .attention import (NEG_INF, _einsum_f32, blockwise_causal_attention,
                         full_causal_attention)
-from .common import ParamDef, apply_rope, model_shard, rms_norm
+from .common import (ParamDef, apply_rope, block_enter, block_exit,
+                     model_shard, rms_norm, sp_rep)
 
 __all__ = ["mla_defs", "mla_apply"]
 
@@ -56,11 +59,11 @@ def mla_defs(cfg) -> Dict[str, ParamDef]:
     }
 
 
-def _project_q(params, x, positions, cfg, mesh=None):
+def _project_q(params, x, positions, cfg, mesh=None, sp=False, tp=False):
     dn = cfg.qk_nope_dim
     q_lat = x @ params["wq_a"].to(x.dtype)
-    q_lat = enter_rep(rms_norm(q_lat, params["q_a_norm"]["scale"]), mesh,
-                      "model")
+    q_lat = block_enter(rms_norm(q_lat, params["q_a_norm"]["scale"]), mesh,
+                        sp, tp)
     q = torch.einsum("bsr,rhk->bshk", q_lat, params["wq_b"].to(x.dtype))
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
@@ -87,20 +90,28 @@ def mla_apply(
     block_kv: int = 512,
     long_seq_threshold: int = 8192,
     mesh=None,
+    sp: bool = False,
 ):
     """Returns (out (B, S, d), new_cache).  Prefill returns the latents it
     would cache, (c_kv (B, S, kvr), k_rope (B, S, dr)); decode writes them
-    into the caches in place and returns those same tensors."""
+    into the caches in place and returns those same tensors.  With ``sp``
+    x and out are this rank's rows of the sequence."""
     dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     scale = (dn + dr) ** -0.5
     n_tp, _ = model_shard(mesh, cfg.num_heads, params["wq_b"].shape[1])
-    tp = mesh if n_tp > 1 else None   # the latents enter the head-local part
+    tp = n_tp > 1      # the latents enter the head-local part
+    # the latent projections run on the rows x holds
+    params = dict(params, **sp_rep(
+        {n: params[n] for n in ("wq_a", "q_a_norm", "wkv_a", "kv_a_norm")},
+        mesh, sp))
+    rows = cut_rep(positions, mesh, "model", axis=1) if sp else positions
 
-    q_nope, q_rope = _project_q(params, x, positions, cfg, tp)
-    c_kv, k_rope = _project_kv_latent(params, x, positions, cfg)
+    q_nope, q_rope = _project_q(params, x, positions, cfg, mesh, sp, tp)
+    c_kv, k_rope = _project_kv_latent(params, x, rows, cfg)
     # the caches keep the latents as every rank computes them
     cache_kv, cache_rope = c_kv, k_rope
-    c_kv, k_rope = enter_rep(c_kv, tp, "model"), enter_rep(k_rope, tp, "model")
+    c_kv = block_enter(c_kv, mesh, sp, tp)
+    k_rope = block_enter(k_rope, mesh, sp, tp)
 
     if cache is None:
         # expanded path
@@ -111,7 +122,7 @@ def mla_apply(
             *k_nope.shape[:3], dr)], dim=-1)
         # V's head dim padded to Q/K's so one attention serves both
         v = F.pad(v, (0, dn + dr - dv))
-        if x.shape[1] > long_seq_threshold:
+        if q.shape[1] > long_seq_threshold:
             out = blockwise_causal_attention(q, k, v, scale=scale,
                                              block_q=block_q,
                                              block_kv=block_kv)
@@ -142,6 +153,4 @@ def mla_apply(
         new_cache = (c_cache, r_cache)
 
     out = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
-    if n_tp > 1:
-        out = psum_rep(out, mesh, "model")
-    return out, new_cache
+    return block_exit(out, mesh, sp, tp), new_cache

@@ -29,7 +29,12 @@ output is summed over ``model`` and scattered back over the data axes.
 A batch the data axes do not divide stays whole on every rank.  As
 ``shard_map``'s transpose does, the cotangents of what enters the island
 alike on every ``model`` rank (the tokens, the router) are summed over
-``model`` (``enter_rep``).
+``model`` (``enter_rep``).  With the sequence-parallel residual the
+layer takes and returns this rank's rows of the sequence: its tokens
+are all-gathered over ``model`` on entry and its output, the sum over
+``model``, is reduce-scattered back to the rows (``common.block_enter``,
+``block_exit``), on every path (the partial path's sum over the data
+axes follows, as without the cut).
 
 One departure: the JAX package's partial path adds the shared experts
 inside the island, before its psum over the data axes, so their output
@@ -44,7 +49,7 @@ import torch
 
 from ..launch.mesh import (P, all_gather_ad, axis_size, enter_rep, psum_ad,
                            psum_rep, psum_scatter_ad)
-from .common import ParamDef, act_fn, model_shard
+from .common import ParamDef, act_fn, block_enter, block_exit, model_shard
 
 __all__ = ["moe_defs", "moe_apply", "route", "dispatch_slots"]
 
@@ -277,15 +282,21 @@ def _fsdp_axes(cfg, mesh) -> tuple:
 
 def moe_apply(params: Dict, x: torch.Tensor, cfg, *,
               local_path: str = "densified", block_c: int = 64,
-              mesh=None, dp=()) -> Tuple[torch.Tensor, torch.Tensor]:
+              mesh=None, dp=(), sp: bool = False
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The whole MoE layer: x (B, S, d) -> (out (B, S, d), aux loss).
     On a mesh, x is this rank's data shard (``dp``, the data axes that
-    cut the batch; () where every rank holds it whole)."""
-    b, s, d = x.shape
+    cut the batch; () where every rank holds it whole), and with ``sp``
+    x and out are this rank's rows of the sequence."""
     if mesh is None or mesh.n_ranks == 1:
+        b, s, d = x.shape
         out, aux = moe_local(params, x.reshape(b * s, d), cfg,
                              local_path=local_path, block_c=block_c)
         return out.reshape(b, s, d), aux
+    # the tokens enter whole on every model rank: their cotangent is
+    # summed over it
+    x = block_enter(x, mesh, sp)
+    b, s, d = x.shape
     fsdp = _fsdp_axes(cfg, mesh)
     if params["w_gate"].shape[1] == d:
         fsdp = ()      # dim 1 left whole (its spec resolved away)
@@ -293,13 +304,12 @@ def moe_apply(params: Dict, x: torch.Tensor, cfg, *,
     e_loc = params["w_gate"].shape[0]
     t_all = b * s * axis_size(mesh, dp)
     partial = _use_partial(cfg, t_all, e_loc, axis_size(mesh, fsdp))
-    # what enters alike on every model rank: its cotangent is summed
-    xt = enter_rep(x.reshape(b * s, d), mesh, "model")
+    xt = x.reshape(b * s, d)
     p = dict(params, router=enter_rep(params["router"], mesh, "model"))
     kw = dict(local_path=local_path, block_c=block_c, mesh=mesh, fsdp=fsdp)
     if not partial:
         out, aux = moe_local(p, xt, cfg, **kw)
-        out = psum_rep(out, mesh, "model")
+        out = block_exit(out.reshape(b, s, d), mesh, sp)
     else:
         act = act_fn(cfg.act)
         tok = all_gather_ad(xt, mesh, dp, axis=0) if dp else xt
@@ -313,7 +323,9 @@ def moe_apply(params: Dict, x: torch.Tensor, cfg, *,
                 out = out.index_add(0, rows, sh)
             elif mesh.index(fsdp) == 0:
                 out = out + sh
-        out = psum_rep(out, mesh, "model")
+        # every data shard's tokens, (n_dp * B, S, d): summed over model
+        # (and cut to the rows under sp), then over the data axes
+        out = block_exit(out.reshape(-1, s, d), mesh, sp)
         if dp:
             out = psum_scatter_ad(out, mesh, dp, axis=0)
         else:
@@ -321,4 +333,4 @@ def moe_apply(params: Dict, x: torch.Tensor, cfg, *,
     aux = psum_rep(aux, mesh, "model") / n_tp
     if dp:
         aux = psum_rep(aux, mesh, dp) / axis_size(mesh, dp)
-    return out.reshape(b, s, d), aux
+    return out, aux

@@ -27,6 +27,14 @@ The WKV state is cut on heads, the shift state whole.  The channel mix
 is cut on ``d_ff``: ``wk``'s columns and ``wv``'s rows, one
 ``psum_rep``; the receptance (``wr``, replicated) and the shift state
 stay whole.
+
+With the sequence-parallel residual both take and return this rank's
+rows of the sequence (``common.block_enter`` / ``block_exit``).  The time
+mix gathers the rows first and shifts the whole sequence.  The channel
+mix shifts, lerps and gates on its own rows: its shift state is the
+previous rank's last row (an all-gather of each rank's last row over
+``model``; zeros on the first rank), its lerp and receptance parameters
+pass ``sp_rep``, and the rows enter the ``d_ff``-cut product.
 """
 from __future__ import annotations
 
@@ -35,8 +43,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..launch.mesh import P, enter_rep, psum_rep
-from .common import ParamDef, model_shard
+from ..launch.mesh import P, all_gather_ad, enter_rep
+from .common import ParamDef, block_enter, block_exit, model_shard, sp_rep
 
 __all__ = ["rwkv6_defs", "rwkv6_time_mix", "rwkv6_channel_mix"]
 
@@ -85,6 +93,15 @@ def _token_shift(x, shift_state):
     return torch.cat([shift_state[:, None], x[:, :-1]], dim=1)
 
 
+def _previous_rank_row(x, mesh):
+    """(B, d): the row before this rank's first of the sequence-parallel
+    residual, the previous ``model`` rank's last (zeros on the first).
+    Every rank takes part in the gather and in its backward."""
+    last = all_gather_ad(x[:, -1:], mesh, "model", axis=1)   # (B, model, d)
+    r = mesh.index("model")
+    return last[:, r - 1] * (1.0 if r > 0 else 0.0)
+
+
 def rwkv6_time_mix(
     params: Dict,
     x: torch.Tensor,                   # (B, S, d)
@@ -92,17 +109,19 @@ def rwkv6_time_mix(
     *,
     cache: Optional[Tuple] = None,     # (shift_state (B,d), wkv_state (B,H,hs,hs))
     mesh=None,
+    sp: bool = False,
 ):
     """Returns (out (B, S, d), (shift, wkv_state)): the cache's tensors,
     written in place, when one is given.  On a mesh H is this rank's
-    heads (see the module's docstring)."""
+    heads (see the module's docstring); with ``sp`` x and out are this
+    rank's rows."""
     p = params["tm"]
-    bsz, s, d = x.shape
     hs = cfg.rwkv_head_size
     h_loc = p["wr"].shape[1]
-    n_tp, rank = model_shard(mesh, d // hs, h_loc)
+    n_tp, rank = model_shard(mesh, x.shape[-1] // hs, h_loc)
+    x = block_enter(x, mesh, sp, n_tp > 1)
+    bsz, s, d = x.shape
     if n_tp > 1:
-        x = enter_rep(x, mesh, "model")
         p = dict(p, **{n: enter_rep(p[n], mesh, "model") for n in (
             "mix_base", "mix_lora_a", "mix_lora_b", "w_base", "w_lora_a",
             "w_lora_b")})
@@ -154,9 +173,8 @@ def rwkv6_time_mix(
     y = (y - mu) * torch.rsqrt(var + 64e-5)
     y = y * p["ln_x"]["scale"].float() + p["ln_x"]["bias"].float()
     y = y.to(x.dtype) * g
-    out = torch.einsum("bshk,hkd->bsd", y, p["wo"].to(x.dtype))
-    if n_tp > 1:
-        out = psum_rep(out, mesh, "model")
+    out = block_exit(torch.einsum("bshk,hkd->bsd", y, p["wo"].to(x.dtype)),
+                     mesh, sp, n_tp > 1)
     if cache is None:
         return out, (x[:, -1], state)
     cache[0].copy_(x[:, -1])
@@ -171,24 +189,29 @@ def rwkv6_channel_mix(
     *,
     cache: Optional[torch.Tensor] = None,   # shift state (B, d)
     mesh=None,
+    sp: bool = False,
 ):
     """Returns (out (B, S, d), shift): the cache, written in place, when
-    one is given.  On a mesh ``d_ff`` is this rank's share."""
+    one is given.  On a mesh ``d_ff`` is this rank's share; with ``sp``
+    x and out are this rank's rows (see the module's docstring)."""
     p = params["cm"]
     bsz, s, d = x.shape
-    shift_state = (cache if cache is not None
-                   else torch.zeros((bsz, d), dtype=x.dtype, device=x.device))
+    if sp:
+        shift_state = _previous_rank_row(x, mesh)
+        p = dict(p, **sp_rep({n: p[n] for n in ("mix_k", "mix_r", "wr")},
+                             mesh, sp))
+    elif cache is not None:
+        shift_state = cache
+    else:
+        shift_state = torch.zeros((bsz, d), dtype=x.dtype, device=x.device)
     prev = _token_shift(x, shift_state)
     dx = prev - x
     xk = x + dx * p["mix_k"].to(x.dtype)
     xr = x + dx * p["mix_r"].to(x.dtype)
     tp = p["wk"].shape[1] != cfg.d_ff
-    if tp:
-        xk = enter_rep(xk, mesh, "model")
+    xk = block_enter(xk, mesh, sp, tp)
     k = torch.square(F.relu(xk @ p["wk"].to(x.dtype)))
-    kv = k @ p["wv"].to(x.dtype)
-    if tp:
-        kv = psum_rep(kv, mesh, "model")
+    kv = block_exit(k @ p["wv"].to(x.dtype), mesh, sp, tp)
     r = torch.sigmoid(xr @ p["wr"].to(x.dtype))
     if cache is None:
         return r * kv, x[:, -1]

@@ -34,6 +34,15 @@ cut on its inner width and RWKV-6's time mix by heads, its channel mix
 on ``d_ff`` (``mamba.py``, ``rwkv6.py``).  ``cache_shapes`` and
 ``cache_init`` with ``mesh`` give a process's shard of every cache, as
 prefill leaves them.
+
+With ``cfg.sequence_parallel`` (the JAX package's condition: no cache,
+``model`` > 1 dividing the sequence) each rank keeps its S / model rows
+of the residual between layers: the norms run on them, every block
+gathers the rows on entry and reduce-scatters its output
+(``common.block_enter`` / ``block_exit``), and the final norm's output is
+gathered whole before the head.  The values do not change.  Departures:
+a prefill that collects caches runs without the cut (a cache holds every
+row), and MoE's partial path takes the cut like the others.
 """
 from __future__ import annotations
 
@@ -45,12 +54,12 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from .attention import (attention_apply, attention_defs, effective_heads,
                         kv_heads_read)
-from ..launch.mesh import P, axis_size, enter_rep
+from ..launch.mesh import P, axis_size, cut_rep, enter_rep, gather_rep
 from .common import (ParamDef, apply_norm, cross_entropy_logits_sharded,
                      embed_lookup, init_params, lm_mesh, norm_defs,
                      param_shapes, param_specs, resolve_device,
-                     resolve_specs, sinusoidal_positions, stack_defs,
-                     tree_map)
+                     resolve_specs, sinusoidal_positions, sp_active, sp_rep,
+                     stack_defs, tree_map)
 from .ffn import ffn_apply, ffn_defs
 from .mamba import _dims as mamba_dims
 from .mamba import mamba_apply, mamba_defs
@@ -328,44 +337,48 @@ def cache_init(cfg, batch: int, max_len: int, *, device=None, mesh=None):
 
 
 def _apply_layer(kind, lp, x, positions, cfg, cache, cur_len, collect=False,
-                 mesh=None, dp=()):
+                 mesh=None, dp=(), sp=False):
     """One layer.  cache is None (prefill) or this layer's cache slice
     (decode), which is updated in place.  With collect=True (prefill) the
     cache the layer *would have written* is returned even when none was
-    passed in.  Returns (x, aux, new_cache); aux is the MoE router loss,
-    None for the other kinds (no zero tensor launched a layer)."""
+    passed in.  With ``sp`` (``common.sp_active``) x is this rank's rows
+    of the sequence-parallel residual; ``positions`` stay whole.
+    Returns (x, aux, new_cache); aux is the MoE router loss, None for the
+    other kinds (no zero tensor launched a layer)."""
     mix, ff = kind
     aux = None
-    h = apply_norm(x, lp["norm1"], cfg.norm)
+    h = apply_norm(x, sp_rep(lp["norm1"], mesh, sp), cfg.norm)
     if mix in ("attention", "mla"):
         c = None if cache is None else (cache[0], cache[1], cur_len)
         apply = attention_apply if mix == "attention" else mla_apply
         out, new_c = apply(
             lp["mixer"], h, positions, cfg, cache=c,
             block_q=cfg.attn_block_q, block_kv=cfg.attn_block_kv,
-            long_seq_threshold=cfg.long_seq_threshold, mesh=mesh)
+            long_seq_threshold=cfg.long_seq_threshold, mesh=mesh, sp=sp)
     elif mix == "mamba":
         c = None if cache is None else (cache[0], cache[1])
-        out, new_c = mamba_apply(lp["mixer"], h, cfg, cache=c, mesh=mesh)
+        out, new_c = mamba_apply(lp["mixer"], h, cfg, cache=c, mesh=mesh,
+                                 sp=sp)
     elif mix == "rwkv6":
         c = None if cache is None else (cache[0], cache[1])
-        out, new_c = rwkv6_time_mix(lp["mixer"], h, cfg, cache=c, mesh=mesh)
+        out, new_c = rwkv6_time_mix(lp["mixer"], h, cfg, cache=c, mesh=mesh,
+                                    sp=sp)
     else:
         raise ValueError(mix)
     x = x + out
 
-    h = apply_norm(x, lp["norm2"], cfg.norm)
+    h = apply_norm(x, sp_rep(lp["norm2"], mesh, sp), cfg.norm)
     if ff == "dense":
-        x = x + ffn_apply(lp["ffn"], h, cfg, mesh)
+        x = x + ffn_apply(lp["ffn"], h, cfg, mesh, sp=sp)
     elif ff == "moe":
-        out, aux = moe_apply(lp["ffn"], h, cfg, mesh=mesh, dp=dp)
+        out, aux = moe_apply(lp["ffn"], h, cfg, mesh=mesh, dp=dp, sp=sp)
         if cfg.remat == "save_moe" and torch.is_grad_enabled():
             out = _moe_out(out)
         x = x + out
     elif ff == "rwkv_cm":
         cm_cache = None if cache is None else cache[2]
         out, cm_state = rwkv6_channel_mix(lp["mixer"], h, cfg, cache=cm_cache,
-                                          mesh=mesh)
+                                          mesh=mesh, sp=sp)
         x = x + out
         new_c = new_c + (cm_state,)
     else:
@@ -447,7 +460,7 @@ def _unstack(tree, n: int) -> list:
     return [tree_map(lambda j, i=i: parts[j][i], where) for i in range(n)]
 
 
-def _train_period(period, positions, cfg, mesh=None, dp=()):
+def _train_period(period, positions, cfg, mesh=None, dp=(), sp=False):
     """One repeat of a period without caches: (x, aux, [layer params]) ->
     (x, aux).  A period of several layers (Jamba's 8) checkpoints each
     layer as well when remat is on, as the JAX package nests them, so
@@ -458,7 +471,7 @@ def _train_period(period, positions, cfg, mesh=None, dp=()):
         for kind, lp in zip(period, lps):
             def layer(lp, x, kind=kind):
                 x, aux, _ = _apply_layer(kind, lp, x, positions, cfg, None,
-                                         None, mesh=mesh, dp=dp)
+                                         None, mesh=mesh, dp=dp, sp=sp)
                 return x, aux
 
             if nested:
@@ -482,7 +495,10 @@ def backbone(params: Dict, inputs: torch.Tensor, cfg, *,
              collect_cache: bool = False, mesh=None, dp=None):
     """Embeddings, every layer and the final norm.  Returns (hidden,
     aux, new_cache); see ``forward``.  With autograd on and no cache
-    (training), each repeat of a period runs under ``cfg.remat``."""
+    (training), each repeat of a period runs under ``cfg.remat``.  Where
+    ``common.sp_active`` holds, each rank keeps its S / model rows of the
+    residual from the embedding to the final norm, whose output is
+    gathered whole."""
     mesh = lm_mesh(mesh)
     dp = _dp(mesh, dp)
     dt = _dtype(cfg)
@@ -501,13 +517,16 @@ def backbone(params: Dict, inputs: torch.Tensor, cfg, *,
     if cfg.pos_emb == "sinusoidal":
         x = x + sinusoidal_positions(positions, cfg.d_model).to(dt)
 
+    sp = sp_active(cfg, mesh, s, cache, collect_cache)
+    if sp:
+        x = cut_rep(x, mesh, "model", axis=1)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache = [] if (cache is not None or collect_cache) else None
     train = cache is None and not collect_cache and torch.is_grad_enabled()
     for si, (n_rep, period) in enumerate(segment_plan(cfg)):
         per_layer = [_unstack(p, n_rep) for p in params["segments"][si]]
         if train:
-            run = _train_period(period, positions, cfg, mesh, dp)
+            run = _train_period(period, positions, cfg, mesh, dp, sp)
             for i in range(n_rep):
                 x, aux_total = run(x, aux_total, [lp[i] for lp in per_layer])
             continue
@@ -520,7 +539,7 @@ def backbone(params: Dict, inputs: torch.Tensor, cfg, *,
                 x, aux, nc = _apply_layer(kind, per_layer[pi][i], x, positions,
                                           cfg, cslice, cur_len,
                                           collect=collect_cache, mesh=mesh,
-                                          dp=dp)
+                                          dp=dp, sp=sp)
                 if aux is not None:
                     aux_total = aux_total + aux
                 if nc is not None and seg_cache is None:
@@ -531,7 +550,10 @@ def backbone(params: Dict, inputs: torch.Tensor, cfg, *,
             else:
                 new_cache.append([tuple(torch.stack(parts) for parts in
                                         zip(*layers)) for layers in collected])
-    return apply_norm(x, params["final_norm"], cfg.norm), aux_total, new_cache
+    hidden = apply_norm(x, sp_rep(params["final_norm"], mesh, sp), cfg.norm)
+    if sp:
+        hidden = gather_rep(hidden, mesh, "model", axis=1)
+    return hidden, aux_total, new_cache
 
 
 def lm_head(params: Dict, hidden: torch.Tensor, cfg,

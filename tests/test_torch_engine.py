@@ -114,7 +114,10 @@ def test_size_binned_plan_runs_one_launch_per_bin():
         np.testing.assert_array_equal(r.numpy(), rs)
 
 
-def test_stack_executor_matches_jax_and_checks_shapes():
+def test_stack_executor_matches_jax_and_checks_shapes(tmp_path, monkeypatch):
+    # neither package's winners table: the port's H100 table
+    # (artifacts/smm_autotune_h100.json) would pick another tile
+    monkeypatch.chdir(tmp_path)
     rng = np.random.RandomState(5)
     bs, nb = 22, 3
     n = bs * nb

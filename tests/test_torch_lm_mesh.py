@@ -21,8 +21,19 @@ Tolerances (f32; the mesh sums in other orders than one rank):
     of a step);
   * greedy tokens: equal;
   * against the JAX package: ``JAX_RTOL`` / ``JAX_ATOL`` (2e-4 / 5e-5)
-    for losses, norms and logits, ``JAX_PARAM_ATOL`` (2e-5, 2 % of a
+    for losses, norms and logits (Jamba's: ``JAMBA_SP_REL``), ``JAX_PARAM_ATOL`` (2e-5, 2 % of a
     step) for parameters.
+
+The sequence-parallel residual (``cfg.sequence_parallel``) runs in the
+same 2x2 spawn: for each layer kind its logits, loss and every rank's
+gradients against the same mesh without the flag (f32 sums in other
+orders: ``SP_TOL``, 1e-5 of the largest |value| of each logit tensor
+and gradient leaf, observed <= 4e-7; the loss within ``SP_LOSS_RTOL``,
+1e-6, observed equal), its logits against the JAX package's forward
+with the flag on 4 host devices (``JAX_RTOL`` / ``JAX_ATOL``); a
+sequence that ``model`` does not divide, and prefill and decode with a
+cache, bitwise the same without the flag.  They add ~10 s to the spawn
+and ~25 s to the JAX subprocess, which runs beside it.
 
 The router loss of an MoE layer is the JAX package's: the mean over the
 data shards of each shard's loss, so on several data shards it is not
@@ -65,6 +76,13 @@ LOGIT_TOL = 1e-4
 PARAM_ATOL = 5e-6
 JAX_RTOL, JAX_ATOL = 2e-4, 5e-5
 JAX_PARAM_ATOL = 2e-5
+SP_TOL = 1e-5
+SP_LOSS_RTOL = 1e-6
+# Jamba against the JAX package: one ulp on the reference's input moves
+# its logits by ~1e-3 of their largest (test_torch_models'
+# JAMBA_FORWARD_REL), and its own forwards with and without the flag on
+# 2x2 differ by 4.3e-4 of it; held as there, max error / max |logit|
+JAMBA_SP_REL = 3e-3
 PG_TIMEOUT_S = 90
 LR = 1e-3
 EPS = 1e-3        # Adam's eps: the update stays smooth in a tiny gradient
@@ -78,6 +96,29 @@ CASES = [("qwen2", "qwen2_1_5b", 4, 16, {}),
          ("deepseek_gather", "deepseek_v3_671b", 4, 32, {}),
          ("deepseek_partial", "deepseek_v3_671b", 2, 8, {})]
 PROMPT = 8        # prefill length; 2 decode tokens follow
+
+# (case, arch, global batch, seq, config overrides) of the sequence-
+# parallel cases on 2x2: a layer kind each; "replicated" has blocks that
+# every rank runs alike (3 heads and an odd d_ff on 2 model ranks)
+SP_CASES = [("attention", "qwen2_1_5b", 4, 16, {}),
+            ("attention_bias", "starcoder2_3b", 4, 16, {}),
+            ("replicated", "qwen2_1_5b", 4, 16,
+             {"num_heads": 3, "num_kv_heads": 1, "head_pad_factor": 1,
+              "d_ff": 255}),
+            ("mla_moe_gather", "deepseek_v3_671b", 4, 32, {}),
+            ("moe_partial", "deepseek_v3_671b", 2, 8, {}),
+            ("moe_partial_no_shared", "deepseek_v3_671b", 2, 8,
+             {"n_shared_experts": 0}),
+            ("moe_local", "qwen3_moe_30b_a3b", 4, 16, {}),
+            ("mamba", "jamba_v0_1_52b", 4, 16, {}),
+            ("rwkv6", "rwkv6_1_6b", 4, 16, {})]
+# held against the JAX package's forward (its partial path counts shared
+# experts once a data shard: see the "shared" run)
+SP_JAX = ["attention", "mla_moe_gather", "moe_partial_no_shared",
+          "moe_local", "mamba", "rwkv6"]
+SP_SEED = 9
+SP_SERVE = ["qwen2_1_5b", "deepseek_v3_671b", "jamba_v0_1_52b",
+            "rwkv6_1_6b"]
 
 
 def _cfg(arch, **kw):
@@ -172,6 +213,7 @@ def _battery(rank, m, work):
         out["lookup"] = _lookup_and_ce(mesh)
         out["init"] = _init_shards(mesh)
         out["replicated"] = _replicated_batch(mesh)
+        out["sp"] = _sp_side(mesh)
     else:
         for arch in ARCHS:
             out[arch] = _run_lm(_cfg(arch), mesh, 2, 8, seed=2, decode=False)
@@ -277,6 +319,59 @@ def _replicated_batch(mesh=None):
 
 
 # ---------------------------------------------------------------------------
+# the sequence-parallel residual
+# ---------------------------------------------------------------------------
+
+
+def _sp_run(cfg, mesh, b, s):
+    """The gathered logits, the loss and this rank's gradient of every
+    parameter leaf (the data shard's, before any reduction over data)."""
+    batch = shard_batch(_batch(cfg, b, s, SP_SEED), mesh)
+    params = _init(cfg, mesh)
+    with torch.no_grad():
+        logits = T.forward(params, batch["inputs"], cfg, mesh=mesh)[0]
+    logits = mesh.unshard(logits.unsqueeze(0),
+                          P(T.dp_axes(mesh), None, "model"))
+    leaves = [t.requires_grad_() for t in tree_leaves(params)]
+    loss, _ = T.lm_loss(params, batch, cfg, mesh=mesh)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return {"logits": logits.numpy(), "loss": float(loss),
+            "grads": [None if g is None else g.numpy() for g in grads]}
+
+
+def _sp_serve(cfg, mesh):
+    """Prefill of PROMPT tokens and 2 greedy tokens: this rank's tokens
+    and every cache leaf it holds after them."""
+    prompt = _batch(cfg, 4, PROMPT, SP_SEED)["inputs"]
+    local = shard_batch({"x": prompt}, mesh)["x"]
+    params = _init(cfg, mesh)
+    with torch.no_grad():
+        tok, cache, cur = prefill_step(params, local, cfg, mesh)
+        state = {"cache": pad_cache(cache, cfg, local.shape[0], PROMPT + 3),
+                 "cur_len": cur}
+        toks = [tok]
+        for _ in range(2):
+            tok, state = decode_step(params, state, tok, cfg, mesh)
+            toks.append(tok)
+    return {"tokens": torch.cat(toks, dim=1).numpy(),
+            "cache": [t.numpy() for t in tree_leaves(state["cache"])]}
+
+
+def _sp_side(mesh):
+    out = {case: {sp: _sp_run(_cfg(arch, sequence_parallel=sp, **kw), mesh,
+                              b, s)
+                  for sp in (False, True)}
+           for case, arch, b, s, kw in SP_CASES}
+    # 15 rows: model (2) does not divide the sequence
+    out["odd"] = {sp: _sp_run(_cfg("qwen2_1_5b", sequence_parallel=sp),
+                              mesh, 4, 15) for sp in (False, True)}
+    out["serve"] = {arch: {sp: _sp_serve(_cfg(arch, sequence_parallel=sp),
+                                         mesh) for sp in (False, True)}
+                    for arch in SP_SERVE}
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the embedding lookup and the cut cross-entropy alone
 # ---------------------------------------------------------------------------
 
@@ -366,6 +461,11 @@ for case, arch, kw in runs:
                 lg = jax.jit(lambda p, t: T.forward(p, t, cfg, mesh)[0])(
                     params, batch["inputs"])
             out[name] = np.asarray(lg)
+    elif case.startswith("sp_"):
+        with mesh4:
+            lg = jax.jit(lambda p, t: T.forward(p, t, cfg, mesh4)[0])(
+                params, batch["inputs"])
+        out["logits"] = np.asarray(lg)
     else:
         opt = make_optimizer(OptConfig(lr=LR, eps=EPS))
         step = jax.jit(make_train_step(cfg, mesh4, opt))
@@ -392,11 +492,16 @@ def _jax_inputs(work):
     import json
 
     runs = []
-    for case, arch, b, s, kw in JAX_RUNS + [
-            ("shared", "deepseek_v3_671b", 2, 8, {})]:
+    sp = {c[0]: c for c in SP_CASES}
+    for case, arch, b, s, kw, seed in (
+            [r + (6,) for r in JAX_RUNS]
+            + [("shared", "deepseek_v3_671b", 2, 8, {}, 6)]
+            + [(f"sp_{c}",) + sp[c][1:4]
+               + (dict(sp[c][4], sequence_parallel=True), SP_SEED)
+               for c in SP_JAX]):
         cfg = _cfg(arch, **kw)
         leaves = tree_leaves(_init(cfg))
-        full = _batch(cfg, b, s, 6)
+        full = _batch(cfg, b, s, seed)
         np.savez(os.path.join(work, f"{case}.npz"),
                  inputs=full["inputs"].numpy(), labels=full["labels"].numpy(),
                  **{f"p{i}": t.numpy() for i, t in enumerate(leaves)})
@@ -664,6 +769,64 @@ def test_launch_train_runs_on_a_2x2_mesh(runs):
     rc, out, err = runs["launch"]
     assert rc == 0, err
     assert "mesh=2x2" in out and "done: 2 steps" in out, out
+
+
+def _close_leaf(got, want, tol, what):
+    if want is None:
+        assert got is None, what
+        return
+    err = np.max(np.abs(got - want))
+    assert err <= tol * np.max(np.abs(want)) + 1e-30, (what, err)
+
+
+@pytest.mark.parametrize("case", [c[0] for c in SP_CASES])
+def test_sequence_parallel_matches_the_mesh_without_it(runs, case):
+    """2x2 with ``sequence_parallel``: each rank's logits, loss and every
+    gradient leaf against the same mesh without the flag."""
+    for r, rank in enumerate(runs["mesh"]["2x2"]):
+        off, on = rank["sp"][case][False], rank["sp"][case][True]
+        _close_leaf(on["logits"], off["logits"], SP_TOL, f"rank {r} logits")
+        np.testing.assert_allclose(on["loss"], off["loss"], rtol=SP_LOSS_RTOL)
+        assert len(on["grads"]) == len(off["grads"])
+        for i, (g, w) in enumerate(zip(on["grads"], off["grads"])):
+            _close_leaf(g, w, SP_TOL, f"rank {r} gradient leaf {i}")
+
+
+@pytest.mark.parametrize("case", SP_JAX)
+def test_sequence_parallel_matches_jax_on_2x2(runs, case):
+    """The port's 2x2 logits with ``sequence_parallel`` against the JAX
+    package's forward with it (GSPMD's residual constraint) on a 2x2 mesh
+    of host devices, from the same weights and tokens."""
+    got = runs["mesh"]["2x2"][0]["sp"][case][True]["logits"]
+    z = np.load(os.path.join(runs["work"], f"sp_{case}_out.npz"))
+    if case == "mamba":
+        _close_logits(got, z["logits"], JAMBA_SP_REL)
+    else:
+        np.testing.assert_allclose(got, z["logits"], rtol=JAX_RTOL,
+                                   atol=JAX_ATOL)
+
+
+def test_sequence_parallel_off_where_model_does_not_divide_the_sequence(
+        runs):
+    """15 rows on 2 model ranks: the flag changes nothing, bitwise."""
+    for rank in runs["mesh"]["2x2"]:
+        off, on = rank["sp"]["odd"][False], rank["sp"]["odd"][True]
+        np.testing.assert_array_equal(on["logits"], off["logits"])
+        assert on["loss"] == off["loss"]
+        for g, w in zip(on["grads"], off["grads"]):
+            np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("arch", SP_SERVE)
+def test_sequence_parallel_leaves_prefill_and_decode_bitwise(runs, arch):
+    """Prefill (whose caches hold every row) and decode with a cache run
+    as without the flag: tokens and every cache leaf bitwise, each rank."""
+    for rank in runs["mesh"]["2x2"]:
+        off, on = (rank["sp"]["serve"][arch][f] for f in (False, True))
+        np.testing.assert_array_equal(on["tokens"], off["tokens"])
+        assert len(on["cache"]) == len(off["cache"])
+        for a, b in zip(on["cache"], off["cache"]):
+            np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("case", [c[0] for c in JAX_RUNS])

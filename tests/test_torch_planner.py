@@ -268,8 +268,8 @@ def test_best_params_meta_provenance(tmp_path):
     assert meta["source"] == "winners[64]" and meta["gflops"] == 12.5
     meta = best_params_meta(64, 64, 64, str(path), fill=0.05)
     assert meta["source"] == "winners[64]" and meta["bin"] == 0.05
-    # non-uniform geometry: no table entry (the port's source name)
-    assert best_params_meta(32, 64, 32)["source"] == "heuristic"
+    # non-uniform geometry: no table entry (the JAX package's source name)
+    assert best_params_meta(32, 64, 32)["source"] == "heuristic-nonuniform"
 
 
 def test_winners_table_rate_feeds_the_blocked_model(tmp_path):

@@ -455,14 +455,18 @@ def test_decide_verify_budget():
                                   (3960, 3960, 3960, 22),
                                   (1408, 123904, 1408, 22)])
 @pytest.mark.parametrize("budget", [None, 0.05])
-def test_decide_verify_matches_jax(mesh_shape, geom, hw_name, budget):
+def test_decide_verify_matches_jax(mesh_shape, geom, hw_name, budget,
+                                   tmp_path, monkeypatch):
     """Both packages' ``decide_verify`` on both packages' plans.  On
     more than one rank the port's is the reference's; on 1x1 the port
     departs by design (no communication and no collective latency on
     one rank), and equals the reference's formulas with those terms
-    removed (``bytes_per_s`` infinite, ``latency_s`` 0)."""
+    removed (``bytes_per_s`` infinite, ``latency_s`` 0).  Both plan
+    without a winners table (the port's H100 table prices blocks 22 and
+    64 at its swept rates)."""
     from repro_torch.planner.cost_model import DEFAULT_HARDWARE
 
+    monkeypatch.chdir(tmp_path)
     hw = HW_REF if hw_name == "ref_defaults" else DEFAULT_HARDWARE
     m, k, n, bs = geom
     n_ranks = math.prod(mesh_shape)
