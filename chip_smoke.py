@@ -2551,7 +2551,8 @@ def planner_cases(dev, card, zero_counters, read_counters) -> dict:
                 "predicted_ms": 1e3 * plan.predicted_s,
                 "auto_ms": 1e3 * t_auto, "best_ms": 1e3 * t_best,
                 "best": best, "regret": regret, "gated": gate,
-                "first_s": first_s, "pinned": rows}
+                "first_s": first_s, "pinned": rows,
+                "occupancy": plan.occupancy}
         summary["cases"].append(line)
         print(f"  {label}: auto {line['auto']} {1e3 * t_auto:.3f} ms "
               f"(predicted {1e3 * plan.predicted_s:.3f} ms); best pinned "
@@ -5293,6 +5294,179 @@ def sweep_phase(dev, card, zero_counters, read_counters) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the planner's bench-fed calibration, fed from this run
+# ---------------------------------------------------------------------------
+
+FIT_CASES = (("(a)", "(a) 3960^2 block 22 dense", 3960, 22),
+             ("(b)", "(b) 4096^2 block 64 dense", 4096, 64),
+             ("(c)", "(c) 3960^2 block 22, A at 20 % fill, mask only", 3960,
+              22))
+
+
+def fit_phase(dev, card, zero_counters, read_counters, fed) -> dict:
+    """Phase 17: ``planner.calibrate.fit_from_artifacts`` fed on the card.
+
+    Writes ``kernels.json``, ``densify.json`` and ``sparse.json`` in the
+    JAX benches' schemas (benchmarks/bench_kernels.py, bench_densify.py,
+    bench_sparse.py; the columns this run has) into a temporary
+    directory, from timings this run took: phase 3's ``torch.matmul`` at
+    3,960^2 (``dense_dot``) and the fused smm launches of (a) and (b)
+    (``smm_dispatch``), phase 16's sweep rows at block 22 on 180^2 blocks,
+    fills 1.0 and 0.2 (its best tile each; ``sparse``), all CUDA events;
+    and one taken here: the densified local multiply at (e)'s size with
+    its block-layout copies (blocks -> dense A and B, ``torch.matmul``,
+    dense C -> blocks), which is what bench_densify.py's
+    ``t_densified_s`` prices.  Then fits the directory and resolves
+    ``get_hardware_model(bench_dir=...)``.
+
+    Gates: the fitted keys are exactly ``flops_per_s``,
+    ``smm_flops_per_s`` and ``stack_entry_s``; the first two equal the
+    JAX package's formula recomputed here from the same numbers, the
+    third to 1e-12 relative (the fit's slope is ``np.polyfit``'s, this
+    one a difference quotient of the two rows); each is finite and
+    positive; the resolved model is the defaults with the fit over them
+    where the working directory holds no calibration file.  Prints each
+    constant beside ``DEFAULT_HARDWARE``'s and phase 7's measured one, and
+    the planner's choice at (a), (b), (c) under the fitted model beside
+    phase 7's (not gated).  Leaves no directory behind."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.densify import (densified_local_matmul, densify,
+                                          from_blocks, to_blocks, undensify)
+    from repro_torch.planner import calibrate
+    from repro_torch.planner.cost_model import DEFAULT_HARDWARE
+    from repro_torch.planner.plan import plan_multiply
+
+    out = {"card": card}
+    # the densified local multiply at (e)'s size, its layout copies in
+    n, bs = 3960, 22
+    nb = n // bs
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    a_blk = to_blocks(torch.randn((n, n), generator=gen, device=dev), bs, bs)
+    b_blk = to_blocks(torch.randn((n, n), generator=gen, device=dev), bs, bs)
+    lm = densified_local_matmul()
+
+    def densified():
+        c = lm(densify(a_blk, nb, nb)[None], densify(b_blk, nb, nb)[None])
+        return undensify(c[0], bs, bs)
+
+    zero_counters()
+    t_dens = time_ms(densified, 10) / 1e3
+    torch.cuda.synchronize()
+    got = read_counters()
+    check_close("(e)'s densified local multiply with its layout copies vs "
+                "torch.matmul", from_blocks(densified(), nb, nb),
+                torch.matmul(densify(a_blk, nb, nb), densify(b_blk, nb, nb)))
+    print(f"  densified local multiply {n}^2 at block {bs}, blocks -> dense "
+          f"-> torch.matmul -> blocks: {1e3 * t_dens:.4f} ms (CUDA events, "
+          f"median of 10); launches {got}")
+    del a_blk, b_blk
+
+    t_dot = fed["dense_dot_ms"] / 1e3
+    kernels = [{"kernel": "smm_dispatch", "block": r["block"],
+                "n_stacks": r["n_stacks"], "stack_tile": r["stack_tile"],
+                "t_fused_s": r["ms"] / 1e3,
+                "fused_gflops": 2.0 * r["n_entries"] * r["block"] ** 3
+                / (r["ms"] / 1e3) / 1e9} for r in fed["smm"]]
+    kernels.append({"kernel": "dense_dot", "time_s": t_dot,
+                    "gflops": 2 * n * n * n / t_dot / 1e9})
+    densify_rows = [{"case": "square", "m": n, "k": n, "n": n, "block": bs,
+                     "t_densified_s": t_dens}]
+    sweep = {res["fill"]: res["best"] for res in fed["sweep"]
+             if res["block"] == 22 and res["fill"] in (1.0, 0.2)}
+    dense_triples = SWEEP_NB ** 3
+    sparse = {"block": 22, "n_blocks": SWEEP_NB, "rows": [
+        {"fill": fill, "n_dense_triples": dense_triples,
+         "n_triples": row["n_entries"],
+         "occupancy": row["n_entries"] / dense_triples,
+         "n_stacks": row["n_stacks"], "stack_tile": row["stack_tile"],
+         "t_sparse_s": row["time_s"], "t_dense_s": sweep[1.0]["time_s"],
+         "dense_over_sparse": sweep[1.0]["time_s"] / row["time_s"]}
+        for fill, row in sorted(sweep.items(), reverse=True)]}
+    if len(sparse["rows"]) != 2:
+        raise AssertionError(f"phase 16 gave sweep rows at {sorted(sweep)}")
+
+    with tempfile.TemporaryDirectory(prefix="bench_h100_") as bench:
+        for name, obj in (("kernels.json", kernels),
+                          ("densify.json", densify_rows),
+                          ("sparse.json", sparse)):
+            with open(os.path.join(bench, name), "w") as f:
+                json.dump(obj, f, indent=1)
+        fit = calibrate.fit_from_artifacts(bench)
+        hw = calibrate.get_hardware_model(bench_dir=bench)
+    if os.path.exists(bench):
+        raise AssertionError(f"{bench} was left behind")
+
+    # the JAX package's formula on the same numbers
+    eff = 2.0 * n * n * n / t_dens
+    want = {"flops_per_s": min(kernels[-1]["gflops"] * 1e9, eff),
+            "smm_flops_per_s": max(r["fused_gflops"]
+                                   for r in kernels[:-1]) * 1e9}
+    (r1, r2) = sparse["rows"]
+    slope = (r1["t_sparse_s"] - r2["t_sparse_s"]) / (r1["n_triples"]
+                                                     - r2["n_triples"])
+    net = slope - 2.0 * 22 ** 3 / want["smm_flops_per_s"]
+    want["stack_entry_s"] = max(net, 1e-8)
+    if set(fit) != set(want):
+        raise AssertionError(f"fitted keys {sorted(fit)}")
+    for key, value in fit.items():
+        same = (math.isclose(value, want[key], rel_tol=1e-12)
+                if key == "stack_entry_s" else value == want[key])
+        if not (same and math.isfinite(value) and value > 0):
+            raise AssertionError(f"{key}: fitted {value!r}, the formula "
+                                 f"gives {want[key]!r}")
+    on_file = os.path.exists(calibrate.DEFAULT_CALIBRATION)
+    if not on_file and hw != DEFAULT_HARDWARE.replace(**fit):
+        raise AssertionError(f"get_hardware_model(bench_dir=...) gave {hw}")
+
+    measured = fed["phase7"].get("calibration", {})
+    print(f"  fitted ({card}; the slope {slope:.6g} s a triple over "
+          f"{r2['n_triples']:,}-{r1['n_triples']:,} triples, minus "
+          f"2*22^3 / smm rate = {net:.6g} s"
+          + (", under the 1e-8 floor" if net < 1e-8 else "") + "):")
+    for key in sorted(fit):
+        got_m = measured.get(key)
+        print(f"  {key:16s} fitted {fit[key]:.6g}, DEFAULT_HARDWARE "
+              f"{getattr(DEFAULT_HARDWARE, key):.6g}, phase 7 measured "
+              + ("-" if got_m is None else f"{got_m:.6g}"))
+    print("  get_hardware_model(bench_dir=...): defaults <- fit"
+          + (f" <- {calibrate.DEFAULT_CALIBRATION} (the working directory's)"
+             if on_file else " (no calibration file)"))
+
+    hw7 = DEFAULT_HARDWARE.replace(**{k: v for k, v in measured.items()
+                                      if k in DEFAULT_HARDWARE.to_dict()})
+    cases7 = {c["case"].split(" (=")[0]: c for c in fed["phase7"]["cases"]}
+    out.update(fit=fit, formula=want, t_densified_s=t_dens,
+               t_dense_dot_s=t_dot, kernels=kernels, sparse=sparse,
+               choices=[])
+    for label, key, size, block in FIT_CASES:
+        c7 = cases7[key]
+        kw = dict(blocks=(block,) * 3, occupancy=c7["occupancy"])
+        p_fit = plan_multiply(size, size, size, hw=hw, **kw)
+        p_7 = plan_multiply(size, size, size, hw=hw7, **kw)
+        p_def = plan_multiply(size, size, size, hw=DEFAULT_HARDWARE, **kw)
+
+        def name(p):
+            return (f"{p.algorithm}+{'densified' if p.densify else 'blocked'}"
+                    f" {1e3 * p.predicted_s:.3f} ms")
+
+        row = {"case": label, "occupancy": c7["occupancy"],
+               "phase7_auto": c7["auto"], "phase7_ms": c7["auto_ms"],
+               "fitted": name(p_fit), "phase7_model": name(p_7),
+               "default": name(p_def)}
+        out["choices"].append(row)
+        print(f"  {label} occupancy {c7['occupancy']:.4f}: fitted model -> "
+              f"{row['fitted']}; phase 7's model -> {row['phase7_model']} "
+              f"(phase 7 ran {c7['auto']}, {c7['auto_ms']:.3f} ms); "
+              f"DEFAULT_HARDWARE -> {row['default']}")
+    print(json.dumps({"phase17": out}, default=str))
+    return out
+
+
 def get_layers(arch):
     from repro_torch.configs.base import get_config
 
@@ -6070,7 +6244,7 @@ def main(argv=None) -> int:
     # ---------------------------------------------------------- phase 7
     mark(7)
     print(f"phase 7: the multiply planner ({card})")
-    planner(dev, card, zero_counters, read_counters)
+    phase7 = planner(dev, card, zero_counters, read_counters)
 
     # ---------------------------------------------------------- phase 8
     mark(8)
@@ -6130,7 +6304,20 @@ def main(argv=None) -> int:
     print(f"phase 16: the smm sweep and the H100 winners table on the main "
           f"path ({card})")
     torch.cuda.empty_cache()
-    sweep_phase(dev, card, zero_counters, read_counters)
+    swept = sweep_phase(dev, card, zero_counters, read_counters)
+
+    # ---------------------------------------------------------- phase 17
+    mark(17)
+    print(f"phase 17: the planner's constants fitted from this run's "
+          f"timings ({card})")
+    torch.cuda.empty_cache()
+    fit_phase(dev, card, zero_counters, read_counters, {
+        "dense_dot_ms": tiled_rows[0]["library_ms"],
+        "smm": [{"block": p.block_m, "n_stacks": p.n_stacks,
+                 "stack_tile": p.stack_tile, "n_entries": p.n_entries,
+                 "ms": row["ms"]}
+                for p, row in ((plan_a, smm_rows[0]), (plan_b, smm_rows[1]))],
+        "sweep": swept["sweep"], "phase7": phase7})
 
     mark("end")
     for key, n in launches.items():

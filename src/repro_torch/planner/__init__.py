@@ -9,7 +9,8 @@ JAX package's ``planner`` with constants measured on the H100.
 ``distributed_matmul(algorithm="auto")``, ``dbcsr.multiply``,
 ``multiply_batched(fused=None)`` and ``MultiplyService`` route through
 ``plan_multiply`` / ``plan_multiply_batched``; ``calibrate`` measures
-the cost-model constants on the card.
+the cost-model constants on the card or fits them from the port's bench
+artifacts.
 """
 from .cost_model import (ALGORITHMS, BATCHED_ALGORITHMS, DEFAULT_HARDWARE,
                          CandidateCost, HardwareModel, Problem,

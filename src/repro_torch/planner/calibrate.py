@@ -1,30 +1,53 @@
-"""Measure the planner's hardware constants on the card.
+"""Measure the planner's hardware constants on the card, or fit them
+from recorded bench artifacts.
 
 The cost models in ``cost_model.py`` are only as good as their
-constants.  Two sources, the later overriding the earlier:
+constants.  Three sources, later ones overriding earlier (the JAX
+package's order):
 
   1. ``cost_model.DEFAULT_HARDWARE`` — values this module measured on an
      H100 (the run is named beside them);
-  2. ``artifacts/planner_calibration_h100.json`` (relative to the
+  2. ``fit_from_artifacts`` — the bench trajectory under
+     ``artifacts/bench_h100/`` (``DEFAULT_BENCH_DIR``, relative to the
+     working directory): ``kernels.json`` (dense GEMM and fused-smm
+     rates), ``densify.json`` (the densified local path's effective
+     rate, which lowers the dense rate when it is smaller), ``sparse.json``
+     or ``sparse_smoke.json`` (per-stack-entry overhead as the slope of
+     dispatch time over triple count, net of the flop time at the fitted
+     smm rate).  The files, keys and arithmetic are the JAX package's,
+     and so is the fit's output on the same files, bit for bit.  The
+     directory is the port's own: the JAX package's CPU benches write
+     ``artifacts/bench/``, and reading it would hand CPU interpret-mode
+     rates to the H100's planner.  Only the port's benches will write
+     ``artifacts/bench_h100/`` (ROADMAP A13); until then nothing does, and
+     a missing or unreadable file contributes nothing;
+  3. ``artifacts/planner_calibration_h100.json`` (relative to the
      working directory) — constants written by this module's CLI or by
      ``save_calibration``.  The JAX package reads its own
      ``planner_calibration.json``; the names differ so that neither
      package ever reads the other's constants.
 
-``get_hardware_model()`` resolves the merge once and caches it; the plan
-cache (plan.py) keys on the resolved HardwareModel value, so a
-recalibration changes the key of every later plan.
+``get_hardware_model()`` resolves the merge once and caches it (only
+when neither ``path`` nor ``bench_dir`` is given); the plan cache
+(plan.py) keys on the resolved HardwareModel value, so a recalibration
+changes the key of every later plan.
 
-    PYTHONPATH=src python -m repro_torch.planner.calibrate [--mesh 4 4]
+    PYTHONPATH=src python -m repro_torch.planner.calibrate [--mesh 4 4] \
+        [--bench-dir artifacts/bench_h100]
 
-measures on the card (it raises without one), saves the file and
-prints each constant beside its default.  ``bytes_per_s`` and
-``latency_s`` are what the mesh's transport gives (launch/mesh.py): on
-a mesh whose ranks are simulated on one card, device copies between
-those ranks; on a process mesh, its group's collectives (host-staged
-gloo where processes share a card).  Neither is NVLink.  On a process
-mesh every process returns mesh rank 0's measurements, so that every
-process plans alike.
+fits what the bench directory supports, measures on the card (it raises
+without one; the measured constants override the fitted ones, the JAX
+package's ``--micro`` order), saves the file and prints each constant
+beside its default, marked ``fitted``, ``measured`` or ``default``.
+The JAX package's CLI only fits unless given ``--micro``; this one
+always measures (a named departure).  The fit alone is
+``save_calibration(fit_from_artifacts(bench_dir))``.
+``bytes_per_s`` and ``latency_s`` are what the mesh's transport gives
+(launch/mesh.py): on a mesh whose ranks are simulated on one card,
+device copies between those ranks; on a process mesh, its group's
+collectives (host-staged gloo where processes share a card).  Neither is
+NVLink.  On a process mesh every process returns mesh rank 0's
+measurements, so that every process plans alike.
 
     PYTHONPATH=src python -m repro_torch.planner.calibrate --check-drift \
         [--drift-log artifacts/obs/plan_outcomes.jsonl] [--strict]
@@ -33,9 +56,7 @@ reads instead the predicted-vs-measured plan outcomes a traced run wrote
 (``obs.enable(log_dir=...)``), prints the planner scoreboard and warns
 where an algorithm's median |relative error| exceeds the threshold
 (``drift_report``); ``--scoreboard`` prints the scoreboard alone.
-Neither needs a card.  The JAX package also fits constants from its
-bench artifacts (``fit_from_artifacts``), which waits for the port's
-benches (ROADMAP A13).
+Neither needs a card.
 """
 from __future__ import annotations
 
@@ -54,7 +75,9 @@ from .cost_model import DEFAULT_HARDWARE, HardwareModel
 __all__ = [
     "DEFAULT_CALIBRATION",
     "DEFAULT_PLAN_LOG",
+    "DEFAULT_BENCH_DIR",
     "drift_report",
+    "fit_from_artifacts",
     "micro_calibrate",
     "measure_overlap",
     "get_hardware_model",
@@ -64,6 +87,7 @@ __all__ = [
 
 DEFAULT_CALIBRATION = os.path.join("artifacts",
                                    "planner_calibration_h100.json")
+DEFAULT_BENCH_DIR = os.path.join("artifacts", "bench_h100")
 
 # the main path's sizes (chip_smoke.py phase 2): one rank of the
 # paper's 63,360^2 on 16x16 at block 22, and the large-block case
@@ -82,6 +106,55 @@ def _load_json(path: str):
             return json.load(f)
     except (OSError, ValueError):
         return None
+
+
+def fit_from_artifacts(bench_dir: str = DEFAULT_BENCH_DIR) -> Dict[str, float]:
+    """Extract whatever constants the recorded bench artifacts support.
+
+    Returns a (possibly empty) partial dict — communication constants
+    cannot be fitted from these single-process artifacts and keep their
+    defaults unless a calibration file / micro_calibrate provides them.
+    Host-side numpy in the JAX package's order of operations, so the
+    result equals its ``fit_from_artifacts`` bit for bit on the same
+    files (where ``sparse`` comes without an smm rate, the flop term
+    takes each package's own ``DEFAULT_HARDWARE.smm_flops_per_s``).
+    """
+    out: Dict[str, float] = {}
+
+    kernels = _load_json(os.path.join(bench_dir, "kernels.json")) or []
+    dense = [r["gflops"] for r in kernels if r.get("kernel") == "dense_dot"]
+    if dense:
+        out["flops_per_s"] = max(dense) * 1e9
+    fused = [r["fused_gflops"] for r in kernels
+             if r.get("kernel") == "smm_dispatch" and "fused_gflops" in r]
+    if fused:
+        out["smm_flops_per_s"] = max(fused) * 1e9
+
+    # densified local path cross-check: effective big-GEMM rate incl.
+    # the densify copies — keep the more conservative estimate
+    densify = _load_json(os.path.join(bench_dir, "densify.json")) or []
+    eff = [2.0 * r["m"] * r["k"] * r["n"] / r["t_densified_s"]
+           for r in densify if r.get("t_densified_s")]
+    if eff and "flops_per_s" in out:
+        out["flops_per_s"] = min(out["flops_per_s"], max(eff))
+    elif eff:
+        out["flops_per_s"] = max(eff)
+
+    # per-entry overhead: slope of sparse dispatch time over triple
+    # count, net of the pure-flop time at the fitted smm rate
+    sparse = (_load_json(os.path.join(bench_dir, "sparse.json"))
+              or _load_json(os.path.join(bench_dir, "sparse_smoke.json")))
+    if sparse and sparse.get("rows"):
+        rows = sparse["rows"]
+        nt = np.array([r["n_triples"] for r in rows], dtype=float)
+        ts = np.array([r["t_sparse_s"] for r in rows], dtype=float)
+        if len(rows) >= 2 and np.ptp(nt) > 0:
+            slope = float(np.polyfit(nt, ts, 1)[0])
+            block = int(sparse.get("block", 8))
+            flop_per_entry = 2.0 * block ** 3 / out.get(
+                "smm_flops_per_s", DEFAULT_HARDWARE.smm_flops_per_s)
+            out["stack_entry_s"] = max(slope - flop_per_entry, 1e-8)
+    return out
 
 
 def _timer(device: torch.device, reps: int, log: Optional[Callable]):
@@ -306,19 +379,20 @@ def measure_overlap(mesh=None, grid=None, reps: int = 5, hw=None, *,
     return mesh.agree(out)
 
 
-def get_hardware_model(path: Optional[str] = None) -> HardwareModel:
-    """Resolve defaults <- calibration file (cached when ``path`` is
-    None)."""
+def get_hardware_model(path: Optional[str] = None,
+                       bench_dir: Optional[str] = None) -> HardwareModel:
+    """Resolve defaults <- artifact fits <- calibration file (cached)."""
     global _CACHED
-    if _CACHED is not None and path is None:
+    if _CACHED is not None and path is None and bench_dir is None:
         return _CACHED
     merged = DEFAULT_HARDWARE.to_dict()
+    merged.update(fit_from_artifacts(bench_dir or DEFAULT_BENCH_DIR))
     saved = _load_json(path or DEFAULT_CALIBRATION)
     if saved:
         merged.update({k: v for k, v in saved.items()
                        if k in merged and isinstance(v, (int, float))})
     hw = HardwareModel.from_dict(merged)
-    if path is None:
+    if path is None and bench_dir is None:
         _CACHED = hw
     return hw
 
@@ -341,23 +415,32 @@ SIMULATED = ("bytes_per_s", "latency_s", "overlap_cannon",
              "overlap_cannon25d", "overlap_summa", "overlap_ts")
 
 
-def describe(constants: Dict[str, float], mesh=None) -> str:
-    """One line per constant: the measured value beside the default, the
-    communication constants marked as simulated-rank copies."""
+def describe(measured: Dict[str, float], mesh=None,
+             fitted: Optional[Dict[str, float]] = None) -> str:
+    """One line per constant: the value a calibration file of
+    ``{**fitted, **measured}`` gives, marked ``measured`` (on the card),
+    ``fitted`` (from the bench artifacts) or ``default``, beside the
+    default; the measured communication constants marked as
+    simulated-rank copies or the process group's transport."""
     sim = ""
     if mesh is not None:
         sim = (f"device copies between {mesh.n_ranks} ranks simulated on "
                "one card, not NVLink" if mesh.transport == "in-process" else
                f"{mesh.transport} between {mesh.n_ranks} processes, not "
                "NVLink")
+    fitted = fitted or {}
     lines = []
     for key, default in DEFAULT_HARDWARE.to_dict().items():
-        got = constants.get(key)
-        note = f"  [{sim}]" if key in SIMULATED and got is not None and sim \
-            else ""
-        lines.append(f"  {key:20s} measured "
-                     + ("-" * 12 if got is None else f"{got:12.6g}")
-                     + f"  default {default:12.6g}{note}")
+        if key in measured:
+            got, src = measured[key], "measured"
+        elif key in fitted:
+            got, src = fitted[key], "fitted"
+        else:
+            got, src = default, "default"
+        note = f"  [{sim}]" if key in SIMULATED and src == "measured" \
+            and sim else ""
+        lines.append(f"  {key:20s} {got:12.6g}  {src:8s}  default "
+                     f"{default:12.6g}{note}")
     return "\n".join(lines)
 
 
@@ -412,6 +495,10 @@ def main(argv=None):
     from .plan import plan_cache_clear
 
     ap = argparse.ArgumentParser()
+    ap.add_argument("--bench-dir", default=DEFAULT_BENCH_DIR,
+                    help="bench artifacts to fit constants from first "
+                         "(fit_from_artifacts); what the card measures "
+                         "overrides them")
     ap.add_argument("--out", default=DEFAULT_CALIBRATION)
     ap.add_argument("--mesh", type=int, nargs=2, default=(4, 4),
                     metavar=("PR", "PC"),
@@ -439,12 +526,15 @@ def main(argv=None):
 
     dev = resolve_device(None)
     print(f"device: {torch.cuda.get_device_name(dev)}")
+    fitted = fit_from_artifacts(args.bench_dir)
     mesh = make_mesh(tuple(args.mesh), ("data", "model"), device=dev)
-    constants = micro_calibrate(mesh, GridSpec("data", "model"), log=print)
+    measured = micro_calibrate(mesh, GridSpec("data", "model"), log=print)
+    constants = {**fitted, **measured}
     path = save_calibration(constants, args.out)
     plan_cache_clear()
-    print("constants (measured beside DEFAULT_HARDWARE):")
-    print(describe(constants, mesh))
+    print(f"constants (fitted from {args.bench_dir}, then measured on the "
+          "card; beside DEFAULT_HARDWARE):")
+    print(describe(measured, mesh, fitted))
     print(json.dumps({"calibration": constants}))
     print("wrote ->", path)
 
