@@ -4,8 +4,10 @@
     python3 chip_smoke.py
 
 Phase 0  prints the card (nvidia-smi name and power limit) and builds
-         the four CUDA kernels from src/repro_torch/csrc, timing the
-         build.
+         the four CUDA kernels from src/repro_torch/csrc, one nvcc each,
+         all started together, timing the build; decode_attention's
+         (the longest) finishes in a thread beside phases 1-3, and its
+         phase-1 checks run at the end of phase 3, once it is in.
 Phase 1  holds each kernel against its plain PyTorch version on the card:
          smm at blocks 4, 22 and 64 (f32 and bf16), with a ragged final
          stack, valid == 0 rows and a masked plan of several size bins;
@@ -39,7 +41,17 @@ Phase 2  runs the main path, dbcsr.create -> dbcsr.multiply with
            (e) 3,960^2, densified, torch.matmul
          Each result is held against torch.matmul of the mask-applied
          dense operands (f32, TF32 off); each case's launch counters are
-         zeroed just before the multiply and read just after.
+         zeroed just before the multiply and read just after.  Then
+         (e)'s operands through distributed_matmul at every precision=
+         (None, "highest", "high" = TF32, "default" = one bf16 pass):
+         each product's distance from IEEE torch.matmul and its
+         CUDA-event ms beside the same GEMM outside the multiply (None
+         and "highest" bitwise the product without precision; "high"
+         and "default" within PREC_SAME_TOL of the GEMM outside under
+         the same mode, and farther from IEEE); the script's float32
+         matmul settings unchanged after every call; local_kernel=
+         "pallas" at "high" launches tiled_matmul, bitwise its IEEE
+         product (precision_check).
 Phase 3  times each kernel at the shapes of (a), (b), (c) (both stack
          sizes) and (d) (and tiled_matmul at phase 1's ragged 1,000 x 777
          x 1,030), the fused smm launch at (f) and grouped_gemm at
@@ -79,7 +91,9 @@ Phase 4  runs the serving path, MultiplyService(fused=True,
          dbcsr.multiply_batched(fused=False) bitwise, and stats() must
          show every request fused with no retry, degradation or error
          ticket.  It prints the host time of the first and the repeat
-         flush against the looped dispatch.
+         flush against the looped dispatch.  Then (h)'s 16 products
+         through distributed_matmul_batched at every precision=, held
+         as at (e) (torch.bmm; grouped_gemm at "high" under "pallas").
 Phase 5  serves Qwen2-1.5B at full width (28 layers, d_model 1,536, 48
          query and 8 KV heads after the config's head_pad_factor 4,
          vocabulary 151,936) from seeded random weights through
@@ -200,7 +214,10 @@ Phase 8  purification and self-verifying multiplies:
                (printed, not fatal).  (f)'s batch of 16 under
                multiply_batched(verify=) runs looped, bitwise; fused=True
                with verify= raises.  run_injection_matrix on 1x1 and 2x2
-               with the smm kernel: all green.  One {"phase8": ...} line.
+               with the smm kernel: all green.  (v) runs in a process of
+               its own (abft_process) beside (u), whose trajectories are
+               host-bound planning that leaves the card idle; its lines
+               are printed after (u)'s.  One {"phase8": ...} line.
 Phase 9  telemetry and tensor contractions:
            (w) obs.enable() around (a) blocked on 1x1, a verify=
                "checksum" multiply at (a) with a NaN injected (multiply
@@ -306,7 +323,11 @@ Phase 12 the launch tools (ROADMAP A12), on the meta device: nothing
                 prefill_32k of Qwen2-1.5B and DeepSeek-V3 on 1x1; every
                 cell ok or skipped by cell_is_supported, within
                 DRYRUN_BUDGET_S of its start; the table and each cell's
-                seconds
+                seconds; beside it the CLI's A/B flags on one cell
+                (DRYRUN_AB: Qwen2-1.5B's train_4k on 1x1 with --override
+                head_pad_factor=1 --micro 2 --tag _ab), its record held
+                to 2 microbatches, its file name to the tag and its
+                argument bytes below the padded model's
            (ag) predictions held against the card: (ab)'s step counted on
                 meta, its FLOPs equal to FlopCounterMode over the step on
                 the card and its peak live bytes within PEAK_TOL of
@@ -322,7 +343,9 @@ Phase 13 the process mesh (launch.mesh.make_process_mesh): one rank a
          phase 0's build.  One card: 4 processes (2x2) and 8 (2x2x2)
          share it over gloo, every collective staged through pinned host
          memory (no NVLink number); NCCL, one card a rank, runs the same
-         cases where the host has a card for every rank.
+         cases where the host has a card for every rank.  The 2x2 cases
+         run in phases 14-15's 4 processes, before their LM cells (one
+         spawn fewer), and are checked after that spawn.
            (ah) Cannon 2x2 at 7,920^2 (3,960^2 a rank, block 22): blocked
                 dense; A at 20 % fill on the union plan, rank-exact
                 (bitwise the union), rank-exact at eps 0 (bitwise the
@@ -456,6 +479,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -645,6 +669,116 @@ def step_logits(params, cfg, tok, cache, cur):
     from repro_torch.models import transformer as T
 
     return T.forward(params, tok, cfg, cache=cache, cur_len=cur)[0][:, -1]
+
+
+PREC_NAMES = (None, "highest", "high", "default")
+PREC_REPS = 10
+PREC_SAME_TOL = 1e-6   # "high" / "default" against the same mode taken
+                       # outside the multiply (one cuBLAS call each way)
+
+
+def precision_check(label, a, b, mesh, zero_counters, read_counters,
+                    card) -> list:
+    """``precision=`` on the densified path at ``label``'s operands (one
+    product (M, K) @ (K, N) through distributed_matmul, or a batch
+    (G, M, K) @ (G, K, N) through distributed_matmul_batched), Cannon on
+    ``mesh``: each name's product, its max |C - IEEE| / max |IEEE|
+    against torch.matmul / torch.bmm in IEEE f32 of the same operands
+    and its CUDA-event ms, beside the same GEMM taken outside the
+    multiply under the same mode.  None and "highest" are bitwise the
+    multiply's product without precision; "high" (TF32) and "default"
+    (one bf16 pass, f32 accumulation) lie within PREC_SAME_TOL of the
+    GEMM outside and farther than 10x that distance from IEEE, so the
+    mode is applied; the script's float32 matmul settings are unchanged
+    after every call.  local_kernel="pallas" at "high" launches its
+    kernel (the counters zeroed before, read after) and is bitwise its
+    IEEE product.  Returns one row a name."""
+    import torch
+
+    from repro_torch.core.multiply import distributed_matmul
+    from repro_torch.core.multiply_batched import distributed_matmul_batched
+
+    batched = a.ndim == 3
+    fn = distributed_matmul_batched if batched else distributed_matmul
+    op = torch.bmm if batched else torch.matmul
+    kernel = "grouped_gemm" if batched else "tiled_matmul"
+    flags = torch.backends.cuda.matmul
+
+    def settings():
+        return (torch.get_float32_matmul_precision(), flags.allow_tf32,
+                flags.allow_bf16_reduced_precision_reduction)
+
+    def call(prec, **kw):
+        return fn(a, b, mesh=mesh, algorithm="cannon", densify=True,
+                  precision=prec, **kw)
+
+    def outside(prec):
+        """The GEMM of the operands under ``prec``'s mode, set here."""
+        if prec == "default":
+            caller = flags.allow_bf16_reduced_precision_reduction
+            flags.allow_bf16_reduced_precision_reduction = False
+            try:
+                return (torch.bmm if batched else torch.mm)(
+                    a.bfloat16(), b.bfloat16(), out_dtype=torch.float32)
+            finally:
+                flags.allow_bf16_reduced_precision_reduction = caller
+        caller = flags.allow_tf32
+        flags.allow_tf32 = prec == "high"
+        try:
+            return op(a, b)
+        finally:
+            flags.allow_tf32 = caller
+
+    before = settings()
+    ieee = outside(None)
+    today = call(None)
+    rows = []
+    for prec in PREC_NAMES:
+        c = call(prec)
+        torch.cuda.synchronize()
+        if settings() != before:
+            raise AssertionError(f"{label} precision={prec!r}: the script's "
+                                 f"settings {before} became {settings()}")
+        row = {"case": label, "precision": prec, "err_vs_ieee":
+               rel_err(c, ieee),
+               "ms": time_ms(lambda: call(prec), PREC_REPS),
+               "gemm_ms": time_ms(lambda: outside(prec), PREC_REPS),
+               "card": card}
+        if prec in (None, "highest"):
+            row["bitwise_none"] = torch.equal(c, today)
+            if not row["bitwise_none"]:
+                raise AssertionError(f"{label} precision={prec!r}: not "
+                                     "bitwise the product without precision")
+        else:
+            row["err_vs_outside"] = rel_err(c, outside(prec))
+            if not (row["err_vs_outside"] <= PREC_SAME_TOL
+                    and row["err_vs_ieee"] > 10 * max(row["err_vs_outside"],
+                                                      1e-7)):
+                raise AssertionError(
+                    f"{label} precision={prec!r}: {row['err_vs_outside']:.3e}"
+                    f" from the same mode outside the multiply, "
+                    f"{row['err_vs_ieee']:.3e} from IEEE")
+        print(f"  {label} precision={prec!r}: max|C - IEEE| / max|IEEE| "
+              f"{row['err_vs_ieee']:.3e}"
+              + (f", {row['err_vs_outside']:.3e} from the same GEMM outside"
+                 if "err_vs_outside" in row else
+                 f", bitwise no precision: {row['bitwise_none']}")
+              + f"; {row['ms']:.3f} ms through the multiply, the GEMM alone "
+              f"{row['gemm_ms']:.3f} ms ({card})")
+        rows.append(row)
+        del c
+    zero_counters()
+    c = call("high", local_kernel="pallas")
+    torch.cuda.synchronize()
+    got = read_counters()
+    same = torch.equal(c, call(None, local_kernel="pallas"))
+    print(f"  {label} local_kernel='pallas', precision='high': {kernel} "
+          f"launches {got[kernel]}, bitwise its IEEE product: {same}")
+    if got[kernel] < 1 or not same:
+        raise AssertionError(f"{label} pallas at 'high': launches {got}, "
+                             f"bitwise {same}")
+    print(json.dumps({"precision": rows}))
+    return rows
 
 
 def sync_time(fn):
@@ -1702,6 +1836,12 @@ DRYRUN_GRID = (
     ("rwkv6_1_6b", "decode_32k,long_500k", "1x1,production"),
     ("qwen2_1_5b,deepseek_v3_671b", "prefill_32k", "1x1"))
 DRYRUN_JOBS = (1, 2, 2, 1, 1)
+# (af) the CLI's A/B flags on one cell: Qwen2-1.5B's train_4k on 1x1 with
+# head_pad_factor 1 (the config's is 4) and 2 microbatches, its record
+# written under the tag beside the grid's own cell
+DRYRUN_AB = (("qwen2_1_5b", "train_4k", "1x1"),
+             ("--override", "head_pad_factor=1", "--micro", "2",
+              "--tag", "_ab"))
 DRYRUN_BUDGET_S = 600   # the grid's wall from its start; the full run
                         # hides it behind phases 1-11 (~850 s)
 PEAK_TOL = 0.10         # (ag): counted peak against max_memory_allocated
@@ -1720,12 +1860,13 @@ def start_dryrun(out_dir) -> list:
                PYTHONPATH=os.path.join(REPO, "src"))
     nice = ["nice", "-n", "10"] if shutil.which("nice") else []
     procs = []
-    for i, ((arch, shape, mesh), jobs) in enumerate(zip(DRYRUN_GRID,
-                                                        DRYRUN_JOBS)):
+    runs = [(cell, ("--jobs", str(jobs)))
+            for cell, jobs in zip(DRYRUN_GRID, DRYRUN_JOBS)] + [DRYRUN_AB]
+    for i, ((arch, shape, mesh), extra) in enumerate(runs):
         log = open(os.path.join(out_dir, f"grid{i}.log"), "w")
         cmd = nice + [sys.executable, "-m", "repro_torch.launch.dryrun",
                       "--arch", arch, "--shape", shape, "--mesh", mesh,
-                      "--out", out_dir, "--jobs", str(jobs)]
+                      "--out", out_dir, *extra]
         procs.append((subprocess.Popen(cmd, env=env, cwd=REPO, stdout=log,
                                        stderr=subprocess.STDOUT,
                                        start_new_session=True),
@@ -1767,8 +1908,9 @@ def collect_dryrun(procs, out_dir) -> dict:
     for i, (rc, wall) in enumerate(waited):
         with open(os.path.join(out_dir, f"grid{i}.log")) as f:
             tail = f.read().splitlines()[-1:]
-        print(f"  (af) dryrun --arch {DRYRUN_GRID[i][0]} --shape "
-              f"{DRYRUN_GRID[i][1]} --mesh {DRYRUN_GRID[i][2]}: exit {rc}, "
+        args = procs[i][0].args
+        flags = args[args.index("repro_torch.launch.dryrun") + 1:]
+        print(f"  (af) dryrun {' '.join(flags)}: exit {rc}, "
               f"{wall:.1f} s from its start; {tail[0] if tail else ''}")
     want = [cell for grid in DRYRUN_GRID for cell in dryrun.cells(*grid)]
     recs, bad = [], []
@@ -1793,6 +1935,29 @@ def collect_dryrun(procs, out_dir) -> dict:
           f"{max(r['count_s'] for r in one):.1f} s)")
     if any(rc != 0 for rc, _ in waited) or bad:
         raise AssertionError(f"(af) dry-run cells failed: {bad}")
+    (arch, shape, mesh), _ = DRYRUN_AB
+    base = f"{arch}__{shape}__{dryrun.MESHES[mesh]}"
+    with open(os.path.join(out_dir, base + ".json")) as f:
+        plain = json.load(f)
+    with open(os.path.join(out_dir, base + "_ab.json")) as f:
+        ab = json.load(f)
+    print(f"  (af) A/B {base}_ab.json (--override head_pad_factor=1 --micro "
+          f"2 --tag _ab) against {base}.json (head_pad_factor 4, "
+          f"{plain['n_microbatches']} microbatch(es)): n_microbatches "
+          f"{ab['n_microbatches']}; argument bytes {ab['memory']['argument_bytes']:,} "
+          f"against {plain['memory']['argument_bytes']:,}; FLOPs "
+          f"{ab['hlo_costs']['flops']:.4e} against "
+          f"{plain['hlo_costs']['flops']:.4e}; HBM bytes "
+          f"{ab['hlo_costs']['hbm_bytes']:.4e} against "
+          f"{plain['hlo_costs']['hbm_bytes']:.4e}; peak "
+          f"{ab['memory']['peak_per_device_bytes'] / 2**30:.2f} against "
+          f"{plain['memory']['peak_per_device_bytes'] / 2**30:.2f} GiB")
+    if not (ab["status"] == "ok" and ab["n_microbatches"] == 2
+            and ab["memory"]["argument_bytes"]
+            < plain["memory"]["argument_bytes"]):
+        raise AssertionError(f"(af) the A/B cell: status {ab['status']}, "
+                             f"n_microbatches {ab['n_microbatches']}, "
+                             "argument bytes not below the padded model's")
     return {"cells": [{k: r.get(k) for k in (
         "arch", "shape", "mesh", "status", "cell_s", "n_microbatches",
         "useful_flop_ratio", "fits_hbm")} | {
@@ -3116,9 +3281,6 @@ def purification(dev, card, zero_counters, read_counters, report) -> dict:
     rank-exact, then PUR_VERIFY verified iterations; one smm row at a
     rank-exact step of its peak iterate.  Returns (its record, the smm
     row, the union process's smm launches)."""
-    import concurrent.futures
-    import multiprocessing
-
     import numpy as np
     import torch
 
@@ -3128,21 +3290,7 @@ def purification(dev, card, zero_counters, read_counters, report) -> dict:
     from repro_torch.kernels.smm.ref import smm_process_stack_ref
 
     N, BS = PUR_N, 22
-    pool = concurrent.futures.ProcessPoolExecutor(
-        1, mp_context=multiprocessing.get_context("spawn"))
-    # the union process starts with 2 host threads (its planning is
-    # serial numpy): the host's cores stay this process's
-    threads = {k: os.environ.get(k) for k in (
-        "OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")}
-    os.environ.update(dict.fromkeys(threads, "2"))
-    try:
-        union_run = pool.submit(pur_union)    # starts the process
-    finally:
-        for k, v in threads.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
+    pool, union_run = spawn_beside(pur_union)
     P0, mesh, exact, setup_s = pur_setup(dev)
     nb = N // BS
     print(f"phase 8 (u): McWeeny purification, {N}^2 in {nb}^2 blocks of "
@@ -3556,15 +3704,83 @@ def abft(dev, card, zero_counters, read_counters) -> dict:
     return {"points": rows, "matrix_rows": matrix}
 
 
+def abft_process() -> dict:
+    """(v) in a process of its own, beside (u)'s two trajectories: they
+    are host-bound planning that leaves the card idle, (v) mostly card
+    work.  Returns (v)'s record, the lines it printed and the kernels it
+    launched."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.kernels.grouped_gemm.ops import grouped_gemm
+    from repro_torch.kernels.smm.ops import smm_process_stack
+    from repro_torch.kernels.tiled_matmul.ops import tiled_matmul
+
+    use_repo_table()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    counters = {"smm": smm_process_stack, "tiled_matmul": tiled_matmul,
+                "grouped_gemm": grouped_gemm}
+    total = dict.fromkeys(counters, 0)
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read():
+        got = {key: fn.launches for key, fn in counters.items()}
+        for key in total:
+            total[key] += got[key]
+        return got
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        ver = abft(dev, card_line(), zero, read)
+    return {"abft": ver, "lines": out.getvalue(), "launches": total}
+
+
+def spawn_beside(fn):
+    """``fn`` (a module-level function of this script) in a spawned
+    process started now, with 2 host threads (its work is serial numpy
+    and launches: the host's cores stay this process's); returns
+    (pool, future)."""
+    import concurrent.futures
+    import multiprocessing
+
+    pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    threads = {k: os.environ.get(k) for k in (
+        "OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")}
+    os.environ.update(dict.fromkeys(threads, "2"))
+    try:
+        return pool, pool.submit(fn)    # starts the process
+    finally:
+        for k, v in threads.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def robustness(dev, card, zero_counters, read_counters, report):
-    """Phase 8; returns the smm row of (u) for the kernels line and the
-    smm launches of (u)'s union process."""
+    """Phase 8: (u) here and (v) in a process beside it (abft_process);
+    returns the smm row of (u) for the kernels line and the launches of
+    the phase's other processes ((u)'s union trajectory's, (v)'s)."""
+    pool, ver_run = spawn_beside(abft_process)
     pur, row, union_launches = purification(dev, card, zero_counters,
                                             read_counters, report)
-    ver = abft(dev, card, zero_counters, read_counters)
+    with pool:
+        got = ver_run.result()
+    print(got["lines"], end="")
+    launches = dict(got["launches"])
+    launches["smm"] += union_launches
     print(json.dumps({"phase8": {"card": card, "purification": pur,
-                                 "abft": ver}}))
-    return [row], union_launches
+                                 "abft": got["abft"]}}))
+    return [row], launches
 
 
 # ---------------------------------------------------------------------------
@@ -4272,7 +4488,11 @@ def pm_rank(rank: int, shape, axes, cases) -> dict:
             "repr": repr(mesh), "rows": results}
 
 
-def process_mesh(card: str) -> dict:
+PM_MESHES = (((2, 2), ("data", "model")),
+             ((2, 2, 2), ("pod", "data", "model")))
+
+
+def process_mesh(card: str, meshes=PM_MESHES, ran=None) -> dict:
     """Phase 13: the process mesh (launch.mesh.make_process_mesh), one rank
     a process: 4 processes (2x2) and 8 (2x2x2) spawned on the card
     (launch.processes.run_ranks), a gloo group over a FileStore, the
@@ -4281,7 +4501,10 @@ def process_mesh(card: str) -> dict:
     in-process mesh where its collectives only move data, else within
     REL_TOL of max|C|, and against torch.matmul; every process holds the
     same C and launches the case's kernel; the summed traffic is the
-    in-process count."""
+    in-process count.  ``ran`` maps a mesh shape to ``(ranks, wall)``
+    of its gloo run made in another spawn (the full run's 2x2 cases run
+    in phases 14-15's 4 processes, before the LM cells: one spawn fewer);
+    only the remaining runs are spawned here."""
     import tempfile
 
     import torch
@@ -4291,8 +4514,8 @@ def process_mesh(card: str) -> dict:
     out = {"card": card, "runs": []}
     failed = []
     cards = torch.cuda.device_count()
-    for shape, axes in (((2, 2), ("data", "model")),
-                        ((2, 2, 2), ("pod", "data", "model"))):
+    ran = ran or {}
+    for shape, axes in meshes:
         world = math.prod(shape)
         cases = pm_cases(world)
         backends = ["gloo"] + (["nccl"] if cards >= world else [])
@@ -4300,16 +4523,23 @@ def process_mesh(card: str) -> dict:
             print(f"  {world} ranks on {cards} card(s): gloo, host-staged "
                   "(NCCL takes one card a rank; not run)")
         for backend in backends:
-            t0 = time.perf_counter()
-            with tempfile.TemporaryDirectory() as store:
-                ranks = run_ranks(pm_rank, world, store_dir=store,
-                                  args=(shape, axes, cases),
-                                  backend=backend, timeout_s=PM_TIMEOUT_S,
-                                  join_timeout_s=PM_JOIN_S)
-            wall = time.perf_counter() - t0
-            print(f"  {ranks[0]['repr']}: {world} processes, "
-                  f"{ranks[0]['transport']}, {wall:.1f} s with the spawn "
-                  f"({card})")
+            if backend == "gloo" and shape in ran:
+                ranks, wall = ran[shape]
+                print(f"  {ranks[0]['repr']}: {world} processes, "
+                      f"{ranks[0]['transport']}, run in phases 14-15's "
+                      f"spawn before its LM cells ({card})")
+            else:
+                t0 = time.perf_counter()
+                with tempfile.TemporaryDirectory() as store:
+                    ranks = run_ranks(pm_rank, world, store_dir=store,
+                                      args=(shape, axes, cases),
+                                      backend=backend,
+                                      timeout_s=PM_TIMEOUT_S,
+                                      join_timeout_s=PM_JOIN_S)
+                wall = time.perf_counter() - t0
+                print(f"  {ranks[0]['repr']}: {world} processes, "
+                      f"{ranks[0]['transport']}, {wall:.1f} s with the "
+                      f"spawn ({card})")
             for i, case in enumerate(cases):
                 rows = [r["rows"][i] for r in ranks]
                 lead = rows[0]
@@ -4610,20 +4840,25 @@ def leaf_names(tree, prefix="") -> list:
     return [prefix]
 
 
-def lm_rank(rank: int, store: str) -> dict:
+def lm_rank(rank: int, store: str, pm=None) -> dict:
     """One process of phases 14-15: a 2x2 and a 1x4 mesh over the same 4
     processes, every cell in turn; returns {cell: its numbers and, on
-    mesh rank 0, the gathered tokens and logits}."""
+    mesh rank 0, the gathered tokens and logits}.  With ``pm`` (phase
+    13's 2x2 cases) the process first runs those (``pm_rank``), under
+    the key "phase13"."""
     import torch
 
     from repro_torch.launch.mesh import make_process_mesh
 
+    out = {}
+    if pm:
+        out["phase13"] = pm_rank(rank, *PM_MESHES[0], pm)
+        torch.cuda.empty_cache()
     meshes = {shape: make_process_mesh(
         shape, ("data", "model"),
         timeout=datetime.timedelta(seconds=LM_TIMEOUT_S))
         for shape in LM_MESHES}
     torch.cuda.set_device(meshes[LM_MESHES[0]].device)
-    out = {}
     for cell in LM_CELLS:
         out[cell["cell"]] = lm_cell_on_mesh(meshes[cell["mesh"]], cell, store)
         torch.cuda.empty_cache()
@@ -4795,13 +5030,15 @@ def lm_count(cell):
     return costs, time.perf_counter() - t
 
 
-def lm_on_mesh(dev, card: str, hw, mark=None) -> dict:
+def lm_on_mesh(dev, card: str, hw, mark=None, pm=None) -> dict:
     """Phases 14-15: LM_CELLS on process meshes of 4 processes on the card
     (host-staged gloo; one spawn runs them all), each against one rank in
     this process from the same weights: (ak)'s steps before the spawn,
     the rest after it; (ap), the meta count of (an)'s f32 step, runs in a
     thread of this process during the spawn.  ``mark(15)`` is called
-    before the first phase-15 cell's comparisons."""
+    before the first phase-15 cell's comparisons.  With ``pm`` (phase
+    13's 2x2 cases) the spawn runs those first; their ranks' rows come
+    back as ``out["pm_ranks"]``, for ``process_mesh``'s checks."""
     import dataclasses
     import tempfile
     import threading
@@ -4846,10 +5083,12 @@ def lm_on_mesh(dev, card: str, hw, mark=None) -> dict:
     counter.start()
     with tempfile.TemporaryDirectory() as store:
         t0 = time.perf_counter()
-        ranks = run_ranks(lm_rank, 4, store_dir=store, args=(store,),
+        ranks = run_ranks(lm_rank, 4, store_dir=store, args=(store, pm),
                           timeout_s=LM_TIMEOUT_S, join_timeout_s=LM_JOIN_S)
         wall = time.perf_counter() - t0
         out["wall_s"] = wall
+        if pm:
+            out["pm_ranks"] = [r.pop("phase13") for r in ranks]
         print(f"  4 processes, one spawn for {[c['cell'] for c in LM_CELLS]}"
               f": {wall:.1f} s ({card})")
         twins = {}
@@ -5535,10 +5774,35 @@ def main(argv=None) -> int:
     print(f"  nvidia-smi: {card}")
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, {name}")
     t0 = time.perf_counter()
-    built = _build.build()
+    # decode_attention's build (30 template instantiations, the longest)
+    # runs on in a thread while phases 1-3 check and time the other three
+    # kernels; its checks wait for it at the end of phase 3
+    late = {}
+
+    def build_late():
+        try:
+            late.update(_build.build(["decode_attention"]))
+        except BaseException as e:     # re-raised by wait_late_build
+            late["error"] = e
+
+    late_build = threading.Thread(target=build_late, daemon=True)
+    late_build.start()
+    built = _build.build([k for k in _build.SOURCES
+                          if k != "decode_attention"])
     per_source = ", ".join(f"{k} {v['seconds']:.2f} s" for k, v in built.items())
     print(f"  built {sorted(built)} in {time.perf_counter() - t0:.2f} s "
-          f"(one nvcc per source, in parallel: {per_source})")
+          f"(one nvcc per source, in parallel: {per_source}); "
+          "decode_attention building beside phases 1-3")
+
+    def wait_late_build():
+        t_wait = time.perf_counter()
+        late_build.join()
+        if "error" in late:
+            raise late["error"]
+        print(f"  built decode_attention in "
+              f"{late['decode_attention']['seconds']:.2f} s (nvcc started "
+              f"with the others; waited {time.perf_counter() - t_wait:.2f} "
+              "s for it here)")
     # phase 12 (af): the dry-run grid runs on the host's CPU meanwhile
     grid_dir = os.path.join(REPO, "artifacts", "dryrun_torch")
     shutil.rmtree(grid_dir, ignore_errors=True)
@@ -5560,6 +5824,7 @@ def main(argv=None) -> int:
 
     if only is not None:
         # a development run of one phase: no kernels line, no ok line
+        wait_late_build()
         print(f"phase {only} ({card})")
         if only == 9:
             obs_and_tensors(dev, card, zero_counters, read_counters)
@@ -5729,22 +5994,24 @@ def main(argv=None) -> int:
         else:
             err_bf16_out = max(err_bf16_out, err)
 
-    # the JAX package's kernel test cases (B, Hkv, R, Dh, S, cur_len)
-    for case in ((2, 2, 4, 64, 256, 200), (1, 1, 8, 128, 512, 512),
-                 (2, 4, 1, 64, 128, 7), (1, 2, 6, 32, 384, 100)):
-        decode_case(*case, torch.float32)
-    decode_case(1, 2, 4, 64, 256, 250, torch.bfloat16)
-    for cur in (0, 1, 513, 1000):   # the serve heads, S = 1,000 = 62 tiles + 8
+    def decode_checks():
+        """Phase 1's decode_attention checks, run once its build is in."""
+        # the JAX package's kernel test cases (B, Hkv, R, Dh, S, cur_len)
+        for case in ((2, 2, 4, 64, 256, 200), (1, 1, 8, 128, 512, 512),
+                     (2, 4, 1, 64, 128, 7), (1, 2, 6, 32, 384, 100)):
+            decode_case(*case, torch.float32)
+        decode_case(1, 2, 4, 64, 256, 250, torch.bfloat16)
+        for cur in (0, 1, 513, 1000):   # serve heads, S = 1,000 = 62 tiles + 8
+            for dtype in (torch.float32, torch.bfloat16):
+                decode_case(2, 8, 6, 128, 1000, cur, dtype)
+        # Jamba's attention layer in phase 10 (z): 32/8 heads (R 4), Dh 128
         for dtype in (torch.float32, torch.bfloat16):
-            decode_case(2, 8, 6, 128, 1000, cur, dtype)
-    # Jamba's attention layer in phase 10 (z): 32/8 heads (R 4), Dh 128
-    for dtype in (torch.float32, torch.bfloat16):
-        decode_case(8, 8, 4, 128, 4096, 2064, dtype)
-    # Dh % 4 != 0: 4-byte copies in f32, plain loads in bf16; ragged S
-    for case in ((1, 2, 3, 33, 130, 70), (2, 2, 6, 65, 200, 200),
-                 (1, 1, 4, 33, 70, 0)):
-        for dtype in (torch.float32, torch.bfloat16):
-            decode_case(*case, dtype)
+            decode_case(8, 8, 4, 128, 4096, 2064, dtype)
+        # Dh % 4 != 0: 4-byte copies in f32, plain loads in bf16; ragged S
+        for case in ((1, 2, 3, 33, 130, 70), (2, 2, 6, 65, 200, 200),
+                     (1, 1, 4, 33, 70, 0)):
+            for dtype in (torch.float32, torch.bfloat16):
+                decode_case(*case, dtype)
 
     # ---------------------------------------------------------- phase 2
     mark(2)
@@ -5799,6 +6066,9 @@ def main(argv=None) -> int:
         raise AssertionError("(d) never launched tiled_matmul")
     c, got = run("(e) 3960^2 densified torch.matmul", A, B, densify=True)
     check_close("(e) vs torch.matmul", c.data, exact)
+    del c
+    precision_check("(e) 3960^2", A.data, B.data, mesh, zero_counters,
+                    read_counters, card)
 
     # (c) A at ~20% block fill, first at the default stack size, then at
     # stack_size 64, which makes the ragged runs (~36 triples each) pack
@@ -6076,6 +6346,10 @@ def main(argv=None) -> int:
         return report("decode_attention", label, ms, plain_ms, library_ms,
                       flops, nbytes, 1)
 
+    wait_late_build()
+    print("phase 1, decode_attention against its plain version (after its "
+          "build)")
+    decode_checks()
     decode_rows = [decode_times("(l) B=8 S=4096", 8, 4096, 4096),
                    decode_times("(m) B=16 S=32768", 16, 32768, 32768),
                    decode_times("(n) B=8 S=4096 cur_len=2064", 8, 4096, 2064),
@@ -6222,6 +6496,10 @@ def main(argv=None) -> int:
                    densify=True)
     against_matmul("(i)", out, dense_reqs)
     del out
+    precision_check(f"(h) {G} x {NB}^2",
+                    torch.stack([a.data for a, _ in dense_reqs]),
+                    torch.stack([b.data for _, b in dense_reqs]), mesh,
+                    zero_counters, read_counters, card)
 
     del dense_reqs, sparse_reqs, mixed, A, B, Am, A64, B64, exact
     torch.cuda.empty_cache()
@@ -6250,9 +6528,10 @@ def main(argv=None) -> int:
     mark(8)
     print(f"phase 8: purification and self-verifying multiplies ({card})")
     torch.cuda.empty_cache()
-    rows, union_launches = robustness(dev, card, zero_counters,
-                                      read_counters, report)
-    launches["smm"] += union_launches    # (u)'s union process's own
+    rows, beside = robustness(dev, card, zero_counters, read_counters,
+                              report)
+    for key, n in beside.items():    # the phase's other processes' own
+        launches[key] += n
     for row in rows:
         err_abs["smm"] = max(err_abs["smm"], row.pop("max_abs_err"))
         smm_rows.append(row)
@@ -6286,18 +6565,24 @@ def main(argv=None) -> int:
 
     # ---------------------------------------------------------- phase 13
     mark(13)
-    print(f"phase 13: the process mesh, one rank a process ({card})")
+    print(f"phase 13: the process mesh, one rank a process; its 2x2 cases "
+          f"run in phases 14-15's spawn ({card})")
     torch.cuda.empty_cache()
-    process_mesh(card)
+    process_mesh(card, PM_MESHES[1:])
 
     # ------------------------------------------------------ phases 14-15
     mark(14)
     print(f"phases 14-15: the LM on a process mesh; Mamba and RWKV-6 cut "
-          f"over model, Adafactor on a cut, the count of one rank ({card})")
+          f"over model, Adafactor on a cut, the count of one rank; first, "
+          f"in the same 4 processes, phase 13's 2x2 cases ({card})")
     torch.cuda.empty_cache()
-    for cell in lm_on_mesh(dev, card, hw, mark)["cells"]:
+    lm = lm_on_mesh(dev, card, hw, mark, pm=pm_cases(4))
+    for cell in lm["cells"]:
         # every process's own launches of the sharded decode
         launches["decode_attention"] += sum(cell["decode_attention_launches"])
+    print(f"phase 13, 2x2 (run in phases 14-15's spawn; {card})")
+    process_mesh(card, PM_MESHES[:1],
+                 ran={PM_MESHES[0][0]: (lm["pm_ranks"], lm["wall_s"])})
 
     # ---------------------------------------------------------- phase 16
     mark(16)

@@ -237,8 +237,10 @@ def cannon_rank_steps(
     return steps
 
 
-def _default_local_matmul(a, b):
-    return densified_local_matmul()(a, b)
+def _default_local_matmul(precision=None):
+    """The schedules' default local multiply: the densified GEMM at
+    ``precision`` (the JAX package's ``_default_local_matmul``)."""
+    return densified_local_matmul(precision)
 
 
 def cannon_matmul(
@@ -249,6 +251,7 @@ def cannon_matmul(
     grid: GridSpec = GridSpec(),
     local_matmul: Optional[Callable] = None,
     out_dtype: Optional[torch.dtype] = None,
+    precision=None,
     pipeline_depth: Optional[int] = None,
     double_buffer: Optional[bool] = None,
     skew: bool = True,
@@ -263,6 +266,10 @@ def cannon_matmul(
     blocks.  ``pipeline_depth``: 2 = overlap order (default), 1 =
     serial, 0 = rolled; ``double_buffer`` is the legacy spelling (True
     -> 2, False -> 0).
+    ``precision`` (None, or "default" / "high" / "highest" in any
+    case, or a ``jax.lax.Precision``-like ``.name``) reaches the default
+    densified local multiply only (``core.precision``); a given
+    ``local_matmul`` ignores it, as in the JAX package.
     """
     pg = grid.validate_square(mesh)
     for name, x in (("A", a), ("B", b)):
@@ -270,7 +277,7 @@ def cannon_matmul(
             raise ValueError(f"{name} is on {x.device}, the mesh on {mesh.device}")
     if out_dtype is None:
         out_dtype = torch.promote_types(a.dtype, b.dtype)
-    lm = local_matmul or _default_local_matmul
+    lm = local_matmul or _default_local_matmul(precision)
     depth = resolve_pipeline_depth(pipeline_depth, double_buffer)
     sched = build_cannon_schedule(
         pg, mesh=mesh, row_axis=grid.row_axis, col_axis=grid.col_axis,

@@ -113,6 +113,7 @@ def cannon25d_matmul(
     grid: GridSpec,
     local_matmul: Optional[Callable] = None,
     out_dtype: Optional[torch.dtype] = None,
+    precision=None,
     pipeline_depth: Optional[int] = None,
     double_buffer: Optional[bool] = None,
     reduce: str = "all_reduce",  # or "reduce_scatter"
@@ -124,6 +125,10 @@ def cannon25d_matmul(
     with the same spec (all_reduce) or additionally row-sharded over the
     stack axis, ((row, stack), col) (reduce_scatter), and is put back
     into one global tensor.
+    ``precision`` (None, or "default" / "high" / "highest" in any
+    case, or a ``jax.lax.Precision``-like ``.name``) reaches the default
+    densified local multiply only (``core.precision``); a given
+    ``local_matmul`` ignores it, as in the JAX package.
     """
     if grid.stack_axis is None:
         raise ValueError("cannon25d needs grid.stack_axis (e.g. 'pod')")
@@ -134,7 +139,7 @@ def cannon25d_matmul(
             raise ValueError(f"{name} is on {x.device}, the mesh on {mesh.device}")
     if out_dtype is None:
         out_dtype = torch.promote_types(a.dtype, b.dtype)
-    lm = local_matmul or _default_local_matmul
+    lm = local_matmul or _default_local_matmul(precision)
     depth = resolve_pipeline_depth(pipeline_depth, double_buffer)
     sched = build_cannon25d_schedule(
         pg, c_repl, mesh=mesh, row_axis=grid.row_axis,

@@ -31,6 +31,8 @@ from typing import Optional
 
 import torch
 
+from .precision import f32_gemm, resolve_precision
+
 __all__ = [
     "to_blocks",
     "from_blocks",
@@ -124,20 +126,26 @@ def _grouped_gemm_over(a, b):
     return out.reshape(lead + tuple(out.shape[-2:]))
 
 
-def densified_local_matmul(kernel: Optional[str] = None):
+def densified_local_matmul(precision=None, kernel: Optional[str] = None):
     """Local multiply for the densified path: one large GEMM in f32.
 
-    kernel=None     -> torch.matmul (the vendor GEMM).  TF32 is turned
-                       off (``torch.backends.cuda.matmul.allow_tf32 =
-                       False``) for this call only, and the caller's
-                       setting restored after it, so the product is
-                       IEEE f32 like the reference's; TF32 is never a
-                       default.
+    kernel=None     -> torch.matmul (the vendor GEMM) at ``precision``
+                       (``core.precision``: None or "highest" IEEE f32,
+                       "high" TF32, "default" one bf16 pass, on the
+                       card; IEEE f32 on the CPU, as XLA's CPU dot).  The
+                       caller's float32 matmul settings are restored
+                       after the call, so TF32 is never a default.
+                       ``precision=None`` departs from the JAX
+                       signature's ``Precision.DEFAULT`` (module
+                       docstring of ``core.precision``).
     kernel='pallas' -> the tiled_matmul CUDA kernel (the JAX package's
                        Pallas tiled matmul), f32 out; on R > 1 ranks one
-                       grouped_gemm launch over the ranks.
-    Any other value takes the default, as the JAX package does.
+                       grouped_gemm launch over the ranks.  It ignores
+                       ``precision``, as the Pallas kernel does.
+    Any other value takes the default, as the JAX package does.  A
+    ``precision`` that is not one of the names raises ``ValueError``.
     """
+    resolve_precision(precision)
     if kernel == "pallas":
         from ..kernels.tiled_matmul.ops import tiled_matmul
 
@@ -148,31 +156,28 @@ def densified_local_matmul(kernel: Optional[str] = None):
         return _over_ranks(single, _grouped_gemm_over)
 
     def f(a, b):
-        # cuBLAS reads the flag when the GEMM is launched
-        flags = torch.backends.cuda.matmul
-        caller = flags.allow_tf32
-        flags.allow_tf32 = False
-        try:
-            return torch.matmul(a.to(torch.float32), b.to(torch.float32))
-        finally:
-            flags.allow_tf32 = caller
+        return f32_gemm(a, b, precision)
 
     return _over_ranks(f, f)
 
 
-def grouped_densified_local_matmul(kernel: Optional[str] = None):
+def grouped_densified_local_matmul(precision=None,
+                                   kernel: Optional[str] = None):
     """Local multiply for the densified path of a fused product batch:
     one grouped GEMM over ``(G, ml, kl) @ (G, kl, nl)``, f32 out.
 
     kernel=None     -> torch.bmm in f32 (the vendor GEMM, as the JAX
-                       package leaves it to XLA's dot_general), with TF32
-                       turned off for this call only: the grouped_gemm
-                       kernel's plain version, ``grouped_gemm_ref``.
+                       package leaves it to XLA's dot_general) at
+                       ``precision`` as in ``densified_local_matmul``; at
+                       None it is the grouped_gemm kernel's plain
+                       version, ``grouped_gemm_ref``, bit for bit.
     kernel='pallas' -> the grouped_gemm CUDA kernel (the JAX package's
                        Pallas grouped GEMM): one launch for all G
-                       products (of all R ranks).
+                       products (of all R ranks); it ignores
+                       ``precision``.
     Any other value takes the default, as the JAX package does.
     """
+    resolve_precision(precision)
     if kernel == "pallas":
         from ..kernels.grouped_gemm.ops import grouped_gemm
 
@@ -181,15 +186,17 @@ def grouped_densified_local_matmul(kernel: Optional[str] = None):
                                 kernel_operand(b).contiguous())
 
         return _over_ranks(single, _grouped_gemm_over)
-    from ..kernels.grouped_gemm.ref import grouped_gemm_ref
+
+    def grouped(a, b):
+        return f32_gemm(a, b, precision, op=torch.bmm)
 
     def stacked(a, b):
         lead = tuple(a.shape[:-2])
-        out = grouped_gemm_ref(a.reshape((-1,) + tuple(a.shape[-2:])),
-                               b.reshape((-1,) + tuple(b.shape[-2:])))
+        out = grouped(a.reshape((-1,) + tuple(a.shape[-2:])),
+                      b.reshape((-1,) + tuple(b.shape[-2:])))
         return out.reshape(lead + tuple(out.shape[-2:]))
 
-    return _over_ranks(grouped_gemm_ref, stacked)
+    return _over_ranks(grouped, stacked)
 
 
 def blocked_local_matmul(

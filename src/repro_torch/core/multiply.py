@@ -74,6 +74,7 @@ from .cannon import (build_cannon_schedule, cannon_matmul, cannon_rank_steps,
 from .cannon25d import build_cannon25d_schedule, cannon25d_matmul
 from .densify import blocked_local_matmul, densified_local_matmul
 from .engine import rank_stack_executor
+from .precision import resolve_precision
 from .schedule import resolve_pipeline_depth, schedule_step_meta
 from .stacks import normalize_block_masks
 from .summa import (build_summa_gather_schedule, build_summa_schedule,
@@ -641,6 +642,7 @@ def distributed_matmul(
     stack_bins: Optional[int] = None,
     rank_exact: Optional[bool] = None,
     rebalance: Optional[bool] = None,
+    precision=None,
     pipeline_depth: Optional[int] = None,
     double_buffer: Optional[bool] = None,
     verify: Optional[str] = None,
@@ -693,6 +695,19 @@ def distributed_matmul(
     a plan is made (``"auto"`` or ``return_plan``); ``False`` permutes
     nothing.  A densified multiply and a one-rank mesh ignore both.
 
+    ``precision`` sets the densified ``torch.matmul``'s f32 mode, as
+    the JAX package's reaches XLA's dot only (``core.precision``): None
+    (the default) or ``"highest"`` IEEE f32, bitwise the same product;
+    ``"high"`` TF32 and ``"default"`` one bf16 pass with f32
+    accumulation, on the card (the CPU computes IEEE f32 for every
+    name, as XLA's CPU dot does).  The names match in any case, a
+    ``jax.lax.Precision``-like object by its ``.name``; anything else
+    raises ``ValueError``.  The JAX signature's default is
+    ``Precision.DEFAULT``; the port's is None, IEEE f32 everywhere.
+    ``local_kernel="pallas"`` and the blocked path ignore it, as the
+    JAX package's Pallas kernels do; ``verify``'s checksums stay IEEE.
+    The caller's float32 matmul settings are unchanged after the call.
+
     ``return_plan=True`` returns ``(C, MultiplyPlan)``: the planner's
     decision with every candidate's predicted cost (``explain()``), the
     executed blocked plan's statistics (``executor_stats``) and the
@@ -725,9 +740,10 @@ def distributed_matmul(
         stack_size=stack_size, align=align, local_kernel=local_kernel,
         a_mask=a_mask, b_mask=b_mask, a_norms=a_norms, b_norms=b_norms,
         filter_eps=filter_eps, stack_bins=stack_bins, rank_exact=rank_exact,
-        rebalance=rebalance, pipeline_depth=pipeline_depth,
-        double_buffer=double_buffer, verify=verify,
-        verify_budget=verify_budget, return_plan=return_plan, **kw)
+        rebalance=rebalance, precision=precision,
+        pipeline_depth=pipeline_depth, double_buffer=double_buffer,
+        verify=verify, verify_budget=verify_budget, return_plan=return_plan,
+        **kw)
     return (c, plan) if return_plan else c
 
 
@@ -769,6 +785,7 @@ def _distributed_matmul_impl(
     stack_bins: Optional[int] = None,
     rank_exact: Optional[bool] = None,
     rebalance: Optional[bool] = None,
+    precision=None,
     pipeline_depth: Optional[int] = None,
     double_buffer: Optional[bool] = None,
     verify: Optional[str] = None,
@@ -795,6 +812,7 @@ def _distributed_matmul_impl(
         raise ValueError(f"inner dims disagree: {tuple(a.shape)} @ {tuple(b.shape)}")
     if algorithm != "auto" and algorithm not in ALGORITHMS:
         raise ValueError(f"unknown algorithm {algorithm!r}")
+    resolve_precision(precision)
     if verify not in (None, "checksum", "auto"):
         raise ValueError(
             f"verify must be None, 'checksum' or 'auto', got {verify!r}")
@@ -950,7 +968,7 @@ def _distributed_matmul_impl(
 
     # ---- local multiply strategy (densified vs blocked) --------------
     if densify:
-        lm = densified_local_matmul(kernel=local_kernel)
+        lm = densified_local_matmul(precision, kernel=local_kernel)
     else:
         blocked_kw = dict(
             block_m=block_m, block_k=block_k, block_n=block_n,
@@ -1032,7 +1050,7 @@ def _distributed_matmul_impl(
 
     # ---- data-exchange algorithm (all via the schedule engine) --------
     common = dict(mesh=mesh, grid=grid, local_matmul=lm,
-                  pipeline_depth=pipeline_depth)
+                  precision=precision, pipeline_depth=pipeline_depth)
 
     def _run() -> torch.Tensor:
         # one deterministic dispatch in the caller's frame: the rebalance

@@ -63,6 +63,7 @@ from .engine import batched_stack_executor
 from .multiply import (_block_masks, _emit_step_spans, _global_occupancy,
                        _masks_empty, _schedule_stats, _stack_kernel,
                        _timed_dispatch)
+from .precision import resolve_precision
 from .schedule import resolve_pipeline_depth
 from .summa import (summa_matmul, summa_n_panels, summa_step_masks,
                     summa_step_norms)
@@ -163,6 +164,7 @@ def distributed_matmul_batched(
     a_norms: Optional[Sequence[Optional[np.ndarray]]] = None,
     b_norms: Optional[Sequence[Optional[np.ndarray]]] = None,
     filter_eps: Optional[float] = None,
+    precision=None,
     pipeline_depth: Optional[int] = None,
     double_buffer: Optional[bool] = None,
     return_plan: bool = False,
@@ -187,6 +189,12 @@ def distributed_matmul_batched(
     buckets requests by eps).  When filtering without explicit norms they
     are derived per product from the payloads.
 
+    ``precision`` sets the densified ``torch.bmm``'s f32 mode as in
+    ``distributed_matmul`` (``core.precision``; None, the default, is
+    IEEE f32); the grouped_gemm kernel and the blocked path ignore it.
+    Neither the planner nor the service's bucket key sees it, as in the
+    JAX package.
+
     ``return_plan=True`` returns ``(C, BatchedMultiplyPlan)``: the
     planner's fuse-or-loop pricing, with the executed fused dispatch's
     padding and plan-sharing statistics as ``executor_stats``.
@@ -201,8 +209,9 @@ def distributed_matmul_batched(
         block_m=block_m, block_k=block_k, block_n=block_n,
         stack_size=stack_size, align=align, local_kernel=local_kernel,
         a_masks=a_masks, b_masks=b_masks, a_norms=a_norms, b_norms=b_norms,
-        filter_eps=filter_eps, pipeline_depth=pipeline_depth,
-        double_buffer=double_buffer, return_plan=return_plan, **kw)
+        filter_eps=filter_eps, precision=precision,
+        pipeline_depth=pipeline_depth, double_buffer=double_buffer,
+        return_plan=return_plan, **kw)
     return (c, plan) if return_plan else c
 
 
@@ -240,6 +249,7 @@ def _distributed_matmul_batched_impl(
     a_norms: Optional[Sequence[Optional[np.ndarray]]] = None,
     b_norms: Optional[Sequence[Optional[np.ndarray]]] = None,
     filter_eps: Optional[float] = None,
+    precision=None,
     pipeline_depth: Optional[int] = None,
     double_buffer: Optional[bool] = None,
     return_plan: bool = False,
@@ -262,6 +272,7 @@ def _distributed_matmul_batched_impl(
                          f"{tuple(b.shape)}")
     if g_count < 1:
         raise ValueError("batched multiply needs at least one product")
+    resolve_precision(precision)
     if kw.get("bcast") == "gather":
         raise ValueError("bcast='gather' is not supported for batched "
                          "dispatch (the all-gathered full-K row would be "
@@ -352,7 +363,7 @@ def _distributed_matmul_batched_impl(
 
     # ---- local multiply strategy ------------------------------------
     if densify:
-        lm = grouped_densified_local_matmul(kernel=local_kernel)
+        lm = grouped_densified_local_matmul(precision, kernel=local_kernel)
     else:
         batched_kw = dict(
             block_m=block_m, block_k=block_k, block_n=block_n,
@@ -415,7 +426,7 @@ def _distributed_matmul_batched_impl(
 
     def _run():
         return run(a, b, mesh=mesh, grid=grid, local_matmul=lm,
-                   pipeline_depth=pipeline_depth,
+                   precision=precision, pipeline_depth=pipeline_depth,
                    double_buffer=double_buffer, **kw)
 
     if not _tele:

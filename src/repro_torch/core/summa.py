@@ -342,6 +342,7 @@ def summa_matmul(
     grid: GridSpec = GridSpec(),
     local_matmul: Optional[Callable] = None,
     out_dtype: Optional[torch.dtype] = None,
+    precision=None,
     bcast: str = "psum",
     pipeline_depth: Optional[int] = None,
     double_buffer: Optional[bool] = None,
@@ -353,6 +354,10 @@ def summa_matmul(
     global.  ``pipeline_depth`` follows core/schedule.py: at depth 2
     the panel broadcast for step t+1 is issued before the local
     multiply of step t; depth 1 is strictly serial (the same bits).
+    ``precision`` (None, or "default" / "high" / "highest" in any
+    case, or a ``jax.lax.Precision``-like ``.name``) reaches the default
+    densified local multiply only (``core.precision``); a given
+    ``local_matmul`` ignores it, as in the JAX package.
     """
     pr, pc = grid.grid_shape(mesh)
     for name, x in (("A", a), ("B", b)):
@@ -360,7 +365,7 @@ def summa_matmul(
             raise ValueError(f"{name} is on {x.device}, the mesh on {mesh.device}")
     if out_dtype is None:
         out_dtype = torch.promote_types(a.dtype, b.dtype)
-    lm = local_matmul or _default_local_matmul
+    lm = local_matmul or _default_local_matmul(precision)
     depth = resolve_pipeline_depth(pipeline_depth, double_buffer)
 
     if bcast == "gather":

@@ -255,6 +255,7 @@ def tall_skinny_matmul(
     reduce: str = "reduce_scatter",
     local_matmul: Optional[Callable] = None,
     out_dtype: Optional[torch.dtype] = None,
+    precision=None,
     pipeline_depth: Optional[int] = None,
 ) -> torch.Tensor:
     """C = A @ B with the tall-and-skinny algorithm on global ``a``
@@ -269,6 +270,10 @@ def tall_skinny_matmul(
     stack axis.  C comes back global.  The single compute step runs
     through the schedule engine; ``pipeline_depth`` has no overlap to
     express on one step.
+    ``precision`` (None, or "default" / "high" / "highest" in any
+    case, or a ``jax.lax.Precision``-like ``.name``) reaches the default
+    densified local multiply only (``core.precision``); a given
+    ``local_matmul`` ignores it, as in the JAX package.
     """
     axes = (grid.row_axis, grid.col_axis) if grid.stack_axis is None else (
         grid.stack_axis, grid.row_axis, grid.col_axis)
@@ -277,7 +282,7 @@ def tall_skinny_matmul(
             raise ValueError(f"{name} is on {x.device}, the mesh on {mesh.device}")
     if out_dtype is None:
         out_dtype = torch.promote_types(a.dtype, b.dtype)
-    lm = local_matmul or _default_local_matmul
+    lm = local_matmul or _default_local_matmul(precision)
     depth = resolve_pipeline_depth(pipeline_depth)
     sched = build_ts_schedule(mode, axes, mesh=mesh, reduce=reduce)
     # ts_k reduces f32 partials; the zero-communication ts_m / ts_n cast

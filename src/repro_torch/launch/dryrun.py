@@ -26,6 +26,20 @@ rank's shards, it runs the mesh's collectives, and the bytes that rank
 receives (``ProcessMesh``'s own count) are ``collective_bytes`` by kind
 and the roofline's collective term.
 
+The reference's A/B flags (ROADMAP A17): ``--override k=v``
+(repeatable, split at the first ``=``) replaces a field of the
+configuration through ``dataclasses.replace`` after the reference's
+typed parse (``typed_overrides``: an ``int`` field gets ``int(v)``, a
+``bool`` field is true only for ``True`` / ``"True"`` / ``"true"`` /
+``"1"``, any other field keeps the string, a ``float`` such as
+``rope_theta`` included, but for ``"True"``, which becomes True; an
+unknown key raises ``KeyError``), e.g. ``--override head_pad_factor=1``;
+``--micro N`` sets a train cell's microbatch count (0, the default,
+keeps ``default_microbatches``); ``--tag S`` is appended to the
+artifact's stem, ``{arch}__{shape}__{mesh}{tag}.json``.  ``--jobs``
+passes all three to every cell.  The reference's ``--save-hlo`` has no
+counterpart: nothing is lowered to XLA here, so there is no HLO to save.
+
 Unlike the reference, importing this module sets no environment
 variable.  A cell is ``ok``, ``skipped`` (``cell_is_supported``'s
 reason) or ``FAILED``; ``main`` prints the summary table with the
@@ -34,6 +48,7 @@ columns of ``benchmarks/bench_roofline.py`` and exits 1 on a failure.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import multiprocessing
 import os
@@ -52,7 +67,7 @@ from .mesh import HW, make_meta_rank_mesh, make_mesh, make_production_mesh
 from .roofline import model_flops, roofline_terms
 from .specs import build_cell, cell_is_supported
 
-__all__ = ["MESHES", "mesh_for", "cells", "run_cell",
+__all__ = ["MESHES", "mesh_for", "cells", "typed_overrides", "run_cell",
            "summary", "main"]
 
 MESHES = {"1x1": "1x1", "production": "pod32x8",
@@ -74,12 +89,39 @@ def _count(step, args, kind, mesh):
     return count_costs(step, *args, mesh=mesh, replay=replay)
 
 
+def typed_overrides(cfg, overrides: dict) -> dict:
+    """The reference's typed parse of ``--override`` values (its
+    ``run_cell``) against ``cfg``'s fields: an ``int`` field gets
+    ``int(v)``; a ``bool`` field is ``v in (True, "True", "true",
+    "1")``; any other field gets True for ``"True"`` and ``v`` itself
+    otherwise (so a ``float`` keeps its string, as in the reference).
+    An unknown key raises ``KeyError``."""
+    fields = {f.name: f for f in dataclasses.fields(cfg)}
+    typed = {}
+    for k, v in overrides.items():
+        fld = fields[k]
+        if fld.type in ("int", int):
+            typed[k] = int(v)
+        elif str(fld.type) in ("bool", "<class 'bool'>"):
+            typed[k] = v in (True, "True", "true", "1")
+        else:
+            typed[k] = (v in ("True", "False") and v == "True") or v
+    return typed
+
+
 def run_cell(arch: str, shape_name, *, mesh: str = "1x1",
-             out_dir: Optional[str] = None, cfg=None) -> dict:
+             out_dir: Optional[str] = None, cfg=None,
+             overrides: Optional[dict] = None, tag: str = "",
+             micro: int = 0) -> dict:
     """Dry-run one cell and write its JSON to ``out_dir`` (if given);
     returns the record.  ``shape_name`` may be a ``ShapeConfig`` and
-    ``cfg`` a configuration in place of ``get_config(arch)``."""
+    ``cfg`` a configuration in place of ``get_config(arch)``;
+    ``overrides`` (field -> string) replace its fields after
+    ``typed_overrides``; ``micro`` > 0 is a train cell's microbatch
+    count; ``tag`` ends the file's stem."""
     cfg = cfg or get_config(arch)
+    if overrides:
+        cfg = dataclasses.replace(cfg, **typed_overrides(cfg, overrides))
     shape = (shape_name if isinstance(shape_name, ShapeConfig)
              else SHAPES[shape_name])
     ok, why = cell_is_supported(cfg, shape)
@@ -88,7 +130,8 @@ def run_cell(arch: str, shape_name, *, mesh: str = "1x1",
     if ok:
         t0 = time.perf_counter()
         m = mesh_for(mesh)
-        step, args, _, _, meta = build_cell(arch, shape, m, cfg=cfg)
+        step, args, _, _, meta = build_cell(arch, shape, m, cfg=cfg,
+                                            n_microbatches=micro)
         n_chips = m.n_ranks
         mf = model_flops(cfg, shape)
         rec.update({"status": "ok", "n_chips": n_chips, "hw": HW["name"],
@@ -118,18 +161,20 @@ def run_cell(arch: str, shape_name, *, mesh: str = "1x1",
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
         path = os.path.join(out_dir,
-                            f"{arch}__{shape.name}__{rec['mesh']}.json")
+                            f"{arch}__{shape.name}__{rec['mesh']}{tag}.json")
         with open(path, "w") as f:
             json.dump(rec, f, indent=1)
     return rec
 
 
 def _run_one(job) -> dict:
-    """A worker's cell: the record, or a FAILED one with the traceback."""
-    arch, shape, mesh, out_dir = job
+    """A worker's cell: the record, or a FAILED one with the traceback.
+    ``job`` is ``(arch, shape, mesh, out_dir, overrides, tag, micro)``."""
+    arch, shape, mesh, out_dir, overrides, tag, micro = job
     torch.set_num_threads(1)
     try:
-        return run_cell(arch, shape, mesh=mesh, out_dir=out_dir)
+        return run_cell(arch, shape, mesh=mesh, out_dir=out_dir,
+                        overrides=overrides, tag=tag, micro=micro)
     except Exception:
         return {"arch": arch, "shape": shape, "mesh": MESHES[mesh],
                 "status": "FAILED", "error": traceback.format_exc()}
@@ -203,10 +248,16 @@ def main(argv=None) -> int:
                                                   "dryrun_torch"))
     ap.add_argument("--jobs", type=int, default=1,
                     help="cells counted at once, one process each")
+    ap.add_argument("--override", action="append", default=[],
+                    help="configuration field override k=v (repeatable)")
+    ap.add_argument("--tag", default="", help="artifact file name suffix")
+    ap.add_argument("--micro", type=int, default=0,
+                    help="train microbatch count (0 = default_microbatches)")
     args = ap.parse_args(argv)
+    overrides = dict(kv.split("=", 1) for kv in args.override)
     try:
-        jobs = [c + (args.out,) for c in cells(args.arch, args.shape,
-                                               args.mesh)]
+        jobs = [c + (args.out, overrides, args.tag, args.micro)
+                for c in cells(args.arch, args.shape, args.mesh)]
     except ValueError as e:
         ap.error(str(e))
     t0 = time.perf_counter()

@@ -56,7 +56,6 @@ telemetry on (``obs.enable()``) verification publishes the
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Callable, Optional, Tuple
 
@@ -65,6 +64,7 @@ import torch
 
 from .. import obs
 from . import guards
+from ..core.precision import float32_matmul
 from ..sparsity.norms import block_norms_of, normalize_block_norms
 
 __all__ = [
@@ -105,18 +105,6 @@ class VerificationReport:
     n_recomputed_blocks: int = 0
 
 
-@contextlib.contextmanager
-def _ieee_matmul():
-    """IEEE float32 matmuls (no TF32, no bf16 passes) inside the
-    context; the caller's precision is restored after it."""
-    caller = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
-    try:
-        yield
-    finally:
-        torch.set_float32_matmul_precision(caller)
-
-
 def checksum_residuals(a, b, c, block_m: int,
                        block_n: int) -> Tuple[np.ndarray, np.ndarray]:
     """Host numpy ``(row_residual (nbr,), col_residual (nbc,))``: per
@@ -131,7 +119,7 @@ def checksum_residuals(a, b, c, block_m: int,
     m, k = a.shape
     n = b.shape[1]
     nbr, nbc = m // block_m, n // block_n
-    with _ieee_matmul():
+    with float32_matmul("highest"):
         # column checksums: sum of C's block rows vs S_A @ B
         s_a = a.reshape(nbr, block_m, k).sum(dim=0)
         col_ref = s_a @ b

@@ -19,6 +19,8 @@ import torch
 from repro.kernels.smm import autotune as jax_autotune
 from repro_torch.kernels.smm import autotune
 
+from torch_threads import one_thread  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TABLE = os.path.join(REPO, "artifacts", "smm_autotune_h100.json")
 

@@ -31,6 +31,8 @@ from repro_torch.core.multiply_batched import (BATCHED_ALGORITHMS,
 from repro_torch.kernels.smm.ops import stack_run_starts
 from repro_torch.launch.mesh import make_mesh
 
+from torch_threads import one_thread  # noqa: F401
+
 RTOL, ATOL = 1e-5, 1e-4
 
 

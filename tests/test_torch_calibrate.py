@@ -39,6 +39,8 @@ from repro_torch.planner import calibrate
 from repro_torch.planner.cost_model import DEFAULT_HARDWARE
 from repro_torch.planner.plan import plan_cache_clear, plan_multiply
 
+from torch_threads import one_thread  # noqa: F401
+
 FITTED = ("flops_per_s", "smm_flops_per_s", "stack_entry_s")
 
 

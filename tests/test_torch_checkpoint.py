@@ -32,19 +32,10 @@ from repro_torch.train.elastic import (FailureInjector, StragglerWatchdog,
 from repro_torch.train.optimizer import OptConfig, make_optimizer
 from repro_torch.train.train_step import make_train_step
 
+from torch_threads import one_thread  # noqa: F401
+
 SMALL = dict(num_layers=2, d_model=64, d_ff=128, vocab_size=128, num_heads=2,
              num_kv_heads=1, head_dim=32)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """The suite runs several workers on a few cores, where torch's
-    intra-op threads only wait on each other (about 10x slower at these
-    sizes); one thread for this module's tests."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _setup(dtype="float32"):

@@ -31,6 +31,8 @@ from repro_torch.kernels.tiled_matmul.ref import tiled_matmul_ref
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.serve import MultiplyService
 
+from torch_threads import one_thread  # noqa: F401
+
 pytestmark = pytest.mark.cuda
 
 
@@ -461,6 +463,58 @@ def test_batched_summa_on_card_is_bitwise_looped(cuda, densify):
     for x, y, (a, b) in zip(fused, looped, reqs):
         assert torch.equal(x.data, y.data)
         assert _rel(x.data, torch.matmul(a.data, b.data)) <= 1e-5
+
+
+@pytest.mark.parametrize("m", [(1, 1), (2, 2)])
+@pytest.mark.parametrize("batched", [False, True])
+def test_precision_modes_on_card(cuda, batched, m):
+    """``precision=`` on the card (core.precision): None and "highest"
+    bitwise the IEEE product (TF32 off); "high" the TF32 GEMM and
+    "default" the bf16 pass (bf16 operands, f32 out) taken outside the
+    multiply, within 1e-6 of max|C| of it and more than 1e-5 from IEEE;
+    the caller's settings unchanged after each call; ``pallas`` at
+    "high" launches its kernel and gives its IEEE bits."""
+    from repro_torch.core.multiply import distributed_matmul
+    from repro_torch.core.multiply_batched import distributed_matmul_batched
+
+    mesh = make_mesh(m, ("data", "model"))
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    lead = (3,) if batched else ()
+    a = torch.randn(*lead, 256, 384, generator=gen, device=cuda)
+    b = torch.randn(*lead, 384, 512, generator=gen, device=cuda)
+    fn = distributed_matmul_batched if batched else distributed_matmul
+    flags = torch.backends.cuda.matmul
+    state = (torch.get_float32_matmul_precision(), flags.allow_tf32,
+             flags.allow_bf16_reduced_precision_reduction)
+
+    def call(prec, **kw):
+        out = fn(a, b, mesh=mesh, algorithm="cannon", densify=True,
+                 precision=prec, **kw)
+        assert (torch.get_float32_matmul_precision(), flags.allow_tf32,
+                flags.allow_bf16_reduced_precision_reduction) == state
+        return out
+
+    ieee = torch.matmul(a, b)
+    flags.allow_tf32 = True
+    tf32 = torch.matmul(a, b)
+    flags.allow_tf32 = False
+    flags.allow_bf16_reduced_precision_reduction = False
+    mm = torch.bmm if batched else torch.mm
+    bf16 = mm(a.bfloat16(), b.bfloat16(), out_dtype=torch.float32)
+    flags.allow_bf16_reduced_precision_reduction = state[2]
+    none = call(None)
+    assert _rel(none, ieee) <= 1e-5
+    assert torch.equal(call("highest"), none)
+    assert torch.equal(call("HIGHEST"), none)
+    for prec, want in (("high", tf32), ("default", bf16)):
+        got = call(prec)
+        assert _rel(got, want) <= 1e-6
+        assert _rel(got, ieee) > 1e-5
+    kernel = grouped_gemm if batched or m != (1, 1) else tiled_matmul
+    before = kernel.launches
+    p_high = call("high", local_kernel="pallas")
+    assert kernel.launches > before
+    assert torch.equal(p_high, call(None, local_kernel="pallas"))
 
 
 def test_rank_exact_step_is_one_launch_over_all_ranks(cuda):

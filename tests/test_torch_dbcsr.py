@@ -20,6 +20,8 @@ from repro.launch.mesh import make_mesh as jax_make_mesh
 from repro_torch.core import dbcsr
 from repro_torch.launch.mesh import make_mesh
 
+from torch_threads import one_thread  # noqa: F401
+
 RTOL, ATOL = 1e-5, 1e-4
 N, BS = 88, 22  # 4 x 4 block grid
 

@@ -28,6 +28,8 @@ from repro_torch.kernels.decode_attention.ops import (TILE_ROWS,
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.models.attention import decode_attention as model_decode
 
+from torch_threads import one_thread  # noqa: F401
+
 TOL = dict(rtol=2e-4, atol=2e-4)
 
 CASES = [

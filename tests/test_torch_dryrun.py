@@ -12,14 +12,18 @@ branch against ``FlopCounterMode`` over its plain version, the live-bytes
 tracking, the microbatch replay, ``run_cell``'s JSON against what
 ``benchmarks/bench_roofline.py`` reads, and the CLI.
 """
+import ast
 import dataclasses
 import importlib.util
+import json
 import os
 
 import jax
 import jax.numpy as jnp
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro.compat import make_mesh as jax_mesh
@@ -39,16 +43,10 @@ from repro_torch.serve import engine as TE
 from repro_torch.train import optimizer as TO
 from repro_torch.train import train_step as TTS
 
+from torch_threads import one_thread  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, S = 2, 64
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -313,3 +311,164 @@ def test_sequence_parallel_cuts_the_counted_peak_of_a_production_step():
     scatter = {sp: r["hlo_costs"]["collective_bytes"].get("psum_scatter", 0)
                for sp, r in recs.items()}
     assert scatter[True] > scatter[False]
+
+
+# ---- the A/B flags: --override, --micro, --tag -------------------------
+
+def _reference_parse():
+    """The JAX dry-run's override parse: the ``if overrides:`` block of
+    ``repro/launch/dryrun.py``'s ``run_cell``, compiled from the file's
+    source (importing that module would set ``XLA_FLAGS`` for the
+    process).  Returns ``parse(cfg, overrides) -> (typed, new_cfg)``."""
+    path = os.path.join(REPO, "src", "repro", "launch", "dryrun.py")
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    fn = next(n for n in tree.body
+              if isinstance(n, ast.FunctionDef) and n.name == "run_cell")
+    block = next(n for n in fn.body if isinstance(n, ast.If)
+                 and ast.unparse(n.test) == "overrides")
+    code = compile(ast.Module(body=block.body, type_ignores=[]), path, "exec")
+
+    def parse(cfg, overrides):
+        ns = {"cfg": cfg, "overrides": overrides}
+        exec(code, ns)
+        return ns["typed"], ns["cfg"]
+
+    return parse
+
+
+_FIELDS = {
+    "int": ["num_layers", "d_ff", "head_pad_factor", "n_experts",
+            "long_seq_threshold"],
+    "bool": ["glu", "qkv_bias", "sequence_parallel", "moe_small_t_partial"],
+    "float": ["rope_theta", "capacity_factor", "mtp_weight"],
+    "str": ["norm", "act", "remat", "router", "dtype"],
+}
+_VALUES = st.one_of(
+    st.sampled_from(["True", "False", "true", "false", "1", "0", "yes",
+                     "", "1e6", "full", "-3"]),
+    st.integers(-10, 10 ** 6).map(str),
+    st.floats(allow_nan=False, allow_infinity=False).map(repr),
+    st.text(max_size=6))
+
+
+def _typed(kind_field_value):
+    return {f: v for _, f, v in kind_field_value}
+
+
+def _outcome(fn):
+    try:
+        return "ok", fn()
+    except Exception as e:  # the same exception type, or the same value
+        return "raises", type(e)
+
+
+@settings(max_examples=300, deadline=None)
+@given(st.lists(st.sampled_from(sorted(_FIELDS)).flatmap(
+    lambda kind: st.tuples(st.just(kind), st.sampled_from(_FIELDS[kind]),
+                           _VALUES)), min_size=1, max_size=3))
+def test_typed_overrides_equal_the_reference_parse(draws):
+    """The port's ``typed_overrides`` against the JAX dry-run's own parse
+    on int, bool, float and str fields: the same values of the same
+    types (or the same exception), and the same configuration field
+    after ``dataclasses.replace``."""
+    overrides = _typed(draws)
+    parse = _reference_parse()
+    jcfg = jbase.get_config("qwen2_1_5b")
+    tcfg = tbase.get_config("qwen2_1_5b")
+    want = _outcome(lambda: parse(jcfg, dict(overrides)))
+    got = _outcome(lambda: dryrun.typed_overrides(tcfg, dict(overrides)))
+    assert want[0] == got[0]
+    if want[0] == "raises":
+        assert want[1] is got[1]
+        return
+    (jtyped, jnew), typed = want[1], got[1]
+    assert typed == jtyped
+    assert {k: type(v) for k, v in typed.items()} == \
+        {k: type(v) for k, v in jtyped.items()}
+    tnew = dataclasses.replace(tcfg, **typed)
+    for k in overrides:
+        assert getattr(tnew, k) == getattr(jnew, k)
+        assert type(getattr(tnew, k)) is type(getattr(jnew, k))
+
+
+def test_typed_overrides_copy_the_reference_quirks():
+    """A float field keeps its string (``rope_theta``), "True" on a str
+    field becomes True, a bool field reads "1" and "true" as True and
+    anything else as False, as the reference's parse does; an unknown
+    key raises ``KeyError`` in both."""
+    parse = _reference_parse()
+    jcfg, tcfg = jbase.get_config("qwen2_1_5b"), tbase.get_config(
+        "qwen2_1_5b")
+    cases = {"rope_theta": "1e6", "head_pad_factor": "1", "remat": "True",
+             "qkv_bias": "1", "glu": "no"}
+    typed = dryrun.typed_overrides(tcfg, cases)
+    assert typed == {"rope_theta": "1e6", "head_pad_factor": 1,
+                     "remat": True, "qkv_bias": True, "glu": False}
+    assert typed == parse(jcfg, dict(cases))[0]
+    with pytest.raises(KeyError):
+        parse(jcfg, {"no_such_field": "1"})
+    with pytest.raises(KeyError):
+        dryrun.typed_overrides(tcfg, {"no_such_field": "1"})
+    with pytest.raises(KeyError):
+        dryrun.run_cell("qwen2_1_5b", "decode_32k",
+                        overrides={"no_such_field": "1"})
+
+
+_AB = ["--arch", "qwen2_1_5b", "--shape", "train_4k,decode_32k", "--mesh",
+       "1x1", "--override", "num_layers=1", "--override", "head_pad_factor=1",
+       "--override", "d_model=128", "--override", "num_heads=4",
+       "--override", "num_kv_heads=2", "--override", "d_ff=256",
+       "--override", "vocab_size=512", "--micro", "2", "--tag", "_ab"]
+
+
+def _ab_records(out_dir):
+    names = sorted(os.listdir(out_dir))
+    assert names == ["qwen2_1_5b__decode_32k__1x1_ab.json",
+                     "qwen2_1_5b__train_4k__1x1_ab.json"]
+    recs = {}
+    for name in names:
+        with open(os.path.join(out_dir, name)) as f:
+            rec = json.load(f)
+        recs[rec["shape"]] = rec
+    return recs
+
+
+def _held_ab(recs):
+    """--micro reaches the train cell's record (its default is 1 at this
+    size), the overrides its configuration: the argument bytes are those
+    of ``run_cell`` on the replaced configuration, not the published."""
+    assert all(r["status"] == "ok" for r in recs.values())
+    assert recs["train_4k"]["n_microbatches"] == 2
+    cfg = dataclasses.replace(
+        tbase.get_config("qwen2_1_5b"), num_layers=1, head_pad_factor=1,
+        d_model=128, num_heads=4, num_kv_heads=2, d_ff=256, vocab_size=512)
+    want = dryrun.run_cell("qwen2_1_5b", "decode_32k", cfg=cfg)
+    published = dryrun.run_cell("qwen2_1_5b", "decode_32k")
+    got = recs["decode_32k"]["memory"]["argument_bytes"]
+    assert got == want["memory"]["argument_bytes"]
+    assert got != published["memory"]["argument_bytes"]
+    assert recs["decode_32k"]["hlo_costs"] == want["hlo_costs"]
+
+
+def test_cli_override_micro_and_tag_through_jobs(tmp_path, capsys):
+    """The three flags on the CLI with ``--jobs 2``: each cell, counted
+    in a spawned process, gets ``--override``, ``--micro`` and
+    ``--tag``; without ``--micro`` the train cell takes one
+    microbatch."""
+    assert dryrun.main(_AB + ["--out", str(tmp_path), "--jobs", "2"]) == 0
+    assert "2 ok, 0 skipped" in capsys.readouterr().out
+    _held_ab(_ab_records(str(tmp_path)))
+    plain = dryrun.run_cell("qwen2_1_5b", "train_4k", overrides={
+        "num_layers": "1", "d_model": "128", "num_heads": "4",
+        "num_kv_heads": "2", "d_ff": "256", "vocab_size": "512"})
+    assert plain["n_microbatches"] == 1
+
+
+def test_cli_unknown_override_fails_its_cell(capsys):
+    """In one process, an unknown key fails the cell with the KeyError
+    and the CLI exits 1, as the reference's does."""
+    assert dryrun.main(["--arch", "qwen2_1_5b", "--shape", "decode_32k",
+                        "--mesh", "1x1", "--override", "no_such=1"]) == 1
+    out = capsys.readouterr().out
+    assert "KeyError" in out and "1 FAILED" in out

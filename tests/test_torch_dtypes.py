@@ -21,6 +21,8 @@ from repro.launch.mesh import make_mesh as jax_make_mesh
 from repro_torch.core import dbcsr
 from repro_torch.launch.mesh import make_mesh
 
+from torch_threads import one_thread  # noqa: F401
+
 N, BS = 88, 22
 TOLS = {"float32": dict(rtol=1e-5, atol=1e-4),
         "float16": dict(rtol=1e-3, atol=1e-4)}

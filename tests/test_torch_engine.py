@@ -20,6 +20,8 @@ from repro_torch.core import engine
 from repro_torch.core.densify import to_blocks
 from repro_torch.kernels.smm import autotune
 
+from torch_threads import one_thread  # noqa: F401
+
 RTOL = ATOL = 1e-5
 
 

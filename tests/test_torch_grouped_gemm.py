@@ -25,6 +25,8 @@ from repro_torch.kernels.grouped_gemm.ops import (grouped_gemm,
 from repro_torch.kernels.grouped_gemm.ref import grouped_gemm_ref
 from repro_torch.kernels.smm.ref import smm_process_stack_ref
 
+from torch_threads import one_thread  # noqa: F401
+
 REL = 1e-5
 DTYPES = {"float32": (torch.float32, jnp.float32),
           "bfloat16": (torch.bfloat16, jnp.bfloat16)}
@@ -105,7 +107,7 @@ def test_batched_block_transforms_match_jax(shape, bm, bn):
 @pytest.mark.parametrize("kernel", [None, "pallas"])
 def test_grouped_densified_local_matmul_matches_jax(kernel):
     t_np, w_np = _operands(7, 4, 48, 40, 56)
-    got = grouped_densified_local_matmul(kernel)(
+    got = grouped_densified_local_matmul(kernel=kernel)(
         torch.tensor(t_np), torch.tensor(w_np))
     want = np.asarray(jax_grouped_local_matmul(kernel=kernel)(
         jnp.asarray(t_np), jnp.asarray(w_np)))

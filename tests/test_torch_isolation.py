@@ -11,6 +11,8 @@ import torch
 
 from repro_torch.launch.mesh import Mesh, make_mesh
 
+from torch_threads import one_thread  # noqa: F401
+
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                    "src")
 

@@ -41,6 +41,8 @@ from repro_torch.serve import engine as TE
 from repro_torch.train import optimizer as TO
 from repro_torch.train import train_step as TTS
 
+from torch_threads import one_thread  # noqa: F401
+
 ARCHS = tbase.ARCHS
 MESHES = {"1x1": ((1, 1), ("data", "model")),
           "16x16": ((16, 16), ("data", "model")),

@@ -54,6 +54,7 @@ import pytest
 import torch
 
 from conftest import REPO, SRC, run_subprocess_devices
+from torch_threads import one_thread  # noqa: F401
 
 from repro_torch.configs.base import ARCHS, get_config, reduced_config
 from repro_torch.launch.mesh import P, make_mesh, make_process_mesh

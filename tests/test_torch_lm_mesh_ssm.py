@@ -55,6 +55,7 @@ import pytest
 import torch
 
 from conftest import REPO, SRC, run_subprocess_devices
+from torch_threads import one_thread  # noqa: F401
 from test_torch_lm_mesh import (ATOL, JAX_ATOL, JAX_PARAM_ATOL, JAX_RTOL,
                                 LOGIT_TOL, PARAM_ATOL, RTOL, _batch,
                                 _close_logits, _close_trees, _init, _np,

@@ -22,6 +22,8 @@ from repro_torch.configs import base as tbase
 from repro_torch.models import common as TC
 from repro_torch.models import mamba as TM
 
+from torch_threads import one_thread  # noqa: F401
+
 SCAN_REL = 1e-5
 REL = 2e-5
 

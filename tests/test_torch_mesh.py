@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from conftest import run_subprocess_devices
+from torch_threads import one_thread  # noqa: F401
 
 from repro_torch.launch.mesh import make_mesh, make_process_mesh
 from repro_torch.launch.processes import run_ranks

@@ -22,6 +22,8 @@ from repro_torch.configs import base as tbase
 from repro_torch.models import common as TC
 from repro_torch.models import mla as TL
 
+from torch_threads import one_thread  # noqa: F401
+
 REL = 2e-5
 
 

@@ -43,6 +43,8 @@ from repro_torch.models import ffn as TF
 from repro_torch.models import transformer as TT
 from repro_torch.models.convert import params_from_numpy
 
+from torch_threads import one_thread  # noqa: F401
+
 ELEM = dict(rtol=1e-6, atol=1e-6)
 REL = 2e-5
 FORWARD_REL = 1e-4

@@ -25,6 +25,8 @@ from repro_torch.configs import base as tbase
 from repro_torch.models import common as TC
 from repro_torch.models import moe as TM
 
+from torch_threads import one_thread  # noqa: F401
+
 REL = 2e-5
 
 

@@ -29,6 +29,7 @@ from repro.core import dbcsr as jdbcsr
 from repro.robustness import chaos as jchaos
 
 from conftest import SRC
+from torch_threads import one_thread  # noqa: F401
 
 from repro_torch import obs
 from repro_torch.core import dbcsr

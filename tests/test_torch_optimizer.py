@@ -26,6 +26,8 @@ from repro_torch.models import common as TC
 from repro_torch.models.convert import opt_state_from_numpy, params_from_numpy
 from repro_torch.train import optimizer as TO
 
+from torch_threads import one_thread  # noqa: F401
+
 SHAPES = {
     "stack": (3, 130, 140),    # factored, a layer stack
     "wide": (128, 200),        # factored
@@ -34,17 +36,6 @@ SHAPES = {
     "layers": [{"w": (2, 16, 130), "scale": (130,)}],
 }
 N_UPDATES = 3
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """The suite runs several workers on a few cores, where torch's
-    intra-op threads only wait on each other (about 10x slower at these
-    sizes); one thread for this module's tests."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _tree(rng, scale=1.0, dtype=np.float32):

@@ -51,6 +51,8 @@ from repro_torch.planner.plan import (BatchedMultiplyPlan, MultiplyPlan,
                                       plan_multiply_batched)
 from repro_torch.serve import MultiplyService
 
+from torch_threads import one_thread  # noqa: F401
+
 HW_REF = HardwareModel.from_dict(jcm.DEFAULT_HARDWARE.to_dict())
 HW_SETS = {"ref_defaults": HW_REF, "h100": DEFAULT_HARDWARE}
 HW = HW_REF

@@ -49,6 +49,7 @@ import pytest
 import torch
 
 from conftest import run_subprocess_devices
+from torch_threads import one_thread  # noqa: F401
 from test_torch_distributed import (ALGOS, BATCHED, BS, DEPTH_ALGOS, FILLS,
                                     MESHES, PATHS, _batched_operands,
                                     _gap_eps, _grid, _operands, _tag)

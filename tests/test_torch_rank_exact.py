@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from conftest import run_subprocess_devices
+from torch_threads import one_thread  # noqa: F401
 
 from repro_torch.core import dbcsr
 from repro_torch.core import engine

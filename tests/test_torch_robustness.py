@@ -40,6 +40,8 @@ from repro_torch.planner.plan import decide_verify, plan_multiply
 from repro_torch.robustness import abft, chaos, guards
 from repro_torch.sparsity.norms import compute_block_norms
 
+from torch_threads import one_thread  # noqa: F401
+
 EXEC_KW = dict(densify=False, local_kernel="ref", pipeline_depth=1)
 HW_REF = HardwareModel.from_dict(jcm.DEFAULT_HARDWARE.to_dict())
 

@@ -39,6 +39,8 @@ from repro_torch.models.convert import cache_from_numpy, params_from_numpy
 from repro_torch.serve import engine
 from repro_torch.serve.prefill import prefill_step
 
+from torch_threads import one_thread  # noqa: F401
+
 REL = 1e-4
 SELF_REL = 1e-5
 ULP_FACTOR = 32

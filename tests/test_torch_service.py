@@ -27,6 +27,8 @@ from repro_torch.robustness import guards
 from repro_torch.serve import (MultiplyService, TicketPendingError,
                                UnknownTicketError)
 
+from torch_threads import one_thread  # noqa: F401
+
 EXEC_KW = dict(algorithm="cannon", densify=False, pipeline_depth=1)
 
 

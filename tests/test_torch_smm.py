@@ -18,6 +18,8 @@ from repro_torch.kernels.smm.ops import smm_process_stack, stack_run_starts
 from repro_torch.kernels.smm.ref import smm_process_stack_ref
 from test_torch_cuda import edge_stack
 
+from torch_threads import one_thread  # noqa: F401
+
 RTOL = ATOL = 1e-5
 
 

@@ -14,6 +14,8 @@ from repro_torch.core import blocking, cannon, engine, stacks
 from repro_torch.sparsity import filter as tfilter
 from repro_torch.sparsity import norms as tnorms
 
+from torch_threads import one_thread  # noqa: F401
+
 
 def _same(x, y):
     x, y = np.asarray(x), np.asarray(y)

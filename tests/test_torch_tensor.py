@@ -33,6 +33,7 @@ import pytest
 import torch
 
 from conftest import SRC
+from torch_threads import one_thread  # noqa: F401
 
 from repro.compat import make_mesh as jax_make_mesh
 from repro.core.blocking import GridSpec as JGridSpec

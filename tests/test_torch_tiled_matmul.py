@@ -15,6 +15,8 @@ from repro.kernels.tiled_matmul.ref import tiled_matmul_ref as jax_tiled_ref
 
 from repro_torch.kernels.tiled_matmul.ops import tiled_matmul
 
+from torch_threads import one_thread  # noqa: F401
+
 RTOL = ATOL = 1e-5
 
 

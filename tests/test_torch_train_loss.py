@@ -51,21 +51,12 @@ from repro_torch.models import transformer as TT
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.train.train_step import _grads_of
 
+from torch_threads import one_thread  # noqa: F401
+
 LOSS_REL = 1e-5
 GRAD_REL = 5e-4
 JAMBA_GRAD_REL = 0.5
 B, S = 2, 16
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """The suite runs several workers on a few cores, where torch's
-    intra-op threads only wait on each other (about 10x slower at these
-    sizes); one thread for this module's tests."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _rel(out, ref) -> float:

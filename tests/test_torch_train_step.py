@@ -41,6 +41,8 @@ from repro_torch.models.convert import params_from_numpy
 from repro_torch.train import optimizer as TO
 from repro_torch.train.train_step import make_train_step
 
+from torch_threads import one_thread  # noqa: F401
+
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                    "src")
 
@@ -50,17 +52,6 @@ SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 # default 1e-8 the first step is sign(g), which flips wherever an element
 # of the gradient lies within rounding of zero
 OPT = dict(lr=1e-2, eps=1.0)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """The suite runs several workers on a few cores, where torch's
-    intra-op threads only wait on each other (about 10x slower at these
-    sizes); one thread for this module's tests."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _batch(cfg, b=4, s=16):

@@ -34,6 +34,7 @@ import pytest
 import torch
 
 from conftest import SRC
+from torch_threads import one_thread  # noqa: F401
 
 from repro.core import blocking as jblocking
 from repro.sparsity import norms as jnorms
