@@ -307,11 +307,12 @@ def multiply(
     """
     from .multiply import _distributed_matmul
 
+    rng = obs.ranging()
     an = bn = None
     if filter_eps is not None:
         an, bn = a.norms(), b.norms()
     c_data, plan = _distributed_matmul(
-        a.data, b.data, mesh=mesh, grid=a.grid,
+        a.data, b.data, _rng=rng, mesh=mesh, grid=a.grid,
         algorithm=algorithm, densify=densify,
         block_m=a.layout.block_rows, block_k=a.layout.block_cols,
         block_n=b.layout.block_cols,
@@ -319,14 +320,15 @@ def multiply(
         a_norms=an, b_norms=bn, filter_eps=filter_eps,
         verify=verify, return_plan=True, schedule_stats=return_plan, **kw,
     )
-    c_layout = BlockLayout(a.layout.rows, b.layout.cols,
-                           a.layout.block_rows, b.layout.block_cols)
-    mask, zero = _product_mask(a, b, an, bn, filter_eps)
-    c_data = _apply_result_mask(c_data, mask, zero, a.layout.block_rows,
-                                b.layout.block_cols)
-    c = DBCSRMatrix(c_data, c_layout, a.grid, mask)
-    c.last_plan = plan
-    c.verification = plan.verification
+    with obs.maybe_range(rng, "result_mask"):
+        c_layout = BlockLayout(a.layout.rows, b.layout.cols,
+                               a.layout.block_rows, b.layout.block_cols)
+        mask, zero = _product_mask(a, b, an, bn, filter_eps)
+        c_data = _apply_result_mask(c_data, mask, zero, a.layout.block_rows,
+                                    b.layout.block_cols)
+        c = DBCSRMatrix(c_data, c_layout, a.grid, mask)
+        c.last_plan = plan
+        c.verification = plan.verification
     return (c, plan) if return_plan else c
 
 

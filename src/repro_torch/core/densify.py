@@ -31,6 +31,7 @@ from typing import Optional
 
 import torch
 
+from .. import obs
 from .precision import f32_gemm, resolve_precision
 
 __all__ = [
@@ -114,19 +115,25 @@ def _over_ranks(single, stacked):
     return f
 
 
-def _grouped_gemm_over(a, b):
+def _grouped_gemm_over(a, b, ranges: bool = False):
     """grouped_gemm over every leading dimension of ``a`` and ``b``
-    (ranks, then products): ONE launch."""
+    (ranks, then products): ONE launch.  ``ranges``: the operands'
+    copies and the launch as ``dbcsr.pack`` / ``dbcsr.launch``."""
     from ..kernels.grouped_gemm.ops import grouped_gemm
 
     lead = tuple(a.shape[:-2])
-    a3 = kernel_operand(a).reshape((-1,) + tuple(a.shape[-2:])).contiguous()
-    b3 = kernel_operand(b).reshape((-1,) + tuple(b.shape[-2:])).contiguous()
-    out = grouped_gemm(a3, b3)
+    with obs.maybe_range(ranges, "pack"):
+        a3 = (kernel_operand(a).reshape((-1,) + tuple(a.shape[-2:]))
+              .contiguous())
+        b3 = (kernel_operand(b).reshape((-1,) + tuple(b.shape[-2:]))
+              .contiguous())
+    with obs.maybe_range(ranges, "launch"):
+        out = grouped_gemm(a3, b3)
     return out.reshape(lead + tuple(out.shape[-2:]))
 
 
-def densified_local_matmul(precision=None, kernel: Optional[str] = None):
+def densified_local_matmul(precision=None, kernel: Optional[str] = None,
+                           *, ranges: bool = False):
     """Local multiply for the densified path: one large GEMM in f32.
 
     kernel=None     -> torch.matmul (the vendor GEMM) at ``precision``
@@ -144,19 +151,26 @@ def densified_local_matmul(precision=None, kernel: Optional[str] = None):
                        ``precision``, as the Pallas kernel does.
     Any other value takes the default, as the JAX package does.  A
     ``precision`` that is not one of the names raises ``ValueError``.
+    ``ranges`` (the caller's ``obs.ranging()``) marks the operands'
+    copies as ``dbcsr.pack`` and the GEMM as ``dbcsr.launch``.
     """
     resolve_precision(precision)
     if kernel == "pallas":
         from ..kernels.tiled_matmul.ops import tiled_matmul
 
         def single(a, b):
-            return tiled_matmul(kernel_operand(a).contiguous(),
-                                kernel_operand(b).contiguous())
+            with obs.maybe_range(ranges, "pack"):
+                a, b = (kernel_operand(a).contiguous(),
+                        kernel_operand(b).contiguous())
+            with obs.maybe_range(ranges, "launch"):
+                return tiled_matmul(a, b)
 
-        return _over_ranks(single, _grouped_gemm_over)
+        return _over_ranks(
+            single, lambda a, b: _grouped_gemm_over(a, b, ranges))
 
     def f(a, b):
-        return f32_gemm(a, b, precision)
+        with obs.maybe_range(ranges, "launch"):
+            return f32_gemm(a, b, precision)
 
     return _over_ranks(f, f)
 
@@ -218,6 +232,7 @@ def blocked_local_matmul(
     pair_norms=None,
     filter_eps: Optional[float] = None,
     stack_bins: Optional[int] = None,
+    ranges: bool = False,
 ):
     """Local multiply for the blocked path: the fused stack executor
     (core/engine.py), one memoized plan per geometry and mask/norm
@@ -225,6 +240,8 @@ def blocked_local_matmul(
 
     kernel='smm'  -> the CUDA smm kernel (its plain version on the CPU)
     kernel='ref'  -> the plain PyTorch version on any device
+
+    ``ranges``: the executor's host ranges (``stack_executor``).
     """
     from .engine import stack_executor
 
@@ -233,5 +250,5 @@ def blocked_local_matmul(
         stack_size=stack_size, align=align, kernel=kernel,
         a_mask=a_mask, b_mask=b_mask, pair_mask=pair_mask,
         a_norms=a_norms, b_norms=b_norms, pair_norms=pair_norms,
-        filter_eps=filter_eps, stack_bins=stack_bins,
+        filter_eps=filter_eps, stack_bins=stack_bins, ranges=ranges,
     )

@@ -530,6 +530,7 @@ def stack_executor(
     pair_norms: Optional[np.ndarray] = None,
     filter_eps: Optional[float] = None,
     stack_bins: Optional[int] = None,
+    ranges: bool = False,
 ):
     """Build the fused blocked local multiply ``(a, b) -> c`` (f32).
 
@@ -544,6 +545,11 @@ def stack_executor(
     geometry and occupancy bin (its heuristic when no sweep has been
     recorded).  ``align`` is kept so the signature matches the JAX
     package's; it is the TPU's MXU-padding knob and is ignored.
+
+    ``ranges`` (the caller's ``obs.ranging()``) marks each call's
+    packing of A and B into blocks with C's allocation as
+    ``dbcsr.pack``, each rank's launches as ``dbcsr.launch`` and C's
+    unpacking as ``dbcsr.unpack``.
     """
     from ..kernels.smm.autotune import best_params_for, has_winners
 
@@ -577,16 +583,21 @@ def stack_executor(
         if one:
             a, b = a[None], b[None]
         ranks = a.shape[0]
-        a_blocks = to_blocks_batched(kernel_operand(a), block_m, block_k)
-        b_blocks = to_blocks_batched(kernel_operand(b), block_k, block_n)
-        # every rank's C with its own scratch block (the padding rows'),
-        # zeroed once
-        c = torch.zeros((ranks, plan.n_c_blocks + 1, block_m, block_n),
-                        dtype=torch.float32, device=a.device)
+        with obs.maybe_range(ranges, "pack"):
+            a_blocks = to_blocks_batched(kernel_operand(a), block_m,
+                                         block_k)
+            b_blocks = to_blocks_batched(kernel_operand(b), block_k,
+                                         block_n)
+            # every rank's C with its own scratch block (the padding
+            # rows'), zeroed once
+            c = torch.zeros((ranks, plan.n_c_blocks + 1, block_m, block_n),
+                            dtype=torch.float32, device=a.device)
         if plan.n_stacks:
             for r in range(ranks):
-                _run_bins(plan, a_blocks[r], b_blocks[r], c[r], kernel)
-        out = from_blocks_batched(c[:, :-1], plan.nbr, plan.nbc)
+                with obs.maybe_range(ranges, "launch"):
+                    _run_bins(plan, a_blocks[r], b_blocks[r], c[r], kernel)
+        with obs.maybe_range(ranges, "unpack"):
+            out = from_blocks_batched(c[:, :-1], plan.nbr, plan.nbc)
         return out[0] if one else out
 
     f.executor_plan = plan
@@ -1284,6 +1295,7 @@ def rank_stack_executor(
     kernel: str = "smm",
     filter_eps: Optional[float] = None,
     stack_bins: Optional[int] = None,
+    ranges: bool = False,
 ):
     """``stack_executor``'s rank-exact twin: the local multiply of one
     schedule step on rank-stacked ``(R, m, k)`` x ``(R, k, n)``
@@ -1294,6 +1306,7 @@ def rank_stack_executor(
     BUSIEST rank's fill, so every rank runs the same tuned tile.
     ``stack_bins`` is accepted for signature parity: the concatenation
     carries no padding, so it is one launch whatever the bins.
+    ``ranges`` marks pack / launch / unpack as ``stack_executor``'s do.
     """
     from ..kernels.smm.autotune import best_params_for, has_winners
 
@@ -1326,12 +1339,17 @@ def rank_stack_executor(
                 f"rank stack executor built for ({ranks},{m},{k}) x "
                 f"({ranks},{k},{n}), got {tuple(a.shape)} x "
                 f"{tuple(b.shape)}")
-        a_blocks = to_blocks_batched(kernel_operand(a), block_m, block_k)
-        b_blocks = to_blocks_batched(kernel_operand(b), block_k, block_n)
-        c = torch.zeros((ranks, plan.n_c_blocks, block_m, block_n),
-                        dtype=torch.float32, device=a.device)
-        execute_rank_plan(plan, a_blocks, b_blocks, c, kernel=kernel)
-        return from_blocks_batched(c, plan.nbr, plan.nbc)
+        with obs.maybe_range(ranges, "pack"):
+            a_blocks = to_blocks_batched(kernel_operand(a), block_m,
+                                         block_k)
+            b_blocks = to_blocks_batched(kernel_operand(b), block_k,
+                                         block_n)
+            c = torch.zeros((ranks, plan.n_c_blocks, block_m, block_n),
+                            dtype=torch.float32, device=a.device)
+        with obs.maybe_range(ranges, "launch"):
+            execute_rank_plan(plan, a_blocks, b_blocks, c, kernel=kernel)
+        with obs.maybe_range(ranges, "unpack"):
+            return from_blocks_batched(c, plan.nbr, plan.nbc)
 
     f.executor_plan = plan
     f.rank_plan = plan

@@ -573,14 +573,16 @@ def _rank_imbalance_of(totals: Optional[np.ndarray]) -> Optional[float]:
 
 def _verified_result(verify, a, b, c, rerun, *, plan, n_ranks, block_m,
                      block_k, block_n, a_mask, b_mask, a_norms, b_norms,
-                     filter_eps, verify_budget, _tele: bool = False):
+                     filter_eps, verify_budget, _tele: bool = False,
+                     _rng: bool = False):
     """ABFT verification of a raw product (repro_torch.robustness.abft):
     price the checksum overhead against the plan (``verify="auto"``),
     screen the operands with the finite tripwires, apply any installed
     chaos hook (test-only corruption, modelling a soft error between
     compute and verification), then verify / one-shot-repair through
     ``rerun``.  Returns ``(c, verification_dict)``; the dict lands on
-    the plan as ``plan.verification``."""
+    the plan as ``plan.verification``.  ``_tele`` / ``_rng`` are the
+    call's span and range flags."""
     from ..planner.plan import decide_verify, itemsize_of
 
     m, k = a.shape
@@ -601,10 +603,11 @@ def _verified_result(verify, a, b, c, rerun, *, plan, n_ranks, block_m,
     def _repair_rerun():
         # a detection re-executes the deterministic dispatch once; the
         # repair span makes that second dispatch visible in the trace
-        with obs.maybe_span(_tele, "repair", cat="repair"):
+        with obs.maybe_span(_tele, "repair", cat="repair", rng=_rng):
             return rerun()
 
-    with obs.maybe_span(_tele, "verify", cat="verify", mode=verify) as vsp:
+    with obs.maybe_span(_tele, "verify", cat="verify", rng=_rng,
+                        mode=verify) as vsp:
         guards.assert_finite(a, "A")
         guards.assert_finite(b, "B")
         c = chaos.apply_result_hook(c)
@@ -733,6 +736,10 @@ def distributed_matmul(
     plan's predicted-vs-measured cost for the planner scoreboard.  Off
     (the default), under torch.compile tracing or CUDA-graph capture
     the call adds one boolean check and the output is bit identical.
+    While a ``torch.profiler`` records (``obs.ranging()``), the call
+    marks its layers as ``dbcsr.*`` host ranges (multiply, plan, local,
+    dispatch, pack, launch, unpack, stats, verify, repair) and does no
+    other work.
     """
     c, plan = _distributed_matmul(
         a, b, mesh=mesh, grid=grid, algorithm=algorithm, densify=densify,
@@ -747,20 +754,27 @@ def distributed_matmul(
     return (c, plan) if return_plan else c
 
 
-def _distributed_matmul(a: torch.Tensor, b: torch.Tensor, **kw
+def _distributed_matmul(a: torch.Tensor, b: torch.Tensor,
+                        _rng: Optional[bool] = None, **kw
                         ) -> Tuple[torch.Tensor, Optional[dict]]:
     """``_distributed_matmul_impl`` (its docstring) under the call's
-    telemetry flag: untraced when ``obs.recording()`` is false, else
-    inside a ``multiply`` root span.  ``distributed_matmul`` and
+    telemetry flags: untraced when ``obs.recording()`` is false, else
+    inside a ``multiply`` root span; inside a ``dbcsr.multiply`` host
+    range alone when only ``obs.ranging()`` holds (``_rng``, the
+    caller's flag where it resolved one).  ``distributed_matmul`` and
     ``dbcsr.multiply`` enter here."""
+    rng = obs.ranging() if _rng is None else _rng
     if not obs.recording():
-        return _distributed_matmul_impl(a, b, **kw)
+        if not rng:
+            return _distributed_matmul_impl(a, b, **kw)
+        with obs.maybe_range(True, "multiply"):
+            return _distributed_matmul_impl(a, b, _rng=True, **kw)
     attrs = {"algorithm": kw.get("algorithm", "auto")}
     if a.ndim == 2 and b.ndim == 2:
         attrs.update(m=int(a.shape[0]), k=int(a.shape[1]),
                      n=int(b.shape[1]))
     with obs.span("multiply", cat="multiply", **attrs):
-        return _distributed_matmul_impl(a, b, _tele=True, **kw)
+        return _distributed_matmul_impl(a, b, _tele=True, _rng=rng, **kw)
 
 
 def _distributed_matmul_impl(
@@ -793,6 +807,7 @@ def _distributed_matmul_impl(
     return_plan: bool = False,
     schedule_stats: bool = True,
     _tele: bool = False,
+    _rng: bool = False,
     **kw,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """``distributed_matmul`` returning ``(C, executor_stats)``: the
@@ -803,8 +818,8 @@ def _distributed_matmul_impl(
     it returns ``(C, plan)``, the statistics on ``plan.executor_stats``
     and, unless ``schedule_stats=False``, the schedule's per-step split
     on ``plan.schedule_stats``, and ``verify``'s outcome on
-    ``plan.verification``.  ``_tele`` is the call's telemetry flag
-    (``_distributed_matmul``).
+    ``plan.verification``.  ``_tele`` is the call's telemetry flag and
+    ``_rng`` its range flag (``_distributed_matmul``).
     """
     m, k = a.shape
     k2, n = b.shape
@@ -849,7 +864,7 @@ def _distributed_matmul_impl(
     if algorithm == "auto" or return_plan or verify is not None or _tele:
         from ..planner.plan import plan_multiply
 
-        with obs.maybe_span(_tele, "plan", cat="plan") as psp:
+        with obs.maybe_span(_tele, "plan", cat="plan", rng=_rng) as psp:
             # the per-rank load imbalance of the C-chunk decomposition, for
             # the planner's rank-exact pricing and its rebalance decision
             rank_imb = None
@@ -967,81 +982,84 @@ def _distributed_matmul_impl(
         ml, kl, nl = m // pr, k // n_panels, n // pc
 
     # ---- local multiply strategy (densified vs blocked) --------------
-    if densify:
-        lm = densified_local_matmul(precision, kernel=local_kernel)
-    else:
-        blocked_kw = dict(
-            block_m=block_m, block_k=block_k, block_n=block_n,
-            stack_size=stack_size, align=align,
-            kernel=_stack_kernel(local_kernel), stack_bins=stack_bins)
-        rank_kw = {}
-        if use_rank:
-            rank_kw = dict(rank_order=_rank_order(algorithm, grid, mesh),
-                           filter_eps=filter_eps, **blocked_kw)
-        if not masked:
-            lm = blocked_local_matmul(ml, kl, nl, **blocked_kw)
-        elif algorithm in ("cannon", "cannon25d"):
-            c_repl = (grid.stack_size(mesh)
-                      if algorithm == "cannon25d" else 1)
+    with obs.maybe_range(_rng, "local"):
+        if densify:
+            lm = densified_local_matmul(precision, kernel=local_kernel,
+                                        ranges=_rng)
+        else:
+            blocked_kw = dict(
+                block_m=block_m, block_k=block_k, block_n=block_n,
+                stack_size=stack_size, align=align,
+                kernel=_stack_kernel(local_kernel), stack_bins=stack_bins,
+                ranges=_rng)
+            rank_kw = {}
             if use_rank:
-                lm = _stepwise_rank_blocked_lm(
-                    ml, kl, nl, rank_steps=cannon_rank_steps(
-                        am, bmk, pg, c_repl, a_norms=an_g, b_norms=bn_g),
-                    **rank_kw)
-            else:
-                steps = [{"pair_mask": pm}
-                         for pm in cannon_step_masks(am, bmk, pg, c_repl)]
-                if filtering:
-                    for s, pn in zip(steps, cannon_step_norms(
-                            an_g, bn_g, pg, c_repl)):
-                        s.update(pair_norms=pn, filter_eps=filter_eps)
-                lm = _stepwise_blocked_lm(ml, kl, nl, mask_steps=steps,
-                                          **blocked_kw)
-        elif algorithm == "summa" and kw.get("bcast") != "gather":
-            if use_rank:
-                lm = _stepwise_rank_blocked_lm(
-                    ml, kl, nl, rank_steps=summa_rank_steps(
-                        am, bmk, pr, pc, n_panels, a_norms=an_g,
-                        b_norms=bn_g),
-                    **rank_kw)
-            else:
-                steps = [{"a_mask": ua, "b_mask": ub} for ua, ub in
-                         summa_step_masks(am, bmk, pr, pc, n_panels)]
-                if filtering:
-                    for s, (una, unb) in zip(steps, summa_step_norms(
-                            an_g, bn_g, pr, pc, n_panels)):
-                        s.update(a_norms=una, b_norms=unb,
-                                 filter_eps=filter_eps)
-                lm = _stepwise_blocked_lm(ml, kl, nl, mask_steps=steps,
-                                          **blocked_kw)
-        elif algorithm == "summa":
-            if use_rank:
+                rank_kw = dict(rank_order=_rank_order(algorithm, grid, mesh),
+                               filter_eps=filter_eps, **blocked_kw)
+            if not masked:
+                lm = blocked_local_matmul(ml, kl, nl, **blocked_kw)
+            elif algorithm in ("cannon", "cannon25d"):
+                c_repl = (grid.stack_size(mesh)
+                          if algorithm == "cannon25d" else 1)
+                if use_rank:
+                    lm = _stepwise_rank_blocked_lm(
+                        ml, kl, nl, rank_steps=cannon_rank_steps(
+                            am, bmk, pg, c_repl, a_norms=an_g, b_norms=bn_g),
+                        **rank_kw)
+                else:
+                    steps = [{"pair_mask": pm}
+                             for pm in cannon_step_masks(am, bmk, pg, c_repl)]
+                    if filtering:
+                        for s, pn in zip(steps, cannon_step_norms(
+                                an_g, bn_g, pg, c_repl)):
+                            s.update(pair_norms=pn, filter_eps=filter_eps)
+                    lm = _stepwise_blocked_lm(ml, kl, nl, mask_steps=steps,
+                                              **blocked_kw)
+            elif algorithm == "summa" and kw.get("bcast") != "gather":
+                if use_rank:
+                    lm = _stepwise_rank_blocked_lm(
+                        ml, kl, nl, rank_steps=summa_rank_steps(
+                            am, bmk, pr, pc, n_panels, a_norms=an_g,
+                            b_norms=bn_g),
+                        **rank_kw)
+                else:
+                    steps = [{"a_mask": ua, "b_mask": ub} for ua, ub in
+                             summa_step_masks(am, bmk, pr, pc, n_panels)]
+                    if filtering:
+                        for s, (una, unb) in zip(steps, summa_step_norms(
+                                an_g, bn_g, pr, pc, n_panels)):
+                            s.update(a_norms=una, b_norms=unb,
+                                     filter_eps=filter_eps)
+                    lm = _stepwise_blocked_lm(ml, kl, nl, mask_steps=steps,
+                                              **blocked_kw)
+            elif algorithm == "summa":
+                if use_rank:
+                    lm = _single_rank_lm(
+                        ml, kl, nl, rank_kwargs=summa_gather_rank_steps(
+                            am, bmk, pr, pc, a_norms=an_g, b_norms=bn_g),
+                        **rank_kw)
+                else:
+                    ua, ub = summa_gather_masks(am, bmk, pr, pc)
+                    norm_kw = {}
+                    if filtering:
+                        una, unb = summa_gather_norms(an_g, bn_g, pr, pc)
+                        norm_kw = dict(a_norms=una, b_norms=unb,
+                                       filter_eps=filter_eps)
+                    lm = blocked_local_matmul(ml, kl, nl, a_mask=ua, b_mask=ub,
+                                              **norm_kw, **blocked_kw)
+            elif use_rank:
                 lm = _single_rank_lm(
-                    ml, kl, nl, rank_kwargs=summa_gather_rank_steps(
-                        am, bmk, pr, pc, a_norms=an_g, b_norms=bn_g),
+                    ml, kl, nl, rank_kwargs=ts_rank_steps(
+                        algorithm, am, bmk, p_all, a_norms=an_g, b_norms=bn_g),
                     **rank_kw)
             else:
-                ua, ub = summa_gather_masks(am, bmk, pr, pc)
                 norm_kw = {}
                 if filtering:
-                    una, unb = summa_gather_norms(an_g, bn_g, pr, pc)
-                    norm_kw = dict(a_norms=una, b_norms=unb,
+                    norm_kw = dict(ts_step_norms(algorithm, an_g, bn_g, p_all),
                                    filter_eps=filter_eps)
-                lm = blocked_local_matmul(ml, kl, nl, a_mask=ua, b_mask=ub,
-                                          **norm_kw, **blocked_kw)
-        elif use_rank:
-            lm = _single_rank_lm(
-                ml, kl, nl, rank_kwargs=ts_rank_steps(
-                    algorithm, am, bmk, p_all, a_norms=an_g, b_norms=bn_g),
-                **rank_kw)
-        else:
-            norm_kw = {}
-            if filtering:
-                norm_kw = dict(ts_step_norms(algorithm, an_g, bn_g, p_all),
-                               filter_eps=filter_eps)
-            lm = blocked_local_matmul(
-                ml, kl, nl, **ts_step_masks(algorithm, am, bmk, p_all),
-                **norm_kw, **blocked_kw)
+                lm = blocked_local_matmul(
+                    ml, kl, nl, **ts_step_masks(algorithm, am, bmk, p_all),
+                    **norm_kw, **blocked_kw)
 
     if not densify and obs.enabled():
         imb = _rank_imbalance_of(_rank_totals(lm))
@@ -1097,15 +1115,18 @@ def _distributed_matmul_impl(
 
     def _run_traced() -> torch.Tensor:
         # telemetry off: exactly the untraced path, no timing, no sync
+        # (a profiler's range at most)
         if not _tele:
-            return _run()
+            with obs.maybe_range(_rng, "dispatch"):
+                return _run()
         c, dsp, t0, dt = _timed_dispatch(
             _run, mesh.device, dict(algorithm=algorithm,
                                     densify=bool(densify),
                                     pipeline_depth=depth))
         dispatch_times.append(dt)
         try:
-            ss = _sched_stats()
+            with obs.maybe_range(_rng, "stats"):
+                ss = _sched_stats()
         except Exception:
             ss = None  # telemetry must never break the multiply
         if ss is not None:
@@ -1120,7 +1141,8 @@ def _distributed_matmul_impl(
             verify, a, b, c, _run_traced, plan=plan, n_ranks=n_ranks,
             block_m=block_m, block_k=block_k, block_n=block_n,
             a_mask=a_mask, b_mask=b_mask, a_norms=a_norms, b_norms=b_norms,
-            filter_eps=filter_eps, verify_budget=verify_budget, _tele=_tele)
+            filter_eps=filter_eps, verify_budget=verify_budget, _tele=_tele,
+            _rng=_rng)
     if _tele and plan is not None and not plan.trivial and dispatch_times:
         # predicted-vs-actual planner accounting: the first dispatch is
         # the clean run (a repair re-execution would re-measure the same
@@ -1131,15 +1153,16 @@ def _distributed_matmul_impl(
             predicted_s=float(plan.predicted_s),
             measured_s=float(dispatch_times[0]), pipeline_depth=int(depth))
 
-    es = _collect_executor_stats(lm, densify, mesh.n_ranks)
-    if es is not None:
-        es["rebalance_applied"] = rb is not None
-        if rb is not None:
-            es["rebalance_method"] = rb.method
-            es["rebalance_imbalance_before"] = rb.imbalance_before
-            es["rebalance_imbalance_after"] = rb.imbalance_after
+    with obs.maybe_range(_rng, "stats"):
+        es = _collect_executor_stats(lm, densify, mesh.n_ranks)
+        if es is not None:
+            es["rebalance_applied"] = rb is not None
+            if rb is not None:
+                es["rebalance_method"] = rb.method
+                es["rebalance_imbalance_before"] = rb.imbalance_before
+                es["rebalance_imbalance_after"] = rb.imbalance_after
+        ss = _sched_stats() if return_plan and schedule_stats else None
     if not return_plan:
         return c, es
-    ss = _sched_stats() if schedule_stats else None
     return c, dataclasses.replace(plan, executor_stats=es, schedule_stats=ss,
                                   verification=verification)

@@ -24,6 +24,9 @@ compiled by torch.compile nor captured into a CUDA graph) and skip all
 timing/span/synchronize work.  Explicit publishers (service counters,
 ``plan_cache_stats()``) use the registry as their storage even when
 tracing is off; that is their data living in one place, not overhead.
+While a ``torch.profiler`` records, the spans and the layers below them
+show as ``dbcsr.*`` host ranges (``ranging()``, telemetry.py), with
+telemetry on or off.
 
 Typical use::
 
@@ -39,7 +42,8 @@ This package imports nothing from ``repro_torch.core`` /
 """
 from .telemetry import (  # noqa: F401
     SpanRecord, Tracer, NOOP_SPAN, enable, disable, enabled, recording,
-    vetoed, get_tracer, span, maybe_span, event, last_trace,
+    vetoed, get_tracer, span, maybe_span, event, last_trace, ranging,
+    maybe_range, RANGE_PREFIX,
     record_plan_outcome, plan_outcomes, clear_plan_outcomes, EVENTS_LOG,
     PLAN_OUTCOMES_LOG,
 )

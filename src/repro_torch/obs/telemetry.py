@@ -25,6 +25,18 @@ every span, timing, CUDA event and synchronize when it is false.
 ``span()`` returns a shared no-op object when disabled, so stray call
 sites cost one attribute check.
 
+Host ranges.  While a ``torch.profiler`` is recording, every span also
+opens a host range ``dbcsr.<name>`` on the profiler's clock, so the
+card's idle gaps in a device trace fall under the port's own layers.
+A multiply resolves a second per-call flag, ``ranging()`` (a profiler
+is recording and the call is not vetoed), and with it alone, telemetry
+off, it opens ranges and nothing else: no ``SpanRecord``, no timing,
+synchronize or registry entry.  ``maybe_range`` marks the layers below
+the span tree (``local``, ``pack``, ``launch``, ``unpack``, ``stats``,
+``result_mask``) and ``maybe_span(..., rng=)`` a span site whose span
+is off.  A range is a ``_RecordFunctionFast`` (~0.6 us a range while
+recording); with no profiler neither is constructed.
+
 ``enable(log_dir=...)`` additionally appends every completed trace to
 ``<log_dir>/events.jsonl`` and every plan outcome (predicted vs
 measured cost per executed plan) to ``<log_dir>/plan_outcomes.jsonl``
@@ -32,7 +44,7 @@ measured cost per executed plan) to ``<log_dir>/plan_outcomes.jsonl``
 
 This module imports nothing from ``repro_torch.core`` /
 ``repro_torch.planner`` (they import us), and torch only inside
-``vetoed()``.
+``vetoed()``, ``ranging()`` and the range itself.
 """
 from __future__ import annotations
 
@@ -53,6 +65,7 @@ __all__ = [
 
 EVENTS_LOG = "events.jsonl"
 PLAN_OUTCOMES_LOG = "plan_outcomes.jsonl"
+RANGE_PREFIX = "dbcsr."
 
 
 @dataclasses.dataclass
@@ -88,24 +101,55 @@ class SpanRecord:
 
 
 class _ActiveSpan:
-    """Context manager for an open span; ``set()`` attaches attrs."""
+    """Context manager for an open span; ``set()`` attaches attrs.
+    ``rng`` is the span's host range while a profiler records, else
+    None."""
 
-    __slots__ = ("_tracer", "rec")
+    __slots__ = ("_tracer", "rec", "_rng")
 
-    def __init__(self, tracer: "Tracer", rec: SpanRecord):
+    def __init__(self, tracer: "Tracer", rec: SpanRecord, rng=None):
         self._tracer = tracer
         self.rec = rec
+        self._rng = rng
 
     def set(self, **attrs) -> None:
         self.rec.attrs.update(attrs)
 
     def __enter__(self) -> "_ActiveSpan":
+        if self._rng is not None:
+            self._rng.__enter__()
         return self
 
     def __exit__(self, exc_type, exc, tb) -> bool:
         if exc_type is not None:
             self.rec.attrs.setdefault("error", exc_type.__name__)
         self._tracer.end(self.rec)
+        if self._rng is not None:
+            self._rng.__exit__(exc_type, exc, tb)
+        return False
+
+
+class _Range:
+    """A host range ``dbcsr.<name>`` on the profiler's clock, with the
+    span interface (``set()`` does nothing, ``rec`` is None)."""
+
+    __slots__ = ("_rf",)
+    rec = None
+
+    def __init__(self, name: str):
+        from torch._C._profiler import _RecordFunctionFast
+
+        self._rf = _RecordFunctionFast(RANGE_PREFIX + name)
+
+    def set(self, **attrs) -> None:
+        pass
+
+    def __enter__(self) -> "_Range":
+        self._rf.__enter__()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        self._rf.__exit__(exc_type, exc, tb)
         return False
 
 
@@ -177,7 +221,8 @@ class Tracer:
         return rec
 
     def span(self, name: str, cat: str = "span", **attrs) -> _ActiveSpan:
-        return _ActiveSpan(self, self.begin(name, cat, **attrs))
+        rng = _Range(name) if ranging() else None
+        return _ActiveSpan(self, self.begin(name, cat, **attrs), rng)
 
     def current(self) -> Optional[SpanRecord]:
         return self._stack[-1] if self._stack else None
@@ -261,6 +306,23 @@ def recording() -> bool:
     return _ENABLED and not vetoed()
 
 
+def ranging() -> bool:
+    """The per-call range flag: a torch profiler is recording and the
+    call is not vetoed.  With no profiler it costs two C calls (~0.1
+    us); ``torch.compile`` tracing the caller stops at the first."""
+    import torch
+
+    return (not torch.compiler.is_compiling()
+            and torch._C._autograd._profiler_enabled() and not vetoed())
+
+
+def maybe_range(cond: bool, name: str):
+    """A ``dbcsr.<name>`` host range gated on the per-call range flag
+    (``ranging()``): no span, only the profiler's range; the shared
+    no-op span when ``cond`` is false."""
+    return _Range(name) if cond else NOOP_SPAN
+
+
 def get_tracer() -> Optional[Tracer]:
     return _TRACER if _ENABLED else None
 
@@ -272,11 +334,15 @@ def span(name: str, cat: str = "span", **attrs):
     return _TRACER.span(name, cat, **attrs)
 
 
-def maybe_span(cond: bool, name: str, cat: str = "span", **attrs):
+def maybe_span(cond: bool, name: str, cat: str = "span", *,
+               rng: bool = False, **attrs):
     """``span()`` gated on a call-site flag (the per-call ``_tele``
-    bool from ``recording()``)."""
+    bool from ``recording()``; the span opens its own range while a
+    profiler records); with it false, the span's host range alone when
+    ``rng`` (the per-call ``ranging()`` flag), else the shared no-op
+    span."""
     if not cond:
-        return NOOP_SPAN
+        return _Range(name) if rng else NOOP_SPAN
     return span(name, cat, **attrs)
 
 

@@ -845,3 +845,130 @@ def test_batched_and_rank_executor_stats_publish_only_when_enabled():
     obs.disable()
     hist = obs.histogram("executor.rank_imbalance")
     assert hist.count == 1 and hist.sum == st["rank_imbalance"]
+
+
+# ---------------------------------------------------------------------------
+# host ranges on the profiler's clock (obs.ranging)
+# ---------------------------------------------------------------------------
+
+# the ranges of one dbcsr.multiply, in start order, and each one's parent
+RANGES_BLOCKED = ("multiply", "plan", "local", "dispatch", "pack", "launch",
+                  "unpack", "stats", "result_mask")
+RANGES_DENSIFIED = ("multiply", "plan", "local", "dispatch", "launch",
+                    "stats", "result_mask")
+RANGE_PARENT = {"plan": "multiply", "local": "multiply",
+                "dispatch": "multiply", "stats": "multiply",
+                "pack": "dispatch", "launch": "dispatch",
+                "unpack": "dispatch"}
+
+
+def _profiled(fn):
+    """``fn()`` under a CPU ``torch.profiler``: its result and the
+    ``dbcsr.*`` ranges recorded, ``[(name, start, end)]`` by start."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    ranges = sorted(
+        ((e.name[len(obs.RANGE_PREFIX):], e.time_range.start,
+          e.time_range.end) for e in prof.events()
+         if e.name.startswith(obs.RANGE_PREFIX)), key=lambda r: r[1])
+    return out, ranges
+
+
+def _square_pair(rng, mesh):
+    return (_operand(rng, 132, 110, block=22, mesh=mesh),
+            _operand(rng, 110, 88, block=22, mesh=mesh))
+
+
+@pytest.mark.parametrize("densify", [False, True])
+def test_profiler_records_each_layer_once_a_call_nested(rng, densify):
+    mesh = _mesh11()
+    a, b = _square_pair(rng, mesh)
+    c, ranges = _profiled(lambda: dbcsr.multiply(a, b, mesh=mesh,
+                                                 densify=densify))
+    want = RANGES_DENSIFIED if densify else RANGES_BLOCKED
+    assert [r[0] for r in ranges] == list(want)
+    at = {name: (t0, t1) for name, t0, t1 in ranges}
+    for name, parent in RANGE_PARENT.items():
+        if name in at:
+            assert at[parent][0] <= at[name][0] <= at[name][1] <= \
+                at[parent][1], name
+    # the result mask follows the multiply it masks
+    assert at["multiply"][1] <= at["result_mask"][0]
+    assert torch.equal(c.data, dbcsr.multiply(a, b, mesh=mesh,
+                                              densify=densify).data)
+
+
+def test_no_profiler_and_telemetry_off_enters_no_range(rng, monkeypatch):
+    from repro_torch.obs import telemetry
+
+    mesh = _mesh11()
+    a, b = _square_pair(rng, mesh)
+    made = []
+    real = telemetry._Range.__init__
+
+    def counting(self, name):
+        made.append(name)
+        real(self, name)
+
+    monkeypatch.setattr(telemetry._Range, "__init__", counting)
+    assert not obs.ranging()
+    off = [dbcsr.multiply(a, b, mesh=mesh, densify=d).data
+           for d in (False, True)]
+    assert made == []
+    on, ranges = _profiled(lambda: [dbcsr.multiply(a, b, mesh=mesh,
+                                                   densify=d).data
+                                    for d in (False, True)])
+    assert len(made) == len(ranges) == (len(RANGES_BLOCKED)
+                                        + len(RANGES_DENSIFIED))
+    for x, y in zip(off, on):
+        assert torch.equal(x, y)
+
+
+def test_profiler_alone_records_no_span_entry_or_outcome(rng):
+    mesh = _mesh11()
+    mask = np.eye(6, 5, dtype=bool)
+    a = dbcsr.create(rng.randn(132, 110).astype(np.float32), mesh=mesh,
+                     block_size=22, block_mask=mask)
+    b = _operand(rng, 110, 88, block=22, mesh=mesh)
+    tracer = obs.get_tracer()
+    assert tracer is None and not obs.enabled()
+    _, ranges = _profiled(lambda: dbcsr.multiply(
+        a, b, mesh=mesh, densify=False, verify="checksum"))
+    names = [r[0] for r in ranges]
+    assert "verify" in names and "plan" in names
+    assert obs.last_trace() == [] and obs.plan_outcomes() == []
+    assert len(obs.registry()) == 0
+
+
+def test_spans_open_their_ranges_and_keep_their_tree(rng):
+    mesh = _mesh11()
+    a, b = _square_pair(rng, mesh)
+    kw = dict(mesh=mesh, **EXEC_KW)
+    obs.enable()
+    dbcsr.multiply(a, b, **kw)
+    plain = _tree(obs.last_trace())
+    _, ranges = _profiled(lambda: dbcsr.multiply(a, b, **kw))
+    spans = obs.last_trace()
+    obs.disable()
+    assert _tree(spans) == plain
+    names = [r[0] for r in ranges]
+    # the spans' own ranges, the layers below them, and the schedule's
+    # statistics the span tree reads
+    for name in ("multiply", "plan", "dispatch", "local", "pack", "launch",
+                 "unpack", "result_mask"):
+        assert names.count(name) == 1, name
+    assert names.count("stats") == 2
+
+
+def test_ranges_are_vetoed_under_compile(rng, monkeypatch):
+    monkeypatch.setattr(torch.compiler, "is_compiling", lambda: True)
+    mesh = _mesh11()
+    a, b = _square_pair(rng, mesh)
+    c, ranges = _profiled(lambda: dbcsr.multiply(a, b, mesh=mesh,
+                                                 densify=False))
+    assert ranges == []
+    monkeypatch.undo()
+    assert torch.equal(c.data, dbcsr.multiply(a, b, mesh=mesh,
+                                              densify=False).data)
