@@ -190,7 +190,9 @@ class ExecutorPlan:
             return 0
         return self.n_unfiltered_entries - self.n_entries
 
-    def stats(self) -> dict:
+    @functools.cached_property
+    def _stats(self) -> dict:
+        """The plan's statistics, counted once: a plan never changes."""
         from .stacks import stack_statistics
 
         s = stack_statistics(
@@ -219,16 +221,22 @@ class ExecutorPlan:
             s["norm_retained_fraction"] = (
                 self.n_entries / self.n_unfiltered_entries
                 if self.n_unfiltered_entries else 1.0)
+        return s
+
+    def stats(self) -> dict:
+        """A copy of the plan's statistics (scalars), published into the
+        registry with telemetry on as every report is."""
+        s = dict(self._stats)
         if obs.enabled():
             # publish into the process-wide registry (gated: the
             # disabled path must add zero registry entries)
             obs.counter("executor.stats_reports").inc()
-            obs.counter("executor.entries").inc(self.n_entries)
+            obs.counter("executor.entries").inc(s["n_entries"])
             obs.counter("executor.padding_triples_saved").inc(
                 s["padding_triples_saved"])
             obs.counter("executor.norm_filtered_triples").inc(
-                self.n_norm_filtered_triples)
-            obs.histogram("executor.occupancy").observe(self.occupancy)
+                s.get("n_norm_filtered_triples", 0))
+            obs.histogram("executor.occupancy").observe(s["occupancy"])
         return s
 
 

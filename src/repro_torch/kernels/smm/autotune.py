@@ -27,6 +27,7 @@ the card's sweep runs at the main path's grids (3,960^2 at block 22 is
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import os
@@ -176,6 +177,24 @@ def load_cache(path: str | None = None) -> Dict:
     return {}
 
 
+def _table(path: str | None) -> Dict:
+    """The lookups' read-only view of the table at ``path``: parsed once
+    per version of the file (its inode, mtime and size), as a multiply
+    reads it on every call."""
+    path = DEFAULT_CACHE if path is None else path
+    try:
+        st = os.stat(path)
+        stamp = (st.st_ino, st.st_mtime_ns, st.st_size)
+    except OSError:
+        stamp = None
+    return _parsed(path, stamp)
+
+
+@functools.lru_cache(maxsize=8)
+def _parsed(path: str, stamp) -> Dict:
+    return load_cache(path) if stamp is not None else {}
+
+
 def has_winners(block_m: int, block_k: int, block_n: int,
                 path: str | None = None) -> bool:
     """Whether the table holds an entry, dense or for an occupancy bin,
@@ -184,7 +203,7 @@ def has_winners(block_m: int, block_k: int, block_n: int,
     if not block_m == block_k == block_n:
         return False
     key = str(block_m)
-    return any(k == key or k.startswith(key + "@") for k in load_cache(path))
+    return any(k == key or k.startswith(key + "@") for k in _table(path))
 
 
 def best_params_meta(block_m: int, block_k: int, block_n: int,
@@ -197,7 +216,7 @@ def best_params_meta(block_m: int, block_k: int, block_n: int,
     falls back to the dense one."""
     b = fill_bin(fill)
     if block_m == block_k == block_n:
-        cache = load_cache(path)
+        cache = _table(path)
         keys = [_cache_key(block_m, b)]
         if b < 1.0:
             keys.append(str(block_m))
